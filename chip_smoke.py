@@ -1,0 +1,306 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``tensornetworks_tpu_torch``) on one
+NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero):
+1. Require a CUDA device; print the card's name and power limit.
+2. Build the hand-written kernels from ``tensornetworks_tpu_torch/csrc``.
+3. Hold each kernel against its plain torch version on the card at the
+   main path's shapes (16 qubits, hardware_efficient, L=4), with FP32
+   tolerances, and time kernel, plain version and (where one exists) a
+   single PyTorch library call computing the same product.
+4. Drive the main path: exact quantum KSD-VI on the 16-qubit workload of
+   ``bench.py`` (random chain network of 17 variables, seed 0, V16=1
+   observed) through ``QuantumKSDVariationalInference.train``. The launch
+   counts are zeroed just before and read just after; every kernel of the
+   path must have launched, the loss must be finite and falling, and the
+   first epoch's loss must agree with a float64 plain-torch evaluation.
+5. Train the Sprinkler 3-qubit configuration for 1000 epochs through the
+   circuit kernels; best TVD must be at most 0.01.
+
+Prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+line. Imports nothing of JAX or of the JAX package.
+"""
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+# Published H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor
+# cores, and HBM3 bandwidth. The port runs FP32 FMA only (no TF32).
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+N, LAYERS, ANSATZ = 16, 4, "hardware_efficient"
+MAIN_EPOCHS = 300
+SPRINKLER_TVD_MAX = 0.01
+
+# FP32 tolerances of a kernel against its plain version (cuBLAS FP32, another
+# summation order), relative to the largest magnitude of the plain result.
+# The backward uncomputes the state through 4 layers of 256-long complex
+# sums, so it gets ten times the forward's margin.
+TOL = {"circuit2d_fwd": 1e-5, "circuit2d_bwd": 1e-4, "stein2d": 1e-5}
+
+REPLACES = {
+    "circuit2d_fwd": "tensornetworks_tpu/ops/pallas/circuit2d.py:185",
+    "circuit2d_bwd": "tensornetworks_tpu/ops/pallas/circuit2d.py:227",
+    "stein2d": "tensornetworks_tpu/ops/pallas/stein2d.py:45",
+}
+SOURCES = {
+    "circuit2d_fwd": "tensornetworks_tpu_torch/csrc/circuit2d.cu",
+    "circuit2d_bwd": "tensornetworks_tpu_torch/csrc/circuit2d.cu",
+    "stein2d": "tensornetworks_tpu_torch/csrc/stein2d.cu",
+}
+
+
+class PhaseError(RuntimeError):
+    pass
+
+
+def require(cond, msg):
+    if not cond:
+        raise PhaseError(msg)
+
+
+def time_ms(fn, reps=20, rounds=5):
+    """Median over rounds of the mean per-call time of ``reps`` calls, by
+    CUDA events, after a warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def bound(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def rel_err(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def main_path_inputs():
+    """The 16-qubit workload's network, latent names and observation."""
+    from tensornetworks_tpu_torch.core import get_random_chain_network
+
+    bn = get_random_chain_network(N + 1, seed=0)
+    latent, obs = [f"V{i}" for i in range(N)], {f"V{N}": 1}
+    return bn, latent, obs
+
+
+def check_circuit(n, device, timing):
+    """circuit2d forward/backward kernels against their plain versions."""
+    import torch
+    from tensornetworks_tpu_torch.ops.kernels import circuit2d as kc
+    from tensornetworks_tpu_torch.sim.gates import rotation_operators
+
+    plan = kc.CircuitPlan(n, LAYERS, ANSATZ)
+    gen = torch.Generator().manual_seed(n)
+    theta = (0.1 * torch.randn(3 * LAYERS * n, generator=gen)).to(device)
+    Mr, Mc = rotation_operators(theta, n, LAYERS, plan.per_qubit)
+    planes = [t.contiguous() for t in (Mr.real, Mr.imag, Mc.real, Mc.imag)]
+    out_k = kc.circuit2d_forward(*planes, plan)
+    out_p = kc.circuit2d_forward_plain(*planes, plan)
+    torch.cuda.synchronize()
+    fwd_err = max(rel_err(a, b) for a, b in zip(out_k, out_p))
+    abs_fwd = float((out_k[0] - out_p[0]).abs().max())
+    require(all(bool(torch.isfinite(t).all()) for t in out_k), f"n={n}: forward not finite")
+    require(abs(float(out_k[0].sum()) - 1.0) < 1e-4, f"n={n}: probs do not sum to 1")
+    require(fwd_err <= TOL["circuit2d_fwd"], f"n={n}: forward rel err {fwd_err:.3e}")
+
+    g = torch.randn((plan.R, plan.C), generator=gen).to(device) * plan.R * plan.C
+    grads_k = kc.circuit2d_backward(*planes, out_k[1], out_k[2], g, plan)
+    grads_p = kc.circuit2d_backward_plain(*planes, out_p[1], out_p[2], g, plan)
+    torch.cuda.synchronize()
+    bwd_err = max(rel_err(a, b) for a, b in zip(grads_k, grads_p))
+    abs_bwd = max(float((a - b).abs().max()) for a, b in zip(grads_k, grads_p))
+    require(bwd_err <= TOL["circuit2d_bwd"], f"n={n}: backward rel err {bwd_err:.3e}")
+
+    # θ-gradients through the model: kernel Function vs plain autograd
+    # through the blocked2d matmul form on the card.
+    from tensornetworks_tpu_torch.models import QuantumBornMachine
+
+    v = torch.randn(2**n, generator=gen).to(device)
+    th_grads = []
+    for backend in ("circuit2d", "blocked2d"):
+        p = theta.clone().requires_grad_(True)
+        (QuantumBornMachine(n, LAYERS, ANSATZ, backend=backend, device=device).probs(p)
+         @ v).backward()
+        th_grads.append(p.grad)
+    theta_err = rel_err(*th_grads)
+    require(theta_err <= TOL["circuit2d_bwd"], f"n={n}: θ-gradient rel err {theta_err:.3e}")
+    print(f"circuit2d n={n}: fwd rel {fwd_err:.2e} (abs {abs_fwd:.2e}), bwd rel {bwd_err:.2e} "
+          f"(abs {abs_bwd:.2e}), θ-grad rel {theta_err:.2e}", flush=True)
+    if not timing:
+        return []
+    R, C, L = plan.R, plan.C, LAYERS
+    dense = R * R * C + R * C * C
+    fwd_bound = bound(8 * L * dense, 4 * (2 * L * R * R + 2 * L * C * C + 3 * R * C))
+    bwd_bound = bound(24 * L * dense, 4 * (4 * L * R * R + 4 * L * C * C + 3 * R * C))
+    return [
+        dict(name="circuit2d_fwd", max_abs_err=abs_fwd, rel_err=fwd_err,
+             ms=time_ms(lambda: kc.circuit2d_forward(*planes, plan)),
+             plain_ms=time_ms(lambda: kc.circuit2d_forward_plain(*planes, plan)),
+             bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=None),
+        dict(name="circuit2d_bwd", max_abs_err=abs_bwd, rel_err=bwd_err,
+             ms=time_ms(lambda: kc.circuit2d_backward(*planes, out_k[1], out_k[2], g, plan)),
+             plain_ms=time_ms(lambda: kc.circuit2d_backward_plain(*planes, out_p[1], out_p[2],
+                                                                  g, plan)),
+             bound_ms=bwd_bound[0], bound_by=bwd_bound[1], library_ms=None),
+    ]
+
+
+def check_stein2d(device):
+    """stein2d against its plain version on the main path's columns."""
+    import torch
+    from tensornetworks_tpu_torch.models import QuantumBornMachine
+    from tensornetworks_tpu_torch.ops import stein
+    from tensornetworks_tpu_torch.ops.kernels.stein2d import stein2d_apply, stein2d_apply_plain
+
+    bn, latent, obs = main_path_inputs()
+    op = stein.SteinOperator(stein.score_table(bn.conditional_joint_table(latent, obs)), N,
+                             device=device)
+    qbm = QuantumBornMachine(N, LAYERS, ANSATZ, device=device)
+    with torch.no_grad():
+        q = qbm.probs(qbm.init(torch.Generator().manual_seed(0)))
+    V = (op._Vw * q).reshape(-1, op._R, op._C)
+    Ar, Ac = op._Ar, op._Ac
+    y_k, y_p = stein2d_apply(Ar, Ac, V), stein2d_apply_plain(Ar, Ac, V)
+    torch.cuda.synchronize()
+    err = rel_err(y_k, y_p)
+    abs_err = float((y_k - y_p).abs().max())
+    require(err <= TOL["stein2d"], f"stein2d rel err {err:.3e}")
+    print(f"stein2d n={N}: {V.shape[0]} blocks, rel {err:.2e} (abs {abs_err:.2e})", flush=True)
+    cols, R, C = V.shape
+    b = bound(2 * cols * (R * R * C + R * C * C), 4 * (R * R + C * C + 2 * cols * R * C))
+    return [dict(name="stein2d", max_abs_err=abs_err, rel_err=err,
+                 ms=time_ms(lambda: stein2d_apply(Ar, Ac, V)),
+                 plain_ms=time_ms(lambda: stein2d_apply_plain(Ar, Ac, V)),
+                 bound_ms=b[0], bound_by=b[1],
+                 library_ms=time_ms(lambda: torch.einsum("rs,bsc,dc->brd", Ar, V, Ac)))]
+
+
+def run_main_path(device):
+    """The 16-qubit exact KSD-VI trainer, through the user entry point."""
+    import torch
+    from tensornetworks_tpu_torch.core import all_bitstrings
+    from tensornetworks_tpu_torch.engines import QuantumKSDVariationalInference
+    from tensornetworks_tpu_torch.models import QuantumBornMachine
+    from tensornetworks_tpu_torch.ops import kernels
+    from tensornetworks_tpu_torch.ops.stein import score_table, stein_matvec
+
+    bn, latent, obs = main_path_inputs()
+    post = bn.posterior_vector(latent, obs)
+    eng = QuantumKSDVariationalInference(bn, latent, list(obs), qbm_num_latent_vars=N,
+                                         qbm_ansatz_layers=LAYERS, qbm_ansatz_type=ANSATZ,
+                                         seed=0, device=device)
+    require(eng.born_machine.backend == "circuit2d", "main path is not on circuit2d")
+    theta0 = eng.params.clone()
+    kernels.reset_launches()
+    hist = eng.train(obs, num_epochs=MAIN_EPOCHS, lr_born_machine=5e-3, verbose=False,
+                     true_posterior_for_tvd=post, chunk_epochs=MAIN_EPOCHS // 3)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    loss = hist["loss_ksd"]
+    require(all(math.isfinite(x) for x in loss), "main path loss not finite")
+    require(loss[-1] < loss[0], f"main path loss did not fall: {loss[0]} -> {loss[-1]}")
+    require(hist["num_skipped_updates"] == 0, "main path skipped updates")
+    for name, count in launches.items():
+        require(count > 0, f"kernel {name} never launched on the main path")
+    # The first epoch's loss against a float64 plain evaluation of the same
+    # θ: the blocked2d circuit and the 3n+1-column Stein oracle.
+    ref_qbm = QuantumBornMachine(N, LAYERS, ANSATZ, backend="blocked2d", dtype=torch.float64,
+                                 device=device)
+    f64 = dict(dtype=torch.float64, device=device)
+    S = torch.as_tensor(score_table(bn.conditional_joint_table(latent, obs)), **f64)
+    B = torch.as_tensor(all_bitstrings(N), **f64)
+    with torch.no_grad():
+        q = ref_qbm.probs(theta0.double())
+        ref_loss = math.sqrt(max(float(q @ stein_matvec(q, S, B, N)), 1e-12))
+    loss_err = abs(loss[0] - ref_loss) / abs(ref_loss)
+    require(loss_err < 1e-4, f"main path epoch-0 loss {loss[0]} vs float64 {ref_loss}")
+    eps = hist.get("epochs_per_sec_steady", hist["epochs_per_sec"])
+    print(f"main path: {MAIN_EPOCHS} epochs, loss {loss[0]:.5f} -> {loss[-1]:.5f} "
+          f"(epoch-0 rel err vs float64 {loss_err:.1e}), best TVD {eng.best_tvd_:.5f}, "
+          f"{eps:.1f} epochs/s steady, launches {launches}", flush=True)
+    return launches, eps
+
+
+def run_sprinkler(device):
+    from tensornetworks_tpu_torch.runners import run_sprinkler_quantum_ksd_experiment
+
+    out = run_sprinkler_quantum_ksd_experiment(verbose=False, device=device)
+    best = out["model"].best_tvd_
+    print(f"sprinkler: best TVD {best:.5f} (limit {SPRINKLER_TVD_MAX}), "
+          f"final TVD {out['final_tvd']:.5f}, "
+          f"{out['history']['epochs_per_sec']:.1f} epochs/s", flush=True)
+    require(best <= SPRINKLER_TVD_MAX, f"sprinkler best TVD {best} > {SPRINKLER_TVD_MAX}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import tensornetworks_tpu_torch  # noqa: F401  (sets FP32 matmul precision)
+    from tensornetworks_tpu_torch.ops import kernels
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+    print(card, flush=True)
+    device = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+
+    t0 = time.perf_counter()
+    kernels.build_all()
+    print(f"built kernels in {time.perf_counter() - t0:.1f}s", flush=True)
+    from tensornetworks_tpu_torch.ops.kernels import _lib
+    for name, log in _lib.BUILD_LOGS.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    check_circuit(3, device, timing=False)  # ragged tiles: R=4, C=2
+    records = check_circuit(N, device, timing=True) + check_stein2d(device)
+    launches, eps = run_main_path(device)
+    run_sprinkler(device)
+
+    kernels_line = []
+    for r in records:
+        kernels_line.append({
+            "name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],
+            "replaces": REPLACES[r["name"]], "launches": launches[r["name"]],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
+    print(f"main path {eps:.2f} epochs/s on {card}")
+    print(json.dumps({"kernels": kernels_line}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except PhaseError as e:
+        print(f"chip_smoke FAILED: {type(e).__name__}: {e}", file=sys.stderr)
+        sys.exit(1)

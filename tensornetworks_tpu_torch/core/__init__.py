@@ -1,0 +1,17 @@
+from .bayes_net import BayesianNetwork, get_random_chain_network, get_sprinkler_network
+from .bits import all_bitstrings, bits_to_index, flip_index, generate_all_binary_outcomes
+from .metrics import calculate_tvd, entropy, kl_divergence, tvd
+
+__all__ = [
+    "BayesianNetwork",
+    "all_bitstrings",
+    "bits_to_index",
+    "calculate_tvd",
+    "entropy",
+    "flip_index",
+    "generate_all_binary_outcomes",
+    "get_random_chain_network",
+    "get_sprinkler_network",
+    "kl_divergence",
+    "tvd",
+]

@@ -1,0 +1,99 @@
+"""Shared training scaffolding: cosine schedule, clip-then-Adam/SGD, the
+guarded update and the global gradient norm.
+
+Counterpart of ``tensornetworks_tpu/engines/common.py``, with optax's
+semantics written out in torch so that both packages take the same steps:
+clip by global norm (``g · max/‖g‖`` when ‖g‖ ≥ max), Adam with bias
+correction and eps=1e-8 (or SGD with momentum 0.9), and a learning rate
+from a cosine schedule that decays to lr/10 and advances once per epoch.
+The optimizer is functional: ``update`` returns new parameters and state,
+and ``guarded_update`` keeps the old ones on a step whose loss is not finite,
+so a skipped step moves neither the moments nor the step count (hence not
+the schedule either). Everything stays on the device: no host sync per step.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import torch
+
+
+def cosine_lr_schedule(lr: float, num_epochs: int) -> Callable:
+    """CosineAnnealingLR semantics indexed by epoch (one update per epoch):
+    ``count`` (a tensor of updates taken) maps to ``epoch = min(count, T)``
+    and ``lr_t = eta_min + (lr - eta_min)(1 + cos(π·epoch/T)) / 2`` with
+    ``eta_min = lr/10``."""
+    eta_min = 0.1 * lr
+
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        epoch = torch.clamp(count, max=num_epochs).to(torch.float64)
+        return eta_min + (lr - eta_min) * 0.5 * (1.0 + torch.cos(math.pi * epoch / num_epochs))
+
+    return schedule
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Global L2 norm over a list of gradient tensors."""
+    return torch.sqrt(sum((t * t).sum() for t in tensors))
+
+
+class Optimizer:
+    """clip-by-global-norm → adam | sgd(momentum 0.9), on one flat tensor."""
+
+    def __init__(self, optimizer_type: str, lr: float, num_epochs: int,
+                 use_lr_scheduler: bool = True, adam_betas: Tuple[float, float] = (0.9, 0.999),
+                 gradient_clip_norm: Optional[float] = 10.0):
+        self.kind = "sgd" if optimizer_type == "sgd" else "adam"
+        # An unknown optimizer name is Adam with its default betas.
+        self.betas = adam_betas if optimizer_type == "adam" else (0.9, 0.999)
+        self.lr = (cosine_lr_schedule(lr, num_epochs)
+                   if use_lr_scheduler else (lambda count: lr))
+        self.clip = gradient_clip_norm
+        self.eps = 1e-8
+
+    def init(self, params: torch.Tensor) -> Dict[str, torch.Tensor]:
+        state = {"count": torch.zeros((), dtype=torch.int64, device=params.device)}
+        if self.kind == "adam":
+            state["mu"] = torch.zeros_like(params)
+            state["nu"] = torch.zeros_like(params)
+        else:
+            state["trace"] = torch.zeros_like(params)
+        return state
+
+    def update(self, grads: torch.Tensor, state: Dict[str, torch.Tensor],
+               params: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        if self.clip is not None:
+            g_norm = global_norm([grads])
+            grads = torch.where(g_norm < self.clip, grads, grads / g_norm * self.clip)
+        count = state["count"]
+        lr = self.lr(count)
+        new = {"count": count + 1}
+        if self.kind == "adam":
+            b1, b2 = self.betas
+            mu = (1 - b1) * grads + b1 * state["mu"]
+            nu = (1 - b2) * grads * grads + b2 * state["nu"]
+            t = new["count"].to(grads.dtype)
+            step = (mu / (1 - b1**t)) / (torch.sqrt(nu / (1 - b2**t)) + self.eps)
+            new["mu"], new["nu"] = mu, nu
+        else:
+            step = grads + 0.9 * state["trace"]
+            new["trace"] = step
+        return params - lr * step, new
+
+
+def make_optimizer(optimizer_type: str, lr: float, num_epochs: int,
+                   use_lr_scheduler: bool = True, adam_betas: Tuple[float, float] = (0.9, 0.999),
+                   gradient_clip_norm: Optional[float] = 10.0) -> Optimizer:
+    return Optimizer(optimizer_type, lr, num_epochs, use_lr_scheduler, adam_betas,
+                     gradient_clip_norm)
+
+
+def guarded_update(opt: Optimizer, grads: torch.Tensor, state: Dict[str, torch.Tensor],
+                   params: torch.Tensor, apply: torch.Tensor):
+    """The optimizer step where ``apply`` (a bool tensor) is true; otherwise
+    params and every state entry, the step count included, stay as they were."""
+    new_params, new_state = opt.update(grads, state, params)
+    return (torch.where(apply, new_params, params),
+            {k: torch.where(apply, new_state[k], state[k]) for k in state})

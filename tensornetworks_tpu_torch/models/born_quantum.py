@@ -1,0 +1,78 @@
+"""Quantum Born machine on the port's statevector simulator.
+
+Counterpart of ``tensornetworks_tpu/models/born_quantum.py`` for the
+unconditioned reference ansätze (``hardware_efficient``, ``all_to_all``,
+``basic``). ``probs(params)`` is the analytic |ψ(θ)|² over all 2^n
+outcomes; gradients flow through torch autograd.
+
+Backends (all give the same distribution):
+- ``circuit2d``: the hand-written CUDA circuit kernels (forward and adjoint
+  backward) of ``ops/kernels/circuit2d.py``, the counterpart of the JAX
+  ``pallas2d`` backend; on CPU tensors it runs their plain version.
+- ``blocked2d``: the plain (R, C) matmul formulation, autograd through it.
+- ``einsum``: gate-by-gate contractions on the (2,)*n tensor.
+``auto`` picks ``circuit2d`` for 2 ≤ n ≤ 17 and ``einsum`` otherwise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.bits import generate_all_binary_outcomes
+from ..ops.kernels.circuit2d import MAX_QUBITS, MIN_QUBITS, make_circuit2d_probs_fn
+from ..sim.ansatz import ansatz_probs, num_ansatz_params
+from ..sim.blocked2d import make_blocked2d_probs_fn
+
+BACKENDS = ("circuit2d", "blocked2d", "einsum")
+
+
+class QuantumBornMachine:
+    def __init__(self, num_latent_vars: int, ansatz_layers: int = 1,
+                 ansatz_type: str = "hardware_efficient",
+                 init_method: str = "small_random", backend: str = "auto",
+                 dtype=torch.float32, device="cuda"):
+        n = num_latent_vars
+        self.num_latent_vars = n
+        self.ansatz_layers = ansatz_layers
+        self.ansatz_type = ansatz_type
+        self.init_method = init_method
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.num_params = num_ansatz_params(n, ansatz_layers, ansatz_type)
+        if backend == "auto":
+            backend = "circuit2d" if MIN_QUBITS <= n <= MAX_QUBITS else "einsum"
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be auto or one of {BACKENDS}, got {backend!r}")
+        self.backend = backend
+        if backend == "circuit2d":
+            self._probs = make_circuit2d_probs_fn(n, ansatz_layers, ansatz_type)
+        elif backend == "blocked2d":
+            self._probs = make_blocked2d_probs_fn(n, ansatz_layers, ansatz_type)
+        else:
+            self._probs = lambda p: ansatz_probs(p, n, ansatz_layers, ansatz_type)
+        self._all_outcome_tuples = None
+
+    def init(self, generator: torch.Generator) -> torch.Tensor:
+        """θ init: ``zero``, ``small_random`` (0.1·N(0,1)) or ``random``
+        (U[0, 2π)), drawn on the host from ``generator``."""
+        m = self.init_method
+        if m == "zero":
+            theta = torch.zeros(self.num_params, dtype=torch.float64)
+        elif m == "small_random":
+            theta = 0.1 * torch.randn(self.num_params, generator=generator, dtype=torch.float64)
+        else:
+            theta = 2.0 * np.pi * torch.rand(self.num_params, generator=generator,
+                                             dtype=torch.float64)
+        return theta.to(device=self.device, dtype=self.dtype)
+
+    def probs(self, params: torch.Tensor) -> torch.Tensor:
+        """Analytic q_θ(z) over all 2^n outcomes (|ψ|²)."""
+        return self._probs(params)
+
+    def get_prob_dict(self, params: torch.Tensor) -> dict:
+        with torch.no_grad():
+            p = self.probs(params).detach().cpu().numpy()
+        if self._all_outcome_tuples is None:
+            self._all_outcome_tuples = generate_all_binary_outcomes(self.num_latent_vars)
+        return {t: float(p[i]) for i, t in enumerate(self._all_outcome_tuples)}

@@ -1,0 +1,146 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
+with a plain C interface, loaded through ``ctypes``. The build happens at
+first use, into ``build/tn_kernels/`` beside the package (listed in
+``.gitignore``); the library name carries a hash of the sources and flags,
+so an edited source is never served from a stale build. ``build_all``
+starts one ``nvcc`` per source at once and waits for all of them.
+
+Every C entry point returns ``cudaGetLastError()``; ``check`` raises on a
+non-zero code. Launch counts are plain integers kept here, one per kernel
+wrapper, so that a run can show which kernels its path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "tn_kernels"
+SOURCES = ("circuit2d", "stein2d")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+LAUNCHES: Dict[str, int] = {"circuit2d_fwd": 0, "circuit2d_bwd": 0, "stein2d": 0}
+
+# The C interface of each library: pointers and the stream as c_void_p (a
+# bare Python int would be passed as a 32-bit int), sizes as c_int; every
+# entry point returns its cudaError_t.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "circuit2d": {
+        # mr_re, mr_im, mc_re, mc_im, probs, xr, xi, tmp, n, layers, has_wall, rows, cz, stream
+        "tn_circuit2d_forward": [_P] * 8 + [_I] * 3 + [_P] * 3,
+        # mr_re, mr_im, mc_re, mc_im, xr, xi, g, dmr_re, dmr_im, dmc_re, dmc_im,
+        # buf_a, buf_b, n, layers, rows, cz, stream
+        "tn_circuit2d_backward": [_P] * 13 + [_I] * 2 + [_P] * 3,
+    },
+    "stein2d": {
+        # ar, ac, v, y, tmp, R, C, cols, stream
+        "tn_stein2d_apply": [_P] * 5 + [_I] * 3 + [_P],
+    },
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+BUILD_LOGS: Dict[str, str] = {}
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a machine "
+                       "with the CUDA toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start_build(name: str):
+    out = _lib_path(name)
+    if out.exists():
+        return out, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return out, (proc, tmp)
+
+
+def _finish_build(name: str, out: Path, job) -> None:
+    if job is None:
+        return
+    proc, tmp = job
+    log, _ = proc.communicate()
+    BUILD_LOGS[name] = log
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every kernel source in parallel; returns the library paths."""
+    with _lock:
+        jobs = {name: _start_build(name) for name in SOURCES}
+        try:
+            for name, (out, job) in jobs.items():
+                _finish_build(name, out, job)
+        finally:
+            for _, job in jobs.values():
+                if job is not None and job[0].poll() is None:
+                    job[0].kill()
+                    job[0].wait()
+        return {name: out for name, (out, _) in jobs.items()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            out, job = _start_build(name)
+            _finish_build(name, out, job)
+            lib = ctypes.CDLL(str(out))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

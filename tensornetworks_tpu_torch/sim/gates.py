@@ -1,0 +1,94 @@
+"""Quantum gate builders: batched single-qubit rotations and Kronecker folds.
+
+Counterpart of ``tensornetworks_tpu/sim/gates.py``. Angles are real tensors;
+the matrices are complex (``complex64`` for float32 angles, ``complex128``
+for float64), with the MSB-first wire convention of ``core.bits``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+H = np.array([[1, 1], [1, -1]], dtype=np.complex128) / np.sqrt(2.0)
+
+
+def _mat2(a00, a01, a10, a11) -> torch.Tensor:
+    """Assemble (..., 2, 2) from four broadcastable entries."""
+    return torch.stack(
+        [torch.stack([a00, a01], dim=-1), torch.stack([a10, a11], dim=-1)], dim=-2
+    )
+
+
+def rx_batched(theta: torch.Tensor) -> torch.Tensor:
+    """RX(θ) = exp(-i θ X / 2) over an array of angles -> (..., 2, 2)."""
+    c, s = torch.cos(theta / 2), torch.sin(theta / 2)
+    z = torch.zeros_like(c)
+    cc, ms = torch.complex(c, z), torch.complex(z, -s)
+    return _mat2(cc, ms, ms, cc)
+
+
+def ry_batched(theta: torch.Tensor) -> torch.Tensor:
+    """RY(θ) = exp(-i θ Y / 2)."""
+    c, s = torch.cos(theta / 2), torch.sin(theta / 2)
+    z = torch.zeros_like(c)
+    return _mat2(torch.complex(c, z), torch.complex(-s, z), torch.complex(s, z),
+                 torch.complex(c, z))
+
+
+def rz_batched(theta: torch.Tensor) -> torch.Tensor:
+    """RZ(θ) = exp(-i θ Z / 2)."""
+    c, s = torch.cos(theta / 2), torch.sin(theta / 2)
+    zero = torch.complex(torch.zeros_like(c), torch.zeros_like(c))
+    return _mat2(torch.complex(c, -s), zero, zero, torch.complex(c, s))
+
+
+def rot_zyx_batched(ax, ay, az) -> torch.Tensor:
+    """Fused RZ(az)·RY(ay)·RX(ax): a circuit applying RX, then RY, then RZ."""
+    return rz_batched(az) @ ry_batched(ay) @ rx_batched(ax)
+
+
+def rot_zy_batched(ay, az) -> torch.Tensor:
+    """Fused RZ(az)·RY(ay) for the 'basic' ansatz (RY then RZ)."""
+    return rz_batched(az) @ ry_batched(ay)
+
+
+def batched_kron(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Kronecker product over the trailing two axes, batched over the rest."""
+    da, db = A.shape[-1], B.shape[-1]
+    out = torch.einsum("...ij,...kl->...ikjl", A, B)
+    return out.reshape(*A.shape[:-2], da * db, da * db)
+
+
+def kron_fold(mats) -> torch.Tensor:
+    """Balanced-tree Kronecker fold of a sequence of ``(..., d, d)`` operators
+    (the same operator as the left-to-right chain, in log depth)."""
+    mats = list(mats)
+    if not mats:
+        raise ValueError("kron_fold of an empty sequence")
+    while len(mats) > 1:
+        nxt = [batched_kron(mats[i], mats[i + 1]) for i in range(0, len(mats) - 1, 2)]
+        if len(mats) % 2:
+            nxt.append(mats[-1])
+        mats = nxt
+    return mats[0]
+
+
+def layer_rotations(params: torch.Tensor, num_wires: int, layers: int,
+                    per_qubit: int) -> torch.Tensor:
+    """(L, n, 2, 2) fused per-qubit rotations of a parameter vector laid out
+    as (layer, qubit, angle)."""
+    angles = params.reshape(layers, num_wires, per_qubit)
+    if per_qubit == 3:
+        return rot_zyx_batched(angles[..., 0], angles[..., 1], angles[..., 2])
+    return rot_zy_batched(angles[..., 0], angles[..., 1])
+
+
+def rotation_operators(params: torch.Tensor, num_wires: int, layers: int,
+                       per_qubit: int) -> tuple:
+    """Per-layer row and column operators of the 2D super-block view:
+    ``Mr`` (L, R, R) folds qubits 0..rb-1, ``Mc`` (L, C, C) the rest."""
+    U = layer_rotations(params, num_wires, layers, per_qubit)
+    rb = (num_wires + 1) // 2
+    return (kron_fold([U[:, q] for q in range(rb)]),
+            kron_fold([U[:, q] for q in range(rb, num_wires)]))
