@@ -1,0 +1,68 @@
+// Grid-over-layers circuit forward and adjoint backward for n >= 18, FP32 on
+// planar (re, im) planes, for sm_90a.
+//
+// Replaces the TPU kernels of tensornetworks_tpu/ops/pallas/circuit2d_grid.py:
+//   make_pallas_circuit2d_grid_probs -> fwd_kernel   (tn_circuit2d_grid_forward)
+//   make_pallas_circuit2d_grid_probs -> bwd_kernel   (tn_circuit2d_grid_backward)
+//
+// What the TPU design was for, and what stands in its place here:
+// - The TPU made the layer loop its grid so that one Mosaic program held one
+//   layer and the (R, C) state stayed in VMEM between steps. On the H100 each
+//   rotation is already one grid-wide GEMM launch (circuit_layers.cuh, shared
+//   with circuit2d.cu), and the layer loop is a loop of launches on the host.
+//   At n=20 (R=C=1024) one plane pair is 8 MB and the left product's
+//   scratch another 8 MB: both stay in the 50 MB L2 between a layer's
+//   launches, while each layer's operators (P_row Mr and Mc, 8 MB) stream
+//   through once.
+// - The TPU folded the row-chain permutation into the streamed operator
+//   (P_row Mr); the caller does the same, as a row gather. The boundary CNOT,
+//   the column-chain permutation and the ring CNOT ran there as dense one-dot
+//   W forms (X - 2 m o (X W)); here they compose into one exact GF(2) index
+//   map of the flat index (`rows`), applied with the CZ sign in the right
+//   GEMM's epilogue. A W form computes a permutation with R x R x C FMAs,
+//   as many as a rotation; the index map costs no arithmetic.
+// - The TPU chose the CZ mask in the kernel by the grid step's parity; here
+//   `cz` holds the two parity variants, (2, n), and the driver picks row l % 2.
+// - The backward walks the layers in reverse as the TPU's reversed grid did:
+//   a gather undoes the map on the state and the cotangent, one batched GEMM of
+//   two pulls both back, two complex GEMMs emit dMr[l] and dMc[l].
+//
+// Bound at n=20, L=4 (R=C=1024), as the dense products it performs:
+//   forward : 8 L (R^2 C + R C^2) = 6.9e10 FLOP FP32 -> 1.03 ms at 67 TFLOP/s
+//   backward: 24 L (R^2 C + R C^2) = 2.1e11 FLOP FP32 -> 3.08 ms
+//   bytes: operators 2 L (R^2 + C^2) floats, 67 MB -> 20 us at 3.35 TB/s.
+// Both are bound by FP32 FMA throughput. One 1024 x 1024 product gives 256
+// output tiles, so the GEMM takes its 64x64 configuration.
+
+#include "circuit_layers.cuh"
+
+extern "C" {
+
+// (P_row Mr): (layers, R, R) planes; Mc: (layers, C, C) planes.
+// probs, xr, xi: (R, C) outputs; tmp: (2, R, C) scratch.
+// rows: n masks of the boundary / column-chain / ring map; cz: (2, n) CZ
+// masks of the even and the odd layers.
+int tn_circuit2d_grid_forward(const float* mr_re, const float* mr_im, const float* mc_re,
+                              const float* mc_im, float* probs, float* xr, float* xi,
+                              float* tmp, int n, int layers, int has_wall,
+                              const unsigned* rows, const unsigned* cz, void* stream) {
+  const tn::LayerMaps maps = {n, rows, cz, 2};
+  return tn::circuit_forward(mr_re, mr_im, mc_re, mc_im, probs, xr, xi, tmp, layers, has_wall,
+                             maps, static_cast<cudaStream_t>(stream));
+}
+
+// xr, xi, g: (R, C) inputs; dmr_*: (layers, R, R) and dmc_*: (layers, C, C)
+// outputs (gradients of the P_row-folded operators); buf_a, buf_b: (4, R, C)
+// scratch each.
+int tn_circuit2d_grid_backward(const float* mr_re, const float* mr_im, const float* mc_re,
+                               const float* mc_im, const float* xr, const float* xi,
+                               const float* g, float* dmr_re, float* dmr_im, float* dmc_re,
+                               float* dmc_im, float* buf_a, float* buf_b, int n, int layers,
+                               const unsigned* rows, const unsigned* cz, void* stream) {
+  const tn::LayerMaps maps = {n, rows, cz, 2};
+  return tn::circuit_backward(mr_re, mr_im, mc_re, mc_im, xr, xi, g, dmr_re, dmr_im, dmc_re,
+                              dmc_im, buf_a, buf_b, layers, maps,
+                              static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

@@ -1,0 +1,178 @@
+// Per-layer host drivers of the circuit forward and its adjoint backward,
+// shared by circuit2d.cu (n <= 17: the whole CNOT chain in the index map, CZ
+// masks per layer) and circuit2d_grid.cu (n >= 18: the row chain folded into
+// Mr, CZ masks chosen by layer parity).
+//
+// The state is the (R, C) = (2^ceil(n/2), 2^floor(n/2)) matrix X of planar
+// FP32 (re, im) planes. A layer is X <- Mr X Mc^T followed by one exact
+// GF(2)-linear index map with a CZ sign (tn_gemm.cuh PermSpec). Each driver
+// issues a short sequence of launches on the caller's stream and allocates
+// nothing: the caller passes the outputs and the scratch.
+//
+// Forward, per layer: the left product into tmp, then the right product whose
+// epilogue scatters through the map (and writes |psi|^2 on the last layer).
+// Backward, per layer in reverse: a gather undoes the map on the state and the
+// cotangent lambda = 2 g psi (four planes), one batched GEMM of two pulls both
+// back through conj(Mc), one through Mr^dagger, and two complex GEMMs form
+// dMc = lambda^T conj(x) and dMr = lambda x^H.
+//
+// Flat state indices are 32-bit (tn_gemm.cuh `m * p.N + n`, `int S` below):
+// that holds to n = 30, above every size the Python wrappers accept.
+
+#pragma once
+
+#include <cmath>
+
+#include "tn_gemm.cuh"
+
+namespace tn {
+
+// The layer structure the drivers read: n masks of the CNOT index map, and
+// the CZ masks of layer l at cz + (l % cz_period) * n.
+struct LayerMaps {
+  int n;
+  const unsigned* rows;
+  const unsigned* cz;
+  int cz_period;
+};
+
+inline PermSpec layer_spec(const LayerMaps& m, int layer) {
+  PermSpec s = {};
+  s.nbits = m.n;
+  const unsigned* cz = m.cz + (long long)(layer % m.cz_period) * m.n;
+  for (int k = 0; k < m.n; ++k) {
+    s.rows[k] = m.rows[k];
+    s.cz[k] = cz[k];
+  }
+  return s;
+}
+
+namespace {
+
+__global__ void init_state_kernel(float* re, float* im, int size, float amp, int wall) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= size) return;
+  re[i] = wall ? amp : (i == 0 ? 1.f : 0.f);
+  im[i] = 0.f;
+}
+
+// buf planes: [x_re, x_im, l_re, l_im]; lambda = 2 g psi.
+__global__ void cotangent_init_kernel(const float* xr, const float* xi, const float* g,
+                                      float* buf, int size) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= size) return;
+  const float a = xr[i], b = xi[i], two_g = 2.f * g[i];
+  buf[i] = a;
+  buf[size + i] = b;
+  buf[2 * size + i] = two_g * a;
+  buf[3 * size + i] = two_g * b;
+}
+
+// Inverse of the forward's scatter on all four planes: Z[i] = s(d) Y[d], d = dst(i).
+__global__ void unpermute_kernel(const float* src, float* dst, int size, PermSpec spec) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= size) return;
+  const unsigned d = perm_dst(spec, (unsigned)i);
+  const float s = perm_sign(spec, d);
+#pragma unroll
+  for (int p = 0; p < 4; ++p) dst[p * size + i] = s * src[p * size + d];
+}
+
+inline int blocks_for(int size) { return (size + 255) / 256; }
+
+}  // namespace
+
+// probs, xr, xi: (R, C) outputs; tmp: (2, R, C) scratch.
+inline cudaError_t circuit_forward(const float* mr_re, const float* mr_im, const float* mc_re,
+                                   const float* mc_im, float* probs, float* xr, float* xi,
+                                   float* tmp, int layers, int has_wall, const LayerMaps& maps,
+                                   cudaStream_t st) {
+  const int n = maps.n, rb = (n + 1) / 2, cb = n - rb;
+  const int R = 1 << rb, C = 1 << cb, S = R * C;
+  const float amp = (float)std::pow(2.0, -0.5 * n);
+  init_state_kernel<<<blocks_for(S), 256, 0, st>>>(xr, xi, S, amp, has_wall);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const PermSpec none = {};
+  for (int l = 0; l < layers; ++l) {
+    // tmp = Mr[l] X
+    GemmArgs left = gemm_args();
+    left.a_re = mr_re + (long long)l * R * R; left.a_im = mr_im + (long long)l * R * R;
+    left.a_sm = R; left.a_sk = 1;
+    left.b_re = xr; left.b_im = xi; left.b_sk = C; left.b_sn = 1;
+    left.c_re = tmp; left.c_im = tmp + S; left.c_sm = C; left.c_sn = 1;
+    left.M = R; left.N = C; left.K = R;
+    if ((err = launch_gemm<true>(left, none, st)) != cudaSuccess) return err;
+    // X = perm/sign(tmp Mc[l]^T)
+    GemmArgs right = gemm_args();
+    right.a_re = tmp; right.a_im = tmp + S; right.a_sm = C; right.a_sk = 1;
+    right.b_re = mc_re + (long long)l * C * C; right.b_im = mc_im + (long long)l * C * C;
+    right.b_sk = 1; right.b_sn = C;
+    right.c_re = xr; right.c_im = xi;
+    right.M = R; right.N = C; right.K = C;
+    right.scatter = 1;
+    right.probs = (l == layers - 1) ? probs : nullptr;
+    if ((err = launch_gemm<true>(right, layer_spec(maps, l), st)) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// xr, xi, g: (R, C) inputs; dmr_*: (layers, R, R) and dmc_*: (layers, C, C)
+// outputs; buf_a, buf_b: (4, R, C) scratch each.
+inline cudaError_t circuit_backward(const float* mr_re, const float* mr_im, const float* mc_re,
+                                    const float* mc_im, const float* xr, const float* xi,
+                                    const float* g, float* dmr_re, float* dmr_im, float* dmc_re,
+                                    float* dmc_im, float* buf_a, float* buf_b, int layers,
+                                    const LayerMaps& maps, cudaStream_t st) {
+  const int n = maps.n, rb = (n + 1) / 2, cb = n - rb;
+  const int R = 1 << rb, C = 1 << cb, S = R * C;
+  const PermSpec none = {};
+  cotangent_init_kernel<<<blocks_for(S), 256, 0, st>>>(xr, xi, g, buf_a, S);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  float* A = buf_a;  // state after the current layer: [x_re, x_im, l_re, l_im]
+  float* B = buf_b;
+  for (int l = layers - 1; l >= 0; --l) {
+    const float* mr_r = mr_re + (long long)l * R * R;
+    const float* mr_i = mr_im + (long long)l * R * R;
+    const float* mc_r = mc_re + (long long)l * C * C;
+    const float* mc_i = mc_im + (long long)l * C * C;
+    // Undo the permutation and signs: B = after the rotations.
+    unpermute_kernel<<<blocks_for(S), 256, 0, st>>>(A, B, S, layer_spec(maps, l));
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    // A = B conj(Mc): state and cotangent before the right rotation.
+    GemmArgs col = gemm_args();
+    col.a_re = B; col.a_im = B + S; col.a_sb = 2LL * S; col.a_sm = C; col.a_sk = 1;
+    col.b_re = mc_r; col.b_im = mc_i; col.b_sk = C; col.b_sn = 1; col.b_conj = -1.f;
+    col.c_re = A; col.c_im = A + S; col.c_sb = 2LL * S; col.c_sm = C; col.c_sn = 1;
+    col.M = R; col.N = C; col.K = C; col.batch = 2;
+    if ((err = launch_gemm<true>(col, none, st)) != cudaSuccess) return err;
+    // dMc[l] = lambda_after^T conj(x_before)
+    GemmArgs dmc = gemm_args();
+    dmc.a_re = B + 2LL * S; dmc.a_im = B + 3LL * S; dmc.a_sm = 1; dmc.a_sk = C;
+    dmc.b_re = A; dmc.b_im = A + S; dmc.b_sk = C; dmc.b_sn = 1; dmc.b_conj = -1.f;
+    dmc.c_re = dmc_re + (long long)l * C * C; dmc.c_im = dmc_im + (long long)l * C * C;
+    dmc.c_sm = C; dmc.c_sn = 1;
+    dmc.M = C; dmc.N = C; dmc.K = R;
+    if ((err = launch_gemm<true>(dmc, none, st)) != cudaSuccess) return err;
+    // B = Mr^dagger A: state and cotangent before the layer.
+    GemmArgs row = gemm_args();
+    row.a_re = mr_r; row.a_im = mr_i; row.a_sm = 1; row.a_sk = R; row.a_conj = -1.f;
+    row.b_re = A; row.b_im = A + S; row.b_sb = 2LL * S; row.b_sk = C; row.b_sn = 1;
+    row.c_re = B; row.c_im = B + S; row.c_sb = 2LL * S; row.c_sm = C; row.c_sn = 1;
+    row.M = R; row.N = C; row.K = R; row.batch = 2;
+    if ((err = launch_gemm<true>(row, none, st)) != cudaSuccess) return err;
+    // dMr[l] = lambda_after x_before^H
+    GemmArgs dmr = gemm_args();
+    dmr.a_re = A + 2LL * S; dmr.a_im = A + 3LL * S; dmr.a_sm = C; dmr.a_sk = 1;
+    dmr.b_re = B; dmr.b_im = B + S; dmr.b_sk = 1; dmr.b_sn = C; dmr.b_conj = -1.f;
+    dmr.c_re = dmr_re + (long long)l * R * R; dmr.c_im = dmr_im + (long long)l * R * R;
+    dmr.c_sm = R; dmr.c_sn = 1;
+    dmr.M = R; dmr.N = R; dmr.K = C;
+    if ((err = launch_gemm<true>(dmr, none, st)) != cudaSuccess) return err;
+    float* t = A; A = B; B = t;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace tn

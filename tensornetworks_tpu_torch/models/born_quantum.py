@@ -9,9 +9,13 @@ Backends (all give the same distribution):
 - ``circuit2d``: the hand-written CUDA circuit kernels (forward and adjoint
   backward) of ``ops/kernels/circuit2d.py``, the counterpart of the JAX
   ``pallas2d`` backend; on CPU tensors it runs their plain version.
+- ``circuit2d_grid``: the grid-form circuit kernels of
+  ``ops/kernels/circuit2d_grid.py``, the counterpart of ``pallas2d_grid``
+  (any 2 ≤ n ≤ 24 when named).
 - ``blocked2d``: the plain (R, C) matmul formulation, autograd through it.
 - ``einsum``: gate-by-gate contractions on the (2,)*n tensor.
-``auto`` picks ``circuit2d`` for 2 ≤ n ≤ 17 and ``einsum`` otherwise.
+``auto`` picks ``circuit2d`` for 2 ≤ n ≤ 17, ``circuit2d_grid`` for
+18 ≤ n ≤ 24 and ``einsum`` outside those ranges.
 """
 
 from __future__ import annotations
@@ -20,11 +24,11 @@ import numpy as np
 import torch
 
 from ..core.bits import generate_all_binary_outcomes
-from ..ops.kernels.circuit2d import MAX_QUBITS, MIN_QUBITS, make_circuit2d_probs_fn
+from ..ops.kernels import circuit2d, circuit2d_grid
 from ..sim.ansatz import ansatz_probs, num_ansatz_params
 from ..sim.blocked2d import make_blocked2d_probs_fn
 
-BACKENDS = ("circuit2d", "blocked2d", "einsum")
+BACKENDS = ("circuit2d", "circuit2d_grid", "blocked2d", "einsum")
 
 
 class QuantumBornMachine:
@@ -41,12 +45,20 @@ class QuantumBornMachine:
         self.device = torch.device(device)
         self.num_params = num_ansatz_params(n, ansatz_layers, ansatz_type)
         if backend == "auto":
-            backend = "circuit2d" if MIN_QUBITS <= n <= MAX_QUBITS else "einsum"
+            if circuit2d.MIN_QUBITS <= n <= circuit2d.MAX_QUBITS:
+                backend = "circuit2d"
+            elif circuit2d_grid.AUTO_MIN_QUBITS <= n <= circuit2d_grid.MAX_QUBITS:
+                backend = "circuit2d_grid"
+            else:
+                backend = "einsum"
         if backend not in BACKENDS:
             raise ValueError(f"backend must be auto or one of {BACKENDS}, got {backend!r}")
         self.backend = backend
         if backend == "circuit2d":
-            self._probs = make_circuit2d_probs_fn(n, ansatz_layers, ansatz_type)
+            self._probs = circuit2d.make_circuit2d_probs_fn(n, ansatz_layers, ansatz_type)
+        elif backend == "circuit2d_grid":
+            self._probs = circuit2d_grid.make_circuit2d_grid_probs_fn(n, ansatz_layers,
+                                                                      ansatz_type)
         elif backend == "blocked2d":
             self._probs = make_blocked2d_probs_fn(n, ansatz_layers, ansatz_type)
         else:

@@ -26,11 +26,12 @@ from typing import Dict
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "tn_kernels"
-SOURCES = ("circuit2d", "stein2d")
+SOURCES = ("circuit2d", "circuit2d_grid", "stein2d")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES: Dict[str, int] = {"circuit2d_fwd": 0, "circuit2d_bwd": 0, "stein2d": 0}
+LAUNCHES: Dict[str, int] = {"circuit2d_fwd": 0, "circuit2d_bwd": 0, "stein2d": 0,
+                            "circuit2d_grid_fwd": 0, "circuit2d_grid_bwd": 0, "stein2d_grid": 0}
 
 # The C interface of each library: pointers and the stream as c_void_p (a
 # bare Python int would be passed as a 32-bit int), sizes as c_int; every
@@ -44,9 +45,15 @@ SIGNATURES = {
         # buf_a, buf_b, n, layers, rows, cz, stream
         "tn_circuit2d_backward": [_P] * 13 + [_I] * 2 + [_P] * 3,
     },
+    "circuit2d_grid": {  # the same arguments; cz is (2, n), by layer parity
+        "tn_circuit2d_grid_forward": [_P] * 8 + [_I] * 3 + [_P] * 3,
+        "tn_circuit2d_grid_backward": [_P] * 13 + [_I] * 2 + [_P] * 3,
+    },
     "stein2d": {
         # ar, ac, v, y, tmp, R, C, cols, stream
         "tn_stein2d_apply": [_P] * 5 + [_I] * 3 + [_P],
+        # ar, ac, v, y, tmp, R, C, cols, chunk, stream
+        "tn_stein2d_apply_grid": [_P] * 5 + [_I] * 4 + [_P],
     },
 }
 

@@ -33,16 +33,64 @@ from . import _lib
 MIN_QUBITS, MAX_QUBITS = 2, 17
 
 
+def gf2_rows(n: int, gates) -> np.ndarray:
+    """(n,) uint32 row masks of the CNOT sequence ``gates`` applied in order:
+    bit k (LSB first) of the image of flat index i is ``parity(rows[k] & i)``."""
+
+    def f(i):
+        for c, t in gates:
+            i = _cnot_map(i, n, c, t)
+        return i
+
+    images = [int(f(1 << j)) for j in range(n)]  # the map is linear over GF(2)
+    return np.array([sum(((images[j] >> k) & 1) << j for j in range(n)) for k in range(n)],
+                    dtype=np.uint32)
+
+
+def cz_masks(n: int, pairs) -> np.ndarray:
+    """(n,) uint32 masks of a set of CZ pairs: the sign at flat index d is
+    ``(-1)^(Σ_k bit_k(d)·popcount(d & masks[k]))``."""
+    m = np.zeros(n, dtype=np.uint32)
+    for a, b in pairs:
+        m[n - 1 - a] |= np.uint32(1 << (n - 1 - b))
+    return m
+
+
+def expand_maps(rows: np.ndarray, cz: np.ndarray, device) -> tuple:
+    """(dst (2^n,) int64, sign (K, 2^n) float64) of n row masks and K rows of
+    CZ masks: the map sends flat index i to dst[i], times sign[k, i]."""
+    n = len(rows)
+    i = np.arange(1 << n, dtype=np.int64)
+
+    def parity(x):
+        p = np.zeros_like(x)
+        for k in range(n):
+            p ^= (x >> k) & 1
+        return p
+
+    dst = np.zeros_like(i)
+    for k in range(n):
+        dst |= parity(rows[k].astype(np.int64) & i) << k
+    sign = np.ones((len(cz), 1 << n))
+    for row in range(len(cz)):
+        par = np.zeros_like(i)
+        for k in range(n):
+            par ^= ((dst >> k) & 1) & parity(dst & cz[row, k].astype(np.int64))
+        sign[row] = 1.0 - 2.0 * par
+    return torch.as_tensor(dst, device=device), torch.as_tensor(sign, device=device)
+
+
 class CircuitPlan:
     """Static structure of one (n, layers, ansatz) circuit.
 
     ``rows`` (n,) are the GF(2) row masks of the layer's composite CNOT map
-    (row chain, boundary, column chain, ring — in that order): bit k (LSB
-    first) of the destination of flat index i is ``parity(rows[k] & i)``.
-    ``cz`` (L, n) encode each layer's CZ pairs: the sign at destination d is
-    ``(-1)^(Σ_k bit_k(d)·popcount(d & cz[l, k]))``. The CUDA kernels receive
-    exactly these masks; the plain path expands them into index tables.
+    (row chain, boundary, column chain, ring — in that order), see
+    ``gf2_rows``. ``cz`` (L, n) encode each layer's CZ pairs, see
+    ``cz_masks``. The CUDA kernels receive exactly these masks; the plain
+    path expands them into index tables.
     """
+
+    name = "circuit2d"
 
     def __init__(self, num_wires: int, layers: int, ansatz_type: str):
         n = num_wires
@@ -58,19 +106,9 @@ class CircuitPlan:
         self.has_wall = ansatz_type in ("hardware_efficient", "all_to_all")
         chain = (_chain_gates(n, ansatz_type)
                  if ansatz_type in ("hardware_efficient", "basic") else [])
-
-        def f(i):
-            for c, t in chain:
-                i = _cnot_map(i, n, c, t)
-            return i
-
-        images = [int(f(1 << j)) for j in range(n)]  # the map is linear over GF(2)
-        self.rows = np.array([sum(((images[j] >> k) & 1) << j for j in range(n))
-                              for k in range(n)], dtype=np.uint32)
-        self.cz = np.zeros((layers, n), dtype=np.uint32)
-        for layer in range(layers):
-            for a, b in _cz_pairs(n, layer, ansatz_type):
-                self.cz[layer, n - 1 - a] |= np.uint32(1 << (n - 1 - b))
+        self.rows = gf2_rows(n, chain)
+        self.cz = np.stack([cz_masks(n, _cz_pairs(n, layer, ansatz_type))
+                            for layer in range(layers)])
         self._tables = {}
 
     def tables(self, device) -> tuple:
@@ -78,29 +116,8 @@ class CircuitPlan:
         the forward sends flat index i to dst[i], times sign[l, i]."""
         key = str(device)
         if key not in self._tables:
-            self._tables[key] = self._expand(device)
+            self._tables[key] = expand_maps(self.rows, self.cz, device)
         return self._tables[key]
-
-    def _expand(self, device) -> tuple:
-        n = self.n
-        i = np.arange(1 << n, dtype=np.int64)
-
-        def parity(x):
-            p = np.zeros_like(x)
-            for k in range(n):
-                p ^= (x >> k) & 1
-            return p
-
-        dst = np.zeros_like(i)
-        for k in range(n):
-            dst |= parity(self.rows[k].astype(np.int64) & i) << k
-        sign = np.ones((self.layers, 1 << n))
-        for layer in range(self.layers):
-            par = np.zeros_like(i)
-            for k in range(n):
-                par ^= ((dst >> k) & 1) & parity(dst & self.cz[layer, k].astype(np.int64))
-            sign[layer] = 1.0 - 2.0 * par
-        return (torch.as_tensor(dst, device=device), torch.as_tensor(sign, device=device))
 
 
 # ------------------------------------------------------------------ plain torch
@@ -130,6 +147,23 @@ def circuit2d_forward_plain(mr_re, mr_im, mc_re, mc_im, plan: CircuitPlan):
     return xr * xr + xi * xi, xr, xi
 
 
+def rotation_pullback(planes, mr_re, mr_im, mc_re, mc_im):
+    """One layer's rotations X ← Mr X Mcᵀ, pulled back: ``planes`` (4, R, C)
+    hold the state x and the cotangent λ after the rotations; returns both
+    before them, with dMr = λ·xᴴ and dMc = λᵀ·conj(x) (each cotangent taken
+    after its rotation, each state before it)."""
+    ar, ai, lr_, li = planes
+    # Right rotation X Mcᵀ: pull back with conj(Mc); grad λᵀ·conj(x_before).
+    xb_r, xb_i = _cmm(ar, ai, mc_re, -mc_im)
+    lb_r, lb_i = _cmm(lr_, li, mc_re, -mc_im)
+    dmc = _cmm(lr_.T, li.T, xb_r, -xb_i)
+    # Left rotation Mr X: pull back with Mr†; grad λ·x_beforeᴴ.
+    xa_r, xa_i = _cmm(mr_re.T, -mr_im.T, xb_r, xb_i)
+    la_r, la_i = _cmm(mr_re.T, -mr_im.T, lb_r, lb_i)
+    dmr = _cmm(lb_r, lb_i, xa_r.T, -xa_i.T)
+    return torch.stack([xa_r, xa_i, la_r, la_i]), dmr, dmc
+
+
 def circuit2d_backward_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan: CircuitPlan):
     """dMr_re, dMr_im (L,R,R), dMc_re, dMc_im (L,C,C): the backward kernel's
     adjoint sweep in torch. The state is uncomputed through the inverse ops;
@@ -142,77 +176,81 @@ def circuit2d_backward_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan: Circui
     for layer in range(plan.layers - 1, -1, -1):
         s = sign[layer].to(planes.dtype)
         planes = (s * planes.reshape(4, -1)[:, dst]).reshape(4, R, C)
-        # Right rotation X Mcᵀ: pull back with conj(Mc); grad λᵀ·conj(x_before).
-        ar, ai, lr_, li = planes
-        xb_r, xb_i = _cmm(ar, ai, mc_re[layer], -mc_im[layer])
-        lb_r, lb_i = _cmm(lr_, li, mc_re[layer], -mc_im[layer])
-        dmc_re[layer], dmc_im[layer] = _cmm(lr_.T, li.T, xb_r, -xb_i)
-        # Left rotation Mr X: pull back with Mr†; grad λ·x_beforeᴴ.
-        xa_r, xa_i = _cmm(mr_re[layer].T, -mr_im[layer].T, xb_r, xb_i)
-        la_r, la_i = _cmm(mr_re[layer].T, -mr_im[layer].T, lb_r, lb_i)
-        dmr_re[layer], dmr_im[layer] = _cmm(lb_r, lb_i, xa_r.T, -xa_i.T)
-        planes = torch.stack([xa_r, xa_i, la_r, la_i])
+        planes, (dmr_re[layer], dmr_im[layer]), (dmc_re[layer], dmc_im[layer]) = \
+            rotation_pullback(planes, mr_re[layer], mr_im[layer], mc_re[layer], mc_im[layer])
     return dmr_re, dmr_im, dmc_re, dmc_im
 
 
 # --------------------------------------------------------------------- wrappers
 
 
-def _check(plan: CircuitPlan, **tensors) -> None:
+def _check(plan, **tensors) -> None:
     shapes = {"mr": (plan.layers, plan.R, plan.R), "mc": (plan.layers, plan.C, plan.C),
               "x": (plan.R, plan.C)}
     dev = None
     for name, t in tensors.items():
         want = shapes[name.split("_")[0]]
         if t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"circuit2d kernel: {name} must be a contiguous float32 CUDA "
+            raise ValueError(f"{plan.name} kernel: {name} must be a contiguous float32 CUDA "
                              f"tensor, got {t.dtype} on {t.device}")
         if tuple(t.shape) != want:
-            raise ValueError(f"circuit2d kernel: {name} has shape {tuple(t.shape)}, want {want}")
+            raise ValueError(f"{plan.name} kernel: {name} has shape {tuple(t.shape)}, "
+                             f"want {want}")
         if dev is not None and t.device != dev:
-            raise ValueError("circuit2d kernel: tensors on different devices")
+            raise ValueError(f"{plan.name} kernel: tensors on different devices")
         dev = t.device
+
+
+def _masks(plan):
+    return (plan.rows.ctypes.data_as(ctypes.c_void_p), plan.cz.ctypes.data_as(ctypes.c_void_p))
+
+
+def launch_forward(plan, counter: str, mr_re, mr_im, mc_re, mc_im):
+    """probs, xr, xi from ``csrc/<plan.name>.cu``'s forward entry point."""
+    _check(plan, mr_re=mr_re, mr_im=mr_im, mc_re=mc_re, mc_im=mc_im)
+    fn = getattr(_lib.load(plan.name), f"tn_{plan.name}_forward")
+    probs = torch.empty((plan.R, plan.C), dtype=torch.float32, device=mr_re.device)
+    xr, xi = torch.empty_like(probs), torch.empty_like(probs)
+    tmp = torch.empty((2, plan.R, plan.C), dtype=torch.float32, device=mr_re.device)
+    _lib.count_launch(counter)
+    err = fn(_lib.ptr(mr_re), _lib.ptr(mr_im), _lib.ptr(mc_re), _lib.ptr(mc_im),
+             _lib.ptr(probs), _lib.ptr(xr), _lib.ptr(xi), _lib.ptr(tmp),
+             plan.n, plan.layers, int(plan.has_wall), *_masks(plan),
+             _lib.stream_ptr(mr_re.device))
+    _lib.check(err, f"tn_{plan.name}_forward")
+    return probs, xr, xi
+
+
+def launch_backward(plan, counter: str, mr_re, mr_im, mc_re, mc_im, xr, xi, g):
+    """dMr_re, dMr_im, dMc_re, dMc_im from ``csrc/<plan.name>.cu``'s backward."""
+    _check(plan, mr_re=mr_re, mr_im=mr_im, mc_re=mc_re, mc_im=mc_im, x_r=xr, x_i=xi, x_g=g)
+    fn = getattr(_lib.load(plan.name), f"tn_{plan.name}_backward")
+    dmr_re, dmr_im = torch.empty_like(mr_re), torch.empty_like(mr_im)
+    dmc_re, dmc_im = torch.empty_like(mc_re), torch.empty_like(mc_im)
+    buf_a = torch.empty((4, plan.R, plan.C), dtype=torch.float32, device=mr_re.device)
+    buf_b = torch.empty_like(buf_a)
+    _lib.count_launch(counter)
+    err = fn(_lib.ptr(mr_re), _lib.ptr(mr_im), _lib.ptr(mc_re), _lib.ptr(mc_im),
+             _lib.ptr(xr), _lib.ptr(xi), _lib.ptr(g),
+             _lib.ptr(dmr_re), _lib.ptr(dmr_im), _lib.ptr(dmc_re), _lib.ptr(dmc_im),
+             _lib.ptr(buf_a), _lib.ptr(buf_b), plan.n, plan.layers, *_masks(plan),
+             _lib.stream_ptr(mr_re.device))
+    _lib.check(err, f"tn_{plan.name}_backward")
+    return dmr_re, dmr_im, dmc_re, dmc_im
 
 
 def circuit2d_forward(mr_re, mr_im, mc_re, mc_im, plan: CircuitPlan):
     """probs, xr, xi (R, C) of the circuit with per-layer operators Mr, Mc."""
     if mr_re.device.type == "cpu":
         return circuit2d_forward_plain(mr_re, mr_im, mc_re, mc_im, plan)
-    _check(plan, mr_re=mr_re, mr_im=mr_im, mc_re=mc_re, mc_im=mc_im)
-    fn = _lib.load("circuit2d").tn_circuit2d_forward
-    R, C = plan.R, plan.C
-    probs = torch.empty((R, C), dtype=torch.float32, device=mr_re.device)
-    xr, xi = torch.empty_like(probs), torch.empty_like(probs)
-    tmp = torch.empty((2, R, C), dtype=torch.float32, device=mr_re.device)
-    _lib.count_launch("circuit2d_fwd")
-    err = fn(_lib.ptr(mr_re), _lib.ptr(mr_im), _lib.ptr(mc_re), _lib.ptr(mc_im),
-             _lib.ptr(probs), _lib.ptr(xr), _lib.ptr(xi), _lib.ptr(tmp),
-             plan.n, plan.layers, int(plan.has_wall),
-             plan.rows.ctypes.data_as(ctypes.c_void_p), plan.cz.ctypes.data_as(ctypes.c_void_p),
-             _lib.stream_ptr(mr_re.device))
-    _lib.check(err, "tn_circuit2d_forward")
-    return probs, xr, xi
+    return launch_forward(plan, "circuit2d_fwd", mr_re, mr_im, mc_re, mc_im)
 
 
 def circuit2d_backward(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan: CircuitPlan):
     """dMr_re, dMr_im, dMc_re, dMc_im for the cotangent g of the probs."""
     if mr_re.device.type == "cpu":
         return circuit2d_backward_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan)
-    _check(plan, mr_re=mr_re, mr_im=mr_im, mc_re=mc_re, mc_im=mc_im, x_r=xr, x_i=xi, x_g=g)
-    fn = _lib.load("circuit2d").tn_circuit2d_backward
-    dmr_re, dmr_im = torch.empty_like(mr_re), torch.empty_like(mr_im)
-    dmc_re, dmc_im = torch.empty_like(mc_re), torch.empty_like(mc_im)
-    buf_a = torch.empty((4, plan.R, plan.C), dtype=torch.float32, device=mr_re.device)
-    buf_b = torch.empty_like(buf_a)
-    _lib.count_launch("circuit2d_bwd")
-    err = fn(_lib.ptr(mr_re), _lib.ptr(mr_im), _lib.ptr(mc_re), _lib.ptr(mc_im),
-             _lib.ptr(xr), _lib.ptr(xi), _lib.ptr(g),
-             _lib.ptr(dmr_re), _lib.ptr(dmr_im), _lib.ptr(dmc_re), _lib.ptr(dmc_im),
-             _lib.ptr(buf_a), _lib.ptr(buf_b), plan.n, plan.layers,
-             plan.rows.ctypes.data_as(ctypes.c_void_p), plan.cz.ctypes.data_as(ctypes.c_void_p),
-             _lib.stream_ptr(mr_re.device))
-    _lib.check(err, "tn_circuit2d_backward")
-    return dmr_re, dmr_im, dmc_re, dmc_im
+    return launch_backward(plan, "circuit2d_bwd", mr_re, mr_im, mc_re, mc_im, xr, xi, g)
 
 
 class Circuit2dFunction(torch.autograd.Function):

@@ -15,7 +15,7 @@ T1[i,j] = Σ_{m: bit_m(i^j)=1} S[i,m]):
 For n ≤ 12 the Gram is built once (``stein_gram_dense``); above that
 ``K_p q`` is 3n+1 Kronecker applications of K to weighted copies of q and a
 closed-form recombination (``stein_matvec``). The operator's large-n path
-runs those Kronecker applications through the stein2d CUDA kernel.
+runs those Kronecker applications through the stein2d CUDA kernels.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import torch
 
 from ..core.bits import all_bitstrings
 from .hamming import decay_factor
-from .kernels.stein2d import stein2d_apply, stein2d_apply_plain
+from .kernels.stein2d import stein2d_apply, stein2d_apply_grid, stein2d_apply_plain
 from .kron import kron_matvec, kron_power_np
 
 SCORE_EPS = 1e-12
@@ -110,7 +110,12 @@ def stein_weight_tables(S: np.ndarray, num_vars: int, length_scale: float = 1.0)
         T_t: -k(1 - 2B_t)
 
     Both tables depend on the network and the kernel only, so the operator
-    builds them once and an epoch pays one product on each side."""
+    builds them once and an epoch pays one product on each side.
+
+    They are built on the host in float64: at n=20 two (61, 2^20) arrays of
+    0.5 GB each, with temporaries of the same order. From n ≈ 22 that is
+    what the JAX package's lazily built S/B and gcorr tables avoid (ROADMAP
+    A7, not ported yet)."""
     n = num_vars
     a = decay_factor(n, length_scale)
     St = np.asarray(S, dtype=np.float64).T
@@ -187,11 +192,14 @@ class SteinOperator:
     ``dense=True`` (default for n ≤ 12) materializes K_p once; otherwise the
     quadratic form runs the 3n+1-column matvec — column build and
     recombination through the precomputed ``stein_weight_tables``, the
-    Kronecker applications through the stein2d kernel
-    (``ops/kernels/stein2d.py``, which takes its plain version on the CPU).
+    Kronecker applications through a stein2d kernel
+    (``ops/kernels/stein2d.py``, which takes its plain version on the CPU):
+    ``stein2d_apply`` for n ≤ 17, its chunked large-n tiling
+    ``stein2d_apply_grid`` from n = 18.
     """
 
     DENSE_MAX_VARS = 12
+    GRID_MIN_VARS = 18
 
     def __init__(self, score: np.ndarray, num_vars: int, length_scale: float = 1.0,
                  dtype=torch.float32, dense: bool | None = None, device="cuda"):
@@ -212,12 +220,13 @@ class SteinOperator:
         Vw, W = stein_weight_tables(score, n, self.length_scale)
         self._Vw = torch.as_tensor(Vw, dtype=dtype, device=device)
         self._W = torch.as_tensor(W, dtype=dtype, device=device)
+        self._apply = stein2d_apply_grid if n >= self.GRID_MIN_VARS else stein2d_apply
 
     def matvec(self, q: torch.Tensor) -> torch.Tensor:
         if self.dense:
             return self.gram @ q
         V = (self._Vw * q).reshape(-1, self._R, self._C)
-        Y = stein2d_apply(self._Ar, self._Ac, V)
+        Y = self._apply(self._Ar, self._Ac, V)
         return (self._W * Y.reshape(self._W.shape)).sum(dim=0)
 
     def quadform(self, q: torch.Tensor) -> torch.Tensor:

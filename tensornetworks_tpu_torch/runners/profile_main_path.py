@@ -1,9 +1,10 @@
-"""Where an epoch of the 16-qubit main path spends its time, on the card.
+"""Where an epoch of the main path spends its time, on the card.
 
-    python -m tensornetworks_tpu_torch.runners.profile_main_path [--epochs 50]
+    python -m tensornetworks_tpu_torch.runners.profile_main_path [--epochs 50] [--qubits 16]
 
-Trains the main-path workload (random chain network of 17 variables, seed 0,
-V16=1 observed; hardware_efficient, L=4) once to warm up, then again under
+Trains the main-path workload (random chain network of n+1 variables, seed
+0, V{n}=1 observed; hardware_efficient, L=4; n=16 by default, n=20 for the
+large-n path through the grid kernels) once to warm up, then again under
 ``torch.profiler`` and prints: wall time per epoch, device busy time per
 epoch (the sum of kernel times; one stream, so kernels do not overlap), the
 device's idle share, the operators with the most device and host time, and
@@ -67,6 +68,8 @@ def profile_main_path(epochs: int = 50, n: int = 16, layers: int = 4, top: int =
         torch.autograd.grad(sum(p.sum() for p in planes), theta)
     summary = {
         "device": torch.cuda.get_device_name(0),
+        "qubits": n,
+        "backend": eng.born_machine.backend,
         "epochs": epochs,
         "wall_ms_per_epoch": 1e3 * wall / epochs,
         "device_busy_ms_per_epoch": device_us / 1e3 / epochs,
@@ -82,9 +85,11 @@ def profile_main_path(epochs: int = 50, n: int = 16, layers: int = 4, top: int =
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--epochs", type=int, default=50)
+    ap.add_argument("--qubits", type=int, default=16)
     args = ap.parse_args(argv)
-    s = profile_main_path(args.epochs)
-    print(f"{s['device']}: {s['wall_ms_per_epoch']:.3f} ms/epoch wall, "
+    s = profile_main_path(args.epochs, n=args.qubits)
+    print(f"{s['device']}, {s['qubits']} qubits ({s['backend']}): "
+          f"{s['wall_ms_per_epoch']:.3f} ms/epoch wall, "
           f"{s['device_busy_ms_per_epoch']:.3f} ms/epoch device busy, "
           f"idle share {s['device_idle_share']:.3f}, "
           f"{s['host_op_calls_per_epoch']:.0f} aten calls/epoch, of which the θ fold "
