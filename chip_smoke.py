@@ -10,9 +10,12 @@ Phases (any failure exits non-zero):
 3. Hold each kernel against its plain torch version on the card at its
    path's shapes, with FP32 tolerances, and time kernel, plain version and
    (where one exists) a single PyTorch library call computing the same
-   product: circuit2d and stein2d at 16 qubits (hardware_efficient, L=4),
-   circuit2d_grid and stein2d_grid at 20 qubits, and both circuit kernel
-   pairs once more, untimed, at ragged shapes (n=3; n=19, where R != C).
+   function: circuit2d and stein2d at 16 qubits (hardware_efficient, L=4),
+   circuit2d_grid and stein2d_grid at 20 qubits, and both again, untimed,
+   at other shapes (circuit2d at n=3, ragged tiles; circuit2d_grid and
+   stein2d_grid at n=18, the fewest tiles, and n=19, where R != C).
+   stein2d_grid is also held against a float64 evaluation. The new kernels'
+   ptxas report must show no spills.
 4. Drive the main path: exact quantum KSD-VI on the 16-qubit workload of
    ``bench.py`` (random chain network of 17 variables, seed 0, V16=1
    observed) through ``QuantumKSDVariationalInference.train``.
@@ -44,7 +47,7 @@ PEAK_BYTES = 3.35e12
 
 N, LAYERS, ANSATZ = 16, 4, "hardware_efficient"
 MAIN_EPOCHS = 300
-N_GRID, N_GRID_ODD = 20, 19
+N_GRID, N_GRID_ODD, N_GRID_MIN = 20, 19, 18
 SCALE_EPOCHS, SCALE_CHUNK = 60, 20
 SPRINKLER_TVD_MAX = 0.01
 
@@ -55,7 +58,11 @@ SPRINKLER_TVD_MAX = 0.01
 # 1024 long, and the grid kernels' plain version is another algorithm: it
 # runs the boundary and ring CNOTs as dense W-form products (two more
 # 1024-long sums per layer) where the kernel moves amplitudes exactly, so the
-# grid pair gets twice the n=16 margins.
+# grid pair gets twice the n=16 margins. stein2d_grid is a butterfly of 20
+# FMA stages per element at n=20, each rounding once (2^-24 relative), so
+# its error is about 20 x 6e-8 = 1.2e-6 of the magnitudes it sums, inside
+# 1e-5 of the largest result against the FP32 plain version and against
+# float64 alike.
 TOL = {"circuit2d_fwd": 1e-5, "circuit2d_bwd": 1e-4, "stein2d": 1e-5,
        "circuit2d_grid_fwd": 2e-5, "circuit2d_grid_bwd": 2e-4, "stein2d_grid": 1e-5}
 
@@ -211,39 +218,78 @@ def check_circuit(n, device, timing, grid=False):
     ]
 
 
-def check_stein2d(n, device):
+def stein_bound(cols, n):
+    """The Kronecker apply's least work: the butterfly's FLOPs (one FMA per
+    element and stage) and V read once, Y written once."""
+    return bound(2 * cols * n * 2**n, 2 * 4 * cols * 2**n)
+
+
+def check_stein2d(n, device, timing=True):
     """The path's stein2d kernel (stein2d at n ≤ 17, stein2d_grid above)
     against its plain version, on the path's columns: its Stein operator at
-    the length scale the path uses, applied to the Born machine's initial q."""
+    the length scale the path uses, applied to the Born machine's initial q.
+    stein2d_grid is also held against a float64 evaluation of the plain
+    version."""
     import torch
     from tensornetworks_tpu_torch.models import QuantumBornMachine
     from tensornetworks_tpu_torch.ops import stein
     from tensornetworks_tpu_torch.ops.hamming import resolve_length_scale
-    from tensornetworks_tpu_torch.ops.kernels.stein2d import stein2d_apply_plain
+    from tensornetworks_tpu_torch.ops.kernels.stein2d import kron_factors, stein2d_apply_plain
 
     bn, latent, obs = path_inputs(n)
     ls = 1.0 if n == N else resolve_length_scale("auto", n)
     op = stein.SteinOperator(stein.score_table(bn.conditional_joint_table(latent, obs)), n,
                              length_scale=ls, device=device)
-    name = "stein2d_grid" if n >= stein.SteinOperator.GRID_MIN_VARS else "stein2d"
+    name = "stein2d_grid" if op._grid else "stein2d"
     qbm = QuantumBornMachine(n, LAYERS, ANSATZ, device=device)
     with torch.no_grad():
         q = qbm.probs(qbm.init(torch.Generator().manual_seed(0)))
     V = (op._Vw * q).reshape(-1, op._R, op._C)
-    Ar, Ac = op._Ar, op._Ac
-    y_k, y_p = op._apply(Ar, Ac, V), stein2d_apply_plain(Ar, Ac, V)
+    cols, R, C = V.shape
+    Ar, Ac = kron_factors(op._a, R, C, torch.float32, device)
+    y_k, y_p = op.kron_apply(V), stein2d_apply_plain(Ar, Ac, V)
     torch.cuda.synchronize()
     err = rel_err(y_k, y_p)
     abs_err = float((y_k - y_p).abs().max())
-    require(err <= TOL[name], f"{name} rel err {err:.3e}")
-    print(f"{name} n={n}: {V.shape[0]} blocks, rel {err:.2e} (abs {abs_err:.2e})", flush=True)
-    cols, R, C = V.shape
-    b = bound(2 * cols * (R * R * C + R * C * C), 4 * (R * R + C * C + 2 * cols * R * C))
+    require(err <= TOL[name], f"{name} n={n}: rel err {err:.3e}")
+    msg = f"{name} n={n}: {cols} blocks, rel {err:.2e} (abs {abs_err:.2e})"
+    if op._grid:
+        y64 = stein2d_apply_plain(*kron_factors(op._a, R, C, torch.float64, device), V.double())
+        err64 = rel_err(y_k.double(), y64)
+        require(err64 <= TOL[name], f"{name} n={n}: rel err {err64:.3e} against float64")
+        msg += f", against float64 rel {err64:.2e}"
+        del y64
+    print(msg, flush=True)
+    if not timing:
+        return []
+    b = stein_bound(cols, n)
     return [dict(name=name, max_abs_err=abs_err, rel_err=err,
-                 ms=time_ms(lambda: op._apply(Ar, Ac, V)),
+                 ms=time_ms(lambda: op.kron_apply(V)),
                  plain_ms=time_ms(lambda: stein2d_apply_plain(Ar, Ac, V)),
                  bound_ms=b[0], bound_by=b[1],
                  library_ms=time_ms(lambda: torch.einsum("rs,bsc,dc->brd", Ar, V, Ac)))]
+
+
+def check_spills(logs, kernels=("cgemm_large_kernel", "butterfly_pass_kernel")):
+    """Print registers and spills of every compiled function from the ptxas
+    reports; the named kernels must spill nothing."""
+    import re
+
+    for lib, log in logs.items():
+        func = None
+        for line in log.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                func = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and func:
+                spilled = int(m.group(1)) + int(m.group(2))
+                print(f"  {lib}: {func[:70]}: spill stores {m.group(1)}, loads {m.group(2)}")
+                require(not (spilled and any(k in func for k in kernels)),
+                        f"{lib}: {func} spills registers")
+            elif "registers" in line:
+                print(f"  {lib}: {line.strip()}")
 
 
 def check_launches(path, launches):
@@ -385,13 +431,12 @@ def main() -> int:
     kernels.build_all()
     print(f"built kernels in {time.perf_counter() - t0:.1f}s", flush=True)
     from tensornetworks_tpu_torch.ops.kernels import _lib
-    for name, log in _lib.BUILD_LOGS.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    check_spills(_lib.BUILD_LOGS)
 
     check_circuit(3, device, timing=False)  # ragged tiles: R=4, C=2
-    check_circuit(N_GRID_ODD, device, timing=False, grid=True)  # R != C, both tilings
+    for n in (N_GRID_MIN, N_GRID_ODD):  # fewest tiles; R != C, both GEMM loops
+        check_circuit(n, device, timing=False, grid=True)
+        check_stein2d(n, device, timing=False)
     records = (check_circuit(N, device, timing=True) + check_stein2d(N, device)
                + check_circuit(N_GRID, device, timing=True, grid=True)
                + check_stein2d(N_GRID, device))

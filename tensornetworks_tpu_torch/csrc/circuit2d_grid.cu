@@ -31,8 +31,11 @@
 //   forward : 8 L (R^2 C + R C^2) = 6.9e10 FLOP FP32 -> 1.03 ms at 67 TFLOP/s
 //   backward: 24 L (R^2 C + R C^2) = 2.1e11 FLOP FP32 -> 3.08 ms
 //   bytes: operators 2 L (R^2 + C^2) floats, 67 MB -> 20 us at 3.35 TB/s.
-// Both are bound by FP32 FMA throughput. One 1024 x 1024 product gives 256
-// output tiles, so the GEMM takes its 64x64 configuration.
+// Both are bound by FP32 FMA throughput. From n=19 every non-scatter product
+// has at least 128 tiles of 128x64 and takes tn_gemm.cuh's large loop
+// (cp.async pipeline, 8x4 complex register tiles); the forward's right
+// product (scatter epilogue) and the n=18 products keep the 64x64 or 32x32
+// configuration of the first loop.
 
 #include "circuit_layers.cuh"
 

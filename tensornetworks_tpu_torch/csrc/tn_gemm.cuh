@@ -1,20 +1,61 @@
-// Shared device code of the port's hand-written kernels: a tiled FP32
-// (complex or real) GEMM on planar (re, im) operands, and the GF(2)-linear
-// index map with its CZ sign that the circuit kernels use for a layer's CNOT
+// Shared device code of the port's hand-written kernels: tiled FP32 (complex
+// or real) GEMMs on planar (re, im) operands, and the GF(2)-linear index map
+// with its CZ sign that the circuit kernels use for a layer's CNOT
 // permutations and CZ gates.
 //
-// The GEMM computes, for every batch b,
+// Every product computes, for every batch b,
 //     C_b[m, n] = sum_k opA(A_b)[m, k] * opB(B_b)[k, n]
 // where every operand is addressed through explicit strides, so transposes
 // are free, and the imaginary part of A or B may be negated on load, so
-// conjugates are free. Tiles are staged through shared memory; each thread
-// accumulates a TM x TN block of outputs in registers. FP32 FMA only: the
-// tensor cores would need TF32 or lower, which the port does not allow.
+// conjugates are free.
 //
-// The epilogue either stores C through its strides, or (scatter mode, used by
-// the circuit forward) sends element (m, n) -- flat state index m*N + n -- to
-// the index perm_dst(i), multiplied by the CZ sign there, and optionally
-// writes |C|^2 to `probs` at the same index.
+// The products replace the dots inside the TPU kernels of
+// tensornetworks_tpu/ops/pallas/circuit2d.py and circuit2d_grid.py
+// (fwd_kernel, bwd_kernel) and stein2d.py (kernel). Their bound on this card
+// is FP32 FMA throughput, 67 TFLOP/s: at n=20 a complex 1024^3 product is
+// 8.6 GFLOP (128 us) against 24 MB of operands (7 us at 3.35 TB/s). The
+// tensor cores are not used: they need TF32 or lower, which the port does not
+// allow without a measured TVD comparison (ROADMAP, precision); a 3xTF32
+// emulation on mma/wgmma is a later, measured question.
+//
+// Two main loops, chosen by shape in launch_gemm:
+//
+// gemm_kernel (every product with fewer than 128 tiles of 128x64, every real
+// product, and the circuit forward's scatter epilogue): BMxBN tiles of 64x64
+// or 32x32, one synchronous shared-memory stage, a 4x4 or 2x2 register tile,
+// scalar shared-memory reads. At n=20 it reached 24 TFLOP/s (36% of peak) on
+// the grid backward: no copy overlaps the FMAs, and a 4x4 complex tile makes
+// 4 FMAs per shared-memory load.
+//
+// cgemm_large_kernel (complex, non-scatter, M % 128 == 0, N % 64 == 0,
+// K % 16 == 0, at least 128 tiles: the n >= 19 circuit products): tiles of
+// 128x64x16, 256 threads with an 8x4 complex register tile each (rows
+// ty*4..+3 and 64+ty*4..+3, columns tx*4..+3), which makes 128 FMAs per six
+// float4 shared-memory reads (5.3 FMAs per loaded float). A three-stage ring
+// in dynamic shared memory (72 KB) overlaps the copy of tile k+2 with the
+// FMAs of tile k. The loader is templated on the operand's layout:
+//   - m-contiguous A and n-contiguous B go by 16-byte cp.async.cg straight
+//     into the k-major tile;
+//   - k-contiguous A or B (a cp.async cannot transpose) is read as float4
+//     into registers before the FMAs of tile k and stored transposed, as
+//     four scalars, after them; lanes walk m (or n) so each store hits 32
+//     banks.
+//   | product (backward)  | A              | B              |
+//   | col pull-back       | k-contiguous   | n-contiguous   |
+//   | dMc                 | m-contiguous   | n-contiguous   |
+//   | row pull-back (Mr^H)| m-contiguous   | n-contiguous   |
+//   | dMr (x^H)           | k-contiguous   | k-contiguous   |
+// Conjugation is a compile-time sign on the imaginary plane (a negated FMA
+// operand, free). A 1024^2 output has 128 tiles of 128x64, one per SM of the
+// 132; 128x128 tiles would leave half the SMs idle on dMc and dMr, and
+// grouping dMc with the row pull-back (128 + 256 tiles) would still take
+// three waves, so neither is done. The n <= 17 products (256^2) and the
+// forward's scatter product keep the first loop and its configuration.
+//
+// The epilogue of gemm_kernel either stores C through its strides, or
+// (scatter mode, used by the circuit forward) sends element (m, n) -- flat
+// state index m*N + n -- to the index perm_dst(i), multiplied by the CZ sign
+// there, and optionally writes |C|^2 to `probs` at the same index.
 
 #pragma once
 
@@ -176,11 +217,217 @@ inline cudaError_t launch_gemm_cfg(const GemmArgs& p, const PermSpec& s, cudaStr
   return cudaGetLastError();
 }
 
-// 64x64 tiles when they alone give at least one block per SM (132 on an
-// H100), else 32x32 tiles so that a single 256x256 product still spreads
-// over 64 SMs.
+// ----------------------------------------------------------------- large loop
+
+namespace large {
+
+constexpr int BM = 128, BN = 64, BK = 16, STAGES = 3, THREADS = 256;
+constexpr int A_PLANE = BK * BM, B_PLANE = BK * BN;
+constexpr int STAGE = 2 * A_PLANE + 2 * B_PLANE;  // floats: A re, A im, B re, B im
+constexpr size_t SMEM = STAGES * STAGE * sizeof(float);
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// One operand's tile loader. ROWS x BK values per plane (ROWS = BM for A,
+// BN for B), stored k-major: tile[k * ROWS + r]. `base` points at the
+// operand's (row 0 of the block, k 0) element of each plane; `s_row` and
+// `s_k` are its strides. KC: the operand is k-contiguous (s_k == 1).
+template <int ROWS, bool KC>
+struct Loader {
+  static constexpr int PER_PLANE = ROWS * BK / 4 / THREADS;  // float4 per thread and plane
+  static constexpr int CHUNKS = 2 * PER_PLANE;
+  static_assert(PER_PLANE * THREADS * 4 == ROWS * BK, "tile must split evenly");
+  float4 reg[KC ? CHUNKS : 1];
+
+  // KC == false: cp.async of the tile at k0 into `tile` (2 planes).
+  // KC == true: global float4 loads into registers.
+  __device__ __forceinline__ void issue(const float* const base[2], long long s_row,
+                                        long long s_k, int k0, float* tile) {
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i) {
+      const int plane = i / PER_PLANE;
+      const int r = threadIdx.x + (i % PER_PLANE) * THREADS;
+      if (KC) {  // lanes walk the rows; each takes four consecutive k
+        const int row = r % ROWS, kq = r / ROWS;
+        reg[i] = __ldg(reinterpret_cast<const float4*>(base[plane] + row * s_row + k0 + 4 * kq));
+      } else {   // lanes walk the contiguous rows dimension at one k
+        const int k = r / (ROWS / 4), rq = r % (ROWS / 4);
+        cp_async16(tile + plane * (ROWS * BK) + k * ROWS + 4 * rq,
+                   base[plane] + (long long)(k0 + k) * s_k + 4 * rq);
+      }
+    }
+  }
+
+  // KC == true: the transposing store of the registers into `tile`.
+  __device__ __forceinline__ void store(float* tile) {
+    if (!KC) return;
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i) {
+      const int plane = i / PER_PLANE;
+      const int r = threadIdx.x + (i % PER_PLANE) * THREADS;
+      const int row = r % ROWS, kq = r / ROWS;
+      float* t = tile + plane * (ROWS * BK) + 4 * kq * ROWS + row;
+      t[0] = reg[i].x;
+      t[ROWS] = reg[i].y;
+      t[2 * ROWS] = reg[i].z;
+      t[3 * ROWS] = reg[i].w;
+    }
+  }
+};
+
+// AK / BKC: A / B is k-contiguous; CA / CB: conjugate A / B.
+template <bool AK, bool BKC, bool CA, bool CB>
+__global__ void __launch_bounds__(THREADS) cgemm_large_kernel(GemmArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const long long a_off = b * p.a_sb + (long long)m0 * p.a_sm;
+  const long long b_off = b * p.b_sb + (long long)n0 * p.b_sn;
+  const float* const a_base[2] = {p.a_re + a_off, p.a_im + a_off};
+  const float* const b_base[2] = {p.b_re + b_off, p.b_im + b_off};
+  Loader<BM, AK> la;
+  Loader<BN, BKC> lb;
+
+  float acc_re[8][4], acc_im[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) { acc_re[i][j] = 0.f; acc_im[i][j] = 0.f; }
+
+  const int nk = p.K / BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) {
+      float* const at = smem + s * STAGE;
+      la.issue(a_base, p.a_sm, p.a_sk, s * BK, at);
+      lb.issue(b_base, p.b_sn, p.b_sk, s * BK, at + 2 * A_PLANE);
+      la.store(at);
+      lb.store(at + 2 * A_PLANE);
+    }
+    cp_async_commit();
+  }
+
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile kt is in; every thread is done with tile kt-1
+    const int nt = kt + STAGES - 1;
+    const bool more = nt < nk;
+    float* const next = smem + (nt % STAGES) * STAGE;  // the stage tile kt-1 held
+    if (more) {
+      la.issue(a_base, p.a_sm, p.a_sk, nt * BK, next);
+      lb.issue(b_base, p.b_sn, p.b_sk, nt * BK, next + 2 * A_PLANE);
+    }
+    cp_async_commit();
+
+    const float* As = smem + (kt % STAGES) * STAGE;
+    const float* Bs = As + 2 * A_PLANE;
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      const float* ar_k = As + kk * BM;
+      const float* ai_k = As + A_PLANE + kk * BM;
+      const float4 a0r = *reinterpret_cast<const float4*>(ar_k + 4 * ty);
+      const float4 a1r = *reinterpret_cast<const float4*>(ar_k + 64 + 4 * ty);
+      const float4 a0i = *reinterpret_cast<const float4*>(ai_k + 4 * ty);
+      const float4 a1i = *reinterpret_cast<const float4*>(ai_k + 64 + 4 * ty);
+      const float4 b4r = *reinterpret_cast<const float4*>(Bs + kk * BN + 4 * tx);
+      const float4 b4i = *reinterpret_cast<const float4*>(Bs + B_PLANE + kk * BN + 4 * tx);
+      const float ar[8] = {a0r.x, a0r.y, a0r.z, a0r.w, a1r.x, a1r.y, a1r.z, a1r.w};
+      const float ai[8] = {a0i.x, a0i.y, a0i.z, a0i.w, a1i.x, a1i.y, a1i.z, a1i.w};
+      const float br[4] = {b4r.x, b4r.y, b4r.z, b4r.w};
+      const float bi[4] = {b4i.x, b4i.y, b4i.z, b4i.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          // re += ar br - (ca cb) ai bi;  im += cb ar bi + ca ai br
+          acc_re[i][j] = fmaf(ar[i], br[j], acc_re[i][j]);
+          acc_re[i][j] = fmaf(CA != CB ? ai[i] : -ai[i], bi[j], acc_re[i][j]);
+          acc_im[i][j] = fmaf(CB ? -ar[i] : ar[i], bi[j], acc_im[i][j]);
+          acc_im[i][j] = fmaf(CA ? -ai[i] : ai[i], br[j], acc_im[i][j]);
+        }
+    }
+    if (more) {  // the transposing loaders' stores, after the FMAs they overlapped
+      la.store(next);
+      lb.store(next + 2 * A_PLANE);
+    }
+  }
+
+  const long long c_off = b * p.c_sb + (long long)n0 + 4 * tx;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
+    const long long off = c_off + (long long)m * p.c_sm;
+    *reinterpret_cast<float4*>(p.c_re + off) =
+        make_float4(acc_re[i][0], acc_re[i][1], acc_re[i][2], acc_re[i][3]);
+    *reinterpret_cast<float4*>(p.c_im + off) =
+        make_float4(acc_im[i][0], acc_im[i][1], acc_im[i][2], acc_im[i][3]);
+  }
+}
+
+template <bool AK, bool BKC, bool CA, bool CB>
+inline cudaError_t launch(const GemmArgs& p, cudaStream_t st) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      cgemm_large_kernel<AK, BKC, CA, CB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid(p.N / BN, p.M / BM, p.batch);
+  cgemm_large_kernel<AK, BKC, CA, CB><<<grid, THREADS, SMEM, st>>>(p);
+  return cudaGetLastError();
+}
+
+inline bool aligned16(const void* q) { return ((unsigned long long)q & 15ull) == 0; }
+
+// Which instantiation of the large loop takes this product, or kNone for a
+// shape, layout or conjugation pattern it does not cover. The patterns are
+// those of the circuit drivers (circuit_layers.cuh).
+enum Pattern { kNone = -1, kColPullback, kDMc, kRowPullback, kDMr, kForwardLeft };
+
+inline Pattern pattern(const GemmArgs& p) {
+  if (p.scatter || p.M % BM || p.N % BN || p.K % BK) return kNone;
+  if ((long long)(p.M / BM) * (p.N / BN) * p.batch < 128) return kNone;
+  const bool ak = p.a_sk == 1, am = p.a_sm == 1, bk = p.b_sk == 1, bn = p.b_sn == 1;
+  if (!(ak || am) || !(bk || bn) || p.c_sn != 1) return kNone;
+  const long long strides[] = {p.a_sb, ak ? p.a_sm : p.a_sk, p.b_sb, bk ? p.b_sn : p.b_sk,
+                               p.c_sb, p.c_sm};
+  for (long long s : strides)
+    if (s % 4) return kNone;
+  const void* ptrs[] = {p.a_re, p.a_im, p.b_re, p.b_im, p.c_re, p.c_im};
+  for (const void* q : ptrs)
+    if (!aligned16(q)) return kNone;
+  const bool ca = p.a_conj < 0, cb = p.b_conj < 0;
+  if (ak && bn && !ca && cb) return kColPullback;
+  if (am && bn && !ca && cb) return kDMc;
+  if (am && bn && ca && !cb) return kRowPullback;
+  if (ak && bk && !ca && cb) return kDMr;
+  if (ak && bn && !ca && !cb) return kForwardLeft;
+  return kNone;
+}
+
+}  // namespace large
+
+// Complex products with at least 128 tiles of 128x64 take the large loop.
+// Otherwise: 64x64 tiles when they alone give at least one block per SM (132
+// on an H100), else 32x32 tiles so that a single 256x256 product still
+// spreads over 64 SMs.
 template <bool CPLX>
 inline cudaError_t launch_gemm(const GemmArgs& p, const PermSpec& s, cudaStream_t st) {
+  if constexpr (CPLX) {  // (instantiated only where complex products are launched)
+    switch (large::pattern(p)) {
+      case large::kColPullback: return large::launch<true, false, false, true>(p, st);
+      case large::kDMc: return large::launch<false, false, false, true>(p, st);
+      case large::kRowPullback: return large::launch<false, false, true, false>(p, st);
+      case large::kDMr: return large::launch<true, true, false, true>(p, st);
+      case large::kForwardLeft: return large::launch<true, false, false, false>(p, st);
+      case large::kNone: break;
+    }
+  }
   const long long big = (long long)((p.N + 63) / 64) * ((p.M + 63) / 64) * p.batch;
   if (big >= 132) return launch_gemm_cfg<64, 64, 16, 4, 4, CPLX>(p, s, st);
   return launch_gemm_cfg<32, 32, 16, 2, 2, CPLX>(p, s, st);

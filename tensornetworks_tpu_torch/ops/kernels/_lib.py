@@ -52,8 +52,9 @@ SIGNATURES = {
     "stein2d": {
         # ar, ac, v, y, tmp, R, C, cols, stream
         "tn_stein2d_apply": [_P] * 5 + [_I] * 3 + [_P],
-        # ar, ac, v, y, tmp, R, C, cols, chunk, stream
-        "tn_stein2d_apply_grid": [_P] * 5 + [_I] * 4 + [_P],
+        # v, y, a, n, cols, chunk, stream (a as c_float: a bare Python float
+        # would not be passed as a C float)
+        "tn_stein2d_apply_grid": [_P] * 2 + [ctypes.c_float] + [_I] * 3 + [_P],
     },
 }
 

@@ -1,37 +1,54 @@
-"""Two-sided Kronecker apply of the Stein columns: kernels 3 and 4 of the port.
+"""Kronecker apply of the Stein columns: kernels 3 and 4 of the port.
 
 Replaces ``tensornetworks_tpu/ops/pallas/stein2d.py``
 (``make_pallas_stein2d_matvec`` → ``kernel``, and its large-n tiling
 ``make_pallas_stein2d_matvec_grid`` → ``kernel``) with ``csrc/stein2d.cu``:
-``Y_i = Ar V_i Acᵀ`` for all 3n+1 column blocks, through the batched FP32
-GEMM shared with the circuit kernels.
+``Y_i = Ar V_i Acᵀ`` for all 3n+1 column blocks, ``Ar = A^{⊗rb}``,
+``Ac = A^{⊗cb}``, ``A = [[1, a], [a, 1]]``. On the flat MSB-first index that
+is ``y_i = A^{⊗n} v_i``, a function fixed by ``a`` (the decay factor of
+``(num_vars, length_scale)``) and n.
 
-- ``stein2d_apply`` (n ≤ 17): all blocks in one batch, two launches. Bound
-  at n=16 (49 blocks of 256x256): 3.29 GFLOP of FP32 FMA, 49 µs at the
-  H100's 67 TFLOP/s; 25.9 MB moved, 7.7 µs at 3.35 TB/s. The intermediate
-  ``Ar V_i`` (12.8 MB) stays in L2 between the two launches.
-- ``stein2d_apply_grid`` (n ≥ 18): the blocks in chunks of ``grid_chunk``,
-  two launches per chunk, so that the intermediate of a chunk stays in L2
-  and the scratch is O(chunk) (one batch at n=20 would need a 256 MB
-  intermediate). Bound at n=20 (61 blocks of 1024x1024): 2.6e11 FLOP,
-  3.91 ms at 67 TFLOP/s; 520 MB moved, 0.16 ms at 3.35 TB/s.
+- ``stein2d_apply`` (n ≤ 17): the TPU kernel's dense form, all blocks in one
+  batch of the FP32 GEMM shared with the circuit kernels, two launches. At
+  n=16 (49 blocks of 256x256) the dense products are 3.29 GFLOP, 49 µs at
+  the H100's 67 TFLOP/s; the function's least work is 25.7 MB moved, 7.7 µs
+  at 3.35 TB/s, so this design is far above its bound (queued next).
+- ``stein2d_apply_grid`` (n ≥ 18): a Kronecker butterfly. ``A^{⊗n}`` is n
+  commuting stages ``y[j] = x[j] + a·x[j ^ 2^k]``, one FMA per element and
+  stage, so the work is bytes: at n=20 (61 blocks of 2^20) V read once and Y
+  written once is 512 MB, 0.153 ms at 3.35 TB/s, against the dense split's
+  2.6e11 FLOP, 3.91 ms. Two passes per chunk of ``grid_chunk`` blocks, each
+  block of the launch holding a tile of ``2^GRID_TILE_BITS`` floats in shared
+  memory: pass 1 the low ``GRID_TILE_BITS`` bits on contiguous tiles, pass 2
+  the high bits on strided tiles, in place; the chunk stays in L2 between
+  them.
 
-Both compute the same function; their plain version is
-``stein2d_apply_plain``. The V build and the closed-form recombination stay
-in plain torch (``ops/stein.py``), as they stay in XLA around the TPU
-kernels. A wrapper takes the plain version only for CPU tensors; a CUDA
-tensor launches the kernel or raises.
+Both compute the same function; their plain version is the dense
+``stein2d_apply_plain`` (cuBLAS on the card), a different algorithm from the
+butterfly. ``stein2d_butterfly_plain`` mirrors the butterfly's two-pass tile
+arithmetic in torch so that the CPU tests pin its index map; nothing on the
+main path calls it. The V build and the closed-form recombination stay in
+plain torch (``ops/stein.py``), as they stay in XLA around the TPU kernels.
+A wrapper takes the plain version only for CPU tensors; a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
+from ..kron import kron_power_np
 from . import _lib
 
-# A chunk's intermediate Ar·V_i: 24 MB, about half of the H100's 50 MB L2
-# (6 blocks of 4 MB at n=20).
+# A chunk of column blocks between the butterfly's two passes: 24 MB, about
+# half of the H100's 50 MB L2 (6 blocks of 4 MB at n=20).
 GRID_CHUNK_BYTES = 24 << 20
+# log2 of the floats a thread block holds in shared memory (csrc/stein2d.cu
+# kTileBits): 32 KB.
+GRID_TILE_BITS = 13
 
 
 def stein2d_apply_plain(Ar: torch.Tensor, Ac: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
@@ -39,20 +56,85 @@ def stein2d_apply_plain(Ar: torch.Tensor, Ac: torch.Tensor, V: torch.Tensor) -> 
     return torch.matmul(torch.matmul(Ar, V), Ac.T)
 
 
+def kron_factors(a: float, R: int, C: int, dtype=torch.float32, device="cpu"):
+    """``(A^{⊗log2 R}, A^{⊗log2 C})`` of ``A = [[1, a], [a, 1]]``, built in
+    float64 and cast to ``dtype``."""
+    A = np.array([[1.0, a], [a, 1.0]])
+    return tuple(torch.as_tensor(kron_power_np(A, s.bit_length() - 1), dtype=dtype, device=device)
+                 for s in (R, C))
+
+
+def _stage(X: torch.Tensor, k: int, a: float) -> torch.Tensor:
+    """The stage of local bit k on the last axis: x[t] + a·x[t ^ 2^k]."""
+    shape = X.shape
+    X = X.reshape(*shape[:-1], -1, 2, 1 << k)
+    x0, x1 = X[..., 0, :], X[..., 1, :]
+    return torch.stack([x0 + a * x1, x1 + a * x0], dim=-2).reshape(shape)
+
+
+def _tile_offsets(n: int, tile_bits: int, lw: int) -> torch.Tensor:
+    """(2^(n-T), 2^T): the offset in a column block of local index t of tile
+    ``sub``, as the kernel computes it: sub·2^lw + (t >> lw)·2^T + (t & (2^lw-1))."""
+    t = torch.arange(1 << tile_bits)
+    sub = torch.arange(1 << (n - tile_bits))
+    return (sub[:, None] << lw) + ((t >> lw) << tile_bits) + (t & ((1 << lw) - 1))
+
+
+def stein2d_butterfly_plain(a: float, V: torch.Tensor,
+                            tile_bits: int = GRID_TILE_BITS) -> torch.Tensor:
+    """(cols, R, C) -> (cols, R, C): ``stein2d_apply_grid``'s butterfly in
+    torch, tile by tile as its two passes group it. Pass 1 applies local bits
+    0..T-1 of contiguous tiles of 2^T; pass 2 the h = n - T high bits, on
+    tiles of 2^h values of the high bits times a run of 2^(T-h) contiguous low
+    indices. Needs 0 < n - T ≤ T."""
+    cols, R, C = V.shape
+    n = (R * C).bit_length() - 1
+    high = n - tile_bits
+    if not 0 < high <= tile_bits:
+        raise ValueError(f"stein2d butterfly: n={n} needs 0 < n - tile_bits <= tile_bits "
+                         f"(tile_bits={tile_bits})")
+    Y = V.reshape(cols, -1).clone()
+    for lw, k_lo in ((tile_bits, 0), (tile_bits - high, tile_bits - high)):
+        idx = _tile_offsets(n, tile_bits, lw).to(V.device)
+        X = Y[:, idx]  # (cols, subs, 2^T)
+        for k in range(k_lo, tile_bits):
+            X = _stage(X, k, a)
+        Y[:, idx] = X
+    return Y.reshape(cols, R, C)
+
+
 def grid_chunk(R: int, C: int, cols: int) -> int:
     """Blocks per chunk of ``stein2d_apply_grid``: as many (R, C) float32
-    intermediates as fit in ``GRID_CHUNK_BYTES``, at least one."""
+    blocks as fit in ``GRID_CHUNK_BYTES``, at least one."""
     return max(1, min(cols, GRID_CHUNK_BYTES // (4 * R * C)))
+
+
+def _check_operand(name: str, t: torch.Tensor, device, shape) -> None:
+    if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"stein2d kernel: {name} must be a contiguous float32 tensor "
+                         f"on {device}, got {t.dtype} on {t.device}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"stein2d kernel: {name} has shape {tuple(t.shape)}, want {shape}")
 
 
 def _check(Ar, Ac, V) -> None:
     cols, R, C = V.shape
     for name, t, shape in (("Ar", Ar, (R, R)), ("Ac", Ac, (C, C)), ("V", V, (cols, R, C))):
-        if t.device != V.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"stein2d kernel: {name} must be a contiguous float32 tensor "
-                             f"on {V.device}, got {t.dtype} on {t.device}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"stein2d kernel: {name} has shape {tuple(t.shape)}, want {shape}")
+        _check_operand(name, t, V.device, shape)
+
+
+def _check_grid(V) -> int:
+    """n of a (cols, R, C) operand the butterfly kernel takes."""
+    if V.dim() != 3:
+        raise ValueError(f"stein2d_apply_grid: V must be (cols, R, C), got shape {tuple(V.shape)}")
+    _check_operand("V", V, V.device, tuple(V.shape))
+    _, R, C = V.shape
+    n = (R * C).bit_length() - 1
+    if R & (R - 1) or C & (C - 1) or not GRID_TILE_BITS < n <= 2 * GRID_TILE_BITS - 2:
+        raise ValueError(f"stein2d_apply_grid: R, C must be powers of two with "
+                         f"{GRID_TILE_BITS} < log2(R·C) <= {2 * GRID_TILE_BITS - 2}, "
+                         f"got R={R}, C={C}")
+    return n
 
 
 def stein2d_apply(Ar: torch.Tensor, Ac: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
@@ -71,19 +153,19 @@ def stein2d_apply(Ar: torch.Tensor, Ac: torch.Tensor, V: torch.Tensor) -> torch.
     return Y
 
 
-def stein2d_apply_grid(Ar: torch.Tensor, Ac: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
-    """``Ar @ V_i @ Acᵀ`` for every block of ``V`` (cols, R, C), in chunks of
-    ``grid_chunk(R, C, cols)`` blocks."""
+def stein2d_apply_grid(a: float, V: torch.Tensor) -> torch.Tensor:
+    """``A^{⊗n}`` applied to every flat block of ``V`` (cols, R, C), i.e.
+    ``Ar @ V_i @ Acᵀ`` with ``A = [[1, a], [a, 1]]``: the butterfly kernel
+    in chunks of ``grid_chunk(R, C, cols)`` blocks."""
     if V.device.type == "cpu":
-        return stein2d_apply_plain(Ar, Ac, V)
-    _check(Ar, Ac, V)
+        _, R, C = V.shape
+        return stein2d_apply_plain(*kron_factors(a, R, C, V.dtype), V)
+    n = _check_grid(V)
     cols, R, C = V.shape
-    chunk = grid_chunk(R, C, cols)
     fn = _lib.load("stein2d").tn_stein2d_apply_grid
     Y = torch.empty_like(V)
-    tmp = torch.empty((chunk, R, C), dtype=V.dtype, device=V.device)
     _lib.count_launch("stein2d_grid")
-    err = fn(_lib.ptr(Ar), _lib.ptr(Ac), _lib.ptr(V), _lib.ptr(Y), _lib.ptr(tmp),
-             R, C, cols, chunk, _lib.stream_ptr(V.device))
+    err = fn(_lib.ptr(V), _lib.ptr(Y), ctypes.c_float(a), n, cols, grid_chunk(R, C, cols),
+             _lib.stream_ptr(V.device))
     _lib.check(err, "tn_stein2d_apply_grid")
     return Y

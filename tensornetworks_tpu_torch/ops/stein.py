@@ -25,7 +25,8 @@ import torch
 
 from ..core.bits import all_bitstrings
 from .hamming import decay_factor
-from .kernels.stein2d import stein2d_apply, stein2d_apply_grid, stein2d_apply_plain
+from .kernels.stein2d import (kron_factors, stein2d_apply, stein2d_apply_grid,
+                              stein2d_apply_plain)
 from .kron import kron_matvec, kron_power_np
 
 SCORE_EPS = 1e-12
@@ -194,8 +195,8 @@ class SteinOperator:
     recombination through the precomputed ``stein_weight_tables``, the
     Kronecker applications through a stein2d kernel
     (``ops/kernels/stein2d.py``, which takes its plain version on the CPU):
-    ``stein2d_apply`` for n ≤ 17, its chunked large-n tiling
-    ``stein2d_apply_grid`` from n = 18.
+    ``stein2d_apply`` (dense ``Ar``/``Ac``) for n ≤ 17, the butterfly
+    ``stein2d_apply_grid`` (the decay factor ``a`` alone) from n = 18.
     """
 
     DENSE_MAX_VARS = 12
@@ -212,21 +213,26 @@ class SteinOperator:
             self.gram = stein_gram_dense(S, n, self.length_scale)
             return
         self.gram = None
-        a = decay_factor(n, self.length_scale)
-        A = np.array([[1.0, a], [a, 1.0]])
-        rb, cb, self._R, self._C = _split(n)
-        self._Ar = torch.as_tensor(kron_power_np(A, rb), dtype=dtype, device=device)
-        self._Ac = torch.as_tensor(kron_power_np(A, cb), dtype=dtype, device=device)
+        self._a = decay_factor(n, self.length_scale)
+        _, _, self._R, self._C = _split(n)
+        self._grid = n >= self.GRID_MIN_VARS
+        if not self._grid:
+            self._Ar, self._Ac = kron_factors(self._a, self._R, self._C, dtype, device)
         Vw, W = stein_weight_tables(score, n, self.length_scale)
         self._Vw = torch.as_tensor(Vw, dtype=dtype, device=device)
         self._W = torch.as_tensor(W, dtype=dtype, device=device)
-        self._apply = stein2d_apply_grid if n >= self.GRID_MIN_VARS else stein2d_apply
+
+    def kron_apply(self, V: torch.Tensor) -> torch.Tensor:
+        """``A^{⊗n}`` on every (R, C) block of V through the path's kernel."""
+        if self._grid:
+            return stein2d_apply_grid(self._a, V)
+        return stein2d_apply(self._Ar, self._Ac, V)
 
     def matvec(self, q: torch.Tensor) -> torch.Tensor:
         if self.dense:
             return self.gram @ q
         V = (self._Vw * q).reshape(-1, self._R, self._C)
-        Y = self._apply(self._Ar, self._Ac, V)
+        Y = self.kron_apply(V)
         return (self._W * Y.reshape(self._W.shape)).sum(dim=0)
 
     def quadform(self, q: torch.Tensor) -> torch.Tensor:

@@ -68,7 +68,7 @@ def test_stein2d_apply_grid_matches_pallas_grid_kernel(n):
     op = tstein.SteinOperator(S, n, ls, dtype=F64, dense=False, device="cpu")
     V = (op._Vw * torch.as_tensor(q)).reshape(-1, op._R, op._C)
     before = dict(_lib.LAUNCHES)
-    Y = tk.stein2d_apply_grid(op._Ar, op._Ac, V)
+    Y = tk.stein2d_apply_grid(op._a, V)
     assert _lib.LAUNCHES == before  # CPU tensors never reach a kernel
     _close((op._W * Y.reshape(op._W.shape)).sum(dim=0), y_j, rel=1e-5)
 
@@ -87,8 +87,8 @@ def test_operator_n18_matches_jax_gcorr_matvec():
     _, _, _, S = _problem(n)
     q, ls = _q(n), resolve_length_scale("auto", n)
     op_t = tstein.SteinOperator(S, n, ls, dtype=F64, device="cpu")
-    assert op_t._apply is tk.stein2d_apply_grid
-    assert tstein.SteinOperator(S[:2**13, :13], 13, device="cpu")._apply is tk.stein2d_apply
+    assert op_t._grid and not hasattr(op_t, "_Ar")  # the butterfly takes a alone
+    assert not tstein.SteinOperator(S[:2**13, :13], 13, device="cpu")._grid
     op_j = jstein.SteinOperator(S, n, ls, dtype=jnp.float64)
     assert op_j._gcorr_corr == "matmul"
     _close(op_t.matvec(torch.as_tensor(q)), op_j.matvec(jnp.asarray(q)), rel=1e-10)
