@@ -12,10 +12,15 @@ Phases (any failure exits non-zero):
    (where one exists) a single PyTorch library call computing the same
    function: circuit2d and stein2d at 16 qubits (hardware_efficient, L=4),
    circuit2d_grid and stein2d_grid at 20 qubits, and both again, untimed,
-   at other shapes (circuit2d at n=3, ragged tiles; circuit2d_grid and
-   stein2d_grid at n=18, the fewest tiles, and n=19, where R != C).
-   stein2d_grid is also held against a float64 evaluation. The new kernels'
-   ptxas report must show no spills.
+   at other shapes (circuit2d at n=3, ragged tiles, and n=15 and 17, odd
+   with R != C, 17 the largest the persistent backward takes;
+   circuit2d_grid and stein2d_grid at n=18, the fewest tiles, and n=19,
+   where R != C; circuit2d_grid at n=21, where the forward's scatter
+   product takes the large GEMM loop with R != C). stein2d_grid is also
+   held against a float64 evaluation. The large GEMM loop, the butterfly
+   and the persistent backward must show no spills in the ptxas report;
+   the registers of the persistent backward and of the large loop's
+   scatter instantiation are printed on a line of their own.
 4. Drive the main path: exact quantum KSD-VI on the 16-qubit workload of
    ``bench.py`` (random chain network of 17 variables, seed 0, V16=1
    observed) through ``QuantumKSDVariationalInference.train``.
@@ -46,8 +51,9 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 N, LAYERS, ANSATZ = 16, 4, "hardware_efficient"
+N_RAGGED, N_ODD, N_MAX = 3, 15, 17
 MAIN_EPOCHS = 300
-N_GRID, N_GRID_ODD, N_GRID_MIN = 20, 19, 18
+N_GRID, N_GRID_ODD, N_GRID_MIN, N_GRID_WIDE = 20, 19, 18, 21
 SCALE_EPOCHS, SCALE_CHUNK = 60, 20
 SPRINKLER_TVD_MAX = 0.01
 
@@ -270,11 +276,21 @@ def check_stein2d(n, device, timing=True):
                  library_ms=time_ms(lambda: torch.einsum("rs,bsc,dc->brd", Ar, V, Ac)))]
 
 
-def check_spills(logs, kernels=("cgemm_large_kernel", "butterfly_pass_kernel")):
+# Mangled-name parts of the kernels whose registers are printed on a line of
+# their own: the persistent n <= 17 backward, and the large GEMM loop's
+# scatter instantiation (<AK, BKC, CA, CB, SCATTER> = <1, 0, 0, 0, 1>).
+NEW_KERNELS = {"circuit2d_bwd_kernel": "circuit2d_bwd_kernel",
+               "cgemm_large_kernelILb1ELb0ELb0ELb0ELb1EE": "cgemm_large_kernel<scatter>"}
+
+
+def check_spills(logs, kernels=("cgemm_large_kernel", "butterfly_pass_kernel",
+                                "circuit2d_bwd_kernel")):
     """Print registers and spills of every compiled function from the ptxas
-    reports; the named kernels must spill nothing."""
+    reports; the named kernels must spill nothing. Returns the registers of
+    each compiled function, by library."""
     import re
 
+    regs = {}
     for lib, log in logs.items():
         func = None
         for line in log.splitlines():
@@ -290,6 +306,19 @@ def check_spills(logs, kernels=("cgemm_large_kernel", "butterfly_pass_kernel")):
                         f"{lib}: {func} spills registers")
             elif "registers" in line:
                 print(f"  {lib}: {line.strip()}")
+                m = re.search(r"Used (\d+) registers", line)
+                if m and func:
+                    regs.setdefault(lib, {})[func] = int(m.group(1))
+    return regs
+
+
+def print_new_registers(regs):
+    """One line with the registers of each NEW_KERNELS instantiation."""
+    found = [f"{label} {n} ({lib})" for lib, funcs in sorted(regs.items())
+             for func, n in funcs.items() for part, label in NEW_KERNELS.items() if part in func]
+    for label in NEW_KERNELS.values():
+        require(any(f.startswith(label + " ") for f in found), f"no ptxas report for {label}")
+    print("registers of the redesigned kernels: " + ", ".join(found), flush=True)
 
 
 def check_launches(path, launches):
@@ -431,12 +460,14 @@ def main() -> int:
     kernels.build_all()
     print(f"built kernels in {time.perf_counter() - t0:.1f}s", flush=True)
     from tensornetworks_tpu_torch.ops.kernels import _lib
-    check_spills(_lib.BUILD_LOGS)
+    print_new_registers(check_spills(_lib.BUILD_LOGS))
 
-    check_circuit(3, device, timing=False)  # ragged tiles: R=4, C=2
+    for n in (N_RAGGED, N_ODD, N_MAX):  # ragged tiles (R=4, C=2); odd, R != C
+        check_circuit(n, device, timing=False)
     for n in (N_GRID_MIN, N_GRID_ODD):  # fewest tiles; R != C, both GEMM loops
         check_circuit(n, device, timing=False, grid=True)
         check_stein2d(n, device, timing=False)
+    check_circuit(N_GRID_WIDE, device, timing=False, grid=True)  # scatter on the large loop
     records = (check_circuit(N, device, timing=True) + check_stein2d(N, device)
                + check_circuit(N_GRID, device, timing=True, grid=True)
                + check_stein2d(N_GRID, device))

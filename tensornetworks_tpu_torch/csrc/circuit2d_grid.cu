@@ -33,25 +33,31 @@
 //   bytes: operators 2 L (R^2 + C^2) floats, 67 MB -> 20 us at 3.35 TB/s.
 // Both are bound by FP32 FMA throughput. From n=19 every non-scatter product
 // has at least 128 tiles of 128x64 and takes tn_gemm.cuh's large loop
-// (cp.async pipeline, 8x4 complex register tiles); the forward's right
-// product (scatter epilogue) and the n=18 products keep the 64x64 or 32x32
-// configuration of the first loop.
+// (cp.async pipeline, 8x4 complex register tiles); from n=20 the forward's
+// right product does too, with the scatter epilogue (the CNOT map split as
+// dst(m*N) ^ dst(n), the sign per element, scalar stores into the
+// L2-resident state). The forward first transposes Mc into a scratch the
+// wrapper passes (64 MB moved at n=20), so that the right product's B is
+// n-contiguous and streams by cp.async like the left product's. The n=18 products and the n=19 scatter
+// product (32 and 64 tiles) keep the 64x64 or 32x32 configuration of the
+// first loop.
 
 #include "circuit_layers.cuh"
 
 extern "C" {
 
 // (P_row Mr): (layers, R, R) planes; Mc: (layers, C, C) planes.
-// probs, xr, xi: (R, C) outputs; tmp: (2, R, C) scratch.
+// probs, xr, xi: (R, C) outputs; tmp: (2, R, C) and mct: (2, layers, C, C)
+// scratch.
 // rows: n masks of the boundary / column-chain / ring map; cz: (2, n) CZ
 // masks of the even and the odd layers.
 int tn_circuit2d_grid_forward(const float* mr_re, const float* mr_im, const float* mc_re,
                               const float* mc_im, float* probs, float* xr, float* xi,
-                              float* tmp, int n, int layers, int has_wall,
+                              float* tmp, float* mct, int n, int layers, int has_wall,
                               const unsigned* rows, const unsigned* cz, void* stream) {
   const tn::LayerMaps maps = {n, rows, cz, 2};
-  return tn::circuit_forward(mr_re, mr_im, mc_re, mc_im, probs, xr, xi, tmp, layers, has_wall,
-                             maps, static_cast<cudaStream_t>(stream));
+  return tn::circuit_forward(mr_re, mr_im, mc_re, mc_im, probs, xr, xi, tmp, mct, layers,
+                             has_wall, maps, static_cast<cudaStream_t>(stream));
 }
 
 // xr, xi, g: (R, C) inputs; dmr_*: (layers, R, R) and dmc_*: (layers, C, C)

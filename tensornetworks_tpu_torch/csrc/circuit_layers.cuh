@@ -1,7 +1,9 @@
-// Per-layer host drivers of the circuit forward and its adjoint backward,
-// shared by circuit2d.cu (n <= 17: the whole CNOT chain in the index map, CZ
-// masks per layer) and circuit2d_grid.cu (n >= 18: the row chain folded into
-// Mr, CZ masks chosen by layer parity).
+// Per-layer host launchers of the circuit forward and its adjoint backward. The
+// forward is shared by circuit2d.cu (n <= 17: the whole CNOT chain in the
+// index map, CZ masks per layer) and circuit2d_grid.cu (n >= 18: the row
+// chain folded into Mr, CZ masks chosen by layer parity); the backward here
+// serves circuit2d_grid.cu alone (the n <= 17 backward is one persistent
+// kernel, circuit2d_bwd.cuh).
 //
 // The state is the (R, C) = (2^ceil(n/2), 2^floor(n/2)) matrix X of planar
 // FP32 (re, im) planes. A layer is X <- Mr X Mc^T followed by one exact
@@ -11,6 +13,10 @@
 //
 // Forward, per layer: the left product into tmp, then the right product whose
 // epilogue scatters through the map (and writes |psi|^2 on the last layer).
+// The right product reads Mc[l] as B = Mc[l]^T, k-contiguous; given an
+// `mct` scratch, circuit_forward first writes Mc^T there (one tiled transpose of
+// all layers, both planes) and the right products read it n-contiguous (the
+// layout the large loop copies by cp.async, tn_gemm.cuh).
 // Backward, per layer in reverse: a gather undoes the map on the state and the
 // cotangent lambda = 2 g psi (four planes), one batched GEMM of two pulls both
 // back through conj(Mc), one through Mr^dagger, and two complex GEMMs form
@@ -78,21 +84,48 @@ __global__ void unpermute_kernel(const float* src, float* dst, int size, PermSpe
   for (int p = 0; p < 4; ++p) dst[p * size + i] = s * src[p * size + d];
 }
 
+// out[p][l] = in_p[l]^T for the planes p = re, im of (layers, C, C); 32x32
+// tiles through shared memory, so that reads and writes both coalesce.
+__global__ void transpose_planes_kernel(const float* re, const float* im, float* out, int C,
+                                        int layers) {
+  __shared__ float t[32][33];
+  const int z = blockIdx.z, plane = z % 2, l = z / 2;
+  const long long off = (long long)l * C * C;
+  const float* src = (plane ? im : re) + off;
+  float* dst = out + (long long)plane * layers * C * C + off;
+  int x = blockIdx.x * 32 + threadIdx.x, y = blockIdx.y * 32 + threadIdx.y;
+  for (int j = 0; j < 32; j += 8)
+    if (x < C && y + j < C) t[threadIdx.y + j][threadIdx.x] = src[(long long)(y + j) * C + x];
+  __syncthreads();
+  x = blockIdx.y * 32 + threadIdx.x;
+  y = blockIdx.x * 32 + threadIdx.y;
+  for (int j = 0; j < 32; j += 8)
+    if (x < C && y + j < C) dst[(long long)(y + j) * C + x] = t[threadIdx.x][threadIdx.y + j];
+}
+
 inline int blocks_for(int size) { return (size + 255) / 256; }
 
 }  // namespace
 
-// probs, xr, xi: (R, C) outputs; tmp: (2, R, C) scratch.
+// probs, xr, xi: (R, C) outputs; tmp: (2, R, C) scratch; mct: (2, layers, C,
+// C) scratch for Mc^T, or null to read Mc in place.
 inline cudaError_t circuit_forward(const float* mr_re, const float* mr_im, const float* mc_re,
                                    const float* mc_im, float* probs, float* xr, float* xi,
-                                   float* tmp, int layers, int has_wall, const LayerMaps& maps,
-                                   cudaStream_t st) {
+                                   float* tmp, float* mct, int layers, int has_wall,
+                                   const LayerMaps& maps, cudaStream_t st) {
   const int n = maps.n, rb = (n + 1) / 2, cb = n - rb;
   const int R = 1 << rb, C = 1 << cb, S = R * C;
   const float amp = (float)std::pow(2.0, -0.5 * n);
+  cudaError_t err;
+  if (mct) {
+    const dim3 grid((C + 31) / 32, (C + 31) / 32, 2 * layers);
+    transpose_planes_kernel<<<grid, dim3(32, 8), 0, st>>>(mc_re, mc_im, mct, C, layers);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    mc_re = mct;
+    mc_im = mct + (long long)layers * C * C;
+  }
   init_state_kernel<<<blocks_for(S), 256, 0, st>>>(xr, xi, S, amp, has_wall);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const PermSpec none = {};
   for (int l = 0; l < layers; ++l) {
     // tmp = Mr[l] X
@@ -107,7 +140,7 @@ inline cudaError_t circuit_forward(const float* mr_re, const float* mr_im, const
     GemmArgs right = gemm_args();
     right.a_re = tmp; right.a_im = tmp + S; right.a_sm = C; right.a_sk = 1;
     right.b_re = mc_re + (long long)l * C * C; right.b_im = mc_im + (long long)l * C * C;
-    right.b_sk = 1; right.b_sn = C;
+    right.b_sk = mct ? C : 1; right.b_sn = mct ? 1 : C;
     right.c_re = xr; right.c_im = xi;
     right.M = R; right.N = C; right.K = C;
     right.scatter = 1;

@@ -20,42 +20,57 @@
 //
 // Two main loops, chosen by shape in launch_gemm:
 //
-// gemm_kernel (every product with fewer than 128 tiles of 128x64, every real
-// product, and the circuit forward's scatter epilogue): BMxBN tiles of 64x64
-// or 32x32, one synchronous shared-memory stage, a 4x4 or 2x2 register tile,
-// scalar shared-memory reads. At n=20 it reached 24 TFLOP/s (36% of peak) on
-// the grid backward: no copy overlaps the FMAs, and a 4x4 complex tile makes
-// 4 FMAs per shared-memory load.
+// gemm_kernel (every product with fewer than 128 tiles of 128x64, and every
+// real product): BMxBN tiles of 64x64 or 32x32, one synchronous shared-memory
+// stage, a 4x4 or 2x2 register tile, scalar shared-memory reads. At n=20 it
+// reached 24 TFLOP/s (36% of peak) on the grid backward: no copy overlaps the
+// FMAs, and a 4x4 complex tile makes 4 FMAs per shared-memory load.
 //
-// cgemm_large_kernel (complex, non-scatter, M % 128 == 0, N % 64 == 0,
-// K % 16 == 0, at least 128 tiles: the n >= 19 circuit products): tiles of
-// 128x64x16, 256 threads with an 8x4 complex register tile each (rows
-// ty*4..+3 and 64+ty*4..+3, columns tx*4..+3), which makes 128 FMAs per six
-// float4 shared-memory reads (5.3 FMAs per loaded float). A three-stage ring
-// in dynamic shared memory (72 KB) overlaps the copy of tile k+2 with the
-// FMAs of tile k. The loader is templated on the operand's layout:
+// cgemm_large_kernel (complex, M % 128 == 0, N % 64 == 0, K % 16 == 0, at
+// least 128 tiles: the n >= 19 circuit backward and forward-left products,
+// and from n = 20 the forward's scatter product): tiles of 128x64x16, 256
+// threads with an 8x4 complex register tile each (rows ty*4..+3 and
+// 64+ty*4..+3, columns tx*4..+3), which makes 128 FMAs per six float4
+// shared-memory reads (5.3 FMAs per loaded float). A three-stage ring in
+// dynamic shared memory (72 KB) overlaps the copy of tile k+2 with the FMAs
+// of tile k. The loader is templated on the operand's layout:
 //   - m-contiguous A and n-contiguous B go by 16-byte cp.async.cg straight
 //     into the k-major tile;
 //   - k-contiguous A or B (a cp.async cannot transpose) is read as float4
 //     into registers before the FMAs of tile k and stored transposed, as
 //     four scalars, after them; lanes walk m (or n) so each store hits 32
 //     banks.
-//   | product (backward)  | A              | B              |
-//   | col pull-back       | k-contiguous   | n-contiguous   |
-//   | dMc                 | m-contiguous   | n-contiguous   |
-//   | row pull-back (Mr^H)| m-contiguous   | n-contiguous   |
-//   | dMr (x^H)           | k-contiguous   | k-contiguous   |
-// Conjugation is a compile-time sign on the imaginary plane (a negated FMA
-// operand, free). A 1024^2 output has 128 tiles of 128x64, one per SM of the
-// 132; 128x128 tiles would leave half the SMs idle on dMc and dMr, and
-// grouping dMc with the row pull-back (128 + 256 tiles) would still take
-// three waves, so neither is done. The n <= 17 products (256^2) and the
-// forward's scatter product keep the first loop and its configuration.
+//   | product                      | A              | B              |
+//   | col pull-back (backward)     | k-contiguous   | n-contiguous   |
+//   | dMc (backward)               | m-contiguous   | n-contiguous   |
+//   | row pull-back Mr^H (bwd)     | m-contiguous   | n-contiguous   |
+//   | dMr x^H (backward)           | k-contiguous   | k-contiguous   |
+//   | left Mr X (forward)          | k-contiguous   | n-contiguous   |
+//   | right X Mc^T, scatter (fwd)  | k-contiguous   | n-contiguous   |
+// The forward's right product reads B = Mc^T: the grid forward first writes
+// Mc^T into a scratch (one tiled transpose, 64 MB moved at n=20) so that B
+// is n-contiguous and goes by cp.async, with the left product's layout,
+// instead of through the transposing loader that costs the k-contiguous
+// instantiations 147-151 registers. Conjugation is a
+// compile-time sign on the imaginary plane (a negated FMA operand, free). A
+// 1024^2 output has 128 tiles of 128x64, one per SM of the 132; 128x128
+// tiles would leave half the SMs idle on dMc and dMr, and grouping dMc with
+// the row pull-back (128 + 256 tiles) would still take three waves, so
+// neither is done. The n <= 17 products (256^2) and the n = 18-19 scatter
+// products (32 and 64 tiles) keep the first loop and its configuration.
 //
-// The epilogue of gemm_kernel either stores C through its strides, or
-// (scatter mode, used by the circuit forward) sends element (m, n) -- flat
-// state index m*N + n -- to the index perm_dst(i), multiplied by the CZ sign
-// there, and optionally writes |C|^2 to `probs` at the same index.
+// Scatter epilogue (the circuit forward's right product, both loops):
+// element (m, n) -- flat state index m*N + n -- goes to the index
+// d = perm_dst(m*N + n), multiplied by the CZ sign there, and |C|^2 also goes
+// to `probs[d]` when it is given (the last layer). In the large loop the map
+// is split: N is a power of two and n < N, so m*N + n = (m*N) | n, and the
+// CNOT map is GF(2)-linear, so dst(m*N + n) = dst(m*N) ^ dst(n). A thread
+// evaluates perm_dst 8 + 4 times for its 8x4 tile, not 32 times; the sign is
+// quadratic in d and is evaluated for each element (about 2% of the tile's
+// FMAs at n=20). The stores lose their float4 form and scatter over the
+// whole state; the 8 MB state stays in the 50 MB L2 between a layer's two
+// products, so the scattered stores and the next left product's reads meet
+// in L2, not in HBM.
 
 #pragma once
 
@@ -283,9 +298,15 @@ struct Loader {
   }
 };
 
-// AK / BKC: A / B is k-contiguous; CA / CB: conjugate A / B.
-template <bool AK, bool BKC, bool CA, bool CB>
-__global__ void __launch_bounds__(THREADS) cgemm_large_kernel(GemmArgs p) {
+// AK / BKC: A / B is k-contiguous; CA / CB: conjugate A / B; SCATTER: the
+// epilogue sends each element through `spec` (batch 1), see the note above.
+// The scatter instantiation names one block per SM as its occupancy target:
+// left to its own heuristic, ptxas capped it at 128 registers and spilled 16
+// bytes, and its product ran 0.1 ms slower over the n=20 forward's four
+// (PERF.md); the other instantiations keep the target they had (0: none).
+template <bool AK, bool BKC, bool CA, bool CB, bool SCATTER>
+__global__ void __launch_bounds__(THREADS, SCATTER ? 1 : 0)
+    cgemm_large_kernel(GemmArgs p, PermSpec spec) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -360,25 +381,45 @@ __global__ void __launch_bounds__(THREADS) cgemm_large_kernel(GemmArgs p) {
     }
   }
 
-  const long long c_off = b * p.c_sb + (long long)n0 + 4 * tx;
+  if constexpr (SCATTER) {
+    unsigned dn[4];  // dst of the column part of the flat index
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
-    const long long off = c_off + (long long)m * p.c_sm;
-    *reinterpret_cast<float4*>(p.c_re + off) =
-        make_float4(acc_re[i][0], acc_re[i][1], acc_re[i][2], acc_re[i][3]);
-    *reinterpret_cast<float4*>(p.c_im + off) =
-        make_float4(acc_im[i][0], acc_im[i][1], acc_im[i][2], acc_im[i][3]);
+    for (int j = 0; j < 4; ++j) dn[j] = perm_dst(spec, (unsigned)(n0 + 4 * tx + j));
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
+      const unsigned dm = perm_dst(spec, (unsigned)m * (unsigned)p.N);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const unsigned d = dm ^ dn[j];
+        const float s = perm_sign(spec, d), vr = acc_re[i][j], vi = acc_im[i][j];
+        p.c_re[d] = s * vr;
+        p.c_im[d] = s * vi;
+        if (p.probs) p.probs[d] = vr * vr + vi * vi;
+      }
+    }
+  } else {
+    const long long c_off = b * p.c_sb + (long long)n0 + 4 * tx;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
+      const long long off = c_off + (long long)m * p.c_sm;
+      *reinterpret_cast<float4*>(p.c_re + off) =
+          make_float4(acc_re[i][0], acc_re[i][1], acc_re[i][2], acc_re[i][3]);
+      *reinterpret_cast<float4*>(p.c_im + off) =
+          make_float4(acc_im[i][0], acc_im[i][1], acc_im[i][2], acc_im[i][3]);
+    }
   }
 }
 
-template <bool AK, bool BKC, bool CA, bool CB>
-inline cudaError_t launch(const GemmArgs& p, cudaStream_t st) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      cgemm_large_kernel<AK, BKC, CA, CB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+template <bool AK, bool BKC, bool CA, bool CB, bool SCATTER = false>
+inline cudaError_t launch(const GemmArgs& p, const PermSpec& s, cudaStream_t st) {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(cgemm_large_kernel<AK, BKC, CA, CB, SCATTER>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
   if (attr != cudaSuccess) return attr;
   dim3 grid(p.N / BN, p.M / BM, p.batch);
-  cgemm_large_kernel<AK, BKC, CA, CB><<<grid, THREADS, SMEM, st>>>(p);
+  cgemm_large_kernel<AK, BKC, CA, CB, SCATTER><<<grid, THREADS, SMEM, st>>>(p, s);
   return cudaGetLastError();
 }
 
@@ -387,13 +428,14 @@ inline bool aligned16(const void* q) { return ((unsigned long long)q & 15ull) ==
 // Which instantiation of the large loop takes this product, or kNone for a
 // shape, layout or conjugation pattern it does not cover. The patterns are
 // those of the circuit drivers (circuit_layers.cuh).
-enum Pattern { kNone = -1, kColPullback, kDMc, kRowPullback, kDMr, kForwardLeft };
+enum Pattern { kNone = -1, kColPullback, kDMc, kRowPullback, kDMr, kForwardLeft,
+               kForwardScatter };
 
 inline Pattern pattern(const GemmArgs& p) {
-  if (p.scatter || p.M % BM || p.N % BN || p.K % BK) return kNone;
+  if (p.M % BM || p.N % BN || p.K % BK) return kNone;
   if ((long long)(p.M / BM) * (p.N / BN) * p.batch < 128) return kNone;
   const bool ak = p.a_sk == 1, am = p.a_sm == 1, bk = p.b_sk == 1, bn = p.b_sn == 1;
-  if (!(ak || am) || !(bk || bn) || p.c_sn != 1) return kNone;
+  if (!(ak || am) || !(bk || bn) || (p.c_sn != 1 && !p.scatter)) return kNone;
   const long long strides[] = {p.a_sb, ak ? p.a_sm : p.a_sk, p.b_sb, bk ? p.b_sn : p.b_sk,
                                p.c_sb, p.c_sm};
   for (long long s : strides)
@@ -402,6 +444,7 @@ inline Pattern pattern(const GemmArgs& p) {
   for (const void* q : ptrs)
     if (!aligned16(q)) return kNone;
   const bool ca = p.a_conj < 0, cb = p.b_conj < 0;
+  if (p.scatter) return (ak && bn && !ca && !cb && p.batch == 1) ? kForwardScatter : kNone;
   if (ak && bn && !ca && cb) return kColPullback;
   if (am && bn && !ca && cb) return kDMc;
   if (am && bn && ca && !cb) return kRowPullback;
@@ -420,11 +463,12 @@ template <bool CPLX>
 inline cudaError_t launch_gemm(const GemmArgs& p, const PermSpec& s, cudaStream_t st) {
   if constexpr (CPLX) {  // (instantiated only where complex products are launched)
     switch (large::pattern(p)) {
-      case large::kColPullback: return large::launch<true, false, false, true>(p, st);
-      case large::kDMc: return large::launch<false, false, false, true>(p, st);
-      case large::kRowPullback: return large::launch<false, false, true, false>(p, st);
-      case large::kDMr: return large::launch<true, true, false, true>(p, st);
-      case large::kForwardLeft: return large::launch<true, false, false, false>(p, st);
+      case large::kColPullback: return large::launch<true, false, false, true>(p, s, st);
+      case large::kDMc: return large::launch<false, false, false, true>(p, s, st);
+      case large::kRowPullback: return large::launch<false, false, true, false>(p, s, st);
+      case large::kDMr: return large::launch<true, true, false, true>(p, s, st);
+      case large::kForwardLeft: return large::launch<true, false, false, false>(p, s, st);
+      case large::kForwardScatter: return large::launch<true, false, false, false, true>(p, s, st);
       case large::kNone: break;
     }
   }

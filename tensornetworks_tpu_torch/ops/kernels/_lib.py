@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded through ``ctypes``. The build happens at
 first use, into ``build/tn_kernels/`` beside the package (listed in
 ``.gitignore``); the library name carries a hash of the sources and flags,
-so an edited source is never served from a stale build. ``build_all``
-starts one ``nvcc`` per source at once and waits for all of them.
+so an edited source is never served from a stale build; the compiler's
+report (``-Xptxas -v``) is kept beside it and read into ``BUILD_LOGS``
+whether the library was built now or found built. ``build_all`` starts one
+``nvcc`` per source at once and waits for all of them.
 
 Every C entry point returns ``cudaGetLastError()``; ``check`` raises on a
 non-zero code. Launch counts are plain integers kept here, one per kernel
@@ -42,11 +44,15 @@ SIGNATURES = {
         # mr_re, mr_im, mc_re, mc_im, probs, xr, xi, tmp, n, layers, has_wall, rows, cz, stream
         "tn_circuit2d_forward": [_P] * 8 + [_I] * 3 + [_P] * 3,
         # mr_re, mr_im, mc_re, mc_im, xr, xi, g, dmr_re, dmr_im, dmc_re, dmc_im,
-        # buf_a, buf_b, n, layers, rows, cz, stream
-        "tn_circuit2d_backward": [_P] * 13 + [_I] * 2 + [_P] * 3,
+        # scratch, masks (device), n, layers, stream
+        "tn_circuit2d_backward": [_P] * 13 + [_I] * 2 + [_P],
     },
-    "circuit2d_grid": {  # the same arguments; cz is (2, n), by layer parity
-        "tn_circuit2d_grid_forward": [_P] * 8 + [_I] * 3 + [_P] * 3,
+    "circuit2d_grid": {  # cz is (2, n), by layer parity
+        # mr_re, mr_im, mc_re, mc_im, probs, xr, xi, tmp, mct, n, layers, has_wall, rows, cz,
+        # stream
+        "tn_circuit2d_grid_forward": [_P] * 9 + [_I] * 3 + [_P] * 3,
+        # mr_re, mr_im, mc_re, mc_im, xr, xi, g, dmr_re, dmr_im, dmc_re, dmc_im,
+        # buf_a, buf_b, n, layers, rows, cz, stream
         "tn_circuit2d_grid_backward": [_P] * 13 + [_I] * 2 + [_P] * 3,
     },
     "stein2d": {
@@ -90,6 +96,9 @@ def _lib_path(name: str) -> Path:
 def _start_build(name: str):
     out = _lib_path(name)
     if out.exists():
+        log = out.with_suffix(".log")
+        if log.exists():  # the ptxas report of the build that made it
+            BUILD_LOGS[name] = log.read_text()
         return out, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -106,6 +115,7 @@ def _finish_build(name: str, out: Path, job) -> None:
     BUILD_LOGS[name] = log
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
 
 

@@ -2,15 +2,20 @@
 
 Replaces ``tensornetworks_tpu/ops/pallas/circuit2d.py``
 (``make_pallas_circuit2d_probs``: ``kernel``/``fwd_kernel`` and
-``bwd_kernel``) with ``csrc/circuit2d.cu``, a host driver per direction
-that launches tiled FP32 complex GEMMs for the rotations and applies each
-layer's CNOTs and CZs as one exact index map with a sign. The source note
-there gives the design; in short:
+``bwd_kernel``) with ``csrc/circuit2d.cu``: tiled FP32 complex GEMMs for the
+rotations, each layer's CNOTs and CZs as one exact index map with a sign.
+The source notes there and in ``csrc/circuit2d_bwd.cuh`` give the design; in
+short:
 
 - Bound at n=16, L=4 (R=C=256): forward 1.07 GFLOP, backward 3.22 GFLOP of
   FP32 FMA (16 µs and 48 µs at the H100's 67 TFLOP/s); a few MB moved.
-- A 512 KB state plane pair does not fit a block's shared memory, so each
-  rotation is one grid-wide GEMM launch and the state lives in L2/HBM.
+- A 512 KB state plane pair does not fit a block's shared memory, so the
+  state lives in L2. The forward is a host function that launches one
+  grid-wide GEMM per rotation; the backward is one persistent cooperative
+  kernel whose phases (unpermute, column pull-back, row pull-back, operator
+  gradients) are separated by grid-wide barriers. It raises if the device
+  refuses the cooperative launch. ``circuit2d_backward_phased_plain``
+  mirrors its phases, buffers and K-split sums for the CPU tests.
 
 Each wrapper takes the plain torch version (same algorithm: matmuls and the
 same index maps) only for CPU tensors; a CUDA tensor launches the kernel or
@@ -56,11 +61,12 @@ def cz_masks(n: int, pairs) -> np.ndarray:
     return m
 
 
-def expand_maps(rows: np.ndarray, cz: np.ndarray, device) -> tuple:
+def expand_maps(rows: np.ndarray, cz: np.ndarray, device, index=None) -> tuple:
     """(dst (2^n,) int64, sign (K, 2^n) float64) of n row masks and K rows of
-    CZ masks: the map sends flat index i to dst[i], times sign[k, i]."""
+    CZ masks: the map sends flat index i to dst[i], times sign[k, i]. With
+    ``index`` (int64 array), the same at those flat indices only."""
     n = len(rows)
-    i = np.arange(1 << n, dtype=np.int64)
+    i = np.arange(1 << n, dtype=np.int64) if index is None else np.asarray(index, np.int64)
 
     def parity(x):
         p = np.zeros_like(x)
@@ -71,7 +77,7 @@ def expand_maps(rows: np.ndarray, cz: np.ndarray, device) -> tuple:
     dst = np.zeros_like(i)
     for k in range(n):
         dst |= parity(rows[k].astype(np.int64) & i) << k
-    sign = np.ones((len(cz), 1 << n))
+    sign = np.ones((len(cz), len(i)))
     for row in range(len(cz)):
         par = np.zeros_like(i)
         for k in range(n):
@@ -91,6 +97,9 @@ class CircuitPlan:
     """
 
     name = "circuit2d"
+    # The grid forward transposes Mc into a scratch (csrc/circuit2d_grid.cu);
+    # this one reads Mc in place.
+    forward_transposes_mc = False
 
     def __init__(self, num_wires: int, layers: int, ansatz_type: str):
         n = num_wires
@@ -111,10 +120,19 @@ class CircuitPlan:
                             for layer in range(layers)])
         self._tables = {}
 
+    def device_masks(self, device) -> torch.Tensor:
+        """(1 + L, n) int32 on ``device``: ``rows``, then each layer's CZ
+        masks, the table the persistent backward kernel reads."""
+        key = ("masks", str(device))
+        if key not in self._tables:
+            masks = np.concatenate([self.rows[None], self.cz]).view(np.int32)
+            self._tables[key] = torch.as_tensor(masks, device=device)
+        return self._tables[key]
+
     def tables(self, device) -> tuple:
         """(dst (2^n,) int64, sign (L, 2^n) float64) expanded from the masks:
         the forward sends flat index i to dst[i], times sign[l, i]."""
-        key = str(device)
+        key = ("tables", str(device))
         if key not in self._tables:
             self._tables[key] = expand_maps(self.rows, self.cz, device)
         return self._tables[key]
@@ -181,6 +199,94 @@ def circuit2d_backward_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan: Circui
     return dmr_re, dmr_im, dmc_re, dmc_im
 
 
+# Tile arithmetic of the kernels, in torch/numpy for the CPU tests (nothing
+# on the main path calls these).
+
+BWD_KSPLIT, BWD_BK = 4, 16  # csrc/circuit2d_bwd.cuh: GROUPS, BK
+
+
+def _ksplit_cmm(a_re, a_im, b_re, b_im):
+    """Complex product on planes, summed as the persistent backward sums it:
+    K cut into ``BWD_KSPLIT`` ranges of whole ``BWD_BK``-deep steps (the last
+    ones may be empty), each range's partial product added in range order."""
+    K = a_re.shape[-1]
+    steps = -(-K // BWD_BK)
+    per = -(-steps // BWD_KSPLIT) * BWD_BK  # k of each range
+    out_re = out_im = None
+    for g in range(BWD_KSPLIT):
+        lo, hi = min(K, g * per), min(K, (g + 1) * per)
+        pr, pi = _cmm(a_re[..., lo:hi], a_im[..., lo:hi], b_re[..., lo:hi, :], b_im[..., lo:hi, :])
+        out_re, out_im = (pr, pi) if out_re is None else (out_re + pr, out_im + pi)
+    return out_re, out_im
+
+
+def circuit2d_backward_phased_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan: CircuitPlan):
+    """The persistent backward kernel's phase plan in torch: the same four
+    (4, R, C) buffers U[0], U[1], V, W of one scratch, the same phases and
+    K-split sums (``csrc/circuit2d_bwd.cuh``). Each phase fills the buffers
+    it writes with NaN before it reads anything, so a phase that read what
+    it writes — a race in the kernel — shows as NaN here. Returns what
+    ``circuit2d_backward_plain`` returns."""
+    R, C, L, dt, dev = plan.R, plan.C, plan.layers, mr_re.dtype, mr_re.device
+    dst, sign = plan.tables(dev)
+    scratch = torch.empty((4, 4, R, C), dtype=dt, device=dev)
+    U, V, W = (scratch[0], scratch[1]), scratch[2], scratch[3]
+    dmr_re, dmr_im = torch.empty_like(mr_re), torch.empty_like(mr_im)
+    dmc_re, dmc_im = torch.empty_like(mc_re), torch.empty_like(mc_im)
+
+    def grads(layer):  # dMr = λ_V·x_Wᴴ, dMc = λ_Uᵀ·conj(x_V)
+        u = U[layer % 2]
+        dmr_re[layer], dmr_im[layer] = _ksplit_cmm(V[2], V[3], W[0].T, -W[1].T)
+        dmc_re[layer], dmc_im[layer] = _ksplit_cmm(u[2].T, u[3].T, V[0], -V[1])
+
+    scratch.fill_(float("nan"))
+    src = torch.stack([xr, xi, 2.0 * g * xr, 2.0 * g * xi])
+    for layer in range(L - 1, -1, -1):
+        u = U[layer % 2]
+        # φ1: the previous layer's grads; undo the map and signs into U[l % 2]
+        u.fill_(float("nan"))
+        if layer < L - 1:
+            grads(layer + 1)
+        u.copy_((sign[layer].to(dt) * src.reshape(4, -1)[:, dst]).reshape(4, R, C))
+        # φ2: V = U·conj(Mc[l]), state (planes 0-1) and cotangent (2-3)
+        V.fill_(float("nan"))
+        for h in (0, 2):
+            V[h], V[h + 1] = _ksplit_cmm(u[h], u[h + 1], mc_re[layer], -mc_im[layer])
+        # φ3: W = Mr[l]ᴴ·V
+        W.fill_(float("nan"))
+        for h in (0, 2):
+            W[h], W[h + 1] = _ksplit_cmm(mr_re[layer].T, -mr_im[layer].T, V[h], V[h + 1])
+        src = W
+    grads(0)
+    return dmr_re, dmr_im, dmc_re, dmc_im
+
+
+def scatter_targets(rows, cz, m, n, N):
+    """(d, sign) of the scatter epilogue at outputs (m, n) of an (M, N)
+    product (int64 arrays of the same shape), evaluated as the large GEMM
+    loop evaluates them: ``d = dst(m·N) ⊕ dst(n)`` — N is a power of two
+    above n, so m·N + n = (m·N) | n, and the CNOT map is GF(2)-linear — and
+    the CZ sign of the masks ``cz`` (n,) at d."""
+    nbits = len(rows)
+
+    def parity(x):
+        p = np.zeros_like(x)
+        for k in range(64):
+            if not (x >> k).any():
+                break
+            p ^= (x >> k) & 1
+        return p
+
+    def dst(i):
+        return sum(parity(int(rows[k]) & i) << k for k in range(nbits))
+
+    d = dst(np.asarray(m, dtype=np.int64) * N) ^ dst(np.asarray(n, dtype=np.int64))
+    par = np.zeros_like(d)
+    for k in range(nbits):
+        par ^= ((d >> k) & 1) & parity(d & int(cz[k]))
+    return d, 1.0 - 2.0 * par
+
+
 # --------------------------------------------------------------------- wrappers
 
 
@@ -206,23 +312,47 @@ def _masks(plan):
 
 
 def launch_forward(plan, counter: str, mr_re, mr_im, mc_re, mc_im):
-    """probs, xr, xi from ``csrc/<plan.name>.cu``'s forward entry point."""
+    """probs, xr, xi from ``csrc/<plan.name>.cu``'s forward entry point
+    (with a (2, L, C, C) scratch for Mcᵀ where ``plan.forward_transposes_mc``)."""
     _check(plan, mr_re=mr_re, mr_im=mr_im, mc_re=mc_re, mc_im=mc_im)
     fn = getattr(_lib.load(plan.name), f"tn_{plan.name}_forward")
     probs = torch.empty((plan.R, plan.C), dtype=torch.float32, device=mr_re.device)
     xr, xi = torch.empty_like(probs), torch.empty_like(probs)
-    tmp = torch.empty((2, plan.R, plan.C), dtype=torch.float32, device=mr_re.device)
+    scratch = [torch.empty((2, plan.R, plan.C), dtype=torch.float32, device=mr_re.device)]
+    if plan.forward_transposes_mc:
+        scratch.append(torch.empty((2, plan.layers, plan.C, plan.C), dtype=torch.float32,
+                                   device=mr_re.device))
     _lib.count_launch(counter)
     err = fn(_lib.ptr(mr_re), _lib.ptr(mr_im), _lib.ptr(mc_re), _lib.ptr(mc_im),
-             _lib.ptr(probs), _lib.ptr(xr), _lib.ptr(xi), _lib.ptr(tmp),
+             _lib.ptr(probs), _lib.ptr(xr), _lib.ptr(xi), *map(_lib.ptr, scratch),
              plan.n, plan.layers, int(plan.has_wall), *_masks(plan),
              _lib.stream_ptr(mr_re.device))
     _lib.check(err, f"tn_{plan.name}_forward")
     return probs, xr, xi
 
 
+def launch_backward_persistent(plan: CircuitPlan, mr_re, mr_im, mc_re, mc_im, xr, xi, g):
+    """dMr_re, dMr_im, dMc_re, dMc_im from ``csrc/circuit2d.cu``'s backward:
+    one cooperative launch, which raises if the device refuses it."""
+    _check(plan, mr_re=mr_re, mr_im=mr_im, mc_re=mc_re, mc_im=mc_im, x_r=xr, x_i=xi, x_g=g)
+    fn = _lib.load(plan.name).tn_circuit2d_backward
+    dmr_re, dmr_im = torch.empty_like(mr_re), torch.empty_like(mr_im)
+    dmc_re, dmc_im = torch.empty_like(mc_re), torch.empty_like(mc_im)
+    scratch = torch.empty((4, 4, plan.R, plan.C), dtype=torch.float32, device=mr_re.device)
+    masks = plan.device_masks(mr_re.device)
+    _lib.count_launch("circuit2d_bwd")
+    err = fn(_lib.ptr(mr_re), _lib.ptr(mr_im), _lib.ptr(mc_re), _lib.ptr(mc_im),
+             _lib.ptr(xr), _lib.ptr(xi), _lib.ptr(g),
+             _lib.ptr(dmr_re), _lib.ptr(dmr_im), _lib.ptr(dmc_re), _lib.ptr(dmc_im),
+             _lib.ptr(scratch), _lib.ptr(masks), plan.n, plan.layers,
+             _lib.stream_ptr(mr_re.device))
+    _lib.check(err, "tn_circuit2d_backward (cooperative launch)")
+    return dmr_re, dmr_im, dmc_re, dmc_im
+
+
 def launch_backward(plan, counter: str, mr_re, mr_im, mc_re, mc_im, xr, xi, g):
-    """dMr_re, dMr_im, dMc_re, dMc_im from ``csrc/<plan.name>.cu``'s backward."""
+    """dMr_re, dMr_im, dMc_re, dMc_im from ``csrc/<plan.name>.cu``'s backward
+    host launcher (the grid kernels)."""
     _check(plan, mr_re=mr_re, mr_im=mr_im, mc_re=mc_re, mc_im=mc_im, x_r=xr, x_i=xi, x_g=g)
     fn = getattr(_lib.load(plan.name), f"tn_{plan.name}_backward")
     dmr_re, dmr_im = torch.empty_like(mr_re), torch.empty_like(mr_im)
@@ -250,7 +380,7 @@ def circuit2d_backward(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan: CircuitPlan)
     """dMr_re, dMr_im, dMc_re, dMc_im for the cotangent g of the probs."""
     if mr_re.device.type == "cpu":
         return circuit2d_backward_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan)
-    return launch_backward(plan, "circuit2d_bwd", mr_re, mr_im, mc_re, mc_im, xr, xi, g)
+    return launch_backward_persistent(plan, mr_re, mr_im, mc_re, mc_im, xr, xi, g)
 
 
 class Circuit2dFunction(torch.autograd.Function):

@@ -67,6 +67,10 @@ class GridPlan:
     """
 
     name = "circuit2d_grid"
+    # The forward's right product reads B = Mcᵀ n-contiguous, so that from
+    # n = 20 it streams by cp.async in the large GEMM loop: the forward first
+    # transposes Mc into a scratch the wrapper passes (csrc/circuit2d_grid.cu).
+    forward_transposes_mc = True
 
     def __init__(self, num_wires: int, layers: int, ansatz_type: str):
         n = num_wires
