@@ -12,15 +12,18 @@ Phases (any failure exits non-zero):
    (where one exists) a single PyTorch library call computing the same
    function: circuit2d and stein2d at 16 qubits (hardware_efficient, L=4),
    circuit2d_grid and stein2d_grid at 20 qubits, and both again, untimed,
-   at other shapes (circuit2d at n=3, ragged tiles, and n=15 and 17, odd
-   with R != C, 17 the largest the persistent backward takes;
-   circuit2d_grid and stein2d_grid at n=18, the fewest tiles, and n=19,
-   where R != C; circuit2d_grid at n=21, where the forward's scatter
-   product takes the large GEMM loop with R != C). stein2d_grid is also
-   held against a float64 evaluation. The large GEMM loop, the butterfly
-   and the persistent backward must show no spills in the ptxas report;
-   the registers of the persistent backward and of the large loop's
-   scatter instantiation are printed on a line of their own.
+   at other shapes (circuit2d at n=2 and 3, ragged tiles, n=15 and 17, odd
+   with R != C, 17 the largest the persistent kernels take, and n=5 with
+   the basic ansatz, which has no Hadamard wall; stein2d at n=3 and 8 on
+   random columns, the sizes below the Kronecker path, at n=13, several
+   columns to a thread block, n=14, one, and n=15 and 17, clusters of two
+   and eight blocks; circuit2d_grid and stein2d_grid at n=18, the fewest
+   tiles, and n=19, where R != C; circuit2d_grid at n=21, where the
+   forward's scatter product takes the large GEMM loop with R != C). Both
+   stein2d kernels are also held against a float64 evaluation. The large
+   GEMM loop, both butterflies and both persistent circuit kernels must
+   show no spills in the ptxas report; the registers of the redesigned
+   kernels are printed on a line of their own.
 4. Drive the main path: exact quantum KSD-VI on the 16-qubit workload of
    ``bench.py`` (random chain network of 17 variables, seed 0, V16=1
    observed) through ``QuantumKSDVariationalInference.train``.
@@ -49,9 +52,14 @@ import time
 # cores, and HBM3 bandwidth. The port runs FP32 FMA only (no TF32).
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# Device clock cycles of sleep queued ahead of each timed call (~0.1 ms at
+# the H100's 1.98 GHz boost clock), see time_ms.
+SLEEP_CYCLES_PER_CALL = 200_000
 
 N, LAYERS, ANSATZ = 16, 4, "hardware_efficient"
-N_RAGGED, N_ODD, N_MAX = 3, 15, 17
+N_MIN, N_RAGGED, N_ODD, N_MAX, N_NO_WALL = 2, 3, 15, 17, 5
+N_STEIN = (13, 14, 15, 17)  # stein2d: several columns a block, one, clusters of 2 and 8
+N_STEIN_RANDOM = (3, 8)     # stein2d below the Kronecker path (SteinOperator dense=False)
 MAIN_EPOCHS = 300
 N_GRID, N_GRID_ODD, N_GRID_MIN, N_GRID_WIDE = 20, 19, 18, 21
 SCALE_EPOCHS, SCALE_CHUNK = 60, 20
@@ -68,7 +76,7 @@ SPRINKLER_TVD_MAX = 0.01
 # FMA stages per element at n=20, each rounding once (2^-24 relative), so
 # its error is about 20 x 6e-8 = 1.2e-6 of the magnitudes it sums, inside
 # 1e-5 of the largest result against the FP32 plain version and against
-# float64 alike.
+# float64 alike; stein2d is the same butterfly, at most 17 stages deep.
 TOL = {"circuit2d_fwd": 1e-5, "circuit2d_bwd": 1e-4, "stein2d": 1e-5,
        "circuit2d_grid_fwd": 2e-5, "circuit2d_grid_bwd": 2e-4, "stein2d_grid": 1e-5}
 
@@ -104,9 +112,15 @@ def require(cond, msg):
         raise PhaseError(msg)
 
 
-def time_ms(fn, reps=20, rounds=5):
-    """Median over rounds of the mean per-call time of ``reps`` calls, by
-    CUDA events, after a warm-up call."""
+def time_ms(fn, reps=20, rounds=5, queued=True):
+    """Median over rounds of the mean per-call device time of ``reps``
+    calls, by CUDA events, after a warm-up call. Each round first queues a
+    sleep on the stream (about 0.1 ms a call) for the host to enqueue the
+    calls behind, so that the events time them back to back on the device
+    and not at the host's enqueue rate: a call through Python and ctypes
+    costs the host tens of µs, as much as the smallest kernels take. With
+    ``queued=False`` there is no sleep, and a call faster than its host
+    cost reads as that cost (``time_tree.py`` compares the two)."""
     import torch
 
     fn()
@@ -114,6 +128,8 @@ def time_ms(fn, reps=20, rounds=5):
     times = []
     for _ in range(rounds):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * reps)
         start.record()
         for _ in range(reps):
             fn()
@@ -147,7 +163,7 @@ def circuit_bounds(R, C, L):
             bound(24 * L * dense, 4 * (4 * L * R * R + 4 * L * C * C + 3 * R * C)))
 
 
-def check_circuit(n, device, timing, grid=False):
+def check_circuit(n, device, timing, grid=False, ansatz=ANSATZ):
     """A circuit kernel pair (circuit2d, or circuit2d_grid with ``grid``)
     against its plain version, and the θ-gradient through the model against
     plain autograd."""
@@ -155,15 +171,16 @@ def check_circuit(n, device, timing, grid=False):
     from tensornetworks_tpu_torch.models import QuantumBornMachine
     from tensornetworks_tpu_torch.ops.kernels import circuit2d as kc
     from tensornetworks_tpu_torch.ops.kernels import circuit2d_grid as kg
+    from tensornetworks_tpu_torch.sim.ansatz import num_ansatz_params
     from tensornetworks_tpu_torch.sim.gates import rotation_operators
 
     if grid:
-        name, plan = "circuit2d_grid", kg.GridPlan(n, LAYERS, ANSATZ)
+        name, plan = "circuit2d_grid", kg.GridPlan(n, LAYERS, ansatz)
         fwd, bwd = kg.circuit2d_grid_forward, kg.circuit2d_grid_backward
         fwd_p, bwd_p = kg.circuit2d_grid_forward_plain, kg.circuit2d_grid_backward_plain
         operators = lambda th: kg.grid_operators(th, plan)  # noqa: E731
     else:
-        name, plan = "circuit2d", kc.CircuitPlan(n, LAYERS, ANSATZ)
+        name, plan = "circuit2d", kc.CircuitPlan(n, LAYERS, ansatz)
         fwd, bwd = kc.circuit2d_forward, kc.circuit2d_backward
         fwd_p, bwd_p = kc.circuit2d_forward_plain, kc.circuit2d_backward_plain
 
@@ -172,16 +189,17 @@ def check_circuit(n, device, timing, grid=False):
             return [t.contiguous() for t in (Mr.real, Mr.imag, Mc.real, Mc.imag)]
 
     gen = torch.Generator().manual_seed(n)
-    theta = (0.1 * torch.randn(3 * LAYERS * n, generator=gen)).to(device)
+    theta = (0.1 * torch.randn(num_ansatz_params(n, LAYERS, ansatz), generator=gen)).to(device)
     planes = operators(theta)
     out_k = fwd(*planes, plan)
     out_p = fwd_p(*planes, plan)
     torch.cuda.synchronize()
     fwd_err = max(rel_err(a, b) for a, b in zip(out_k, out_p))
     abs_fwd = float((out_k[0] - out_p[0]).abs().max())
-    require(all(bool(torch.isfinite(t).all()) for t in out_k), f"{name} n={n}: forward not finite")
-    require(abs(float(out_k[0].sum()) - 1.0) < 1e-4, f"{name} n={n}: probs do not sum to 1")
-    require(fwd_err <= TOL[f"{name}_fwd"], f"{name} n={n}: forward rel err {fwd_err:.3e}")
+    what = f"{name} n={n} {ansatz}"
+    require(all(bool(torch.isfinite(t).all()) for t in out_k), f"{what}: forward not finite")
+    require(abs(float(out_k[0].sum()) - 1.0) < 1e-4, f"{what}: probs do not sum to 1")
+    require(fwd_err <= TOL[f"{name}_fwd"], f"{what}: forward rel err {fwd_err:.3e}")
 
     g = torch.randn((plan.R, plan.C), generator=gen).to(device) * plan.R * plan.C
     grads_k = bwd(*planes, out_k[1], out_k[2], g, plan)
@@ -189,7 +207,7 @@ def check_circuit(n, device, timing, grid=False):
     torch.cuda.synchronize()
     bwd_err = max(rel_err(a, b) for a, b in zip(grads_k, grads_p))
     abs_bwd = max(float((a - b).abs().max()) for a, b in zip(grads_k, grads_p))
-    require(bwd_err <= TOL[f"{name}_bwd"], f"{name} n={n}: backward rel err {bwd_err:.3e}")
+    require(bwd_err <= TOL[f"{name}_bwd"], f"{what}: backward rel err {bwd_err:.3e}")
 
     # θ-gradients through the model: the kernel Function against plain
     # autograd on the card (through the blocked2d matmul form for circuit2d,
@@ -202,12 +220,12 @@ def check_circuit(n, device, timing, grid=False):
             probs = fwd_p(*operators(p), plan)[0].reshape(-1)
         else:
             backend = "blocked2d" if plain else name
-            probs = QuantumBornMachine(n, LAYERS, ANSATZ, backend=backend, device=device).probs(p)
+            probs = QuantumBornMachine(n, LAYERS, ansatz, backend=backend, device=device).probs(p)
         (probs @ v).backward()
         th_grads.append(p.grad)
     theta_err = rel_err(*th_grads)
-    require(theta_err <= TOL[f"{name}_bwd"], f"{name} n={n}: θ-gradient rel err {theta_err:.3e}")
-    print(f"{name} n={n}: fwd rel {fwd_err:.2e} (abs {abs_fwd:.2e}), bwd rel {bwd_err:.2e} "
+    require(theta_err <= TOL[f"{name}_bwd"], f"{what}: θ-gradient rel err {theta_err:.3e}")
+    print(f"{what}: fwd rel {fwd_err:.2e} (abs {abs_fwd:.2e}), bwd rel {bwd_err:.2e} "
           f"(abs {abs_bwd:.2e}), θ-grad rel {theta_err:.2e}", flush=True)
     if not timing:
         return []
@@ -230,12 +248,45 @@ def stein_bound(cols, n):
     return bound(2 * cols * n * 2**n, 2 * 4 * cols * 2**n)
 
 
+def check_stein_result(name, n, a, V, y_k):
+    """A stein2d kernel's result y_k on V against the plain version in FP32
+    and in float64. Returns (max abs error, rel error) against FP32."""
+    import torch
+    from tensornetworks_tpu_torch.ops.kernels.stein2d import kron_factors, stein2d_apply_plain
+
+    _, R, C = V.shape
+    y_p = stein2d_apply_plain(*kron_factors(a, R, C, torch.float32, V.device), V)
+    y64 = stein2d_apply_plain(*kron_factors(a, R, C, torch.float64, V.device), V.double())
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(y_k).all()), f"{name} n={n}: not finite")
+    err, err64 = rel_err(y_k, y_p), rel_err(y_k.double(), y64)
+    abs_err = float((y_k - y_p).abs().max())
+    require(err <= TOL[name], f"{name} n={n}: rel err {err:.3e}")
+    require(err64 <= TOL[name], f"{name} n={n}: rel err {err64:.3e} against float64")
+    print(f"{name} n={n}: {V.shape[0]} blocks, rel {err:.2e} (abs {abs_err:.2e}), "
+          f"against float64 rel {err64:.2e}", flush=True)
+    return abs_err, err
+
+
+def check_stein2d_random(n, device):
+    """stein2d on random columns at an n below the Kronecker path, which
+    SteinOperator(dense=False) hands it."""
+    import torch
+    from tensornetworks_tpu_torch.ops.hamming import decay_factor
+    from tensornetworks_tpu_torch.ops.kernels.stein2d import stein2d_apply
+
+    rb = (n + 1) // 2
+    gen = torch.Generator().manual_seed(n)
+    V = torch.randn((3 * n + 1, 1 << rb, 1 << (n - rb)), generator=gen).to(device)
+    a = decay_factor(n, 1.0)
+    check_stein_result("stein2d", n, a, V, stein2d_apply(a, V))
+
+
 def check_stein2d(n, device, timing=True):
     """The path's stein2d kernel (stein2d at n ≤ 17, stein2d_grid above)
-    against its plain version, on the path's columns: its Stein operator at
-    the length scale the path uses, applied to the Born machine's initial q.
-    stein2d_grid is also held against a float64 evaluation of the plain
-    version."""
+    against its plain version in FP32 and float64, on the path's columns:
+    its Stein operator at the length scale the path uses, applied to the
+    Born machine's initial q."""
     import torch
     from tensornetworks_tpu_torch.models import QuantumBornMachine
     from tensornetworks_tpu_torch.ops import stein
@@ -252,22 +303,10 @@ def check_stein2d(n, device, timing=True):
         q = qbm.probs(qbm.init(torch.Generator().manual_seed(0)))
     V = (op._Vw * q).reshape(-1, op._R, op._C)
     cols, R, C = V.shape
-    Ar, Ac = kron_factors(op._a, R, C, torch.float32, device)
-    y_k, y_p = op.kron_apply(V), stein2d_apply_plain(Ar, Ac, V)
-    torch.cuda.synchronize()
-    err = rel_err(y_k, y_p)
-    abs_err = float((y_k - y_p).abs().max())
-    require(err <= TOL[name], f"{name} n={n}: rel err {err:.3e}")
-    msg = f"{name} n={n}: {cols} blocks, rel {err:.2e} (abs {abs_err:.2e})"
-    if op._grid:
-        y64 = stein2d_apply_plain(*kron_factors(op._a, R, C, torch.float64, device), V.double())
-        err64 = rel_err(y_k.double(), y64)
-        require(err64 <= TOL[name], f"{name} n={n}: rel err {err64:.3e} against float64")
-        msg += f", against float64 rel {err64:.2e}"
-        del y64
-    print(msg, flush=True)
+    abs_err, err = check_stein_result(name, n, op._a, V, op.kron_apply(V))
     if not timing:
         return []
+    Ar, Ac = kron_factors(op._a, R, C, torch.float32, device)
     b = stein_bound(cols, n)
     return [dict(name=name, max_abs_err=abs_err, rel_err=err,
                  ms=time_ms(lambda: op.kron_apply(V)),
@@ -277,13 +316,17 @@ def check_stein2d(n, device, timing=True):
 
 
 # Mangled-name parts of the kernels whose registers are printed on a line of
-# their own: the persistent n <= 17 backward, and the large GEMM loop's
-# scatter instantiation (<AK, BKC, CA, CB, SCATTER> = <1, 0, 0, 0, 1>).
-NEW_KERNELS = {"circuit2d_bwd_kernel": "circuit2d_bwd_kernel",
+# their own: the persistent n <= 17 forward and backward, the n <= 17
+# cluster butterfly, and the large GEMM loop's scatter instantiation
+# (<AK, BKC, CA, CB, SCATTER> = <1, 0, 0, 0, 1>).
+NEW_KERNELS = {"circuit2d_fwd_kernel": "circuit2d_fwd_kernel",
+               "circuit2d_bwd_kernel": "circuit2d_bwd_kernel",
+               "cluster_butterfly_kernel": "cluster_butterfly_kernel",
                "cgemm_large_kernelILb1ELb0ELb0ELb0ELb1EE": "cgemm_large_kernel<scatter>"}
 
 
 def check_spills(logs, kernels=("cgemm_large_kernel", "butterfly_pass_kernel",
+                                "cluster_butterfly_kernel", "circuit2d_fwd_kernel",
                                 "circuit2d_bwd_kernel")):
     """Print registers and spills of every compiled function from the ptxas
     reports; the named kernels must spill nothing. Returns the registers of
@@ -462,8 +505,13 @@ def main() -> int:
     from tensornetworks_tpu_torch.ops.kernels import _lib
     print_new_registers(check_spills(_lib.BUILD_LOGS))
 
-    for n in (N_RAGGED, N_ODD, N_MAX):  # ragged tiles (R=4, C=2); odd, R != C
+    for n in (N_MIN, N_RAGGED, N_ODD, N_MAX):  # ragged tiles (R=4, C=2); odd, R != C
         check_circuit(n, device, timing=False)
+    check_circuit(N_NO_WALL, device, timing=False, ansatz="basic")  # no Hadamard wall
+    for n in N_STEIN_RANDOM:
+        check_stein2d_random(n, device)
+    for n in N_STEIN:
+        check_stein2d(n, device, timing=False)
     for n in (N_GRID_MIN, N_GRID_ODD):  # fewest tiles; R != C, both GEMM loops
         check_circuit(n, device, timing=False, grid=True)
         check_stein2d(n, device, timing=False)

@@ -18,43 +18,48 @@
 // index map, and the CZ gates into one sign evaluated at the destination.
 // The TPU kernel ran the boundary and ring CNOTs as H.mask.H matmuls; the
 // index map computes the same function exactly and with no arithmetic.
-// - The forward is a host function that issues a short sequence of launches on
-//   the caller's stream (circuit_layers.cuh, shared with circuit2d_grid.cu):
-//   per layer the left GEMM, then the right GEMM whose epilogue applies the
-//   map (a scatter) and writes |psi|^2 on the last layer.
-// - The backward is one persistent cooperative kernel (circuit2d_bwd.cuh):
-//   it undoes the map on the state and the cotangent, pulls both back
-//   through the conjugate rotations and forms the per-layer operator
-//   gradients, phase by phase, with grid-wide barriers between the phases.
+// Both directions are one persistent cooperative kernel each (one block per
+// SM, phases separated by grid-wide barriers, the work units of
+// circuit_units.cuh):
+// - the forward (circuit2d_fwd.cuh) computes Mr[0] X0 in closed form, then
+//   per layer the right product whose store scatters through the map (and
+//   writes |psi|^2 on the last layer), and the next layer's left product;
+// - the backward (circuit2d_bwd.cuh) undoes the map on the state and the
+//   cotangent, pulls both back through the conjugate rotations and forms the
+//   per-layer operator gradients.
 //
 // Bound at n=16, L=4 (R=C=256), as the dense products it performs:
 //   forward : 8 L (R^2 C + R C^2) = 1.07 GFLOP FP32, ~4.8 MB moved
 //   backward: 24 L (R^2 C + R C^2) = 3.22 GFLOP FP32, ~8.9 MB moved
 // Both are bound by FP32 FMA throughput (67 TFLOP/s on the H100 SXM: 16 us
-// and 48 us). At these sizes a single product is about 3 us of work, so a
+// and 48 us). At these sizes a single product is 2-3 us of work, so a
 // sequence of launches is bound by launch latency and occupancy, not by the
-// FMA units (see PERF.md): the reason the backward is one launch.
+// FMA units (see PERF.md): the reason each direction is one launch.
+
+#include <cmath>
 
 #include "circuit2d_bwd.cuh"
-#include "circuit_layers.cuh"
+#include "circuit2d_fwd.cuh"
 
 extern "C" {
 
-// probs, xr, xi: (R, C) outputs; tmp: (2, R, C) scratch.
-// rows: n masks of the chain map; cz: (layers, n) CZ masks (host arrays).
+// probs, xr, xi: (R, C) outputs; tmp: (2, R, C) scratch; masks: (1 +
+// layers, n) on the device, the chain map's row masks and then each layer's
+// CZ masks. Returns the launch's error: a device that cannot run the
+// cooperative launch refuses it.
 int tn_circuit2d_forward(const float* mr_re, const float* mr_im, const float* mc_re,
                          const float* mc_im, float* probs, float* xr, float* xi, float* tmp,
-                         int n, int layers, int has_wall, const unsigned* rows,
-                         const unsigned* cz, void* stream) {
-  const tn::LayerMaps maps = {n, rows, cz, layers};
-  return tn::circuit_forward(mr_re, mr_im, mc_re, mc_im, probs, xr, xi, tmp, nullptr, layers,
-                             has_wall, maps, static_cast<cudaStream_t>(stream));
+                         const unsigned* masks, int n, int layers, int has_wall, void* stream) {
+  if (n < 2 || n > 17 || layers < 1) return (int)cudaErrorInvalidValue;
+  const tn::fwd::Args a = {mr_re, mr_im, mc_re, mc_im, probs, xr, xi, tmp, masks,
+                           n, layers, has_wall, (float)std::pow(2.0, -0.5 * n)};
+  return tn::fwd::circuit_forward_persistent(a, static_cast<cudaStream_t>(stream));
 }
 
 // xr, xi, g: (R, C) inputs; dmr_*: (layers, R, R) and dmc_*: (layers, C, C)
-// outputs; scratch: (4, 4, R, C); masks: (1 + layers, n) on the device, the
-// chain map's row masks and then each layer's CZ masks. Returns the launch's
-// error: a device that cannot run the cooperative launch refuses it.
+// outputs; scratch: (4, 4, R, C); masks: as the forward's. Returns the
+// launch's error: a device that cannot run the cooperative launch refuses
+// it.
 int tn_circuit2d_backward(const float* mr_re, const float* mr_im, const float* mc_re,
                           const float* mc_im, const float* xr, const float* xi,
                           const float* g, float* dmr_re, float* dmr_im, float* dmc_re,

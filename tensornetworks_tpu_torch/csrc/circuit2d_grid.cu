@@ -8,8 +8,8 @@
 // What the TPU design was for, and what stands in its place here:
 // - The TPU made the layer loop its grid so that one Mosaic program held one
 //   layer and the (R, C) state stayed in VMEM between steps. On the H100 each
-//   rotation is already one grid-wide GEMM launch (circuit_layers.cuh, shared
-//   with circuit2d.cu), and the layer loop is a loop of launches on the host.
+//   rotation is already one grid-wide GEMM launch (circuit_layers.cuh), and
+//   the layer loop is a loop of launches on the host.
 //   At n=20 (R=C=1024) one plane pair is 8 MB and the left product's
 //   scratch another 8 MB: both stay in the 50 MB L2 between a layer's
 //   launches, while each layer's operators (P_row Mr and Mc, 8 MB) stream
@@ -38,9 +38,9 @@
 // dst(m*N) ^ dst(n), the sign per element, scalar stores into the
 // L2-resident state). The forward first transposes Mc into a scratch the
 // wrapper passes (64 MB moved at n=20), so that the right product's B is
-// n-contiguous and streams by cp.async like the left product's. The n=18 products and the n=19 scatter
-// product (32 and 64 tiles) keep the 64x64 or 32x32 configuration of the
-// first loop.
+// n-contiguous and streams by cp.async like the left product's. The n=18
+// products and the n=19 scatter product (32 and 64 tiles) keep the 64x64 or
+// 32x32 configuration of the first loop.
 
 #include "circuit_layers.cuh"
 

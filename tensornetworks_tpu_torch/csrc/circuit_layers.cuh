@@ -1,22 +1,19 @@
-// Per-layer host launchers of the circuit forward and its adjoint backward. The
-// forward is shared by circuit2d.cu (n <= 17: the whole CNOT chain in the
-// index map, CZ masks per layer) and circuit2d_grid.cu (n >= 18: the row
-// chain folded into Mr, CZ masks chosen by layer parity); the backward here
-// serves circuit2d_grid.cu alone (the n <= 17 backward is one persistent
-// kernel, circuit2d_bwd.cuh).
+// Per-layer host launchers of the circuit forward and its adjoint backward.
+// Both serve circuit2d_grid.cu alone (n >= 18: the row chain folded into Mr,
+// CZ masks chosen by layer parity); the n <= 17 forward and backward are one
+// persistent cooperative kernel each (circuit2d_fwd.cuh, circuit2d_bwd.cuh).
 //
 // The state is the (R, C) = (2^ceil(n/2), 2^floor(n/2)) matrix X of planar
 // FP32 (re, im) planes. A layer is X <- Mr X Mc^T followed by one exact
-// GF(2)-linear index map with a CZ sign (tn_gemm.cuh PermSpec). Each driver
-// issues a short sequence of launches on the caller's stream and allocates
-// nothing: the caller passes the outputs and the scratch.
+// GF(2)-linear index map with a CZ sign (layer_map.cuh PermSpec). Each
+// launcher issues a short sequence of launches on the caller's stream and
+// allocates nothing: the caller passes the outputs and the scratch.
 //
 // Forward, per layer: the left product into tmp, then the right product whose
 // epilogue scatters through the map (and writes |psi|^2 on the last layer).
-// The right product reads Mc[l] as B = Mc[l]^T, k-contiguous; given an
-// `mct` scratch, circuit_forward first writes Mc^T there (one tiled transpose of
-// all layers, both planes) and the right products read it n-contiguous (the
-// layout the large loop copies by cp.async, tn_gemm.cuh).
+// circuit_forward first writes Mc^T into the `mct` scratch (one tiled transpose
+// of all layers, both planes), so that the right products read B = Mc[l]^T
+// n-contiguous (the layout the large loop copies by cp.async, tn_gemm.cuh).
 // Backward, per layer in reverse: a gather undoes the map on the state and the
 // cotangent lambda = 2 g psi (four planes), one batched GEMM of two pulls both
 // back through conj(Mc), one through Mr^dagger, and two complex GEMMs form
@@ -108,7 +105,7 @@ inline int blocks_for(int size) { return (size + 255) / 256; }
 }  // namespace
 
 // probs, xr, xi: (R, C) outputs; tmp: (2, R, C) scratch; mct: (2, layers, C,
-// C) scratch for Mc^T, or null to read Mc in place.
+// C) scratch for Mc^T.
 inline cudaError_t circuit_forward(const float* mr_re, const float* mr_im, const float* mc_re,
                                    const float* mc_im, float* probs, float* xr, float* xi,
                                    float* tmp, float* mct, int layers, int has_wall,
@@ -117,13 +114,11 @@ inline cudaError_t circuit_forward(const float* mr_re, const float* mr_im, const
   const int R = 1 << rb, C = 1 << cb, S = R * C;
   const float amp = (float)std::pow(2.0, -0.5 * n);
   cudaError_t err;
-  if (mct) {
-    const dim3 grid((C + 31) / 32, (C + 31) / 32, 2 * layers);
-    transpose_planes_kernel<<<grid, dim3(32, 8), 0, st>>>(mc_re, mc_im, mct, C, layers);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    mc_re = mct;
-    mc_im = mct + (long long)layers * C * C;
-  }
+  const dim3 tgrid((C + 31) / 32, (C + 31) / 32, 2 * layers);
+  transpose_planes_kernel<<<tgrid, dim3(32, 8), 0, st>>>(mc_re, mc_im, mct, C, layers);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const float* mct_re = mct;
+  const float* mct_im = mct + (long long)layers * C * C;
   init_state_kernel<<<blocks_for(S), 256, 0, st>>>(xr, xi, S, amp, has_wall);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const PermSpec none = {};
@@ -135,17 +130,17 @@ inline cudaError_t circuit_forward(const float* mr_re, const float* mr_im, const
     left.b_re = xr; left.b_im = xi; left.b_sk = C; left.b_sn = 1;
     left.c_re = tmp; left.c_im = tmp + S; left.c_sm = C; left.c_sn = 1;
     left.M = R; left.N = C; left.K = R;
-    if ((err = launch_gemm<true>(left, none, st)) != cudaSuccess) return err;
+    if ((err = launch_gemm(left, none, st)) != cudaSuccess) return err;
     // X = perm/sign(tmp Mc[l]^T)
     GemmArgs right = gemm_args();
     right.a_re = tmp; right.a_im = tmp + S; right.a_sm = C; right.a_sk = 1;
-    right.b_re = mc_re + (long long)l * C * C; right.b_im = mc_im + (long long)l * C * C;
-    right.b_sk = mct ? C : 1; right.b_sn = mct ? 1 : C;
+    right.b_re = mct_re + (long long)l * C * C; right.b_im = mct_im + (long long)l * C * C;
+    right.b_sk = C; right.b_sn = 1;
     right.c_re = xr; right.c_im = xi;
     right.M = R; right.N = C; right.K = C;
     right.scatter = 1;
     right.probs = (l == layers - 1) ? probs : nullptr;
-    if ((err = launch_gemm<true>(right, layer_spec(maps, l), st)) != cudaSuccess) return err;
+    if ((err = launch_gemm(right, layer_spec(maps, l), st)) != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
@@ -179,7 +174,7 @@ inline cudaError_t circuit_backward(const float* mr_re, const float* mr_im, cons
     col.b_re = mc_r; col.b_im = mc_i; col.b_sk = C; col.b_sn = 1; col.b_conj = -1.f;
     col.c_re = A; col.c_im = A + S; col.c_sb = 2LL * S; col.c_sm = C; col.c_sn = 1;
     col.M = R; col.N = C; col.K = C; col.batch = 2;
-    if ((err = launch_gemm<true>(col, none, st)) != cudaSuccess) return err;
+    if ((err = launch_gemm(col, none, st)) != cudaSuccess) return err;
     // dMc[l] = lambda_after^T conj(x_before)
     GemmArgs dmc = gemm_args();
     dmc.a_re = B + 2LL * S; dmc.a_im = B + 3LL * S; dmc.a_sm = 1; dmc.a_sk = C;
@@ -187,14 +182,14 @@ inline cudaError_t circuit_backward(const float* mr_re, const float* mr_im, cons
     dmc.c_re = dmc_re + (long long)l * C * C; dmc.c_im = dmc_im + (long long)l * C * C;
     dmc.c_sm = C; dmc.c_sn = 1;
     dmc.M = C; dmc.N = C; dmc.K = R;
-    if ((err = launch_gemm<true>(dmc, none, st)) != cudaSuccess) return err;
+    if ((err = launch_gemm(dmc, none, st)) != cudaSuccess) return err;
     // B = Mr^dagger A: state and cotangent before the layer.
     GemmArgs row = gemm_args();
     row.a_re = mr_r; row.a_im = mr_i; row.a_sm = 1; row.a_sk = R; row.a_conj = -1.f;
     row.b_re = A; row.b_im = A + S; row.b_sb = 2LL * S; row.b_sk = C; row.b_sn = 1;
     row.c_re = B; row.c_im = B + S; row.c_sb = 2LL * S; row.c_sm = C; row.c_sn = 1;
     row.M = R; row.N = C; row.K = R; row.batch = 2;
-    if ((err = launch_gemm<true>(row, none, st)) != cudaSuccess) return err;
+    if ((err = launch_gemm(row, none, st)) != cudaSuccess) return err;
     // dMr[l] = lambda_after x_before^H
     GemmArgs dmr = gemm_args();
     dmr.a_re = A + 2LL * S; dmr.a_im = A + 3LL * S; dmr.a_sm = C; dmr.a_sk = 1;
@@ -202,7 +197,7 @@ inline cudaError_t circuit_backward(const float* mr_re, const float* mr_im, cons
     dmr.c_re = dmr_re + (long long)l * R * R; dmr.c_im = dmr_im + (long long)l * R * R;
     dmr.c_sm = R; dmr.c_sn = 1;
     dmr.M = R; dmr.N = R; dmr.K = C;
-    if ((err = launch_gemm<true>(dmr, none, st)) != cudaSuccess) return err;
+    if ((err = launch_gemm(dmr, none, st)) != cudaSuccess) return err;
     float* t = A; A = B; B = t;
   }
   return cudaSuccess;

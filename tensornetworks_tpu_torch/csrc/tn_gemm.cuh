@@ -1,7 +1,6 @@
-// Shared device code of the port's hand-written kernels: tiled FP32 (complex
-// or real) GEMMs on planar (re, im) operands, and the GF(2)-linear index map
-// with its CZ sign that the circuit kernels use for a layer's CNOT
-// permutations and CZ gates.
+// The tiled FP32 complex GEMMs on planar (re, im) operands of the n >= 18
+// circuit launchers (circuit_layers.cuh), with an epilogue that can scatter
+// through a layer's index map and CZ sign (layer_map.cuh).
 //
 // Every product computes, for every batch b,
 //     C_b[m, n] = sum_k opA(A_b)[m, k] * opB(B_b)[k, n]
@@ -10,8 +9,9 @@
 // conjugates are free.
 //
 // The products replace the dots inside the TPU kernels of
-// tensornetworks_tpu/ops/pallas/circuit2d.py and circuit2d_grid.py
-// (fwd_kernel, bwd_kernel) and stein2d.py (kernel). Their bound on this card
+// tensornetworks_tpu/ops/pallas/circuit2d_grid.py (fwd_kernel, bwd_kernel);
+// the n <= 17 kernels have work units of their own (circuit_units.cuh).
+// Their bound on this card
 // is FP32 FMA throughput, 67 TFLOP/s: at n=20 a complex 1024^3 product is
 // 8.6 GFLOP (128 us) against 24 MB of operands (7 us at 3.35 TB/s). The
 // tensor cores are not used: they need TF32 or lower, which the port does not
@@ -20,8 +20,8 @@
 //
 // Two main loops, chosen by shape in launch_gemm:
 //
-// gemm_kernel (every product with fewer than 128 tiles of 128x64, and every
-// real product): BMxBN tiles of 64x64 or 32x32, one synchronous shared-memory
+// gemm_kernel (every product with fewer than 128 tiles of 128x64, so at
+// n = 18-19): BMxBN tiles of 64x64 or 32x32, one synchronous shared-memory
 // stage, a 4x4 or 2x2 register tile, scalar shared-memory reads. At n=20 it
 // reached 24 TFLOP/s (36% of peak) on the grid backward: no copy overlaps the
 // FMAs, and a 4x4 complex tile makes 4 FMAs per shared-memory load.
@@ -56,8 +56,8 @@
 // 1024^2 output has 128 tiles of 128x64, one per SM of the 132; 128x128
 // tiles would leave half the SMs idle on dMc and dMr, and grouping dMc with
 // the row pull-back (128 + 256 tiles) would still take three waves, so
-// neither is done. The n <= 17 products (256^2) and the n = 18-19 scatter
-// products (32 and 64 tiles) keep the first loop and its configuration.
+// neither is done. The n = 18-19 scatter products (32 and 64 tiles) keep
+// the first loop and its configuration.
 //
 // Scatter epilogue (the circuit forward's right product, both loops):
 // element (m, n) -- flat state index m*N + n -- goes to the index
@@ -76,31 +76,10 @@
 
 #include <cuda_runtime.h>
 
+#include "layer_map.cuh"
+#include "per_device.cuh"
+
 namespace tn {
-
-constexpr int kMaxBits = 32;
-
-// One layer's composite permutation of the flat state index with its sign.
-// Bit k below is the LSB-first bit position k of the index.
-//   dst(i) bit k = parity(rows[k] & i)            (CNOT chain: GF(2)-linear)
-//   sign(d)      = (-1)^(sum_k bit_k(d) * popc(d & cz[k]))   (CZ pairs)
-struct PermSpec {
-  int nbits;
-  unsigned rows[kMaxBits];
-  unsigned cz[kMaxBits];
-};
-
-__device__ __forceinline__ unsigned perm_dst(const PermSpec& s, unsigned i) {
-  unsigned d = 0;
-  for (int k = 0; k < s.nbits; ++k) d |= (unsigned)(__popc(s.rows[k] & i) & 1) << k;
-  return d;
-}
-
-__device__ __forceinline__ float perm_sign(const PermSpec& s, unsigned d) {
-  unsigned par = 0;
-  for (int k = 0; k < s.nbits; ++k) par ^= ((d >> k) & 1u) & (unsigned)__popc(d & s.cz[k]);
-  return (par & 1u) ? -1.f : 1.f;
-}
 
 struct GemmArgs {
   const float* a_re; const float* a_im; long long a_sb, a_sm, a_sk;
@@ -112,17 +91,16 @@ struct GemmArgs {
   float* probs;          // scatter mode: optional |C|^2 output
 };
 
-template <int BM, int BN, int BK, int TM, int TN, bool CPLX>
+template <int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 gemm_kernel(GemmArgs p, PermSpec spec) {
   constexpr int NT = (BM / TM) * (BN / TN);
   constexpr int TX = BN / TN;  // threads along n
   constexpr int TY = BM / TM;  // threads along m
-  constexpr int IM = CPLX ? 1 : 0;
   __shared__ float As_re[BK][BM + 1];
-  __shared__ float As_im[CPLX ? BK : 1][CPLX ? BM + 1 : 1];
+  __shared__ float As_im[BK][BM + 1];
   __shared__ float Bs_re[BK][BN + 1];
-  __shared__ float Bs_im[CPLX ? BK : 1][CPLX ? BN + 1 : 1];
+  __shared__ float Bs_im[BK][BN + 1];
 
   const int b = blockIdx.z;
   const int m0 = blockIdx.y * BM;
@@ -132,9 +110,9 @@ gemm_kernel(GemmArgs p, PermSpec spec) {
   const int ty = tid / TX;
 
   const float* Ar = p.a_re + b * p.a_sb;
-  const float* Ai = IM ? p.a_im + b * p.a_sb : nullptr;
+  const float* Ai = p.a_im + b * p.a_sb;
   const float* Br = p.b_re + b * p.b_sb;
-  const float* Bi = IM ? p.b_im + b * p.b_sb : nullptr;
+  const float* Bi = p.b_im + b * p.b_sb;
   const bool a_kfast = p.a_sk == 1;
   const bool b_nfast = p.b_sn == 1;
 
@@ -156,10 +134,10 @@ gemm_kernel(GemmArgs p, PermSpec spec) {
       if (m < p.M && k < p.K) {
         const long long off = (long long)m * p.a_sm + (long long)k * p.a_sk;
         vr = Ar[off];
-        if (CPLX) vi = p.a_conj * Ai[off];
+        vi = p.a_conj * Ai[off];
       }
       As_re[kk][mm] = vr;
-      if (CPLX) As_im[kk][mm] = vi;
+      As_im[kk][mm] = vi;
     }
     for (int e = tid; e < BK * BN; e += NT) {
       const int nn = b_nfast ? e % BN : e / BK;
@@ -169,10 +147,10 @@ gemm_kernel(GemmArgs p, PermSpec spec) {
       if (n < p.N && k < p.K) {
         const long long off = (long long)k * p.b_sk + (long long)n * p.b_sn;
         vr = Br[off];
-        if (CPLX) vi = p.b_conj * Bi[off];
+        vi = p.b_conj * Bi[off];
       }
       Bs_re[kk][nn] = vr;
-      if (CPLX) Bs_im[kk][nn] = vi;
+      Bs_im[kk][nn] = vi;
     }
     __syncthreads();
 #pragma unroll
@@ -181,23 +159,21 @@ gemm_kernel(GemmArgs p, PermSpec spec) {
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
         ar[i] = As_re[kk][ty + i * TY];
-        ai[i] = CPLX ? As_im[kk][ty + i * TY] : 0.f;
+        ai[i] = As_im[kk][ty + i * TY];
       }
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         br[j] = Bs_re[kk][tx + j * TX];
-        bi[j] = CPLX ? Bs_im[kk][tx + j * TX] : 0.f;
+        bi[j] = Bs_im[kk][tx + j * TX];
       }
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
           acc_re[i][j] = fmaf(ar[i], br[j], acc_re[i][j]);
-          if (CPLX) {
-            acc_re[i][j] = fmaf(-ai[i], bi[j], acc_re[i][j]);
-            acc_im[i][j] = fmaf(ar[i], bi[j], acc_im[i][j]);
-            acc_im[i][j] = fmaf(ai[i], br[j], acc_im[i][j]);
-          }
+          acc_re[i][j] = fmaf(-ai[i], bi[j], acc_re[i][j]);
+          acc_im[i][j] = fmaf(ar[i], bi[j], acc_im[i][j]);
+          acc_im[i][j] = fmaf(ai[i], br[j], acc_im[i][j]);
         }
     }
     __syncthreads();
@@ -215,20 +191,20 @@ gemm_kernel(GemmArgs p, PermSpec spec) {
         const unsigned d = perm_dst(spec, (unsigned)(m * p.N + n));
         const float s = perm_sign(spec, d);
         p.c_re[d] = s * vr;
-        if (CPLX) p.c_im[d] = s * vi;
+        p.c_im[d] = s * vi;
         if (p.probs) p.probs[d] = vr * vr + vi * vi;
       } else {
         const long long off = b * p.c_sb + (long long)m * p.c_sm + (long long)n * p.c_sn;
         p.c_re[off] = vr;
-        if (CPLX) p.c_im[off] = vi;
+        p.c_im[off] = vi;
       }
     }
 }
 
-template <int BM, int BN, int BK, int TM, int TN, bool CPLX>
+template <int BM, int BN, int BK, int TM, int TN>
 inline cudaError_t launch_gemm_cfg(const GemmArgs& p, const PermSpec& s, cudaStream_t st) {
   dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, p.batch);
-  gemm_kernel<BM, BN, BK, TM, TN, CPLX><<<grid, (BM / TM) * (BN / TN), 0, st>>>(p, s);
+  gemm_kernel<BM, BN, BK, TM, TN><<<grid, (BM / TM) * (BN / TN), 0, st>>>(p, s);
   return cudaGetLastError();
 }
 
@@ -414,10 +390,13 @@ __global__ void __launch_bounds__(THREADS, SCATTER ? 1 : 0)
 
 template <bool AK, bool BKC, bool CA, bool CB, bool SCATTER = false>
 inline cudaError_t launch(const GemmArgs& p, const PermSpec& s, cudaStream_t st) {
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(cgemm_large_kernel<AK, BKC, CA, CB, SCATTER>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
-  if (attr != cudaSuccess) return attr;
+  static PerDevice<cudaError_t> attrs;
+  const cudaError_t* attr = attrs.get([] {
+    return cudaFuncSetAttribute(cgemm_large_kernel<AK, BKC, CA, CB, SCATTER>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  });
+  if (!attr) return cudaErrorInvalidDevice;
+  if (*attr != cudaSuccess) return *attr;
   dim3 grid(p.N / BN, p.M / BM, p.batch);
   cgemm_large_kernel<AK, BKC, CA, CB, SCATTER><<<grid, THREADS, SMEM, st>>>(p, s);
   return cudaGetLastError();
@@ -427,7 +406,7 @@ inline bool aligned16(const void* q) { return ((unsigned long long)q & 15ull) ==
 
 // Which instantiation of the large loop takes this product, or kNone for a
 // shape, layout or conjugation pattern it does not cover. The patterns are
-// those of the circuit drivers (circuit_layers.cuh).
+// those of the circuit launchers (circuit_layers.cuh).
 enum Pattern { kNone = -1, kColPullback, kDMc, kRowPullback, kDMr, kForwardLeft,
                kForwardScatter };
 
@@ -455,26 +434,23 @@ inline Pattern pattern(const GemmArgs& p) {
 
 }  // namespace large
 
-// Complex products with at least 128 tiles of 128x64 take the large loop.
+// Products with at least 128 tiles of 128x64 take the large loop.
 // Otherwise: 64x64 tiles when they alone give at least one block per SM (132
 // on an H100), else 32x32 tiles so that a single 256x256 product still
 // spreads over 64 SMs.
-template <bool CPLX>
 inline cudaError_t launch_gemm(const GemmArgs& p, const PermSpec& s, cudaStream_t st) {
-  if constexpr (CPLX) {  // (instantiated only where complex products are launched)
-    switch (large::pattern(p)) {
-      case large::kColPullback: return large::launch<true, false, false, true>(p, s, st);
-      case large::kDMc: return large::launch<false, false, false, true>(p, s, st);
-      case large::kRowPullback: return large::launch<false, false, true, false>(p, s, st);
-      case large::kDMr: return large::launch<true, true, false, true>(p, s, st);
-      case large::kForwardLeft: return large::launch<true, false, false, false>(p, s, st);
-      case large::kForwardScatter: return large::launch<true, false, false, false, true>(p, s, st);
-      case large::kNone: break;
-    }
+  switch (large::pattern(p)) {
+    case large::kColPullback: return large::launch<true, false, false, true>(p, s, st);
+    case large::kDMc: return large::launch<false, false, false, true>(p, s, st);
+    case large::kRowPullback: return large::launch<false, false, true, false>(p, s, st);
+    case large::kDMr: return large::launch<true, true, false, true>(p, s, st);
+    case large::kForwardLeft: return large::launch<true, false, false, false>(p, s, st);
+    case large::kForwardScatter: return large::launch<true, false, false, false, true>(p, s, st);
+    case large::kNone: break;
   }
   const long long big = (long long)((p.N + 63) / 64) * ((p.M + 63) / 64) * p.batch;
-  if (big >= 132) return launch_gemm_cfg<64, 64, 16, 4, 4, CPLX>(p, s, st);
-  return launch_gemm_cfg<32, 32, 16, 2, 2, CPLX>(p, s, st);
+  if (big >= 132) return launch_gemm_cfg<64, 64, 16, 4, 4>(p, s, st);
+  return launch_gemm_cfg<32, 32, 16, 2, 2>(p, s, st);
 }
 
 inline GemmArgs gemm_args() {

@@ -41,8 +41,9 @@ LAUNCHES: Dict[str, int] = {"circuit2d_fwd": 0, "circuit2d_bwd": 0, "stein2d": 0
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "circuit2d": {
-        # mr_re, mr_im, mc_re, mc_im, probs, xr, xi, tmp, n, layers, has_wall, rows, cz, stream
-        "tn_circuit2d_forward": [_P] * 8 + [_I] * 3 + [_P] * 3,
+        # mr_re, mr_im, mc_re, mc_im, probs, xr, xi, tmp, masks (device), n, layers,
+        # has_wall, stream
+        "tn_circuit2d_forward": [_P] * 9 + [_I] * 3 + [_P],
         # mr_re, mr_im, mc_re, mc_im, xr, xi, g, dmr_re, dmr_im, dmc_re, dmc_im,
         # scratch, masks (device), n, layers, stream
         "tn_circuit2d_backward": [_P] * 13 + [_I] * 2 + [_P],
@@ -56,10 +57,10 @@ SIGNATURES = {
         "tn_circuit2d_grid_backward": [_P] * 13 + [_I] * 2 + [_P] * 3,
     },
     "stein2d": {
-        # ar, ac, v, y, tmp, R, C, cols, stream
-        "tn_stein2d_apply": [_P] * 5 + [_I] * 3 + [_P],
-        # v, y, a, n, cols, chunk, stream (a as c_float: a bare Python float
-        # would not be passed as a C float)
+        # v, y, a, n, cols, stream (a as c_float: a bare Python float would
+        # not be passed as a C float)
+        "tn_stein2d_apply": [_P] * 2 + [ctypes.c_float] + [_I] * 2 + [_P],
+        # v, y, a, n, cols, chunk, stream
         "tn_stein2d_apply_grid": [_P] * 2 + [ctypes.c_float] + [_I] * 3 + [_P],
     },
 }

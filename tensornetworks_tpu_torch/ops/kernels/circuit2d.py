@@ -10,12 +10,14 @@ short:
 - Bound at n=16, L=4 (R=C=256): forward 1.07 GFLOP, backward 3.22 GFLOP of
   FP32 FMA (16 µs and 48 µs at the H100's 67 TFLOP/s); a few MB moved.
 - A 512 KB state plane pair does not fit a block's shared memory, so the
-  state lives in L2. The forward is a host function that launches one
-  grid-wide GEMM per rotation; the backward is one persistent cooperative
-  kernel whose phases (unpermute, column pull-back, row pull-back, operator
-  gradients) are separated by grid-wide barriers. It raises if the device
-  refuses the cooperative launch. ``circuit2d_backward_phased_plain``
-  mirrors its phases, buffers and K-split sums for the CPU tests.
+  state lives in L2. Each direction is one persistent cooperative kernel
+  (one block per SM) whose phases are separated by grid-wide barriers: the
+  forward's closed-form first product, scatter products and left products;
+  the backward's unpermute, column pull-back, row pull-back and operator
+  gradients. Each wrapper raises if the device refuses the cooperative
+  launch; there is no other path. ``circuit2d_forward_phased_plain`` and
+  ``circuit2d_backward_phased_plain`` mirror the kernels' phases, buffers
+  and K-split sums for the CPU tests.
 
 Each wrapper takes the plain torch version (same algorithm: matmuls and the
 same index maps) only for CPU tensors; a CUDA tensor launches the kernel or
@@ -25,8 +27,6 @@ torch, so autograd carries ``dMr``/``dMc`` back to θ.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 import torch
@@ -97,9 +97,6 @@ class CircuitPlan:
     """
 
     name = "circuit2d"
-    # The grid forward transposes Mc into a scratch (csrc/circuit2d_grid.cu);
-    # this one reads Mc in place.
-    forward_transposes_mc = False
 
     def __init__(self, num_wires: int, layers: int, ansatz_type: str):
         n = num_wires
@@ -122,7 +119,7 @@ class CircuitPlan:
 
     def device_masks(self, device) -> torch.Tensor:
         """(1 + L, n) int32 on ``device``: ``rows``, then each layer's CZ
-        masks, the table the persistent backward kernel reads."""
+        masks, the table the persistent kernels read."""
         key = ("masks", str(device))
         if key not in self._tables:
             masks = np.concatenate([self.rows[None], self.cz]).view(np.int32)
@@ -202,22 +199,82 @@ def circuit2d_backward_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan: Circui
 # Tile arithmetic of the kernels, in torch/numpy for the CPU tests (nothing
 # on the main path calls these).
 
-BWD_KSPLIT, BWD_BK = 4, 16  # csrc/circuit2d_bwd.cuh: GROUPS, BK
+# csrc/circuit_units.cuh: GROUPS, BK, TILE; csrc/circuit2d_fwd.cuh: TN
+UNIT_KSPLIT, UNIT_BK, UNIT_M, FWD_UNIT_N = 4, 16, 32, 16
 
 
 def _ksplit_cmm(a_re, a_im, b_re, b_im):
-    """Complex product on planes, summed as the persistent backward sums it:
-    K cut into ``BWD_KSPLIT`` ranges of whole ``BWD_BK``-deep steps (the last
-    ones may be empty), each range's partial product added in range order."""
+    """Complex product on planes, summed as the persistent kernels sum it:
+    K cut into ``UNIT_KSPLIT`` ranges of whole ``UNIT_BK``-deep steps (the
+    last ones may be empty), each range's partial product added in range
+    order."""
     K = a_re.shape[-1]
-    steps = -(-K // BWD_BK)
-    per = -(-steps // BWD_KSPLIT) * BWD_BK  # k of each range
+    steps = -(-K // UNIT_BK)
+    per = -(-steps // UNIT_KSPLIT) * UNIT_BK  # k of each range
     out_re = out_im = None
-    for g in range(BWD_KSPLIT):
+    for g in range(UNIT_KSPLIT):
         lo, hi = min(K, g * per), min(K, (g + 1) * per)
         pr, pi = _cmm(a_re[..., lo:hi], a_im[..., lo:hi], b_re[..., lo:hi, :], b_im[..., lo:hi, :])
         out_re, out_im = (pr, pi) if out_re is None else (out_re + pr, out_im + pi)
     return out_re, out_im
+
+
+def forward_units(M: int, N: int) -> list:
+    """The forward kernel's units of an (M, N) product, in unit order:
+    (m0, m1, n0, n1) of each ``UNIT_M`` x ``FWD_UNIT_N`` output tile (ragged
+    at the edges)."""
+    return [(m0, min(M, m0 + UNIT_M), n0, min(N, n0 + FWD_UNIT_N))
+            for m0 in range(0, M, UNIT_M) for n0 in range(0, N, FWD_UNIT_N)]
+
+
+def _unit_cmm(a_re, a_im, b_re, b_im):
+    """(M, K) x (K, N) complex product unit by unit, each unit's tile by the
+    K-split sum."""
+    M, N = a_re.shape[0], b_re.shape[1]
+    out_re = a_re.new_full((M, N), float("nan"))
+    out_im = out_re.clone()
+    for m0, m1, n0, n1 in forward_units(M, N):
+        out_re[m0:m1, n0:n1], out_im[m0:m1, n0:n1] = _ksplit_cmm(
+            a_re[m0:m1], a_im[m0:m1], b_re[:, n0:n1], b_im[:, n0:n1])
+    return out_re, out_im
+
+
+def circuit2d_forward_phased_plain(mr_re, mr_im, mc_re, mc_im, plan: CircuitPlan):
+    """The persistent forward kernel's phase plan in torch: the buffers X
+    (returned as xr, xi) and tmp (2, R, C), the closed-form first phase, and
+    the same 32x16 units and K-split sums (``csrc/circuit2d_fwd.cuh``); the
+    scatter product's store sends element (m, n) to ``dst[m·C + n]`` times
+    the sign there. Each phase fills what it writes with NaN before it reads
+    anything, so a phase that read what it writes — a race in the kernel —
+    shows as NaN here. Returns what ``circuit2d_forward_plain`` returns."""
+    R, C, L, dt, dev = plan.R, plan.C, plan.layers, mr_re.dtype, mr_re.device
+    dst, sign = plan.tables(dev)
+    tmp = torch.empty((2, R, C), dtype=dt, device=dev)
+    xr, xi, probs = (torch.empty((R, C), dtype=dt, device=dev) for _ in range(3))
+    # φ0: tmp = Mr[0]·X0 in closed form
+    tmp.fill_(float("nan"))
+    if plan.has_wall:  # X0 = 2^(-n/2)·𝟙: the row sums of Mr[0]
+        for h, m in enumerate((mr_re[0], mr_im[0])):
+            tmp[h] = (2.0 ** (-0.5 * plan.n) * m.sum(dim=1))[:, None].expand(R, C)
+    else:  # X0 = e00: column 0 of Mr[0]
+        tmp.zero_()
+        tmp[0, :, 0], tmp[1, :, 0] = mr_re[0][:, 0], mr_im[0][:, 0]
+    for layer in range(L):
+        # φR(l): X = scatter(tmp·Mc[l]ᵀ), |z|² on the last layer
+        last = layer == L - 1
+        for t in (xr, xi, probs) if last else (xr, xi):
+            t.fill_(float("nan"))
+        zr, zi = _unit_cmm(tmp[0], tmp[1], mc_re[layer].T, mc_im[layer].T)
+        s = sign[layer].to(dt)
+        xr.reshape(-1)[dst] = s * zr.reshape(-1)
+        xi.reshape(-1)[dst] = s * zi.reshape(-1)
+        if last:
+            probs.reshape(-1)[dst] = (zr * zr + zi * zi).reshape(-1)
+            break
+        # φL(l+1): tmp = Mr[l+1]·X
+        tmp.fill_(float("nan"))
+        tmp[0], tmp[1] = _unit_cmm(mr_re[layer + 1], mr_im[layer + 1], xr, xi)
+    return probs, xr, xi
 
 
 def circuit2d_backward_phased_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan: CircuitPlan):
@@ -307,27 +364,20 @@ def _check(plan, **tensors) -> None:
         dev = t.device
 
 
-def _masks(plan):
-    return (plan.rows.ctypes.data_as(ctypes.c_void_p), plan.cz.ctypes.data_as(ctypes.c_void_p))
-
-
-def launch_forward(plan, counter: str, mr_re, mr_im, mc_re, mc_im):
-    """probs, xr, xi from ``csrc/<plan.name>.cu``'s forward entry point
-    (with a (2, L, C, C) scratch for Mcᵀ where ``plan.forward_transposes_mc``)."""
+def launch_forward_persistent(plan: CircuitPlan, mr_re, mr_im, mc_re, mc_im):
+    """probs, xr, xi from ``csrc/circuit2d.cu``'s forward: one cooperative
+    launch, which raises if the device refuses it."""
     _check(plan, mr_re=mr_re, mr_im=mr_im, mc_re=mc_re, mc_im=mc_im)
-    fn = getattr(_lib.load(plan.name), f"tn_{plan.name}_forward")
+    fn = _lib.load(plan.name).tn_circuit2d_forward
     probs = torch.empty((plan.R, plan.C), dtype=torch.float32, device=mr_re.device)
     xr, xi = torch.empty_like(probs), torch.empty_like(probs)
-    scratch = [torch.empty((2, plan.R, plan.C), dtype=torch.float32, device=mr_re.device)]
-    if plan.forward_transposes_mc:
-        scratch.append(torch.empty((2, plan.layers, plan.C, plan.C), dtype=torch.float32,
-                                   device=mr_re.device))
-    _lib.count_launch(counter)
+    tmp = torch.empty((2, plan.R, plan.C), dtype=torch.float32, device=mr_re.device)
+    masks = plan.device_masks(mr_re.device)
+    _lib.count_launch("circuit2d_fwd")
     err = fn(_lib.ptr(mr_re), _lib.ptr(mr_im), _lib.ptr(mc_re), _lib.ptr(mc_im),
-             _lib.ptr(probs), _lib.ptr(xr), _lib.ptr(xi), *map(_lib.ptr, scratch),
-             plan.n, plan.layers, int(plan.has_wall), *_masks(plan),
-             _lib.stream_ptr(mr_re.device))
-    _lib.check(err, f"tn_{plan.name}_forward")
+             _lib.ptr(probs), _lib.ptr(xr), _lib.ptr(xi), _lib.ptr(tmp), _lib.ptr(masks),
+             plan.n, plan.layers, int(plan.has_wall), _lib.stream_ptr(mr_re.device))
+    _lib.check(err, "tn_circuit2d_forward (cooperative launch)")
     return probs, xr, xi
 
 
@@ -350,30 +400,11 @@ def launch_backward_persistent(plan: CircuitPlan, mr_re, mr_im, mc_re, mc_im, xr
     return dmr_re, dmr_im, dmc_re, dmc_im
 
 
-def launch_backward(plan, counter: str, mr_re, mr_im, mc_re, mc_im, xr, xi, g):
-    """dMr_re, dMr_im, dMc_re, dMc_im from ``csrc/<plan.name>.cu``'s backward
-    host launcher (the grid kernels)."""
-    _check(plan, mr_re=mr_re, mr_im=mr_im, mc_re=mc_re, mc_im=mc_im, x_r=xr, x_i=xi, x_g=g)
-    fn = getattr(_lib.load(plan.name), f"tn_{plan.name}_backward")
-    dmr_re, dmr_im = torch.empty_like(mr_re), torch.empty_like(mr_im)
-    dmc_re, dmc_im = torch.empty_like(mc_re), torch.empty_like(mc_im)
-    buf_a = torch.empty((4, plan.R, plan.C), dtype=torch.float32, device=mr_re.device)
-    buf_b = torch.empty_like(buf_a)
-    _lib.count_launch(counter)
-    err = fn(_lib.ptr(mr_re), _lib.ptr(mr_im), _lib.ptr(mc_re), _lib.ptr(mc_im),
-             _lib.ptr(xr), _lib.ptr(xi), _lib.ptr(g),
-             _lib.ptr(dmr_re), _lib.ptr(dmr_im), _lib.ptr(dmc_re), _lib.ptr(dmc_im),
-             _lib.ptr(buf_a), _lib.ptr(buf_b), plan.n, plan.layers, *_masks(plan),
-             _lib.stream_ptr(mr_re.device))
-    _lib.check(err, f"tn_{plan.name}_backward")
-    return dmr_re, dmr_im, dmc_re, dmc_im
-
-
 def circuit2d_forward(mr_re, mr_im, mc_re, mc_im, plan: CircuitPlan):
     """probs, xr, xi (R, C) of the circuit with per-layer operators Mr, Mc."""
     if mr_re.device.type == "cpu":
         return circuit2d_forward_plain(mr_re, mr_im, mc_re, mc_im, plan)
-    return launch_forward(plan, "circuit2d_fwd", mr_re, mr_im, mc_re, mc_im)
+    return launch_forward_persistent(plan, mr_re, mr_im, mc_re, mc_im)
 
 
 def circuit2d_backward(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan: CircuitPlan):

@@ -3,9 +3,9 @@ kernels 5-6 of the port.
 
 Replaces ``tensornetworks_tpu/ops/pallas/circuit2d_grid.py``
 (``make_pallas_circuit2d_grid_probs``: ``fwd_kernel`` and ``bwd_kernel``)
-with ``csrc/circuit2d_grid.cu``, whose host drivers are shared with the
-n ≤ 17 circuit kernels (``csrc/circuit_layers.cuh``). The source note there
-gives the design; in short:
+with ``csrc/circuit2d_grid.cu`` and its per-layer host drivers
+(``csrc/circuit_layers.cuh``, which serve these kernels alone). The source
+note there gives the design; in short:
 
 - Bound at n=20, L=4 (R=C=1024): forward 6.9e10, backward 2.1e11 FLOP of
   FP32 FMA (1.03 ms and 3.08 ms at the H100's 67 TFLOP/s).
@@ -35,14 +35,16 @@ indices would hold to n=30.)
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from ...sim.blocked import _chain_gates, _cnot_map, _cz_pairs
 from ...sim.blocked2d import _cz_sign_mask, _kron_h, _perm_matrix
 from ...sim.gates import rotation_operators
-from .circuit2d import (_cmm, cz_masks, gf2_rows, launch_backward, launch_forward,
-                        rotation_pullback)
+from . import _lib
+from .circuit2d import _check, _cmm, cz_masks, gf2_rows, rotation_pullback
 
 MIN_QUBITS, AUTO_MIN_QUBITS, MAX_QUBITS = 2, 18, 24
 
@@ -67,10 +69,6 @@ class GridPlan:
     """
 
     name = "circuit2d_grid"
-    # The forward's right product reads B = Mcᵀ n-contiguous, so that from
-    # n = 20 it streams by cp.async in the large GEMM loop: the forward first
-    # transposes Mc into a scratch the wrapper passes (csrc/circuit2d_grid.cu).
-    forward_transposes_mc = True
 
     def __init__(self, num_wires: int, layers: int, ansatz_type: str):
         n = num_wires
@@ -213,18 +211,54 @@ def circuit2d_grid_backward_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan: G
 # --------------------------------------------------------------------- wrappers
 
 
+def _masks(plan: GridPlan):
+    return (plan.rows.ctypes.data_as(ctypes.c_void_p), plan.cz.ctypes.data_as(ctypes.c_void_p))
+
+
 def circuit2d_grid_forward(mr_re, mr_im, mc_re, mc_im, plan: GridPlan):
-    """probs, xr, xi (R, C) of the circuit with P_row-folded operators."""
+    """probs, xr, xi (R, C) of the circuit with P_row-folded operators. On
+    the card: ``csrc/circuit2d_grid.cu``'s host launcher, with a (2, R, C)
+    scratch and a (2, L, C, C) scratch for Mcᵀ (the launcher transposes Mc
+    there first, so that from n = 20 the right product's B streams by
+    cp.async in the large GEMM loop)."""
     if mr_re.device.type == "cpu":
         return circuit2d_grid_forward_plain(mr_re, mr_im, mc_re, mc_im, plan)
-    return launch_forward(plan, "circuit2d_grid_fwd", mr_re, mr_im, mc_re, mc_im)
+    _check(plan, mr_re=mr_re, mr_im=mr_im, mc_re=mc_re, mc_im=mc_im)
+    fn = _lib.load(plan.name).tn_circuit2d_grid_forward
+    probs = torch.empty((plan.R, plan.C), dtype=torch.float32, device=mr_re.device)
+    xr, xi = torch.empty_like(probs), torch.empty_like(probs)
+    tmp = torch.empty((2, plan.R, plan.C), dtype=torch.float32, device=mr_re.device)
+    mct = torch.empty((2, plan.layers, plan.C, plan.C), dtype=torch.float32,
+                      device=mr_re.device)
+    _lib.count_launch("circuit2d_grid_fwd")
+    err = fn(_lib.ptr(mr_re), _lib.ptr(mr_im), _lib.ptr(mc_re), _lib.ptr(mc_im),
+             _lib.ptr(probs), _lib.ptr(xr), _lib.ptr(xi), _lib.ptr(tmp), _lib.ptr(mct),
+             plan.n, plan.layers, int(plan.has_wall), *_masks(plan),
+             _lib.stream_ptr(mr_re.device))
+    _lib.check(err, "tn_circuit2d_grid_forward")
+    return probs, xr, xi
 
 
 def circuit2d_grid_backward(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan: GridPlan):
-    """Gradients of the P_row-folded operators for the cotangent g of the probs."""
+    """Gradients of the P_row-folded operators for the cotangent g of the
+    probs. On the card: ``csrc/circuit2d_grid.cu``'s host launcher, with two
+    (4, R, C) scratch buffers."""
     if mr_re.device.type == "cpu":
         return circuit2d_grid_backward_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan)
-    return launch_backward(plan, "circuit2d_grid_bwd", mr_re, mr_im, mc_re, mc_im, xr, xi, g)
+    _check(plan, mr_re=mr_re, mr_im=mr_im, mc_re=mc_re, mc_im=mc_im, x_r=xr, x_i=xi, x_g=g)
+    fn = _lib.load(plan.name).tn_circuit2d_grid_backward
+    dmr_re, dmr_im = torch.empty_like(mr_re), torch.empty_like(mr_im)
+    dmc_re, dmc_im = torch.empty_like(mc_re), torch.empty_like(mc_im)
+    buf_a = torch.empty((4, plan.R, plan.C), dtype=torch.float32, device=mr_re.device)
+    buf_b = torch.empty_like(buf_a)
+    _lib.count_launch("circuit2d_grid_bwd")
+    err = fn(_lib.ptr(mr_re), _lib.ptr(mr_im), _lib.ptr(mc_re), _lib.ptr(mc_im),
+             _lib.ptr(xr), _lib.ptr(xi), _lib.ptr(g),
+             _lib.ptr(dmr_re), _lib.ptr(dmr_im), _lib.ptr(dmc_re), _lib.ptr(dmc_im),
+             _lib.ptr(buf_a), _lib.ptr(buf_b), plan.n, plan.layers, *_masks(plan),
+             _lib.stream_ptr(mr_re.device))
+    _lib.check(err, "tn_circuit2d_grid_backward")
+    return dmr_re, dmr_im, dmc_re, dmc_im
 
 
 class Circuit2dGridFunction(torch.autograd.Function):

@@ -25,8 +25,7 @@ import torch
 
 from ..core.bits import all_bitstrings
 from .hamming import decay_factor
-from .kernels.stein2d import (kron_factors, stein2d_apply, stein2d_apply_grid,
-                              stein2d_apply_plain)
+from .kernels.stein2d import stein2d_apply, stein2d_apply_grid, stein2d_apply_plain
 from .kron import kron_matvec, kron_power_np
 
 SCORE_EPS = 1e-12
@@ -195,8 +194,9 @@ class SteinOperator:
     recombination through the precomputed ``stein_weight_tables``, the
     Kronecker applications through a stein2d kernel
     (``ops/kernels/stein2d.py``, which takes its plain version on the CPU):
-    ``stein2d_apply`` (dense ``Ar``/``Ac``) for n ≤ 17, the butterfly
-    ``stein2d_apply_grid`` (the decay factor ``a`` alone) from n = 18.
+    the one-launch cluster butterfly ``stein2d_apply`` for n ≤ 17, the
+    two-pass butterfly ``stein2d_apply_grid`` from n = 18; both take the
+    decay factor ``a`` alone.
     """
 
     DENSE_MAX_VARS = 12
@@ -216,17 +216,13 @@ class SteinOperator:
         self._a = decay_factor(n, self.length_scale)
         _, _, self._R, self._C = _split(n)
         self._grid = n >= self.GRID_MIN_VARS
-        if not self._grid:
-            self._Ar, self._Ac = kron_factors(self._a, self._R, self._C, dtype, device)
         Vw, W = stein_weight_tables(score, n, self.length_scale)
         self._Vw = torch.as_tensor(Vw, dtype=dtype, device=device)
         self._W = torch.as_tensor(W, dtype=dtype, device=device)
 
     def kron_apply(self, V: torch.Tensor) -> torch.Tensor:
         """``A^{⊗n}`` on every (R, C) block of V through the path's kernel."""
-        if self._grid:
-            return stein2d_apply_grid(self._a, V)
-        return stein2d_apply(self._Ar, self._Ac, V)
+        return (stein2d_apply_grid if self._grid else stein2d_apply)(self._a, V)
 
     def matvec(self, q: torch.Tensor) -> torch.Tensor:
         if self.dense:

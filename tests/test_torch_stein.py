@@ -91,8 +91,10 @@ def test_stein2d_plain_is_the_two_sided_kronecker_apply():
     A = np.array([[1.0, a], [a, 1.0]])
     rb, cb = 4, 3
     V = np.random.default_rng(0).normal(size=(5, 1 << rb, 1 << cb))
-    Y = tk.stein2d_apply(torch.as_tensor(tkron.kron_power_np(A, rb)),
-                         torch.as_tensor(tkron.kron_power_np(A, cb)), torch.as_tensor(V))
+    Y = tk.stein2d_apply(a, torch.as_tensor(V))
+    Ar, Ac = tk.kron_factors(a, 1 << rb, 1 << cb, F64)
+    np.testing.assert_array_equal(Ar.numpy(), tkron.kron_power_np(A, rb))
+    np.testing.assert_array_equal(Ac.numpy(), tkron.kron_power_np(A, cb))
     K = jkron.kron_power_np(A, n)
     _close(Y.reshape(5, -1), V.reshape(5, -1) @ K.T)
 
