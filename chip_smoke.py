@@ -24,21 +24,35 @@ Phases (any failure exits non-zero):
    GEMM loop, both butterflies and both persistent circuit kernels must
    show no spills in the ptxas report; the registers of the redesigned
    kernels are printed on a line of their own.
+   The bn_structured ansatz (the latent DAG's CNOTs on even layers, its
+   CZs on odd ones: one index map per layer in the same kernels) is held
+   against the plain version and against its float64 oracle
+   (``sim.structured``: its own rotations, per-edge flips), probabilities
+   and θ-gradients: at n=16 and n=20, L=8, timed; untimed at n=17, 18 and
+   19, at n=5 with high→low and repeated edges, at n=19 with the DAG's
+   edges reversed and one repeated, and with no edges at all.
 4. Drive the main path: exact quantum KSD-VI on the 16-qubit workload of
    ``bench.py`` (random chain network of 17 variables, seed 0, V16=1
    observed) through ``QuantumKSDVariationalInference.train``.
 5. Drive the large-n path: ``run_scale_experiment`` at 20 qubits
    (hardware_efficient, L=4, 60 epochs), which resolves to the grid kernels.
-   For each of 4-5 the launch counts are zeroed just before and read just
-   after; every kernel of the path must have launched and no kernel of the
-   other path; the loss must be finite and falling with no skipped update,
-   and the first epoch's loss must agree with a float64 plain evaluation.
-6. Train the Sprinkler 3-qubit configuration for 1000 epochs through the
+6. Drive bn16, the quality configuration of ``bench.py``'s quality path
+   (bn_structured, L=8, length scale 0.0625) for 3000 epochs at lr 0.05:
+   its best TVD must be at most 0.15; and bn20, ``run_scale_experiment`` at
+   20 qubits with bn_structured, L=8, for 30 epochs.
+   For each of 4-6 the launch counts are zeroed just before and read just
+   after; every kernel of the path's set (main16's for bn16, scale20's for
+   bn20) must have launched and no other kernel; the loss must be finite
+   and falling with no skipped update, and the first epoch's loss must
+   agree with a float64 plain evaluation.
+7. Train the Sprinkler 3-qubit configuration for 1000 epochs through the
    circuit kernels; best TVD must be at most 0.01.
 
-Prints a ``{"kernels": [...]}`` line (each kernel with the launch count of
-the path that runs it) and, last, the ``{"ok": true, ...}`` line. Imports
-nothing of JAX or of the JAX package.
+Prints each phase's seconds, a ``{"kernels": [...]}`` line (each kernel
+with the launch count of the path that runs it), a ``{"bn_structured":
+[...]}`` line (the timed bn_structured checks and each bn path's launches)
+and, last, the ``{"ok": true, ...}`` line. Imports nothing of JAX or of the
+JAX package.
 """
 
 import json
@@ -64,6 +78,14 @@ MAIN_EPOCHS = 300
 N_GRID, N_GRID_ODD, N_GRID_MIN, N_GRID_WIDE = 20, 19, 18, 21
 SCALE_EPOCHS, SCALE_CHUNK = 60, 20
 SPRINKLER_TVD_MAX = 0.01
+# bn_structured: bench.py's quality configuration at 16 qubits, and the JAX
+# package's 20-qubit structured run (examples/structured_ansatz_20_qubits.py).
+BN = "bn_structured"
+BN_LAYERS, BN_LENGTH_SCALE, BN_LR = 8, 0.0625, 0.05
+BN16_EPOCHS, BN16_CHUNK, BN16_TVD_MAX = 3000, 500, 0.15
+BN20_EPOCHS, BN20_CHUNK = 30, 10
+# n=5 edges: high -> low, low -> high, and two pairs listed twice.
+N_BN_EDGES, BN_EDGES = 5, [(4, 0), (2, 1), (0, 3), (0, 3), (3, 4), (1, 2), (1, 2), (4, 2)]
 
 # FP32 tolerances of a kernel against its plain version (cuBLAS FP32, another
 # summation order), relative to the largest magnitude of the plain result.
@@ -96,11 +118,13 @@ SOURCES = {
     "circuit2d_grid_fwd": "tensornetworks_tpu_torch/csrc/circuit2d_grid.cu",
     "circuit2d_grid_bwd": "tensornetworks_tpu_torch/csrc/circuit2d_grid.cu",
 }
-# The kernels each path must launch; it must launch no other kernel.
+# The kernels each path must launch; it must launch no other kernel. The
+# bn_structured paths run exactly the kernel sets of main16 and scale20.
 PATH_KERNELS = {
     "main16": ("circuit2d_fwd", "circuit2d_bwd", "stein2d"),
     "scale20": ("circuit2d_grid_fwd", "circuit2d_grid_bwd", "stein2d_grid"),
 }
+PATH_KERNELS.update(bn16=PATH_KERNELS["main16"], bn20=PATH_KERNELS["scale20"])
 
 
 class PhaseError(RuntimeError):
@@ -156,6 +180,15 @@ def path_inputs(n):
     return make_scale_problem(n, seed=0)
 
 
+def path_edges(n):
+    """The latent DAG's edges of the n-qubit workload, the bn_structured
+    entanglers its engine derives."""
+    from tensornetworks_tpu_torch.sim import latent_edges
+
+    bn, latent, _ = path_inputs(n)
+    return latent_edges(bn, latent)
+
+
 def circuit_bounds(R, C, L):
     """(forward, backward) bounds of the circuit kernels' dense products."""
     dense = R * R * C + R * C * C
@@ -163,10 +196,11 @@ def circuit_bounds(R, C, L):
             bound(24 * L * dense, 4 * (4 * L * R * R + 4 * L * C * C + 3 * R * C)))
 
 
-def check_circuit(n, device, timing, grid=False, ansatz=ANSATZ):
+def check_circuit(n, device, timing, grid=False, ansatz=ANSATZ, layers=LAYERS, edges=None):
     """A circuit kernel pair (circuit2d, or circuit2d_grid with ``grid``)
     against its plain version, and the θ-gradient through the model against
-    plain autograd."""
+    plain autograd; for bn_structured also probabilities and θ-gradient
+    against the float64 oracle."""
     import torch
     from tensornetworks_tpu_torch.models import QuantumBornMachine
     from tensornetworks_tpu_torch.ops.kernels import circuit2d as kc
@@ -175,28 +209,34 @@ def check_circuit(n, device, timing, grid=False, ansatz=ANSATZ):
     from tensornetworks_tpu_torch.sim.gates import rotation_operators
 
     if grid:
-        name, plan = "circuit2d_grid", kg.GridPlan(n, LAYERS, ansatz)
+        name, plan = "circuit2d_grid", kg.GridPlan(n, layers, ansatz, edges)
         fwd, bwd = kg.circuit2d_grid_forward, kg.circuit2d_grid_backward
         fwd_p, bwd_p = kg.circuit2d_grid_forward_plain, kg.circuit2d_grid_backward_plain
         operators = lambda th: kg.grid_operators(th, plan)  # noqa: E731
     else:
-        name, plan = "circuit2d", kc.CircuitPlan(n, LAYERS, ansatz)
+        name, plan = "circuit2d", kc.CircuitPlan(n, layers, ansatz, edges)
         fwd, bwd = kc.circuit2d_forward, kc.circuit2d_backward
         fwd_p, bwd_p = kc.circuit2d_forward_plain, kc.circuit2d_backward_plain
 
         def operators(th):
-            Mr, Mc = rotation_operators(th, n, LAYERS, plan.per_qubit)
+            Mr, Mc = rotation_operators(th, n, layers, plan.per_qubit)
             return [t.contiguous() for t in (Mr.real, Mr.imag, Mc.real, Mc.imag)]
 
+    def model(backend, dtype=torch.float32):
+        return QuantumBornMachine(n, layers, ansatz, backend=backend, dtype=dtype,
+                                  device=device, edges=edges)
+
     gen = torch.Generator().manual_seed(n)
-    theta = (0.1 * torch.randn(num_ansatz_params(n, LAYERS, ansatz), generator=gen)).to(device)
+    theta = (0.1 * torch.randn(num_ansatz_params(n, layers, ansatz), generator=gen)).to(device)
     planes = operators(theta)
     out_k = fwd(*planes, plan)
     out_p = fwd_p(*planes, plan)
     torch.cuda.synchronize()
     fwd_err = max(rel_err(a, b) for a, b in zip(out_k, out_p))
     abs_fwd = float((out_k[0] - out_p[0]).abs().max())
-    what = f"{name} n={n} {ansatz}"
+    what = f"{name} n={n} L={layers} {ansatz}"
+    if edges is not None:
+        what += f" ({len(edges)} edges)"
     require(all(bool(torch.isfinite(t).all()) for t in out_k), f"{what}: forward not finite")
     require(abs(float(out_k[0].sum()) - 1.0) < 1e-4, f"{what}: probs do not sum to 1")
     require(fwd_err <= TOL[f"{name}_fwd"], f"{what}: forward rel err {fwd_err:.3e}")
@@ -210,26 +250,38 @@ def check_circuit(n, device, timing, grid=False, ansatz=ANSATZ):
     require(bwd_err <= TOL[f"{name}_bwd"], f"{what}: backward rel err {bwd_err:.3e}")
 
     # θ-gradients through the model: the kernel Function against plain
-    # autograd on the card (through the blocked2d matmul form for circuit2d,
-    # through the grid kernels' plain forward for circuit2d_grid).
+    # autograd on the card (through the blocked2d matmul form for the
+    # reference ansätze on circuit2d, else through the plain forward).
     v = torch.randn(2**n, generator=gen).to(device)
     th_grads = []
     for plain in (False, True):
         p = theta.clone().requires_grad_(True)
-        if plain and grid:
+        if plain and (grid or ansatz == BN):
             probs = fwd_p(*operators(p), plan)[0].reshape(-1)
         else:
-            backend = "blocked2d" if plain else name
-            probs = QuantumBornMachine(n, LAYERS, ansatz, backend=backend, device=device).probs(p)
+            probs = model("blocked2d" if plain else name).probs(p)
         (probs @ v).backward()
         th_grads.append(p.grad)
     theta_err = rel_err(*th_grads)
     require(theta_err <= TOL[f"{name}_bwd"], f"{what}: θ-gradient rel err {theta_err:.3e}")
+    oracle = ""
+    if ansatz == BN:
+        # The oracle in float64: its own 2x2 rotations applied qubit by qubit
+        # and per-edge masked flips, not the Mr/Mc fold and index maps.
+        p64 = theta.double().requires_grad_(True)
+        q64 = model("structured2d", torch.float64).probs(p64)
+        (q64 @ v.double()).backward()
+        o_fwd = rel_err(out_k[0].reshape(-1).double(), q64.detach())
+        o_grad = rel_err(th_grads[0].double(), p64.grad)
+        require(o_fwd <= TOL[f"{name}_fwd"], f"{what}: probs vs oracle rel err {o_fwd:.3e}")
+        require(o_grad <= TOL[f"{name}_bwd"], f"{what}: θ-gradient vs oracle rel err "
+                                               f"{o_grad:.3e}")
+        oracle = f", vs float64 oracle: probs rel {o_fwd:.2e}, θ-grad rel {o_grad:.2e}"
     print(f"{what}: fwd rel {fwd_err:.2e} (abs {abs_fwd:.2e}), bwd rel {bwd_err:.2e} "
-          f"(abs {abs_bwd:.2e}), θ-grad rel {theta_err:.2e}", flush=True)
+          f"(abs {abs_bwd:.2e}), θ-grad rel {theta_err:.2e}{oracle}", flush=True)
     if not timing:
         return []
-    fwd_bound, bwd_bound = circuit_bounds(plan.R, plan.C, LAYERS)
+    fwd_bound, bwd_bound = circuit_bounds(plan.R, plan.C, layers)
     return [
         dict(name=f"{name}_fwd", max_abs_err=abs_fwd, rel_err=fwd_err,
              ms=time_ms(lambda: fwd(*planes, plan)),
@@ -240,6 +292,29 @@ def check_circuit(n, device, timing, grid=False, ansatz=ANSATZ):
              plain_ms=time_ms(lambda: bwd_p(*planes, out_p[1], out_p[2], g, plan)),
              bound_ms=bwd_bound[0], bound_by=bwd_bound[1], library_ms=None),
     ]
+
+
+def check_bn_circuits(device):
+    """The bn_structured cases of the circuit kernels: n=16 and n=20 at L=8
+    timed (the bn16 and bn20 paths' shapes and edges), the rest untimed.
+    Returns the timed records, each with its n and L."""
+    for n in (N_MAX, N_GRID_MIN):  # the largest persistent size; the grid's fewest tiles
+        check_circuit(n, device, False, grid=n > N_MAX, ansatz=BN, layers=BN_LAYERS,
+                      edges=path_edges(n))
+    check_circuit(N_BN_EDGES, device, False, ansatz=BN, layers=5, edges=BN_EDGES)
+    check_circuit(N_BN_EDGES, device, False, ansatz=BN, layers=3, edges=[])
+    check_circuit(N_GRID_MIN, device, False, grid=True, ansatz=BN, layers=2, edges=[])
+    # n=19 (R != C, the first GEMM loop): the DAG's edges reversed, high ->
+    # low, in reverse order, and the first one listed twice more.
+    flipped = [(t, c) for c, t in reversed(path_edges(N_GRID_ODD))]
+    check_circuit(N_GRID_ODD, device, False, grid=True, ansatz=BN, layers=BN_LAYERS,
+                  edges=flipped + flipped[:1] * 2)
+    records = []
+    for n, grid in ((N, False), (N_GRID, True)):
+        for r in check_circuit(n, device, True, grid=grid, ansatz=BN, layers=BN_LAYERS,
+                               edges=path_edges(n)):
+            records.append(dict(r, n=n, layers=BN_LAYERS, share=r["bound_ms"] / r["ms"]))
+    return records
 
 
 def stein_bound(cols, n):
@@ -472,6 +547,96 @@ def run_scale_path(device):
     return launches, eps
 
 
+def bn_reference_loss(n, theta0, length_scale):
+    """The KSD loss of θ0 on the n-qubit workload in float64: the
+    bn_structured oracle (per-edge flips) and the 3n+1-column Stein oracle."""
+    import torch
+    from tensornetworks_tpu_torch.core import all_bitstrings
+    from tensornetworks_tpu_torch.ops.stein import score_table, stein_matvec
+    from tensornetworks_tpu_torch.sim import make_structured_probs_fn
+
+    bn, latent, obs = path_inputs(n)
+    f64 = dict(dtype=torch.float64, device=theta0.device)
+    S = torch.as_tensor(score_table(bn.conditional_joint_table(latent, obs)), **f64)
+    B = torch.as_tensor(all_bitstrings(n), **f64)
+    with torch.no_grad():
+        q = make_structured_probs_fn(n, BN_LAYERS, path_edges(n))(theta0.double())
+        return math.sqrt(max(float(q @ stein_matvec(q, S, B, n, length_scale)), 1e-12))
+
+
+def check_bn_run(path, hist, launches, theta0, length_scale, n):
+    """A bn path's history and launches, and its epoch-0 loss against float64."""
+    check_history(path, hist)
+    check_launches(path, launches)
+    loss = hist["loss_ksd"]
+    ref_loss = bn_reference_loss(n, theta0, length_scale)
+    loss_err = abs(loss[0] - ref_loss) / abs(ref_loss)
+    require(loss_err < 1e-4, f"{path} epoch-0 loss {loss[0]} vs float64 {ref_loss}")
+    return loss_err
+
+
+def run_bn16_path(device):
+    """bench.py's quality configuration for 3000 epochs: bn_structured at 16
+    qubits, L=8, length scale 0.0625, lr 0.05, through the engine."""
+    import torch
+    from tensornetworks_tpu_torch.engines import QuantumKSDVariationalInference
+    from tensornetworks_tpu_torch.ops import kernels
+
+    bn, latent, obs = path_inputs(N)
+    post = bn.posterior_vector(latent, obs)
+    eng = QuantumKSDVariationalInference(bn, latent, list(obs), qbm_num_latent_vars=N,
+                                         qbm_ansatz_layers=BN_LAYERS, qbm_ansatz_type=BN,
+                                         base_kernel_length_scale=BN_LENGTH_SCALE, seed=0,
+                                         device=device)
+    require(eng.born_machine.backend == "circuit2d", "bn16 path is not on circuit2d")
+    theta0 = eng.params.clone()
+    kernels.reset_launches()
+    hist = eng.train(obs, num_epochs=BN16_EPOCHS, lr_born_machine=BN_LR, verbose=False,
+                     true_posterior_for_tvd=post, chunk_epochs=BN16_CHUNK)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    loss_err = check_bn_run("bn16", hist, launches, theta0, BN_LENGTH_SCALE, N)
+    require(eng.best_tvd_ <= BN16_TVD_MAX,
+            f"bn16 best TVD {eng.best_tvd_} > {BN16_TVD_MAX} after {BN16_EPOCHS} epochs")
+    loss = hist["loss_ksd"]
+    eps = hist.get("epochs_per_sec_steady", hist["epochs_per_sec"])
+    print(f"bn16 path: {BN16_EPOCHS} epochs, {len(eng.born_machine.edges)} edges, loss "
+          f"{loss[0]:.5f} -> {loss[-1]:.5f} (epoch-0 rel err vs float64 {loss_err:.1e}), "
+          f"best TVD {eng.best_tvd_:.5f} (limit {BN16_TVD_MAX}) at epoch {eng.best_epoch_}, "
+          f"{eps:.1f} epochs/s steady, launches {launches}", flush=True)
+    return launches, eps
+
+
+def run_bn20_path(device):
+    """The 20-qubit bn_structured run (L=8) through ``run_scale_experiment``."""
+    import torch
+    from tensornetworks_tpu_torch.models import QuantumBornMachine
+    from tensornetworks_tpu_torch.ops import kernels
+    from tensornetworks_tpu_torch.ops.hamming import resolve_length_scale
+    from tensornetworks_tpu_torch.runners import run_scale_experiment
+
+    n = N_GRID
+    # The run's initial θ: the engine draws it from its seed exactly so.
+    theta0 = QuantumBornMachine(n, BN_LAYERS, BN, device=device, edges=path_edges(n)).init(
+        torch.Generator().manual_seed(0))
+    kernels.reset_launches()
+    out = run_scale_experiment(num_qubits=n, layers=BN_LAYERS, ansatz=BN, num_epochs=BN20_EPOCHS,
+                               chunk_epochs=BN20_CHUNK, lr=BN_LR, seed=0, track_tvd=True,
+                               verbose=False, device=device)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    model, hist = out["model"], out["history"]
+    require(model.born_machine.backend == "circuit2d_grid",
+            f"bn20 path is on {model.born_machine.backend}, not circuit2d_grid")
+    loss_err = check_bn_run("bn20", hist, launches, theta0, resolve_length_scale("auto", n), n)
+    loss = hist["loss_ksd"]
+    eps = hist.get("epochs_per_sec_steady", hist["epochs_per_sec"])
+    print(f"bn20 path: {BN20_EPOCHS} epochs, loss {loss[0]:.5f} -> {loss[-1]:.5f} "
+          f"(epoch-0 rel err vs float64 {loss_err:.1e}), best TVD {model.best_tvd_:.5f}, "
+          f"{eps:.2f} epochs/s steady, launches {launches}", flush=True)
+    return launches, eps
+
+
 def run_sprinkler(device):
     from tensornetworks_tpu_torch.runners import run_sprinkler_quantum_ksd_experiment
 
@@ -499,11 +664,19 @@ def main() -> int:
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
 
+    t_start = time.perf_counter()
+
+    def phase(label, t0):
+        now = time.perf_counter()
+        print(f"phase {label}: {now - t0:.1f}s", flush=True)
+        return now
+
     t0 = time.perf_counter()
     kernels.build_all()
     print(f"built kernels in {time.perf_counter() - t0:.1f}s", flush=True)
     from tensornetworks_tpu_torch.ops.kernels import _lib
     print_new_registers(check_spills(_lib.BUILD_LOGS))
+    t0 = phase("build", t0)
 
     for n in (N_MIN, N_RAGGED, N_ODD, N_MAX):  # ragged tiles (R=4, C=2); odd, R != C
         check_circuit(n, device, timing=False)
@@ -519,12 +692,22 @@ def main() -> int:
     records = (check_circuit(N, device, timing=True) + check_stein2d(N, device)
                + check_circuit(N_GRID, device, timing=True, grid=True)
                + check_stein2d(N_GRID, device))
+    t0 = phase("kernel checks", t0)
+    bn_records = check_bn_circuits(device)
+    t0 = phase("bn_structured kernel checks", t0)
     path_launches = {}
     path_launches["main16"], eps = run_main_path(device)
+    t0 = phase("main16 path", t0)
     path_launches["scale20"], eps20 = run_scale_path(device)
+    t0 = phase("scale20 path", t0)
+    path_launches["bn16"], eps_bn16 = run_bn16_path(device)
+    t0 = phase("bn16 path", t0)
+    path_launches["bn20"], eps_bn20 = run_bn20_path(device)
+    t0 = phase("bn20 path", t0)
     run_sprinkler(device)
+    t0 = phase("sprinkler", t0)
 
-    kernel_path = {k: path for path, names in PATH_KERNELS.items() for k in names}
+    kernel_path = {k: path for path in ("main16", "scale20") for k in PATH_KERNELS[path]}
     kernels_line = []
     for r in records:
         kernels_line.append({
@@ -536,8 +719,18 @@ def main() -> int:
         })
     require(sorted(k["name"] for k in kernels_line) == sorted(kernel_path),
             "the kernels line does not list every kernel")
-    print(f"main path {eps:.2f} epochs/s, scale20 path {eps20:.2f} epochs/s on {card}")
+    bn_path = {k: path for path in ("bn16", "bn20") for k in PATH_KERNELS[path]}
+    bn_line = []
+    for r in bn_records:
+        path = bn_path[r["name"]]
+        bn_line.append({k: r[k] for k in ("name", "n", "layers", "max_abs_err", "rel_err", "ms",
+                                          "plain_ms", "bound_ms", "bound_by", "share")}
+                       | {"path": path, "launches": path_launches[path][r["name"]]})
+    print(f"main path {eps:.2f} epochs/s, scale20 path {eps20:.2f} epochs/s, bn16 path "
+          f"{eps_bn16:.2f} epochs/s, bn20 path {eps_bn20:.2f} epochs/s on {card}; "
+          f"{time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps({"kernels": kernels_line}))
+    print(json.dumps({"bn_structured": bn_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

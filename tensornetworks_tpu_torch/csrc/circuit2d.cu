@@ -8,7 +8,8 @@
 // The state is the (R, C) = (2^ceil(n/2), 2^floor(n/2)) matrix X (row qubits
 // 0..rb-1, column qubits rb..n-1). A layer is, in the TPU kernel's order:
 // rotations X <- Mr X Mc^T, row-chain CNOT permutation, boundary CNOT,
-// column-chain permutation, ring CNOT, CZ signs. At n=16 one plane pair is
+// column-chain permutation, ring CNOT, CZ signs (bn_structured: the DAG
+// edges' CNOTs on even layers, their CZs on odd ones). At n=16 one plane pair is
 // 512 KB, more than a block's 227 KB of shared memory, so the TPU design of a
 // VMEM-resident state does not carry over: the state lives in L2.
 //
@@ -43,9 +44,9 @@
 
 extern "C" {
 
-// probs, xr, xi: (R, C) outputs; tmp: (2, R, C) scratch; masks: (1 +
-// layers, n) on the device, the chain map's row masks and then each layer's
-// CZ masks. Returns the launch's error: a device that cannot run the
+// probs, xr, xi: (R, C) outputs; tmp: (2, R, C) scratch; masks: (2 layers,
+// n) on the device, layer l's row masks at row 2l and its CZ masks at row
+// 2l + 1. Returns the launch's error: a device that cannot run the
 // cooperative launch refuses it.
 int tn_circuit2d_forward(const float* mr_re, const float* mr_im, const float* mc_re,
                          const float* mc_im, float* probs, float* xr, float* xi, float* tmp,

@@ -52,7 +52,7 @@ struct Args {
   const float* xr; const float* xi; const float* g;
   float* dmr_re; float* dmr_im; float* dmc_re; float* dmc_im;
   float* scratch;          // 4 x (4, R, C): U[0], U[1], V, W
-  const unsigned* masks;   // (1 + layers, n): the row masks, then each layer's CZ masks
+  const unsigned* masks;   // (2 layers, n): layer l's row masks, then its CZ masks
   int n, layers;
 };
 

@@ -6,7 +6,9 @@
 // :185; their pallas_calls at :295, :306): the whole circuit from
 // |0...0> (or the Hadamard wall) to |psi|^2. A layer is X <- Mr X Mc^T, then
 // the layer's CNOTs as one exact GF(2)-linear index map with its CZ sign
-// (layer_map.cuh PermSpec).
+// (layer_map.cuh PermSpec), each layer's own: the chain ansaetze repeat one
+// map, bn_structured alternates two. phi0 depends on the wall alone, never
+// on a map.
 //
 // Bound at n=16, L=4 (R=C=256): 8 complex products of 256^3, 8 L (R^2 C +
 // R C^2) = 1.07 GFLOP of FP32 FMA, 16 us at 67 TFLOP/s; about 2 us a
@@ -54,7 +56,7 @@ struct Args {
   const float* mr_re; const float* mr_im; const float* mc_re; const float* mc_im;
   float* probs; float* xr; float* xi;
   float* tmp;              // (2, R, C)
-  const unsigned* masks;   // (1 + layers, n): the row masks, then each layer's CZ masks
+  const unsigned* masks;   // (2 layers, n): layer l's row masks, then its CZ masks
   int n, layers, has_wall;
   float amp;               // 2^(-n/2), the wall's amplitude
 };

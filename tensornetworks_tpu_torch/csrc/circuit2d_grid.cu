@@ -22,7 +22,10 @@
 //   GEMM's epilogue. A W form computes a permutation with R x R x C FMAs,
 //   as many as a rotation; the index map costs no arithmetic.
 // - The TPU chose the CZ mask in the kernel by the grid step's parity; here
-//   `cz` holds the two parity variants, (2, n), and the driver picks row l % 2.
+//   `rows` and `cz` hold one row per layer, (layers, n), and the driver reads
+//   row l. bn_structured (which the JAX package runs on XLA, not on this
+//   kernel) folds nothing into Mr, and its index maps alternate: the DAG
+//   edges' CNOTs on even layers, the identity on odd ones.
 // - The backward walks the layers in reverse as the TPU's reversed grid did:
 //   a gather undoes the map on the state and the cotangent, one batched GEMM of
 //   two pulls both back, two complex GEMMs emit dMr[l] and dMc[l].
@@ -49,26 +52,27 @@ extern "C" {
 // (P_row Mr): (layers, R, R) planes; Mc: (layers, C, C) planes.
 // probs, xr, xi: (R, C) outputs; tmp: (2, R, C) and mct: (2, layers, C, C)
 // scratch.
-// rows: n masks of the boundary / column-chain / ring map; cz: (2, n) CZ
-// masks of the even and the odd layers.
+// rows: (layers, n) masks of each layer's index map (HE: the boundary /
+// column-chain / ring map on every layer); cz: (layers, n) CZ masks of each
+// layer. Both are host tables.
 int tn_circuit2d_grid_forward(const float* mr_re, const float* mr_im, const float* mc_re,
                               const float* mc_im, float* probs, float* xr, float* xi,
                               float* tmp, float* mct, int n, int layers, int has_wall,
                               const unsigned* rows, const unsigned* cz, void* stream) {
-  const tn::LayerMaps maps = {n, rows, cz, 2};
+  const tn::LayerMaps maps = {n, rows, cz};
   return tn::circuit_forward(mr_re, mr_im, mc_re, mc_im, probs, xr, xi, tmp, mct, layers,
                              has_wall, maps, static_cast<cudaStream_t>(stream));
 }
 
 // xr, xi, g: (R, C) inputs; dmr_*: (layers, R, R) and dmc_*: (layers, C, C)
 // outputs (gradients of the P_row-folded operators); buf_a, buf_b: (4, R, C)
-// scratch each.
+// scratch each; rows, cz: as the forward's.
 int tn_circuit2d_grid_backward(const float* mr_re, const float* mr_im, const float* mc_re,
                                const float* mc_im, const float* xr, const float* xi,
                                const float* g, float* dmr_re, float* dmr_im, float* dmc_re,
                                float* dmc_im, float* buf_a, float* buf_b, int n, int layers,
                                const unsigned* rows, const unsigned* cz, void* stream) {
-  const tn::LayerMaps maps = {n, rows, cz, 2};
+  const tn::LayerMaps maps = {n, rows, cz};
   return tn::circuit_backward(mr_re, mr_im, mc_re, mc_im, xr, xi, g, dmr_re, dmr_im, dmc_re,
                               dmc_im, buf_a, buf_b, layers, maps,
                               static_cast<cudaStream_t>(stream));

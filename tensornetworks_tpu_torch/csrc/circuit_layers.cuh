@@ -1,6 +1,6 @@
 // Per-layer host launchers of the circuit forward and its adjoint backward.
 // Both serve circuit2d_grid.cu alone (n >= 18: the row chain folded into Mr,
-// CZ masks chosen by layer parity); the n <= 17 forward and backward are one
+// one index map and CZ masks per layer); the n <= 17 forward and backward are one
 // persistent cooperative kernel each (circuit2d_fwd.cuh, circuit2d_bwd.cuh).
 //
 // The state is the (R, C) = (2^ceil(n/2), 2^floor(n/2)) matrix X of planar
@@ -30,21 +30,22 @@
 
 namespace tn {
 
-// The layer structure the drivers read: n masks of the CNOT index map, and
-// the CZ masks of layer l at cz + (l % cz_period) * n.
+// The layer structure the drivers read (host tables, (layers, n) each): the
+// n masks of layer l's CNOT index map at rows + l * n, its CZ masks at
+// cz + l * n.
 struct LayerMaps {
   int n;
   const unsigned* rows;
   const unsigned* cz;
-  int cz_period;
 };
 
 inline PermSpec layer_spec(const LayerMaps& m, int layer) {
   PermSpec s = {};
   s.nbits = m.n;
-  const unsigned* cz = m.cz + (long long)(layer % m.cz_period) * m.n;
+  const unsigned* rows = m.rows + (long long)layer * m.n;
+  const unsigned* cz = m.cz + (long long)layer * m.n;
   for (int k = 0; k < m.n; ++k) {
-    s.rows[k] = m.rows[k];
+    s.rows[k] = rows[k];
     s.cz[k] = cz[k];
   }
   return s;

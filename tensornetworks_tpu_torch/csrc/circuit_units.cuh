@@ -274,12 +274,14 @@ __device__ __forceinline__ void set_vec(Prod& p) {
   p.vec_b = vec_ok(p.b_re, p.b_im, p.b_sn, p.b_sk, p.b_sb, p.N);
 }
 
-// The layer's index map and CZ signs into the block's shared `spec`: the
-// row masks, then layer l's CZ masks, from the (1 + layers, n) device table.
+// Layer l's index map and CZ signs into the block's shared `spec`, from the
+// (2 layers, n) device table: row 2l holds the layer's row masks, row 2l + 1
+// its CZ masks.
 __device__ __forceinline__ void load_spec(PermSpec& spec, const unsigned* masks, int n, int l) {
   if (threadIdx.x < n) {
-    spec.rows[threadIdx.x] = masks[threadIdx.x];
-    spec.cz[threadIdx.x] = masks[(long long)(1 + l) * n + threadIdx.x];
+    const unsigned* m = masks + 2LL * l * n;
+    spec.rows[threadIdx.x] = m[threadIdx.x];
+    spec.cz[threadIdx.x] = m[n + threadIdx.x];
   }
   if (threadIdx.x == 0) spec.nbits = n;
   __syncthreads();

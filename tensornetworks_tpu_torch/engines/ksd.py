@@ -25,6 +25,7 @@ from ..core.bits import generate_all_binary_outcomes
 from ..models.born_quantum import QuantumBornMachine
 from ..ops.hamming import resolve_length_scale
 from ..ops.stein import SteinOperator, score_table
+from ..sim.structured import latent_edges
 from .common import global_norm, guarded_update, make_optimizer
 
 
@@ -127,14 +128,18 @@ def steady_epochs_per_sec(chunk_seconds) -> Optional[float]:
 
 class QuantumKSDVariationalInference:
     """Quantum-Born-machine KSD engine. Constructor keywords mirror the JAX
-    engine's ``qbm_*`` names; ``device`` defaults to the card."""
+    engine's ``qbm_*`` names; ``device`` defaults to the card. For
+    ``qbm_ansatz_type="bn_structured"``, ``qbm_edges`` defaults to the
+    network's latent edges (``sim.structured.latent_edges``)."""
 
     def __init__(self, bayesian_network: BayesianNetwork, latent_vars_names: Sequence[str],
                  observed_vars_names: Sequence[str], qbm_num_latent_vars: int,
                  qbm_ansatz_layers: int = 1, qbm_ansatz_type: str = "hardware_efficient",
                  qbm_init_method: str = "small_random", base_kernel_length_scale=1.0,
                  dtype=torch.float32, seed: int = 0, qbm_backend: str = "auto",
-                 device="cuda"):
+                 device="cuda", qbm_edges=None):
+        if qbm_ansatz_type == "bn_structured" and qbm_edges is None:
+            qbm_edges = latent_edges(bayesian_network, latent_vars_names)
         self.bn = bayesian_network
         self.latent_vars_names = list(latent_vars_names)
         self.observed_vars_names = list(observed_vars_names)
@@ -147,7 +152,8 @@ class QuantumKSDVariationalInference:
         self.device = torch.device(device)
         self.born_machine = QuantumBornMachine(
             qbm_num_latent_vars, ansatz_layers=qbm_ansatz_layers, ansatz_type=qbm_ansatz_type,
-            init_method=qbm_init_method, backend=qbm_backend, dtype=dtype, device=device)
+            init_method=qbm_init_method, backend=qbm_backend, dtype=dtype, device=device,
+            edges=qbm_edges)
         self.params = self.born_machine.init(torch.Generator().manual_seed(seed))
         self.history_: Optional[dict] = None
 

@@ -1,9 +1,12 @@
 """Quantum Born machine on the port's statevector simulator.
 
-Counterpart of ``tensornetworks_tpu/models/born_quantum.py`` for the
-unconditioned reference ansätze (``hardware_efficient``, ``all_to_all``,
-``basic``). ``probs(params)`` is the analytic |ψ(θ)|² over all 2^n
-outcomes; gradients flow through torch autograd.
+Counterpart of ``tensornetworks_tpu/models/born_quantum.py``, unconditioned,
+for the reference ansätze (``hardware_efficient``, ``all_to_all``,
+``basic``) and the DAG-structured ``bn_structured``, whose entanglers follow
+``edges`` (required; see ``sim.structured.latent_edges``). ``probs(params)``
+is the analytic |ψ(θ)|² over all 2^n outcomes; gradients flow through torch
+autograd. The model exposes probabilities only, as the JAX model does for
+``bn_structured``.
 
 Backends (all give the same distribution):
 - ``circuit2d``: the hand-written CUDA circuit kernels (forward and adjoint
@@ -14,8 +17,14 @@ Backends (all give the same distribution):
   (any 2 ≤ n ≤ 24 when named).
 - ``blocked2d``: the plain (R, C) matmul formulation, autograd through it.
 - ``einsum``: gate-by-gate contractions on the (2,)*n tensor.
-``auto`` picks ``circuit2d`` for 2 ≤ n ≤ 17, ``circuit2d_grid`` for
-18 ≤ n ≤ 24 and ``einsum`` outside those ranges.
+- ``structured2d`` (``bn_structured`` only): the plain torch flip-select
+  oracle ``sim.structured.make_structured_probs_fn``, named as the JAX
+  backend it mirrors.
+``auto`` picks ``circuit2d`` for 2 ≤ n ≤ 17 and ``circuit2d_grid`` for
+18 ≤ n ≤ 24, for every ansatz. Outside those ranges it picks ``einsum``
+for the reference ansätze and raises for ``bn_structured``. The JAX package
+runs ``bn_structured`` on XLA executors, never on its circuit kernels; here
+the kernels take it, with one CNOT map per layer.
 """
 
 from __future__ import annotations
@@ -27,15 +36,16 @@ from ..core.bits import generate_all_binary_outcomes
 from ..ops.kernels import circuit2d, circuit2d_grid
 from ..sim.ansatz import ansatz_probs, num_ansatz_params
 from ..sim.blocked2d import make_blocked2d_probs_fn
+from ..sim.structured import check_edges, make_structured_probs_fn
 
-BACKENDS = ("circuit2d", "circuit2d_grid", "blocked2d", "einsum")
+BACKENDS = ("circuit2d", "circuit2d_grid", "blocked2d", "einsum", "structured2d")
 
 
 class QuantumBornMachine:
     def __init__(self, num_latent_vars: int, ansatz_layers: int = 1,
                  ansatz_type: str = "hardware_efficient",
                  init_method: str = "small_random", backend: str = "auto",
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, device="cuda", edges=None):
         n = num_latent_vars
         self.num_latent_vars = n
         self.ansatz_layers = ansatz_layers
@@ -44,21 +54,40 @@ class QuantumBornMachine:
         self.dtype = dtype
         self.device = torch.device(device)
         self.num_params = num_ansatz_params(n, ansatz_layers, ansatz_type)
+        structured = ansatz_type == "bn_structured"
+        self.edges = None
+        if structured:
+            if edges is None:
+                raise ValueError("ansatz_type='bn_structured' requires edges= "
+                                 "(see sim.structured.latent_edges)")
+            self.edges = check_edges(n, edges)
         if backend == "auto":
             if circuit2d.MIN_QUBITS <= n <= circuit2d.MAX_QUBITS:
                 backend = "circuit2d"
             elif circuit2d_grid.AUTO_MIN_QUBITS <= n <= circuit2d_grid.MAX_QUBITS:
                 backend = "circuit2d_grid"
+            elif structured:
+                raise ValueError(f"bn_structured runs on the circuit kernels for "
+                                 f"{circuit2d.MIN_QUBITS} <= n <= {circuit2d_grid.MAX_QUBITS}, "
+                                 f"got {n}; name backend='structured2d' for the plain oracle")
             else:
                 backend = "einsum"
         if backend not in BACKENDS:
             raise ValueError(f"backend must be auto or one of {BACKENDS}, got {backend!r}")
+        if structured and backend in ("blocked2d", "einsum"):
+            raise ValueError(f"backend {backend!r} builds the reference ansätze; bn_structured "
+                             "runs on circuit2d, circuit2d_grid or structured2d")
+        if backend == "structured2d" and not structured:
+            raise ValueError("backend 'structured2d' runs the bn_structured ansatz only")
         self.backend = backend
         if backend == "circuit2d":
-            self._probs = circuit2d.make_circuit2d_probs_fn(n, ansatz_layers, ansatz_type)
+            self._probs = circuit2d.make_circuit2d_probs_fn(n, ansatz_layers, ansatz_type,
+                                                            self.edges)
         elif backend == "circuit2d_grid":
             self._probs = circuit2d_grid.make_circuit2d_grid_probs_fn(n, ansatz_layers,
-                                                                      ansatz_type)
+                                                                      ansatz_type, self.edges)
+        elif backend == "structured2d":
+            self._probs = make_structured_probs_fn(n, ansatz_layers, self.edges)
         elif backend == "blocked2d":
             self._probs = make_blocked2d_probs_fn(n, ansatz_layers, ansatz_type)
         else:

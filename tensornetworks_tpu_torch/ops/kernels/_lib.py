@@ -48,7 +48,7 @@ SIGNATURES = {
         # scratch, masks (device), n, layers, stream
         "tn_circuit2d_backward": [_P] * 13 + [_I] * 2 + [_P],
     },
-    "circuit2d_grid": {  # cz is (2, n), by layer parity
+    "circuit2d_grid": {  # rows and cz are (layers, n) host tables
         # mr_re, mr_im, mc_re, mc_im, probs, xr, xi, tmp, mct, n, layers, has_wall, rows, cz,
         # stream
         "tn_circuit2d_grid_forward": [_P] * 9 + [_I] * 3 + [_P] * 3,

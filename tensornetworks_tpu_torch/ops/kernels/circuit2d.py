@@ -3,7 +3,11 @@
 Replaces ``tensornetworks_tpu/ops/pallas/circuit2d.py``
 (``make_pallas_circuit2d_probs``: ``kernel``/``fwd_kernel`` and
 ``bwd_kernel``) with ``csrc/circuit2d.cu``: tiled FP32 complex GEMMs for the
-rotations, each layer's CNOTs and CZs as one exact index map with a sign.
+rotations, each layer's CNOTs and CZs as one exact index map with a sign,
+read per layer from a (2L, n) mask table. The fixed ansätze repeat one map;
+``bn_structured`` alternates its edges' CNOTs (even layers) with their CZs
+(odd layers), which the JAX package runs on XLA executors instead
+(``sim/structured.py`` there).
 The source notes there and in ``csrc/circuit2d_bwd.cuh`` give the design; in
 short:
 
@@ -33,9 +37,12 @@ import torch
 
 from ...sim.blocked import _chain_gates, _cnot_map, _cz_pairs
 from ...sim.gates import rotation_operators
+from ...sim.structured import check_edges
 from . import _lib
 
 MIN_QUBITS, MAX_QUBITS = 2, 17
+# The ansätze that start from the Hadamard wall and take 3 angles a qubit.
+WALL_ANSATZE = ("hardware_efficient", "all_to_all", "bn_structured")
 
 
 def gf2_rows(n: int, gates) -> np.ndarray:
@@ -53,12 +60,35 @@ def gf2_rows(n: int, gates) -> np.ndarray:
 
 
 def cz_masks(n: int, pairs) -> np.ndarray:
-    """(n,) uint32 masks of a set of CZ pairs: the sign at flat index d is
-    ``(-1)^(Σ_k bit_k(d)·popcount(d & masks[k]))``."""
+    """(n,) uint32 masks of a sequence of CZ pairs: the sign at flat index d
+    is ``(-1)^(Σ_k bit_k(d)·popcount(d & masks[k]))``. A pair listed twice
+    cancels, as two CZs on one pair do."""
     m = np.zeros(n, dtype=np.uint32)
     for a, b in pairs:
-        m[n - 1 - a] |= np.uint32(1 << (n - 1 - b))
+        m[n - 1 - a] ^= np.uint32(1 << (n - 1 - b))
     return m
+
+
+def layer_masks(n: int, layers: int, ansatz_type: str, edges=None, chain=None) -> tuple:
+    """(rows (L, n), cz (L, n)) uint32: each layer's CNOT map (``gf2_rows``)
+    and CZ masks (``cz_masks``), the tables both circuit plans give their
+    kernels. ``bn_structured`` (needs ``edges``): the edges' CNOTs in order
+    and no CZ on even layers, the identity map and a CZ on every edge on odd
+    layers. The fixed ansätze: the CNOT sequence ``chain`` (by default their
+    whole chain) on every layer, and each layer's own CZ pairs."""
+    if ansatz_type == "bn_structured":
+        if edges is None:
+            raise ValueError("bn_structured needs edges (see sim.structured.latent_edges)")
+        edges = check_edges(n, edges)
+        even = (np.arange(layers) % 2 == 0)[:, None]
+        return (np.where(even, gf2_rows(n, edges), gf2_rows(n, [])),
+                np.where(even, cz_masks(n, []), cz_masks(n, edges)))
+    if chain is None:
+        chain = (_chain_gates(n, ansatz_type)
+                 if ansatz_type in ("hardware_efficient", "basic") else [])
+    return (np.tile(gf2_rows(n, chain), (layers, 1)),
+            np.stack([cz_masks(n, _cz_pairs(n, layer, ansatz_type))
+                      for layer in range(layers)]))
 
 
 def expand_maps(rows: np.ndarray, cz: np.ndarray, device, index=None) -> tuple:
@@ -86,19 +116,41 @@ def expand_maps(rows: np.ndarray, cz: np.ndarray, device, index=None) -> tuple:
     return torch.as_tensor(dst, device=device), torch.as_tensor(sign, device=device)
 
 
+def layer_tables(rows: np.ndarray, cz: np.ndarray, device) -> tuple:
+    """(dst, sign) of per-layer masks ``rows`` and ``cz`` (L, n): layer l's
+    map is ``layer_map(dst, sign, l)``. One shared (2^n,) ``dst`` where all
+    layers' rows are equal; else (L, 2^n), each distinct layer expanded once
+    (each layer's sign is taken at its own destination). ``sign`` is
+    (L, 2^n)."""
+    if (rows == rows[0]).all():
+        return expand_maps(rows[0], cz, device)
+    n = rows.shape[1]
+    keys, inv = np.unique(np.concatenate([rows, cz], axis=1), axis=0, return_inverse=True)
+    per = [expand_maps(k[:n], k[None, n:], device) for k in keys]
+    inv = torch.as_tensor(inv.reshape(-1), device=device)
+    return torch.stack([d for d, _ in per])[inv], torch.cat([s for _, s in per])[inv]
+
+
+def layer_map(dst, sign, layer: int) -> tuple:
+    """Layer ``layer``'s (dst (2^n,), sign (2^n,)) from ``layer_tables``."""
+    return (dst if dst.dim() == 1 else dst[layer]), sign[layer]
+
+
 class CircuitPlan:
     """Static structure of one (n, layers, ansatz) circuit.
 
-    ``rows`` (n,) are the GF(2) row masks of the layer's composite CNOT map
-    (row chain, boundary, column chain, ring — in that order), see
-    ``gf2_rows``. ``cz`` (L, n) encode each layer's CZ pairs, see
-    ``cz_masks``. The CUDA kernels receive exactly these masks; the plain
-    path expands them into index tables.
+    ``rows`` (L, n) are each layer's GF(2) row masks of its composite CNOT
+    map, see ``gf2_rows``: for the fixed ansätze the same chain map on every
+    layer (row chain, boundary, column chain, ring — in that order); for
+    ``bn_structured`` the edges' CNOTs on even layers and the identity on odd
+    ones (``layer_masks``, which needs ``edges``). ``cz`` (L, n) encode
+    each layer's CZ pairs, see ``cz_masks``. The CUDA kernels receive exactly
+    these masks; the plain path expands them into index tables.
     """
 
     name = "circuit2d"
 
-    def __init__(self, num_wires: int, layers: int, ansatz_type: str):
+    def __init__(self, num_wires: int, layers: int, ansatz_type: str, edges=None):
         n = num_wires
         if not MIN_QUBITS <= n <= MAX_QUBITS:
             raise ValueError(f"circuit2d supports {MIN_QUBITS} <= n <= {MAX_QUBITS}, got {n}")
@@ -108,30 +160,27 @@ class CircuitPlan:
         self.rb = (n + 1) // 2
         self.cb = n - self.rb
         self.R, self.C = 1 << self.rb, 1 << self.cb
-        self.per_qubit = 3 if ansatz_type in ("hardware_efficient", "all_to_all") else 2
-        self.has_wall = ansatz_type in ("hardware_efficient", "all_to_all")
-        chain = (_chain_gates(n, ansatz_type)
-                 if ansatz_type in ("hardware_efficient", "basic") else [])
-        self.rows = gf2_rows(n, chain)
-        self.cz = np.stack([cz_masks(n, _cz_pairs(n, layer, ansatz_type))
-                            for layer in range(layers)])
+        self.per_qubit = 3 if ansatz_type in WALL_ANSATZE else 2
+        self.has_wall = ansatz_type in WALL_ANSATZE
+        self.rows, self.cz = layer_masks(n, layers, ansatz_type, edges)
         self._tables = {}
 
     def device_masks(self, device) -> torch.Tensor:
-        """(1 + L, n) int32 on ``device``: ``rows``, then each layer's CZ
-        masks, the table the persistent kernels read."""
+        """(2L, n) int32 on ``device``, the table the persistent kernels
+        read: row 2l holds layer l's row masks, row 2l + 1 its CZ masks."""
         key = ("masks", str(device))
         if key not in self._tables:
-            masks = np.concatenate([self.rows[None], self.cz]).view(np.int32)
-            self._tables[key] = torch.as_tensor(masks, device=device)
+            masks = np.stack([self.rows, self.cz], axis=1).reshape(-1, self.n)
+            self._tables[key] = torch.as_tensor(masks.view(np.int32), device=device)
         return self._tables[key]
 
     def tables(self, device) -> tuple:
-        """(dst (2^n,) int64, sign (L, 2^n) float64) expanded from the masks:
-        the forward sends flat index i to dst[i], times sign[l, i]."""
+        """(dst, sign) expanded from the masks (``layer_tables``): the forward
+        sends flat index i of layer l to dst[i], times sign[l, i], with
+        ``layer_map``. HE, all_to_all and basic share one (2^n,) dst."""
         key = ("tables", str(device))
         if key not in self._tables:
-            self._tables[key] = expand_maps(self.rows, self.cz, device)
+            self._tables[key] = layer_tables(self.rows, self.cz, device)
         return self._tables[key]
 
 
@@ -156,9 +205,10 @@ def circuit2d_forward_plain(mr_re, mr_im, mc_re, mc_im, plan: CircuitPlan):
     for layer in range(plan.layers):
         tr, ti = _cmm(mr_re[layer], mr_im[layer], xr, xi)
         zr, zi = _cmm(tr, ti, mc_re[layer].T, mc_im[layer].T)
-        s = sign[layer].to(dt)
-        xr = torch.empty_like(zr).reshape(-1).index_put_((dst,), s * zr.reshape(-1)).reshape(R, C)
-        xi = torch.empty_like(zi).reshape(-1).index_put_((dst,), s * zi.reshape(-1)).reshape(R, C)
+        d, s = layer_map(dst, sign, layer)
+        s = s.to(dt)
+        xr = torch.empty_like(zr).reshape(-1).index_put_((d,), s * zr.reshape(-1)).reshape(R, C)
+        xi = torch.empty_like(zi).reshape(-1).index_put_((d,), s * zi.reshape(-1)).reshape(R, C)
     return xr * xr + xi * xi, xr, xi
 
 
@@ -189,8 +239,8 @@ def circuit2d_backward_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan: Circui
     dmc_re, dmc_im = torch.empty_like(mc_re), torch.empty_like(mc_im)
     planes = torch.stack([xr, xi, 2.0 * g * xr, 2.0 * g * xi])  # x_re, x_im, l_re, l_im
     for layer in range(plan.layers - 1, -1, -1):
-        s = sign[layer].to(planes.dtype)
-        planes = (s * planes.reshape(4, -1)[:, dst]).reshape(4, R, C)
+        d, s = layer_map(dst, sign, layer)
+        planes = (s.to(planes.dtype) * planes.reshape(4, -1)[:, d]).reshape(4, R, C)
         planes, (dmr_re[layer], dmr_im[layer]), (dmc_re[layer], dmc_im[layer]) = \
             rotation_pullback(planes, mr_re[layer], mr_im[layer], mc_re[layer], mc_im[layer])
     return dmr_re, dmr_im, dmc_re, dmc_im
@@ -265,11 +315,12 @@ def circuit2d_forward_phased_plain(mr_re, mr_im, mc_re, mc_im, plan: CircuitPlan
         for t in (xr, xi, probs) if last else (xr, xi):
             t.fill_(float("nan"))
         zr, zi = _unit_cmm(tmp[0], tmp[1], mc_re[layer].T, mc_im[layer].T)
-        s = sign[layer].to(dt)
-        xr.reshape(-1)[dst] = s * zr.reshape(-1)
-        xi.reshape(-1)[dst] = s * zi.reshape(-1)
+        d, s = layer_map(dst, sign, layer)
+        s = s.to(dt)
+        xr.reshape(-1)[d] = s * zr.reshape(-1)
+        xi.reshape(-1)[d] = s * zi.reshape(-1)
         if last:
-            probs.reshape(-1)[dst] = (zr * zr + zi * zi).reshape(-1)
+            probs.reshape(-1)[d] = (zr * zr + zi * zi).reshape(-1)
             break
         # φL(l+1): tmp = Mr[l+1]·X
         tmp.fill_(float("nan"))
@@ -304,7 +355,8 @@ def circuit2d_backward_phased_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan:
         u.fill_(float("nan"))
         if layer < L - 1:
             grads(layer + 1)
-        u.copy_((sign[layer].to(dt) * src.reshape(4, -1)[:, dst]).reshape(4, R, C))
+        d, s = layer_map(dst, sign, layer)
+        u.copy_((s.to(dt) * src.reshape(4, -1)[:, d]).reshape(4, R, C))
         # φ2: V = U·conj(Mc[l]), state (planes 0-1) and cotangent (2-3)
         V.fill_(float("nan"))
         for h in (0, 2):
@@ -432,9 +484,10 @@ class Circuit2dFunction(torch.autograd.Function):
         return (*grads, None)
 
 
-def make_circuit2d_probs_fn(num_wires: int, layers: int, ansatz_type: str):
-    """probs(params) -> (2^n,) through the circuit kernels."""
-    plan = CircuitPlan(num_wires, layers, ansatz_type)
+def make_circuit2d_probs_fn(num_wires: int, layers: int, ansatz_type: str, edges=None):
+    """probs(params) -> (2^n,) through the circuit kernels (``edges`` for
+    bn_structured)."""
+    plan = CircuitPlan(num_wires, layers, ansatz_type, edges)
 
     def probs_fn(params: torch.Tensor) -> torch.Tensor:
         Mr, Mc = rotation_operators(params, num_wires, layers, plan.per_qubit)

@@ -13,14 +13,20 @@ note there gives the design; in short:
   TPU (``P_row·Mr``), here as a row gather. The boundary CNOT, the column
   chain and the ring CNOT, which the TPU ran as dense one-dot W forms,
   compose into one exact GF(2) index map applied with the CZ sign in the
-  right GEMM's epilogue; the CZ masks come in two variants, by layer parity.
+  right GEMM's epilogue, read per layer with the layer's CZ masks.
+- ``bn_structured`` folds nothing into Mr: its index maps alternate (the DAG
+  edges' CNOTs on even layers, the identity on odd ones), and the same
+  epilogue applies them, since it takes any GF(2)-linear map.
 
 ``GridPlan`` holds both forms of that structure: the masks the CUDA kernels
-take, and the TPU kernel's own banks (``P_col``, the W matrices, the parity
+take, and the TPU kernel's own banks (``P_col``, the W matrices, the CZ
 masks) for the plain version. ``circuit2d_grid_forward_plain`` /
 ``circuit2d_grid_backward_plain`` transcribe the TPU grid kernel's algebra,
 a different algorithm from the CUDA kernels' index map, so that holding one
-against the other on the card is a real check. Each wrapper takes the plain
+against the other on the card is a real check. The W forms exist only for
+the chain, so for ``bn_structured`` the plain version is the index-map form
+of ``circuit2d.py``, and the independent check is the oracle
+``sim/structured.make_structured_probs_fn``. Each wrapper takes the plain
 version only for CPU tensors; a CUDA tensor launches the kernel or raises.
 
 Valid range: any 2 ≤ n ≤ ``MAX_QUBITS`` when the backend is named (the CPU
@@ -44,7 +50,9 @@ from ...sim.blocked import _chain_gates, _cnot_map, _cz_pairs
 from ...sim.blocked2d import _cz_sign_mask, _kron_h, _perm_matrix
 from ...sim.gates import rotation_operators
 from . import _lib
-from .circuit2d import _check, _cmm, cz_masks, gf2_rows, rotation_pullback
+from .circuit2d import (WALL_ANSATZE, _check, _cmm, circuit2d_backward_plain,
+                        circuit2d_forward_plain, layer_masks, layer_tables,
+                        rotation_pullback)
 
 MIN_QUBITS, AUTO_MIN_QUBITS, MAX_QUBITS = 2, 18, 24
 
@@ -61,16 +69,18 @@ class GridPlan:
 
     - ``row_src`` (R,) int64: the row-chain permutation as a gather,
       ``(P_row M)[i] = M[row_src[i]]`` (None without a row chain).
-    - ``rows`` (n,): GF(2) masks of the rest of the CNOT chain — boundary,
-      column chain, ring, in that order (``circuit2d.gf2_rows``).
-    - ``cz`` (2, n): CZ masks of the even and the odd layers
-      (``circuit2d.cz_masks``); CZ depends on the layer only through its
-      parity, which the constructor asserts as the JAX module does.
+    - ``rows`` (L, n), ``cz`` (L, n): each layer's GF(2) masks of the rest
+      of its CNOT map and its CZ masks (``circuit2d.layer_masks``). For the
+      fixed ansätze the same map on every layer: boundary, column chain,
+      ring, in that order. For ``bn_structured`` the edges' CNOTs on even
+      layers, the identity on odd ones, and nothing is folded.
+    - ``index_form``: the plain version runs the index maps (bn_structured,
+      whose DAG edges have no W form) rather than the TPU kernel's banks.
     """
 
     name = "circuit2d_grid"
 
-    def __init__(self, num_wires: int, layers: int, ansatz_type: str):
+    def __init__(self, num_wires: int, layers: int, ansatz_type: str, edges=None):
         n = num_wires
         if not MIN_QUBITS <= n <= MAX_QUBITS:
             raise ValueError(f"circuit2d_grid supports {MIN_QUBITS} <= n <= {MAX_QUBITS}, "
@@ -81,9 +91,15 @@ class GridPlan:
         self.rb = rb = (n + 1) // 2
         self.cb = cb = n - rb
         self.R, self.C = 1 << rb, 1 << cb
-        self.per_qubit = 3 if ansatz_type in ("hardware_efficient", "all_to_all") else 2
-        self.has_wall = ansatz_type in ("hardware_efficient", "all_to_all")
+        self.per_qubit = 3 if ansatz_type in WALL_ANSATZE else 2
+        self.has_wall = ansatz_type in WALL_ANSATZE
+        self.index_form = ansatz_type == "bn_structured"
         self.has_chain = ansatz_type in ("hardware_efficient", "basic")
+        self.row_src = None
+        self._cache = {}
+        if self.index_form:
+            self.rows, self.cz = layer_masks(n, layers, ansatz_type, edges)
+            return
         chain = _chain_gates(n, ansatz_type) if self.has_chain else []
         self.row_chain = [(c, t) for c, t in chain if c < rb and t < rb]
         self.col_chain = [(c - rb, t - rb) for c, t in chain if c >= rb and t >= rb]
@@ -91,21 +107,22 @@ class GridPlan:
                          if (c < rb) != (t < rb) and not (c == n - 1 and t == 0)]
         assert len(self.boundary) <= 1, self.boundary  # nearest-neighbour chain: one split
         self.ring = bool(chain) and n > 2
-        self.row_src = None
         if self.row_chain:
             idx = np.arange(self.R, dtype=np.int64)
             fwd = idx.copy()
             for c, t in self.row_chain:
                 fwd = _cnot_map(idx, rb, c, t)[fwd]
             self.row_src = np.argsort(fwd)
-        self.rows = gf2_rows(n, [g for g in chain if g not in self.row_chain])
-        self.even_pairs = _cz_pairs(n, 0, ansatz_type)
-        self.odd_pairs = _cz_pairs(n, 1, ansatz_type)
-        for layer in range(layers):
-            expect = self.even_pairs if layer % 2 == 0 else self.odd_pairs
-            assert _cz_pairs(n, layer, ansatz_type) == expect, ansatz_type
-        self.cz = np.stack([cz_masks(n, self.even_pairs), cz_masks(n, self.odd_pairs)])
-        self._cache = {}
+        self.rows, self.cz = layer_masks(n, layers, ansatz_type,
+                                         chain=[g for g in chain if g not in self.row_chain])
+
+    def tables(self, device) -> tuple:
+        """(dst, sign) of the per-layer masks (``circuit2d.layer_tables``),
+        the index-form plain version's tables."""
+        key = ("tables", str(device))
+        if key not in self._cache:
+            self._cache[key] = layer_tables(self.rows, self.cz, device)
+        return self._cache[key]
 
     def row_index(self, device):
         """``row_src`` as a tensor on ``device`` (None without a row chain)."""
@@ -119,8 +136,9 @@ class GridPlan:
         """The TPU grid kernel's constants, as dense tensors: ``p_col``
         (C, C) column-chain permutation, ``w_bound`` (C, C) and ``w_ring``
         (R, R) W matrices with their control masks ``m_bound`` (R, 1) (row
-        LSB) and ``m_ring`` (1, C) (column LSB), and ``cz`` — the (R, C) ±1
-        masks of the even and the odd layers (None where there is none)."""
+        LSB) and ``m_ring`` (1, C) (column LSB), and ``cz`` — each layer's
+        (R, C) ±1 mask (None where it has no CZ), one tensor per distinct
+        mask."""
         key = ("banks", str(device), dtype)
         if key not in self._cache:
             rb, cb, R, C = self.rb, self.cb, self.R, self.C
@@ -130,6 +148,9 @@ class GridPlan:
                                                               device=device)
 
             P_col = _perm_matrix(self.col_chain, cb)
+            pairs = [tuple(_cz_pairs(self.n, layer, self.ansatz_type))
+                     for layer in range(self.layers)]
+            signs = {p: T(_cz_sign_mask(rb, cb, list(p))) for p in set(pairs)}
             self._cache[key] = {
                 "p_col": T(P_col),
                 # boundary CNOT(rb-1 -> rb): control row bit rb-1, target column bit 0
@@ -138,8 +159,7 @@ class GridPlan:
                 # ring CNOT(n-1 -> 0): control column bit cb-1, target row bit 0
                 "w_ring": T(_w_matrix(rb, (np.arange(R) >> (rb - 1)) & 1)),
                 "m_ring": T((np.arange(C)[None, :] & 1).astype(np.float64)),
-                "cz": [T(_cz_sign_mask(rb, cb, self.even_pairs)),
-                       T(_cz_sign_mask(rb, cb, self.odd_pairs))],
+                "cz": [signs[p] for p in pairs],
             }
         return self._cache[key]
 
@@ -158,8 +178,11 @@ def _ring(x, b):
 def circuit2d_grid_forward_plain(mr_re, mr_im, mc_re, mc_im, plan: GridPlan):
     """probs, xr, xi (R, C): the TPU grid kernel's forward in torch. ``mr``
     are the P_row-folded operators; boundary and ring CNOTs run as the one-dot
-    W forms, the column chain as a permutation matmul, CZ as the parity's
-    ±1 mask."""
+    W forms, the column chain as a permutation matmul, CZ as the layer's
+    ±1 mask. For ``bn_structured`` (``plan.index_form``): the per-layer
+    index maps of ``circuit2d.circuit2d_forward_plain``."""
+    if plan.index_form:
+        return circuit2d_forward_plain(mr_re, mr_im, mc_re, mc_im, plan)
     R, C, dt, dev = plan.R, plan.C, mr_re.dtype, mr_re.device
     b = plan.banks(dev, dt)
     if plan.has_wall:  # wall ∘ |0..0⟩ is the uniform amplitude
@@ -179,7 +202,7 @@ def circuit2d_grid_forward_plain(mr_re, mr_im, mc_re, mc_im, plan: GridPlan):
                 planes = [x @ b["p_col"].T for x in planes]
             if plan.ring:
                 planes = [_ring(x, b) for x in planes]
-        s = b["cz"][layer % 2]
+        s = b["cz"][layer]
         xr, xi = planes if s is None else [x * s for x in planes]
     return xr * xr + xi * xi, xr, xi
 
@@ -187,13 +210,16 @@ def circuit2d_grid_forward_plain(mr_re, mr_im, mc_re, mc_im, plan: GridPlan):
 def circuit2d_grid_backward_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan: GridPlan):
     """dMr_re, dMr_im (L,R,R), dMc_re, dMc_im (L,C,C): the TPU grid kernel's
     adjoint sweep in torch. The W-form CNOTs are symmetric and involutive,
-    so the state's inverse and the cotangent's pullback are the same op."""
+    so the state's inverse and the cotangent's pullback are the same op.
+    For ``bn_structured``: ``circuit2d.circuit2d_backward_plain``."""
+    if plan.index_form:
+        return circuit2d_backward_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan)
     b = plan.banks(mr_re.device, mr_re.dtype)
     dmr_re, dmr_im = torch.empty_like(mr_re), torch.empty_like(mr_im)
     dmc_re, dmc_im = torch.empty_like(mc_re), torch.empty_like(mc_im)
     planes = torch.stack([xr, xi, 2.0 * g * xr, 2.0 * g * xi])  # x_re, x_im, l_re, l_im
     for layer in range(plan.layers - 1, -1, -1):
-        s = b["cz"][layer % 2]
+        s = b["cz"][layer]
         if s is not None:
             planes = planes * s
         if plan.has_chain:
@@ -212,7 +238,9 @@ def circuit2d_grid_backward_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan: G
 
 
 def _masks(plan: GridPlan):
-    return (plan.rows.ctypes.data_as(ctypes.c_void_p), plan.cz.ctypes.data_as(ctypes.c_void_p))
+    """rows, cz: the (L, n) host mask tables the launchers read."""
+    return (plan.rows.ctypes.data_as(ctypes.c_void_p),
+            plan.cz.ctypes.data_as(ctypes.c_void_p))
 
 
 def circuit2d_grid_forward(mr_re, mr_im, mc_re, mc_im, plan: GridPlan):
@@ -291,9 +319,10 @@ def grid_operators(params: torch.Tensor, plan: GridPlan) -> list:
     return [t.contiguous() for t in (mr_re, mr_im, Mc.real, Mc.imag)]
 
 
-def make_circuit2d_grid_probs_fn(num_wires: int, layers: int, ansatz_type: str):
-    """probs(params) -> (2^n,) through the grid circuit kernels."""
-    plan = GridPlan(num_wires, layers, ansatz_type)
+def make_circuit2d_grid_probs_fn(num_wires: int, layers: int, ansatz_type: str, edges=None):
+    """probs(params) -> (2^n,) through the grid circuit kernels (``edges``
+    for bn_structured)."""
+    plan = GridPlan(num_wires, layers, ansatz_type, edges)
 
     def probs_fn(params: torch.Tensor) -> torch.Tensor:
         return Circuit2dGridFunction.apply(*grid_operators(params, plan), plan).reshape(-1)

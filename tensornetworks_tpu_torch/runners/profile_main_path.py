@@ -1,10 +1,12 @@
 """Where an epoch of the main path spends its time, on the card.
 
     python -m tensornetworks_tpu_torch.runners.profile_main_path [--epochs 50] [--qubits 16]
+        [--ansatz hardware_efficient] [--layers 4]
 
 Trains the main-path workload (random chain network of n+1 variables, seed
-0, V{n}=1 observed; hardware_efficient, L=4; n=16 by default, n=20 for the
-large-n path through the grid kernels) once to warm up, then again under
+0, V{n}=1 observed; hardware_efficient, L=4 by default, or bn_structured
+with the network's latent edges; n=16 by default, n=20 for the large-n path
+through the grid kernels) once to warm up, then again under
 ``torch.profiler`` and prints: wall time per epoch, device busy time per
 epoch (the sum of kernel times; one stream, so kernels do not overlap), the
 device's idle share, the operators with the most device and host time, and
@@ -26,7 +28,8 @@ from ..engines import QuantumKSDVariationalInference
 from ..sim.gates import rotation_operators
 
 
-def profile_main_path(epochs: int = 50, n: int = 16, layers: int = 4, top: int = 12) -> dict:
+def profile_main_path(epochs: int = 50, n: int = 16, layers: int = 4, top: int = 12,
+                      ansatz: str = "hardware_efficient") -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_main_path measures the card: no CUDA device")
     from torch.autograd import DeviceType
@@ -36,7 +39,8 @@ def profile_main_path(epochs: int = 50, n: int = 16, layers: int = 4, top: int =
     latent, obs = [f"V{i}" for i in range(n)], {f"V{n}": 1}
     post = bn.posterior_vector(latent, obs)
     eng = QuantumKSDVariationalInference(bn, latent, list(obs), qbm_num_latent_vars=n,
-                                         qbm_ansatz_layers=layers, seed=0)
+                                         qbm_ansatz_layers=layers, qbm_ansatz_type=ansatz,
+                                         seed=0)
     kw = dict(num_epochs=epochs, lr_born_machine=5e-3, verbose=False,
               true_posterior_for_tvd=post)
     eng.train(obs, **kw)  # warm-up: kernel build, allocator, cuBLAS handles
@@ -69,6 +73,8 @@ def profile_main_path(epochs: int = 50, n: int = 16, layers: int = 4, top: int =
     summary = {
         "device": torch.cuda.get_device_name(0),
         "qubits": n,
+        "ansatz": ansatz,
+        "layers": layers,
         "backend": eng.born_machine.backend,
         "epochs": epochs,
         "wall_ms_per_epoch": 1e3 * wall / epochs,
@@ -86,9 +92,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--epochs", type=int, default=50)
     ap.add_argument("--qubits", type=int, default=16)
+    ap.add_argument("--ansatz", default="hardware_efficient")
+    ap.add_argument("--layers", type=int, default=4)
     args = ap.parse_args(argv)
-    s = profile_main_path(args.epochs, n=args.qubits)
-    print(f"{s['device']}, {s['qubits']} qubits ({s['backend']}): "
+    s = profile_main_path(args.epochs, n=args.qubits, layers=args.layers, ansatz=args.ansatz)
+    print(f"{s['device']}, {s['qubits']} qubits, {s['ansatz']} L={s['layers']} "
+          f"({s['backend']}): "
           f"{s['wall_ms_per_epoch']:.3f} ms/epoch wall, "
           f"{s['device_busy_ms_per_epoch']:.3f} ms/epoch device busy, "
           f"idle share {s['device_idle_share']:.3f}, "

@@ -5,8 +5,12 @@ n-qubit Born machine. Counterpart of ``make_scale_problem`` and the
 
 At n ≥ 18 the Born machine resolves ``auto`` to the ``circuit2d_grid``
 kernels and the Stein operator runs ``stein2d_apply_grid``; the 20-qubit
-hardware_efficient L=4 run is the port's large-n path (``chip_smoke.py``
-drives it on the card).
+hardware_efficient L=4 run is the port's large-n path, and the 20-qubit
+bn_structured L=8 run (the JAX package's
+``examples/structured_ansatz_20_qubits.py``) its structured one
+(``chip_smoke.py`` drives both on the card). ``ansatz="bn_structured"``
+takes its entanglers from the network's latent edges, as the JAX runner's
+engine does.
 """
 
 from __future__ import annotations
@@ -59,8 +63,8 @@ def run_scale_experiment(num_qubits: int = 8, layers: int = 4, num_epochs: int =
     n ≤ 20 (the exact posterior is a dense 2^n vector).
 
     Not ported yet, and raising ``NotImplementedError``: the adversarial and
-    sampled-ksd objectives, the bn_structured ansatz, ``warm_start``,
-    ``resume_state_path``, ``temper_betas`` and ``checkpoint_path``.
+    sampled-ksd objectives, ``warm_start``, ``resume_state_path``,
+    ``temper_betas`` and ``checkpoint_path``.
     """
     if objective == "adversarial":
         _not_ported("objective='adversarial'", "A8")
@@ -68,8 +72,6 @@ def run_scale_experiment(num_qubits: int = 8, layers: int = 4, num_epochs: int =
         _not_ported("objective='sampled-ksd'", "A9")
     if objective != "ksd":
         raise ValueError(f"unknown objective {objective!r}")
-    if ansatz == "bn_structured":
-        _not_ported("ansatz='bn_structured'", "A5")
     if warm_start is not None:
         _not_ported("warm_start (fit_born_machine, marginals_product)", "A10")
     if resume_state_path is not None or checkpoint_path is not None:

@@ -8,6 +8,9 @@ Counterpart of ``tensornetworks_tpu/sim/ansatz.py``:
   pairs. 3·L·n params.
 - ``basic``: per layer RY,RZ per qubit, CNOT chain, ring wrap when n > 2.
   2·L·n params (no Hadamard wall).
+- ``bn_structured``: the HE layer's rotations, entanglers from a Bayesian
+  network's edges; 3·L·n params. It is built in ``sim/structured.py``, not
+  gate for gate here.
 
 Parameters are laid out (layer, qubit, angle); the per-qubit rotations are
 fused into one 2x2 unitary before application.
@@ -22,11 +25,14 @@ from .gates import layer_rotations
 from .statevector import (apply_cnot, apply_cz, apply_gate, hadamard_wall, probabilities,
                           zero_state)
 
-ANSATZ_TYPES = ("hardware_efficient", "all_to_all", "basic")
+# The ansätze whose entanglers are fixed by n and the layer: built gate for
+# gate here and in ``blocked2d``.
+FIXED_ANSATZ_TYPES = ("hardware_efficient", "all_to_all", "basic")
+ANSATZ_TYPES = FIXED_ANSATZ_TYPES + ("bn_structured",)
 
 
 def num_ansatz_params(num_wires: int, layers: int, ansatz_type: str) -> int:
-    if ansatz_type in ("hardware_efficient", "all_to_all"):
+    if ansatz_type in ("hardware_efficient", "all_to_all", "bn_structured"):
         return layers * 3 * num_wires
     if ansatz_type == "basic":
         return layers * 2 * num_wires
@@ -36,7 +42,9 @@ def num_ansatz_params(num_wires: int, layers: int, ansatz_type: str) -> int:
 def ansatz_state(params: torch.Tensor, num_wires: int, layers: int,
                  ansatz_type: str) -> torch.Tensor:
     """ψ(θ) as a (2,)*n complex tensor."""
-    num_ansatz_params(num_wires, layers, ansatz_type)  # validates the type
+    if ansatz_type not in FIXED_ANSATZ_TYPES:
+        raise ValueError(f"ansatz_state builds {FIXED_ANSATZ_TYPES}, got {ansatz_type!r} "
+                         "(bn_structured: sim.structured.make_structured_probs_fn)")
     n = num_wires
     per_qubit = 2 if ansatz_type == "basic" else 3
     U = layer_rotations(params, n, layers, per_qubit)

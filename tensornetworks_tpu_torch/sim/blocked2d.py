@@ -18,7 +18,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from .ansatz import ANSATZ_TYPES
+from .ansatz import FIXED_ANSATZ_TYPES
 from .blocked import _chain_gates, _cnot_map, _cz_pairs
 from .gates import rotation_operators
 
@@ -78,8 +78,8 @@ class Blocked2dCircuit:
     from θ first."""
 
     def __init__(self, num_wires: int, layers: int, ansatz_type: str):
-        if ansatz_type not in ANSATZ_TYPES:
-            raise ValueError(f"Unknown ansatz_type {ansatz_type!r}")
+        if ansatz_type not in FIXED_ANSATZ_TYPES:
+            raise ValueError(f"blocked2d builds {FIXED_ANSATZ_TYPES}, got {ansatz_type!r}")
         n = num_wires
         if n < 2 or n > MAX_2D_QUBITS:
             raise ValueError(f"blocked2d supports 2 <= n <= {MAX_2D_QUBITS}, got {n}")

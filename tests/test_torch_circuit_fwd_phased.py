@@ -20,6 +20,7 @@ import jax.numpy as jnp
 
 from tensornetworks_tpu.ops.pallas.circuit2d import make_pallas_circuit2d_probs
 from tensornetworks_tpu.sim import ansatz_probs as j_ansatz_probs
+from tensornetworks_tpu.sim.structured import make_structured_probs_fn as j_structured
 from tensornetworks_tpu_torch.ops.kernels import _lib
 from tensornetworks_tpu_torch.ops.kernels import circuit2d as kc
 from tensornetworks_tpu_torch.runners import probe_kernels
@@ -53,6 +54,28 @@ def test_phased_forward_matches_plain_and_jax(ansatz, n, L):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
                                    atol=1e-12 * float(b.abs().max()))
     p_j = np.asarray(j_ansatz_probs(jnp.asarray(th), n, L, ansatz, dtype=jnp.complex128))
+    np.testing.assert_allclose(got[0].reshape(-1).numpy(), p_j, atol=1e-10, rtol=0)
+
+
+# bn_structured: one CNOT map per layer (the DAG's CNOTs on even layers, its
+# CZs on odd ones), with high→low and repeated edges and none at all.
+BN_CASES = [(3, 2, [(0, 1), (1, 2)]), (5, 4, [(4, 0), (0, 3), (0, 3), (2, 1)]),
+            (8, 3, [(0, 2), (2, 5), (1, 7), (5, 6), (7, 3)]), (13, 5, [(12, 0), (3, 9), (6, 7)]),
+            (6, 3, [])]
+
+
+@pytest.mark.parametrize("n,L,edges", BN_CASES)
+def test_phased_forward_matches_plain_and_jax_structured(n, L, edges):
+    plan = kc.CircuitPlan(n, L, "bn_structured", edges)
+    th = np.random.default_rng(n + L).uniform(0, 2 * np.pi, 3 * L * n)
+    planes = _planes(torch.as_tensor(th), plan)
+    got = kc.circuit2d_forward_phased_plain(*planes, plan)
+    want = kc.circuit2d_forward_plain(*planes, plan)
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                   atol=1e-12 * float(b.abs().max()))
+    p_j = np.asarray(j_structured(n, L, edges, dtype=jnp.complex128)(jnp.asarray(th)))
     np.testing.assert_allclose(got[0].reshape(-1).numpy(), p_j, atol=1e-10, rtol=0)
 
 

@@ -139,7 +139,8 @@ def test_plan_maps_match_jax_banks(n, ansatz):
             Y = Y @ jb["p_col"].T
         if plan.ring:
             Y = Y - 2.0 * rmask * (jb["w_ring"] @ Y)
-    dst, sign = expand_maps(plan.rows, plan.cz, "cpu")
+    assert (plan.rows == plan.rows[0]).all()  # one map on every layer
+    dst, sign = expand_maps(plan.rows[0], plan.cz, "cpu")
     for parity in (0, 1):
         s = 1.0 if jb["cz"][parity] is None else jb["cz"][parity]
         Z = np.empty(plan.R * plan.C)
@@ -181,5 +182,5 @@ def test_backend_ranges_and_plan_validation():
     with pytest.raises(ValueError):
         kg.GridPlan(4, 0, "basic")
     plan = kg.GridPlan(18, 4, "hardware_efficient")
-    assert (plan.R, plan.C) == (512, 512) and plan.cz.shape == (2, 18)
-    assert plan.cz[1].sum() == 0 and plan.cz[0].sum() > 0  # CZ on even layers only
+    assert (plan.R, plan.C) == (512, 512) and plan.cz.shape == plan.rows.shape == (4, 18)
+    assert plan.cz[1::2].sum() == 0 and (plan.cz[0::2].sum(axis=1) > 0).all()  # even layers

@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 
 from tensornetworks_tpu.sim import ansatz_probs as j_ansatz_probs
+from tensornetworks_tpu.sim.structured import make_structured_probs_fn as j_structured
 from tensornetworks_tpu_torch.ops.kernels import _lib
 from tensornetworks_tpu_torch.ops.kernels import circuit2d as kc
 from tensornetworks_tpu_torch.ops.kernels import circuit2d_grid as kg
@@ -90,6 +91,33 @@ def test_phased_mirror_theta_grad_matches_jax_grad(n, L):
     np.testing.assert_allclose(p.grad.numpy(), g_j, atol=1e-10, rtol=0)
 
 
+# bn_structured: one CNOT map per layer, with high→low and repeated edges.
+BN_CASES = [(3, 2, [(0, 1), (1, 2)]), (5, 4, [(4, 0), (0, 3), (0, 3), (2, 1)]),
+            (8, 3, [(0, 2), (2, 5), (1, 7), (5, 6), (7, 3)]), (13, 4, [(12, 0), (3, 9), (6, 7)])]
+
+
+@pytest.mark.parametrize("n,L,edges", BN_CASES)
+def test_phased_mirror_structured_matches_plain_and_jax_grad(n, L, edges):
+    plan = kc.CircuitPlan(n, L, "bn_structured", edges)
+    th = np.random.default_rng(n * L).uniform(0, 2 * np.pi, 3 * L * n)
+    planes = _planes(torch.as_tensor(th), plan)
+    _, xr, xi = kc.circuit2d_forward_plain(*planes, plan)
+    g = torch.as_tensor(np.random.default_rng(200 + n).normal(size=(plan.R, plan.C)))
+    got = kc.circuit2d_backward_phased_plain(*planes, xr, xi, g, plan)
+    want = kc.circuit2d_backward_plain(*planes, xr, xi, g, plan)
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                   atol=1e-12 * float(b.abs().max()))
+    v = np.random.default_rng(n).normal(size=2**n)
+    fn = j_structured(n, L, edges, dtype=jnp.complex128)
+    g_j = np.asarray(jax.grad(lambda p: fn(p) @ jnp.asarray(v))(jnp.asarray(th)))
+    p = torch.as_tensor(th).requires_grad_(True)
+    probs = PhasedCircuit.apply(*_planes(p, plan), plan).reshape(-1)
+    (probs @ torch.as_tensor(v)).backward()
+    np.testing.assert_allclose(p.grad.numpy(), g_j, atol=1e-10, rtol=0)
+
+
 @pytest.mark.parametrize("K", [1, 2, 16, 17, 48, 64, 100, 256])
 def test_ksplit_product_matches_plain_product(K):
     """The four K-ranges of whole 16-deep steps, the last ones empty when K
@@ -115,22 +143,27 @@ def test_scatter_split_reproduces_expand_maps(grid, n):
     else:
         rng = np.random.default_rng(n)
         idx = np.concatenate([[0, (1 << n) - 1], rng.integers(0, 1 << n, 4094)])
-    dst, sign = kc.expand_maps(plan.rows, plan.cz, "cpu", index=idx)
+    rows = plan.rows[0]  # HE: every layer's map is the same
+    dst, sign = kc.expand_maps(rows, plan.cz, "cpu", index=idx)
     for row in range(len(plan.cz)):
-        d, s = kc.scatter_targets(plan.rows, plan.cz[row], idx // N, idx % N, N)
+        d, s = kc.scatter_targets(rows, plan.cz[row], idx // N, idx % N, N)
         np.testing.assert_array_equal(d, dst.numpy())
         np.testing.assert_array_equal(s, sign[row].numpy())
     if n <= 8:  # the sampled evaluation is the full table's
-        full_dst, full_sign = kc.expand_maps(plan.rows, plan.cz, "cpu")
+        full_dst, full_sign = kc.expand_maps(rows, plan.cz, "cpu")
         np.testing.assert_array_equal(full_dst.numpy(), dst.numpy())
         np.testing.assert_array_equal(full_sign.numpy(), sign.numpy())
 
 
 def test_device_masks_are_rows_then_cz():
+    """Row 2l of the table holds layer l's row masks, row 2l + 1 its CZ
+    masks (csrc/circuit_units.cuh load_spec)."""
     plan = kc.CircuitPlan(7, 3, HE)
     masks = plan.device_masks("cpu")
-    assert masks.dtype == torch.int32 and tuple(masks.shape) == (4, 7)
+    assert masks.dtype == torch.int32 and tuple(masks.shape) == (6, 7)
     got = masks.numpy().view(np.uint32)
-    np.testing.assert_array_equal(got[0], plan.rows)
-    np.testing.assert_array_equal(got[1:], plan.cz)
+    for layer in range(3):
+        np.testing.assert_array_equal(got[2 * layer], plan.rows[layer])
+        np.testing.assert_array_equal(got[2 * layer + 1], plan.cz[layer])
+    assert (plan.rows == plan.rows[0]).all()  # HE: one chain map on every layer
     assert plan.device_masks("cpu") is masks

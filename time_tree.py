@@ -2,8 +2,8 @@
 """Times the kernels of a checkout of this repo with this checkout's timers,
 so that two commits are compared by one timer.
 
-    python3 time_tree.py [--tree DIR]            # the six kernels, three timers
-    python3 time_tree.py [--tree DIR] --main16   # the 16-qubit main path's epochs/s
+    python3 time_tree.py [--tree DIR]                  # the six kernels, three timers
+    python3 time_tree.py [--tree DIR] --path main16    # a path's epochs/s (main16, scale20)
 
 DIR is the root of a checkout (by default this one), for example an earlier
 commit unpacked with ``git archive`` into a git-ignored directory. The script
@@ -21,9 +21,10 @@ its own ``time_ms``:
   ``torch.profiler`` (CUPTI), summed and divided by 20.
 
 Prints one JSON line per timer: ``{"timer": ..., "kernels": {name: {"ms",
-"plain_ms", "library_ms"}}}``. With ``--main16`` it runs DIR's
-``chip_smoke.run_main_path`` instead (300 epochs) and prints
-``{"main16_epochs_per_s": x}``. Run each tree in its own process, in
+"plain_ms", "library_ms"}}}``. With ``--path main16`` it runs DIR's
+``chip_smoke.run_main_path`` instead (300 epochs), with ``--path scale20``
+its ``run_scale_path`` (60 epochs at 20 qubits), and prints
+``{"path": ..., "epochs_per_s": x}``. Run each tree in its own process, in
 alternating order, since the host's speed drifts within one machine.
 Needs a CUDA device; imports nothing of JAX.
 """
@@ -70,7 +71,8 @@ def profiler_ms(fn, reps=REPS):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(HERE), help="root of the checkout to time")
-    ap.add_argument("--main16", action="store_true", help="time the main path, not the kernels")
+    ap.add_argument("--path", choices=("main16", "scale20"),
+                    help="time this path's epochs/s, not the kernels")
     args = ap.parse_args(argv)
 
     timer_smoke = _load(HERE / "chip_smoke.py", "_timer_smoke")
@@ -89,9 +91,11 @@ def main(argv=None) -> int:
 
     device = torch.device("cuda")
     kernels.build_all()
-    if args.main16:
-        _, eps = smoke.run_main_path(device)
-        print(json.dumps({"tree": str(tree), "main16_epochs_per_s": eps}), flush=True)
+    if args.path:
+        run = smoke.run_main_path if args.path == "main16" else smoke.run_scale_path
+        _, eps = run(device)
+        print(json.dumps({"tree": str(tree), "path": args.path, "epochs_per_s": eps}),
+              flush=True)
         return 0
     timers = {"unqueued": functools.partial(timer_smoke.time_ms, queued=False),
               "queued": timer_smoke.time_ms,
