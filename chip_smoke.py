@@ -47,9 +47,29 @@ Phases (any failure exits non-zero):
    agree with a float64 plain evaluation.
 7. Train the Sprinkler 3-qubit configuration for 1000 epochs through the
    circuit kernels; best TVD must be at most 0.01.
+8. Classical KSD-VI (``KSDVariationalInference``), no quantum circuit:
+   sprinkler_classical, the reference's primary runner as shipped
+   (conditional MLP, dropout 0.1, early stopping), best TVD ≤ 0.25, and with
+   a table ≤ 0.15, launching no kernel (n=3, dense Gram); classical16, a
+   2^16 softmax table on the 16-qubit network for up to 3000 epochs,
+   launching stein2d only, best TVD within 0.05 of the JAX package's on the
+   same configuration; classical20, the same at 2^20 for 30 epochs,
+   launching stein2d_grid only. Each trained path's epoch-0 KSD must agree
+   with float64.
+9. Adversarial VI (``AdversarialVariationalInference``):
+   sprinkler_adversarial, the Sprinkler runner as shipped (1500 epochs),
+   best TVD ≤ 0.08, launching no kernel; adversarial16,
+   ``run_scale_experiment(16, L=8, objective="adversarial",
+   ansatz="bn_structured")`` for 1000 epochs, launching the two circuit
+   kernels only: every epoch's losses finite, the floored ``log p(x|z)``
+   table finite, the best TVD below epoch 0's and within 0.1 of the JAX
+   package's at the same depth and seed.
+   For 8-9 too the launch counts are zeroed just before each path and read
+   just after.
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line (each kernel
-with the launch count of the path that runs it), a ``{"bn_structured":
+with the launch count of the path that runs it, and its launches on every
+path that runs it), a ``{"bn_structured":
 [...]}`` line (the timed bn_structured checks and each bn path's launches)
 and, last, the ``{"ok": true, ...}`` line. Imports nothing of JAX or of the
 JAX package.
@@ -84,6 +104,28 @@ BN = "bn_structured"
 BN_LAYERS, BN_LENGTH_SCALE, BN_LR = 8, 0.0625, 0.05
 BN16_EPOCHS, BN16_CHUNK, BN16_TVD_MAX = 3000, 500, 0.15
 BN20_EPOCHS, BN20_CHUNK = 30, 10
+# Classical KSD: the Sprinkler runner as shipped (conditional MLP, dropout
+# 0.1; the JAX package reached 0.15201, RESULTS.md:75) and with a table (the
+# bound of tests/test_engines.py:47); a 2^16 table on the 16-qubit network
+# (ℓ = 1, lr 5e-3, clip 5, entropy 1e-3, patience 200), whose limit is the
+# JAX package's best TVD for the same configuration in float32 on a CPU
+# (0.38214 after 3000 epochs, no stop; scripts/jax_reference_tvd.py) + 0.05;
+# the same at 2^20 for 30 epochs.
+CLASSICAL_SPRINKLER_TVD_MAX, CLASSICAL_TABLE_TVD_MAX = 0.25, 0.15
+CLASSICAL16_EPOCHS, CLASSICAL20_EPOCHS = 3000, 30
+CLASSICAL16_JAX_TVD = 0.38214
+CLASSICAL16_TVD_MAX = CLASSICAL16_JAX_TVD + 0.05
+# Adversarial VI: the Sprinkler runner as shipped (1500 epochs; the bound of
+# tests/test_engines.py:97, the JAX package reached 0.01623, RESULTS.md:74),
+# and run_scale_experiment(16, L=8, bn_structured, lr 5e-3), the JAX
+# package's best adversarial configuration at scale, for 1000 epochs; its
+# limit is the JAX package's best TVD at the same depth and seed in float32
+# on a CPU (0.12030 at epoch 999, from 0.83401 at epoch 0;
+# scripts/jax_reference_tvd.py) + 0.1.
+ADV_SPRINKLER_TVD_MAX = 0.08
+ADV16_EPOCHS, ADV16_CHUNK = 1000, 250
+ADV16_JAX_TVD = 0.12030
+ADV16_TVD_MAX = ADV16_JAX_TVD + 0.1
 # n=5 edges: high -> low, low -> high, and two pairs listed twice.
 N_BN_EDGES, BN_EDGES = 5, [(4, 0), (2, 1), (0, 3), (0, 3), (3, 4), (1, 2), (1, 2), (4, 2)]
 
@@ -124,7 +166,10 @@ PATH_KERNELS = {
     "main16": ("circuit2d_fwd", "circuit2d_bwd", "stein2d"),
     "scale20": ("circuit2d_grid_fwd", "circuit2d_grid_bwd", "stein2d_grid"),
 }
-PATH_KERNELS.update(bn16=PATH_KERNELS["main16"], bn20=PATH_KERNELS["scale20"])
+PATH_KERNELS.update(bn16=PATH_KERNELS["main16"], bn20=PATH_KERNELS["scale20"],
+                    sprinkler_classical=(), classical16=("stein2d",),
+                    classical20=("stein2d_grid",), sprinkler_adversarial=(),
+                    adversarial16=("circuit2d_fwd", "circuit2d_bwd"))
 
 
 class PhaseError(RuntimeError):
@@ -648,6 +693,157 @@ def run_sprinkler(device):
     require(best <= SPRINKLER_TVD_MAX, f"sprinkler best TVD {best} > {SPRINKLER_TVD_MAX}")
 
 
+def classical_reference_loss(n, table0):
+    """The KSD of softmax(table0) on the n-qubit workload in float64 (ℓ = 1):
+    the 3n+1-column Stein oracle."""
+    import torch
+    from tensornetworks_tpu_torch.core import all_bitstrings
+    from tensornetworks_tpu_torch.ops.stein import score_table, stein_matvec
+
+    bn, latent, obs = path_inputs(n)
+    f64 = dict(dtype=torch.float64, device=table0.device)
+    S = torch.as_tensor(score_table(bn.conditional_joint_table(latent, obs)), **f64)
+    B = torch.as_tensor(all_bitstrings(n), **f64)
+    with torch.no_grad():
+        q = torch.softmax(table0.double(), dim=0)
+        return math.sqrt(max(float(q @ stein_matvec(q, S, B, n, 1.0)), 1e-12))
+
+
+def run_sprinkler_classical(device):
+    """The Sprinkler classical KSD runner as shipped, then with a table."""
+    import torch
+    from tensornetworks_tpu_torch.ops import kernels
+    from tensornetworks_tpu_torch.runners import ClassicalKSDConfig, run_sprinkler_ksd_experiment
+
+    kernels.reset_launches()
+    out = run_sprinkler_ksd_experiment(verbose=False, device=device)
+    table = run_sprinkler_ksd_experiment(ClassicalKSDConfig(conditioning_dim=0), verbose=False,
+                                         device=device)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check_launches("sprinkler_classical", launches)
+    rows = []
+    for label, o, limit in (("conditional MLP", out, CLASSICAL_SPRINKLER_TVD_MAX),
+                            ("table", table, CLASSICAL_TABLE_TVD_MAX)):
+        best, hist = o["model"].best_tvd_, o["history"]
+        require(best <= limit, f"sprinkler_classical ({label}) best TVD {best} > {limit}")
+        require(abs(o["final_tvd"] - best) < 1e-5,
+                f"sprinkler_classical ({label}) restored TVD {o['final_tvd']} != best {best}")
+        rows.append(f"{label}: best TVD {best:.5f} (limit {limit}) at epoch "
+                    f"{o['model'].best_epoch_}, {len(hist['tvd'])} epochs run, "
+                    f"{hist['epochs_per_sec']:.1f} epochs/s")
+    print("sprinkler_classical path: " + "; ".join(rows) + f", launches {launches}", flush=True)
+    return launches, out["history"]["epochs_per_sec"]
+
+
+def run_classical_path(path, n, epochs, device, chunk=None):
+    """KSD-VI of a 2^n softmax table on the n-qubit workload through
+    ``KSDVariationalInference`` (ℓ = 1, lr 5e-3, clip 5, entropy 1e-3,
+    patience 200)."""
+    import torch
+    from tensornetworks_tpu_torch.engines import KSDVariationalInference
+    from tensornetworks_tpu_torch.ops import kernels
+
+    bn, latent, obs = path_inputs(n)
+    post = bn.posterior_vector(latent, obs)
+    eng = KSDVariationalInference(bn, latent, list(obs), {"conditioning_dim": 0},
+                                  base_kernel_length_scale=1.0, seed=0, device=device)
+    table0 = eng.params.clone()
+    kernels.reset_launches()
+    hist = eng.train(obs, num_epochs=epochs, lr_born_machine=5e-3, verbose=False,
+                     true_posterior_for_tvd=post, gradient_clip_norm=5.0, entropy_weight=1e-3,
+                     patience=200, chunk_epochs=chunk)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check_history(path, hist)
+    check_launches(path, launches)
+    loss = hist["loss_ksd"]
+    ref_loss = classical_reference_loss(n, table0)
+    loss_err = abs(loss[0] - ref_loss) / abs(ref_loss)
+    require(loss_err < 1e-4, f"{path} epoch-0 loss {loss[0]} vs float64 {ref_loss}")
+    eps = hist.get("epochs_per_sec_steady", hist["epochs_per_sec"])
+    print(f"{path} path: {len(loss)} of {epochs} epochs, loss {loss[0]:.5f} -> {loss[-1]:.5f} "
+          f"(epoch-0 rel err vs float64 {loss_err:.1e}), best TVD {eng.best_tvd_:.5f} at "
+          f"epoch {eng.best_epoch_}, {eps:.1f} epochs/s steady, launches {launches}", flush=True)
+    return launches, eps, eng
+
+
+def run_classical16_path(device):
+    launches, eps, eng = run_classical_path("classical16", N, CLASSICAL16_EPOCHS, device)
+    require(eng.best_tvd_ <= CLASSICAL16_TVD_MAX,
+            f"classical16 best TVD {eng.best_tvd_} > {CLASSICAL16_TVD_MAX}")
+    return launches, eps
+
+
+def run_classical20_path(device):
+    launches, eps, _ = run_classical_path("classical20", N_GRID, CLASSICAL20_EPOCHS, device,
+                                          chunk=CLASSICAL20_EPOCHS // 3)
+    return launches, eps
+
+
+def check_adversarial_history(path, hist):
+    """Every epoch's two losses finite (so no update was skipped), and the
+    best TVD below epoch 0's (the run is not frozen)."""
+    for key in ("loss_classifier", "loss_born_machine"):
+        require(all(math.isfinite(x) for x in hist[key]), f"{path} {key} not finite")
+    tvd = hist["tvd"]
+    require(min(tvd) < tvd[0], f"{path} best TVD {min(tvd)} not below epoch 0's {tvd[0]}")
+
+
+def run_sprinkler_adversarial(device):
+    """The Sprinkler adversarial runner as shipped (1500 epochs)."""
+    import torch
+    from tensornetworks_tpu_torch.ops import kernels
+    from tensornetworks_tpu_torch.runners import run_sprinkler_experiment
+
+    kernels.reset_launches()
+    out = run_sprinkler_experiment(verbose=False, device=device)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check_launches("sprinkler_adversarial", launches)
+    hist, best = out["history"], out["model"].best_tvd_
+    check_adversarial_history("sprinkler_adversarial", hist)
+    require(best <= ADV_SPRINKLER_TVD_MAX,
+            f"sprinkler_adversarial best TVD {best} > {ADV_SPRINKLER_TVD_MAX}")
+    eps = hist.get("epochs_per_sec_steady", hist["epochs_per_sec"])
+    print(f"sprinkler_adversarial path: best TVD {best:.5f} (limit {ADV_SPRINKLER_TVD_MAX}) at "
+          f"epoch {out['model'].best_epoch_}, final TVD {out['final_tvd']:.5f}, "
+          f"{eps:.1f} epochs/s, launches {launches}", flush=True)
+    return launches, eps
+
+
+def run_adversarial16_path(device):
+    """``run_scale_experiment(16, L=8, objective="adversarial",
+    ansatz="bn_structured", lr=5e-3)``: REINFORCE through the circuit
+    kernels, the discriminator in plain torch."""
+    import numpy as np
+    import torch
+    from tensornetworks_tpu_torch.ops import kernels
+    from tensornetworks_tpu_torch.runners import run_scale_experiment
+
+    kernels.reset_launches()
+    out = run_scale_experiment(num_qubits=N, layers=BN_LAYERS, objective="adversarial",
+                               ansatz=BN, lr=5e-3, num_epochs=ADV16_EPOCHS,
+                               chunk_epochs=ADV16_CHUNK, seed=0, verbose=False, device=device)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    model, hist = out["model"], out["history"]
+    require(model.born_machine.backend == "circuit2d", "adversarial16 is not on circuit2d")
+    check_launches("adversarial16", launches)
+    check_adversarial_history("adversarial16", hist)
+    _, _, obs = path_inputs(N)
+    raw = model._log_p_x_given_z_table(obs)
+    require(np.isfinite(np.clip(raw, -60.0, 60.0)).all(), "adversarial16 log p table not finite")
+    require(model.best_tvd_ <= ADV16_TVD_MAX,
+            f"adversarial16 best TVD {model.best_tvd_} > {ADV16_TVD_MAX}")
+    eps = hist.get("epochs_per_sec_steady", hist["epochs_per_sec"])
+    print(f"adversarial16 path: {ADV16_EPOCHS} epochs, TVD {hist['tvd'][0]:.5f} -> best "
+          f"{model.best_tvd_:.5f} (limit {ADV16_TVD_MAX:.5f}) at epoch {model.best_epoch_}, "
+          f"{int((~np.isfinite(raw)).sum())} infinite log p(x|z) entries before the floor, "
+          f"{eps:.1f} epochs/s steady, launches {launches}", flush=True)
+    return launches, eps
+
+
 def main() -> int:
     import torch
 
@@ -706,6 +902,14 @@ def main() -> int:
     t0 = phase("bn20 path", t0)
     run_sprinkler(device)
     t0 = phase("sprinkler", t0)
+    new_paths = {}
+    for path, run in (("sprinkler_classical", run_sprinkler_classical),
+                      ("classical16", run_classical16_path),
+                      ("classical20", run_classical20_path),
+                      ("sprinkler_adversarial", run_sprinkler_adversarial),
+                      ("adversarial16", run_adversarial16_path)):
+        path_launches[path], new_paths[path] = run(device)
+        t0 = phase(f"{path} path", t0)
 
     kernel_path = {k: path for path in ("main16", "scale20") for k in PATH_KERNELS[path]}
     kernels_line = []
@@ -714,6 +918,8 @@ def main() -> int:
             "name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],
             "replaces": REPLACES[r["name"]],
             "launches": path_launches[kernel_path[r["name"]]][r["name"]],
+            "launches_by_path": {p: c[r["name"]] for p, c in path_launches.items()
+                                 if r["name"] in PATH_KERNELS[p]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
@@ -727,7 +933,9 @@ def main() -> int:
                                           "plain_ms", "bound_ms", "bound_by", "share")}
                        | {"path": path, "launches": path_launches[path][r["name"]]})
     print(f"main path {eps:.2f} epochs/s, scale20 path {eps20:.2f} epochs/s, bn16 path "
-          f"{eps_bn16:.2f} epochs/s, bn20 path {eps_bn20:.2f} epochs/s on {card}; "
+          f"{eps_bn16:.2f} epochs/s, bn20 path {eps_bn20:.2f} epochs/s, "
+          + "".join(f"{p} path {e:.2f} epochs/s, " for p, e in new_paths.items())
+          + f"on {card}; "
           f"{time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"bn_structured": bn_line}))

@@ -1,0 +1,56 @@
+"""The JAX package's best TVD on two configurations, on the CPU in float32:
+the reference figures behind two of ``chip_smoke.py``'s limits for the
+PyTorch port.
+
+- ``classical16``: ``KSDVariationalInference`` with a 2^16 softmax table on
+  ``make_scale_problem(16)``'s network (ℓ = 1, lr 5e-3, clip 5, entropy
+  1e-3, patience 200, 3000 epochs). About 40-75 s on 8 CPU cores.
+- ``adversarial16``: ``run_scale_experiment(16, layers=8,
+  objective="adversarial", ansatz="bn_structured", lr=5e-3)`` for 1000
+  epochs at seed 0. About 22 minutes on 8 CPU cores.
+
+Usage: python scripts/jax_reference_tvd.py classical16|adversarial16
+Prints one JSON line.
+"""
+
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import jax  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+
+
+def classical16():
+    from tensornetworks_tpu.engines import KSDVariationalInference
+    from tensornetworks_tpu.runners.scale import make_scale_problem
+
+    bn, latent, obs = make_scale_problem(16, 0)
+    eng = KSDVariationalInference(bn, latent, list(obs), born_machine_config={"conditioning_dim": 0},
+                                  base_kernel_length_scale=1.0, seed=0)
+    hist = eng.train(obs, num_epochs=3000, lr_born_machine=5e-3, verbose=False,
+                     true_posterior_for_tvd=bn.posterior_vector(latent, obs),
+                     gradient_clip_norm=5.0, entropy_weight=1e-3, patience=200,
+                     chunk_epochs=500)
+    return {"best_tvd": eng.best_tvd_, "best_epoch": eng.best_epoch_,
+            "epochs_run": len(hist["loss_ksd"])}
+
+
+def adversarial16():
+    from tensornetworks_tpu.runners.scale import run_scale_experiment
+
+    out = run_scale_experiment(16, layers=8, num_epochs=1000, lr=5e-3, objective="adversarial",
+                               ansatz="bn_structured", seed=0, verbose=False, chunk_epochs=100)
+    return {"best_tvd": out["model"].best_tvd_, "best_epoch": out["model"].best_epoch_,
+            "tvd_epoch0": out["history"]["tvd"][0]}
+
+
+if __name__ == "__main__":
+    which = sys.argv[1] if len(sys.argv) > 1 else "classical16"
+    t0 = time.time()
+    result = {"classical16": classical16, "adversarial16": adversarial16}[which]()
+    print(json.dumps({"config": which, **result, "seconds": time.time() - t0}))

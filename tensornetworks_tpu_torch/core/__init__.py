@@ -1,5 +1,6 @@
 from .bayes_net import BayesianNetwork, get_random_chain_network, get_sprinkler_network
-from .bits import all_bitstrings, bits_to_index, flip_index, generate_all_binary_outcomes
+from .bits import (all_bitstrings, bits_to_index, flip_index, generate_all_binary_outcomes,
+                   torch_bits_to_index, torch_index_to_bits)
 from .metrics import calculate_tvd, entropy, kl_divergence, tvd
 
 __all__ = [
@@ -13,5 +14,7 @@ __all__ = [
     "get_random_chain_network",
     "get_sprinkler_network",
     "kl_divergence",
+    "torch_bits_to_index",
+    "torch_index_to_bits",
     "tvd",
 ]

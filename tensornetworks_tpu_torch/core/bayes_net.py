@@ -101,6 +101,27 @@ class BayesianNetwork:
         self._joint_cache = p
         return p
 
+    def marginal_table(self, var_names: Sequence[str]) -> np.ndarray:
+        """p(var_names) as a ``(2^k,)`` vector, MSB-first in the given order."""
+        positions = [self.node_to_index[v] for v in var_names]
+        other = tuple(i for i in range(self.num_nodes) if i not in positions)
+        t = self.joint_table().reshape((2,) * self.num_nodes)
+        if other:
+            t = t.sum(axis=other)
+        # The remaining axes are in node order; permute to the caller's.
+        remaining = sorted(positions)
+        return np.transpose(t, [remaining.index(p) for p in positions]).reshape(-1)
+
+    def get_prior_distribution(self, var_names_ordered: Sequence[str]) -> Dict[tuple, float]:
+        """Prior ``p(vars)`` as a dict keyed by assignment tuples; warns when it
+        does not sum to 1."""
+        vec = self.marginal_table(var_names_ordered)
+        if not np.isclose(vec.sum(), 1.0):
+            print(f"Warning: Prior probabilities for {list(var_names_ordered)} sum to "
+                  f"{vec.sum()}, not 1.0.")
+        outcomes = generate_all_binary_outcomes(len(var_names_ordered))
+        return {k: float(vec[i]) for i, k in enumerate(outcomes)}
+
     def conditional_joint_table(
         self, latent_names: Sequence[str], observed_dict: Dict[str, int]
     ) -> np.ndarray:

@@ -1,6 +1,7 @@
 """Bitstring enumeration and codecs over the discrete state space {0,1}^n.
 
-Counterpart of ``tensornetworks_tpu/core/bits.py`` (host numpy, no JAX).
+Counterpart of ``tensornetworks_tpu/core/bits.py``: host numpy, and the
+index ↔ bit-row codecs on torch tensors for sample batches on the device.
 
 Convention: state index ``i`` encodes the bitstring MSB-first, i.e.
 variable/qubit ``0`` is the **most significant** bit:
@@ -11,6 +12,7 @@ variable/qubit ``0`` is the **most significant** bit:
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def all_bitstrings(num_vars: int, dtype=np.int8) -> np.ndarray:
@@ -30,6 +32,19 @@ def bits_to_index(bits: np.ndarray) -> np.ndarray:
         return np.zeros(bits.shape[:-1], dtype=np.int64)
     weights = 1 << np.arange(n - 1, -1, -1, dtype=np.int64)
     return (bits.astype(np.int64) * weights).sum(axis=-1)
+
+
+def torch_bits_to_index(bits: torch.Tensor) -> torch.Tensor:
+    """``bits_to_index`` on a tensor of bit rows (int64 indices, same device)."""
+    n = bits.shape[-1]
+    weights = 1 << torch.arange(n - 1, -1, -1, dtype=torch.int64, device=bits.device)
+    return (bits.to(torch.int64) * weights).sum(dim=-1)
+
+
+def torch_index_to_bits(idx: torch.Tensor, num_vars: int, dtype=torch.float32) -> torch.Tensor:
+    """Integer indices -> MSB-first bit rows of ``dtype``, on idx's device."""
+    shifts = torch.arange(num_vars - 1, -1, -1, dtype=torch.int64, device=idx.device)
+    return ((idx.to(torch.int64)[..., None] >> shifts) & 1).to(dtype)
 
 
 def flip_index(idx, num_vars: int, var: int):

@@ -6,10 +6,13 @@ semantics written out in torch so that both packages take the same steps:
 clip by global norm (``g · max/‖g‖`` when ‖g‖ ≥ max), Adam with bias
 correction and eps=1e-8 (or SGD with momentum 0.9), and a learning rate
 from a cosine schedule that decays to lr/10 and advances once per epoch.
-The optimizer is functional: ``update`` returns new parameters and state,
-and ``guarded_update`` keeps the old ones on a step whose loss is not finite,
-so a skipped step moves neither the moments nor the step count (hence not
-the schedule either). Everything stays on the device: no host sync per step.
+Every parameter set is one flat tensor: optax on a pytree is elementwise
+apart from the global norm, and the global norm of the leaves is the norm
+of the flat vector, so the steps are the same. The optimizer is functional:
+``update`` returns new parameters and state, and ``guarded_update`` keeps
+the old ones on a step whose loss is not finite, so a skipped step moves
+neither the moments nor the step count (hence not the schedule either).
+Everything stays on the device: no host sync per step.
 """
 
 from __future__ import annotations
@@ -20,14 +23,17 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 
-def cosine_lr_schedule(lr: float, num_epochs: int) -> Callable:
-    """CosineAnnealingLR semantics indexed by epoch (one update per epoch):
-    ``count`` (a tensor of updates taken) maps to ``epoch = min(count, T)``
-    and ``lr_t = eta_min + (lr - eta_min)(1 + cos(π·epoch/T)) / 2`` with
-    ``eta_min = lr/10``."""
+def cosine_lr_schedule(lr: float, num_epochs: int, steps_per_epoch: int = 1) -> Callable:
+    """CosineAnnealingLR semantics indexed by epoch: ``count`` (a tensor of
+    updates taken) maps to ``epoch = min(count // steps_per_epoch, T)`` (an
+    optimizer stepped k times per epoch still advances the schedule once
+    per epoch) and ``lr_t = eta_min + (lr - eta_min)(1 + cos(π·epoch/T)) / 2``
+    with ``eta_min = lr/10``."""
     eta_min = 0.1 * lr
 
     def schedule(count: torch.Tensor) -> torch.Tensor:
+        if steps_per_epoch != 1:  # no extra launch on the one-step-per-epoch paths
+            count = count // steps_per_epoch
         epoch = torch.clamp(count, max=num_epochs).to(torch.float64)
         return eta_min + (lr - eta_min) * 0.5 * (1.0 + torch.cos(math.pi * epoch / num_epochs))
 
@@ -44,11 +50,11 @@ class Optimizer:
 
     def __init__(self, optimizer_type: str, lr: float, num_epochs: int,
                  use_lr_scheduler: bool = True, adam_betas: Tuple[float, float] = (0.9, 0.999),
-                 gradient_clip_norm: Optional[float] = 10.0):
+                 gradient_clip_norm: Optional[float] = 10.0, steps_per_epoch: int = 1):
         self.kind = "sgd" if optimizer_type == "sgd" else "adam"
         # An unknown optimizer name is Adam with its default betas.
         self.betas = adam_betas if optimizer_type == "adam" else (0.9, 0.999)
-        self.lr = (cosine_lr_schedule(lr, num_epochs)
+        self.lr = (cosine_lr_schedule(lr, num_epochs, steps_per_epoch)
                    if use_lr_scheduler else (lambda count: lr))
         self.clip = gradient_clip_norm
         self.eps = 1e-8
@@ -85,9 +91,10 @@ class Optimizer:
 
 def make_optimizer(optimizer_type: str, lr: float, num_epochs: int,
                    use_lr_scheduler: bool = True, adam_betas: Tuple[float, float] = (0.9, 0.999),
-                   gradient_clip_norm: Optional[float] = 10.0) -> Optimizer:
+                   gradient_clip_norm: Optional[float] = 10.0,
+                   steps_per_epoch: int = 1) -> Optimizer:
     return Optimizer(optimizer_type, lr, num_epochs, use_lr_scheduler, adam_betas,
-                     gradient_clip_norm)
+                     gradient_clip_norm, steps_per_epoch)
 
 
 def guarded_update(opt: Optimizer, grads: torch.Tensor, state: Dict[str, torch.Tensor],

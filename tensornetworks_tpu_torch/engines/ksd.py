@@ -1,15 +1,19 @@
-"""Exact KSD variational inference with a quantum Born machine.
+"""Exact KSD variational inference with a classical or a quantum Born
+machine.
 
-Counterpart of ``run_ksd_scan`` and ``QuantumKSDVariationalInference`` in
-``tensornetworks_tpu/engines/ksd.py``. The JAX engine runs the epochs as one
-``lax.scan``; here they are an eager loop whose per-epoch state (parameters,
-optimizer moments, best snapshot, history) stays on the device, so the host
-waits for the device only at chunk ends.
+Counterpart of ``run_ksd_scan``, ``KSDVariationalInference`` and
+``QuantumKSDVariationalInference`` in ``tensornetworks_tpu/engines/ksd.py``.
+The JAX engine runs the epochs as one ``lax.scan``; here they are an eager
+loop whose per-epoch state (parameters, optimizer moments, best snapshot,
+history, the early-stop flag) stays on the device, so the host waits for
+the device only at chunk ends.
 
-Per epoch: ``loss = sqrt(clamp(qᵀ K_p q, 1e-12))``, its gradient, clip →
-Adam/SGD with the per-epoch cosine schedule, a guarded update that skips a
-non-finite loss together with its schedule step, and the TVD to the exact
-posterior with a best-TVD snapshot that is restored at the end.
+Per epoch: ``loss = sqrt(clamp(qᵀ K_p q, 1e-12))`` (minus ``w·H(q)`` for
+the classical engine), its gradient, clip → Adam/SGD with the per-epoch
+cosine schedule, a guarded update that skips a non-finite loss together
+with its schedule step, and the TVD to the exact posterior with a best-TVD
+snapshot that is restored at the end (the classical engine also stops
+early).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from ..core.bayes_net import BayesianNetwork
 from ..core.bits import generate_all_binary_outcomes
+from ..models.born_classical import ClassicalBornMachine
 from ..models.born_quantum import QuantumBornMachine
 from ..ops.hamming import resolve_length_scale
 from ..ops.stein import SteinOperator, score_table
@@ -43,78 +48,129 @@ def _posterior_vec_from(true_posterior, num_latent_vars, dtype, device):
 
 def run_ksd_scan(*, probs_fn, params0: torch.Tensor, op: SteinOperator, num_epochs: int,
                  optimizer, posterior_vec: Optional[torch.Tensor],
-                 chunk_epochs: Optional[int] = None) -> dict:
+                 chunk_epochs: Optional[int] = None, entropy_weight: Optional[float] = None,
+                 eval_probs_fn=None, noisy_eval: bool = False, early_stopping: bool = False,
+                 patience: int = 200, min_epochs_before_stop: int = 300) -> dict:
     """Train for ``num_epochs``; returns final/best params and the history.
 
-    The TVD evaluation reuses the loss forward (the JAX engine's
-    ``reuse_loss_forward_for_eval``): ``probs_fn`` is deterministic, so epoch
-    t's post-update distribution is epoch t+1's loss forward, and one extra
-    forward after the loop covers the last epoch. The recorded TVD history
-    and the best snapshot are those of evaluating after every update.
+    Two evaluation modes, as in the JAX engine:
+    - ``eval_probs_fn=None`` (the quantum engine): the TVD evaluation reuses
+      the loss forward (the JAX engine's ``reuse_loss_forward_for_eval``).
+      ``probs_fn`` is deterministic, so epoch t's post-update distribution
+      is epoch t+1's loss forward, and one extra forward after the loop
+      covers the last epoch.
+    - ``eval_probs_fn`` given (the classical engine, whose training forward
+      has dropout): a separate forward after each update, ``eval_probs_fn``
+      or, with ``noisy_eval``, ``probs_fn`` again. Only here can
+      ``early_stopping`` stop the run: once the TVD has not improved for
+      more than ``patience`` epochs after epoch ``min_epochs_before_stop``,
+      every later epoch is frozen (no update, no new best).
+    Either way the recorded TVD history and the best snapshot are those of
+    evaluating after every update.
+
+    ``entropy_weight``: the loss is ``ksd - w·H(q)`` (entropy clipped at
+    1e-10) and the entropy is recorded; None trains on the KSD alone.
 
     ``chunk_epochs``: split the loop into chunks with a host sync after each
     (per-chunk wall times go to ``chunk_seconds``); the results are the same.
+    The stop flag stays on the device and is read at a chunk's end, where a
+    stopped run breaks: the history then ends there.
     """
     dev = params0.device
     params = params0.detach().clone()
     opt_state = optimizer.init(params)
     track = posterior_vec is not None
-    hist = torch.full((4, num_epochs), float("nan"), dtype=params.dtype, device=dev)
+    reuse = eval_probs_fn is None
+    rows = 4 + (entropy_weight is not None)
+    hist = torch.full((rows, num_epochs), float("nan"), dtype=params.dtype, device=dev)
     best_tvd = torch.tensor(float("inf"), dtype=params.dtype, device=dev)
     best_epoch = torch.tensor(-1, dtype=torch.int64, device=dev)
     best_params = params.clone()
+    stopped = torch.zeros((), dtype=torch.bool, device=dev)
+    since_best = torch.zeros((), dtype=torch.int64, device=dev)
+    stop_at = torch.full((), num_epochs, dtype=torch.int64, device=dev)
 
-    def take_best(tvd, epoch, candidate):
+    def take_best(tvd, epoch, candidate, improved):
         nonlocal best_tvd, best_epoch, best_params
-        improved = tvd < best_tvd
         best_tvd = torch.where(improved, tvd, best_tvd)
         best_epoch = torch.where(improved, torch.full_like(best_epoch, epoch), best_epoch)
         best_params = torch.where(improved, candidate, best_params)
 
     chunk = chunk_epochs or num_epochs
     chunk_seconds = []
+    dispatched = 0
     for start in range(0, num_epochs, chunk):
         t_chunk = time.perf_counter()
         for epoch in range(start, min(start + chunk, num_epochs)):
             p = params.detach().requires_grad_(True)
             q = probs_fn(p)
             ksd = op.ksd_loss(q)
-            (grads,) = torch.autograd.grad(ksd, p)
-            do_update = torch.isfinite(ksd)
+            loss = ksd
+            if entropy_weight is not None:
+                ent = -(q * torch.log(q.clamp(min=1e-10))).sum()
+                loss = ksd - entropy_weight * ent
+            (grads,) = torch.autograd.grad(loss, p)
+            do_update = torch.isfinite(loss)
+            if early_stopping:
+                do_update = do_update & ~stopped
             tvd = torch.full_like(ksd, float("nan"))
-            if track:
+            if track and reuse:
                 # q at the current params is the previous epoch's post-update
                 # distribution; epoch 0's is the init, not a candidate.
                 tvd = 0.5 * (q.detach() - posterior_vec).abs().sum()
                 if epoch > 0:
-                    take_best(tvd, epoch - 1, params)
+                    take_best(tvd, epoch - 1, params, tvd < best_tvd)
             params, opt_state = guarded_update(optimizer, grads, opt_state, params, do_update)
-            hist[:, epoch] = torch.stack([ksd.detach(), tvd, global_norm([grads]),
-                                          (~do_update).to(hist.dtype)])
+            if track and not reuse:
+                with torch.no_grad():
+                    q_eval = (probs_fn if noisy_eval else eval_probs_fn)(params)
+                tvd = 0.5 * (q_eval - posterior_vec).abs().sum()
+                improved = (tvd < best_tvd) & ~stopped
+                take_best(tvd, epoch, params, improved)
+                if early_stopping:
+                    since_best = torch.where(stopped, since_best,
+                                             torch.where(improved, 0, since_best + 1))
+                    if epoch > min_epochs_before_stop:
+                        newly = (since_best > patience) & ~stopped
+                        stop_at = torch.where(newly, epoch + 1, stop_at)
+                        stopped = stopped | newly
+            skipped = (~do_update & ~stopped) if early_stopping else ~do_update
+            row = [ksd.detach(), tvd, global_norm([grads]), skipped.to(hist.dtype)]
+            if entropy_weight is not None:
+                row.append(ent.detach())
+            hist[:, epoch] = torch.stack(row)
+        dispatched = min(start + chunk, num_epochs)
         best_tvd.item()  # host sync closes the chunk
         chunk_seconds.append((min(chunk, num_epochs - start), time.perf_counter() - t_chunk))
+        if early_stopping and bool(stopped):
+            break  # every later epoch would be a frozen no-op
 
     with torch.no_grad():
-        if track:
+        if track and reuse:
             # The last epoch's post-update evaluation; shift the history so
             # hist[t] is epoch t's post-update TVD.
             tvd_last = 0.5 * (probs_fn(params) - posterior_vec).abs().sum()
-            take_best(tvd_last, num_epochs - 1, params)
+            take_best(tvd_last, num_epochs - 1, params, tvd_last < best_tvd)
             hist[1] = torch.cat([hist[1, 1:], tvd_last[None]])
-        best_probs = probs_fn(best_params)
-    ksd_h, tvd_h, gnorm_h, skipped_h = hist.cpu().numpy()
-    return {
+        best_probs = (probs_fn if reuse else eval_probs_fn)(best_params)
+    hist = hist[:, :dispatched].cpu().numpy()
+    out = {
         "params": params,
         "best_tvd": float(best_tvd),
         "best_epoch": int(best_epoch),
         "best_params": best_params,
         "best_probs": best_probs,
-        "loss_ksd": ksd_h,
-        "tvd": tvd_h,
-        "grad_norm": gnorm_h,
-        "skipped": skipped_h,
+        "loss_ksd": hist[0],
+        "tvd": hist[1],
+        "grad_norm": hist[2],
+        "skipped": hist[3],
+        "stop_epoch": int(stop_at),
+        "epochs_dispatched": dispatched,
         "chunk_seconds": chunk_seconds,
     }
+    if entropy_weight is not None:
+        out["entropy"] = hist[4]
+    return out
 
 
 def steady_epochs_per_sec(chunk_seconds) -> Optional[float]:
@@ -124,6 +180,150 @@ def steady_epochs_per_sec(chunk_seconds) -> Optional[float]:
         return None
     sec = sum(s for _, s in chunk_seconds[1:])
     return sum(e for e, _ in chunk_seconds[1:]) / sec if sec > 0 else None
+
+
+def not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported to the PyTorch package yet "
+                              f"(ROADMAP {item})")
+
+
+class KSDVariationalInference:
+    """Classical-Born-machine KSD engine (``ClassicalBornMachine``, table or
+    conditional MLP). ``device`` defaults to the card; the config's
+    ``init_method`` is replaced by ``small_random``, as in the JAX engine.
+
+    Per epoch: the loss ``ksd - w·H(q)`` on the training forward (dropout on,
+    masks from one generator per run), its gradient, the guarded update,
+    then the TVD on a separate forward after the update, with early
+    stopping (``run_ksd_scan``). At the end the best distribution is
+    restored in fixed-probs mode and checked: a restored TVD more than 1e-6
+    from the best one prints a warning."""
+
+    def __init__(self, bayesian_network: BayesianNetwork, latent_vars_names: Sequence[str],
+                 observed_vars_names: Sequence[str], born_machine_config: dict,
+                 base_kernel_length_scale=1.0, dtype=torch.float32,
+                 dense: Optional[bool] = None, seed: int = 0, device="cuda"):
+        self.bn = bayesian_network
+        self.latent_vars_names = list(latent_vars_names)
+        self.observed_vars_names = list(observed_vars_names)
+        self.num_latent_vars = len(latent_vars_names)
+        self.num_observed_vars = len(observed_vars_names)
+        self.base_kernel_length_scale = resolve_length_scale(
+            base_kernel_length_scale, self.num_latent_vars)
+        self.dtype = dtype
+        self.dense = dense
+        self.seed = seed
+        self.device = torch.device(device)
+        born_machine_config = {**born_machine_config, "init_method": "small_random"}
+        self.born_machine = ClassicalBornMachine(self.num_latent_vars, dtype=dtype,
+                                                 device=device, **born_machine_config)
+        self.params = self.born_machine.init(torch.Generator().manual_seed(seed))
+        self._x_condition = None
+        self.history_: Optional[dict] = None
+
+    def _x_cond_tensor(self, x_observation_dict):
+        if self.num_observed_vars == 0:
+            return None
+        if set(x_observation_dict) != set(self.observed_vars_names):
+            raise ValueError("Keys in x_observation_dict must match self.observed_vars_names.")
+        if self.born_machine.conditioning_dim == 0:
+            return None
+        if self.born_machine.conditioning_dim != self.num_observed_vars:
+            raise ValueError("Born machine conditioning_dim must match num_observed_vars.")
+        return torch.tensor([float(x_observation_dict[n]) for n in self.observed_vars_names],
+                            dtype=self.dtype, device=self.device)
+
+    def build_operator(self, x_observation_dict) -> SteinOperator:
+        t = self.bn.conditional_joint_table(self.latent_vars_names, x_observation_dict)
+        return SteinOperator(score_table(t), self.num_latent_vars,
+                             self.base_kernel_length_scale, dtype=self.dtype,
+                             dense=self.dense, device=self.device)
+
+    def train(self, x_observation_dict: Dict[str, int], num_epochs: int,
+              lr_born_machine: float, verbose: bool = True, true_posterior_for_tvd=None,
+              use_lr_scheduler: bool = True, gradient_clip_norm: float = 10.0,
+              optimizer_type: str = "adam", adam_betas=(0.9, 0.999),
+              entropy_weight: float = 0.01, patience: int = 200, seed: Optional[int] = None,
+              checkpoint_path: Optional[str] = None, profile_dir: Optional[str] = None,
+              chunk_epochs: Optional[int] = None, resume_state_path: Optional[str] = None,
+              eval_convention: str = "deterministic") -> dict:
+        """``eval_convention``: ``"deterministic"`` (TVD on the dropout-free
+        forward) or ``"train_noisy"`` (the reference's: TVD on a forward with
+        dropout on). ``chunk_epochs`` defaults to 100 when the TVD is
+        tracked, so that an early-stopped run breaks soon after its stop;
+        the results do not depend on it. ``seed`` overrides the engine's
+        seed for the dropout generator."""
+        if checkpoint_path is not None or profile_dir is not None or resume_state_path is not None:
+            not_ported("checkpoint_path / profile_dir / resume_state_path", "A11")
+        if eval_convention not in ("deterministic", "train_noisy"):
+            raise ValueError(f"unknown eval_convention {eval_convention!r}")
+        noisy_eval = eval_convention == "train_noisy"
+        # A later run trains the parameters again, not the distribution an
+        # earlier run restored (fixed probs have no gradient).
+        self.born_machine.clear_fixed_probs()
+        x_cond = self._x_cond_tensor(x_observation_dict)
+        self._x_condition = x_cond
+        op = self.build_operator(x_observation_dict)
+        posterior_vec = _posterior_vec_from(true_posterior_for_tvd, self.num_latent_vars,
+                                            self.dtype, self.device)
+        track = posterior_vec is not None
+        optimizer = make_optimizer(optimizer_type, lr_born_machine, num_epochs,
+                                   use_lr_scheduler, adam_betas, gradient_clip_norm)
+        bm = self.born_machine
+        gen = torch.Generator(device=self.device).manual_seed(self.seed if seed is None else seed)
+        if chunk_epochs is None and track:
+            chunk_epochs = 100
+
+        t0 = time.perf_counter()
+        out = run_ksd_scan(
+            probs_fn=lambda p: bm.probs(p, x_cond, train=True, generator=gen),
+            eval_probs_fn=lambda p: bm.probs(p, x_cond), params0=self.params, op=op,
+            num_epochs=num_epochs, optimizer=optimizer, posterior_vec=posterior_vec,
+            chunk_epochs=chunk_epochs, entropy_weight=entropy_weight, noisy_eval=noisy_eval,
+            early_stopping=track, patience=patience)
+        elapsed = time.perf_counter() - t0
+
+        stop_epoch = out["stop_epoch"]
+        self.params = out["params"]
+        self.best_params_ = out["best_params"]
+        self.best_tvd_ = out["best_tvd"]
+        self.best_epoch_ = out["best_epoch"]
+        history = {k: out[k][:stop_epoch].tolist()
+                   for k in ("loss_ksd", "tvd", "grad_norm", "entropy") if k in out}
+        ran = min(stop_epoch, out["epochs_dispatched"])
+        history["epochs_per_sec"] = ran / elapsed if elapsed > 0 else float("inf")
+        history["train_seconds"] = elapsed
+        history["num_skipped_updates"] = int(out["skipped"].sum())
+        steady = steady_epochs_per_sec(out["chunk_seconds"])
+        if steady is not None:
+            history["epochs_per_sec_steady"] = steady
+        self.history_ = history
+
+        if track and np.isfinite(self.best_tvd_):
+            bm.set_fixed_probs(out["best_probs"])
+            if noisy_eval:
+                # The best TVD was read on a dropout-noisy forward that cannot
+                # be reproduced: restore the deterministic distribution at the
+                # best parameters without the drift check.
+                if verbose:
+                    print(f"Restoring best parameters (noisy-eval TVD: {self.best_tvd_:.6f} "
+                          f"from epoch {self.best_epoch_ + 1})")
+            else:
+                final_tvd = float(0.5 * (bm.probs(self.params, x_cond) - posterior_vec).abs().sum())
+                if abs(final_tvd - self.best_tvd_) > 1e-6:
+                    print(f"WARNING: restoration drift — expected TVD {self.best_tvd_:.6f}, "
+                          f"got {final_tvd:.6f}")
+                elif verbose:
+                    print(f"Restored best probabilities from epoch {self.best_epoch_ + 1}: "
+                          f"TVD {final_tvd:.6f}")
+        if verbose:
+            print(f"KSD training: {stop_epoch} epochs in {elapsed:.3f}s "
+                  f"({history['epochs_per_sec']:.1f} epochs/s)")
+        return history
+
+    def get_prob_dict(self, x_condition=None) -> dict:
+        return self.born_machine.get_prob_dict(
+            self.params, self._x_condition if x_condition is None else x_condition)
 
 
 class QuantumKSDVariationalInference:

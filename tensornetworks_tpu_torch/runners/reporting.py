@@ -1,9 +1,27 @@
-"""Console reporting shared by the runners. Counterpart of
-``print_stability_stats`` in ``tensornetworks_tpu/runners/reporting.py``."""
+"""Console reporting shared by the runners: the truth-vs-learned table and
+the stability statistics. Counterpart of
+``tensornetworks_tpu/runners/reporting.py``."""
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def print_final_report(latent_vars, observed, true_posterior: dict, learned: dict,
+                       final_tvd: float):
+    """True against learned probability per assignment, with |diff|, then
+    the final TVD."""
+    print("\n--- Final Comparison: True vs Learned Posterior ---")
+    header = (f"{'Assignment (' + ','.join(latent_vars) + ')':<24}{'True':>12}"
+              f"{'Learned':>12}{'|diff|':>12}")
+    print(header)
+    print("-" * len(header))
+    for key in sorted(true_posterior):
+        t = true_posterior[key]
+        q = learned.get(key, 0.0)
+        print(f"{str(key):<24}{t:>12.6f}{q:>12.6f}{abs(t - q):>12.6f}")
+    print("-" * len(header))
+    print(f"Final TVD vs true posterior (evidence {observed}): {final_tvd:.6f}")
 
 
 def print_stability_stats(history: dict, key: str = "tvd"):

@@ -156,7 +156,7 @@ def test_run_scale_experiment_lr_phases_equal_phases_by_hand():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(objective="adversarial"), "A8"), (dict(objective="sampled-ksd"), "A9"),
+    (dict(objective="sampled-ksd"), "A9"),
     (dict(warm_start="marginals"), "A10"),
     (dict(resume_state_path="r"), "A11"), (dict(checkpoint_path="c"), "A11"),
     (dict(temper_betas=[0.5, 1.0]), "A4")])
