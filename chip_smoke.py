@@ -66,15 +66,37 @@ Phases (any failure exits non-zero):
    package's at the same depth and seed.
    For 8-9 too the launch counts are zeroed just before each path and read
    just after.
+10. The gcorr Stein operator's recombination kernel (stein_gcorr), held
+   against its plain version on the path's own P0/Q (the operator applied
+   to the path's Born machine's initial q) at n = 13 and 14 untimed, and at
+   16 (ℓ = 1 and ℓ = 1/16), 20, 22 and 24 timed; at 16 and 20 also against
+   float64 on the same inputs. The KSD paths' stein2d kernels are timed on
+   the operator's n+1 columns (one untimed 3n+1 check from
+   ``stein_weight_tables`` keeps the TPU kernel's shape covered), and
+   stein2d_grid at n = 22 and 24 and circuit2d_grid (bn_structured, L=8)
+   at n = 24 against their plain versions.
+11. exact22, the tempered target: ``run_scale_experiment(22, L=4,
+   temper_betas=[0.5, 1.0])`` for 20 epochs in chunks of 10; the engine
+   builds two operators, epoch 0's loss agrees with the β = 0.5 operator's
+   in float64. exact24, the widest exact path:
+   ``run_scale_experiment(24, L=8, ansatz="bn_structured", lr=0.05)`` for
+   10 epochs in chunks of 5 with the TVD tracked (the JAX package's
+   ``examples/exact_ksd_24_qubits.py`` cut from 3000 epochs); every loss
+   finite, the last chunk's mean loss below the first's, epoch 0's loss
+   against float64 (the Stein part from the gcorr plain version: the 3n+1
+   oracle's float64 columns would take about 30 GB). Both launch exactly
+   the grid circuit kernels, stein2d_grid and stein_gcorr.
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line (each kernel
 with the launch count of the path that runs it, and its launches on every
-path that runs it), a ``{"bn_structured":
-[...]}`` line (the timed bn_structured checks and each bn path's launches)
-and, last, the ``{"ok": true, ...}`` line. Imports nothing of JAX or of the
-JAX package.
+path that runs it), a ``{"bn_structured": [...]}`` line (the timed
+bn_structured checks and each bn path's launches), a ``{"large_n": [...]}``
+line (the timed checks at the wide shapes of step 10, with the exact paths'
+launches) and, last, the ``{"ok": true, ...}`` line. Imports nothing of JAX
+or of the JAX package.
 """
 
+import functools
 import json
 import math
 import statistics
@@ -96,6 +118,14 @@ N_STEIN = (13, 14, 15, 17)  # stein2d: several columns a block, one, clusters of
 N_STEIN_RANDOM = (3, 8)     # stein2d below the Kronecker path (SteinOperator dense=False)
 MAIN_EPOCHS = 300
 N_GRID, N_GRID_ODD, N_GRID_MIN, N_GRID_WIDE = 20, 19, 18, 21
+# The exact paths at 22 and 24 qubits: exact22 (hardware_efficient L=4, the
+# tempered target), exact24 (examples/exact_ksd_24_qubits.py: bn_structured
+# L=8, lr 0.05, chunks of 5, cut from 3000 epochs to 10).
+N_EXACT22, N_EXACT24 = 22, 24
+EXACT22_EPOCHS, EXACT22_CHUNK, EXACT22_BETAS = 20, 10, [0.5, 1.0]
+EXACT24_EPOCHS, EXACT24_CHUNK = 10, 5
+# Timed calls at n >= 22 take up to a second: fewer of them.
+WIDE_REPS, WIDE_ROUNDS = 2, 3
 SCALE_EPOCHS, SCALE_CHUNK = 60, 20
 SPRINKLER_TVD_MAX = 0.01
 # bn_structured: bench.py's quality configuration at 16 qubits, and the JAX
@@ -141,8 +171,13 @@ N_BN_EDGES, BN_EDGES = 5, [(4, 0), (2, 1), (0, 3), (0, 3), (3, 4), (1, 2), (1, 2
 # its error is about 20 x 6e-8 = 1.2e-6 of the magnitudes it sums, inside
 # 1e-5 of the largest result against the FP32 plain version and against
 # float64 alike; stein2d is the same butterfly, at most 17 stages deep.
+# stein_gcorr sums 3n+2 terms per output in FP32, their coefficients up to
+# 1/(1-a²) (8.5 at n=16, ℓ=1); on the CPU the FP32 plain version read
+# 2.6e-7-4e-7 of the largest |y| against float64 on the same inputs (n=13,
+# 14, ℓ = 1/n, 2/n, 1), so 1e-5 leaves a 25-fold margin.
 TOL = {"circuit2d_fwd": 1e-5, "circuit2d_bwd": 1e-4, "stein2d": 1e-5,
-       "circuit2d_grid_fwd": 2e-5, "circuit2d_grid_bwd": 2e-4, "stein2d_grid": 1e-5}
+       "circuit2d_grid_fwd": 2e-5, "circuit2d_grid_bwd": 2e-4, "stein2d_grid": 1e-5,
+       "stein_gcorr": 1e-5}
 
 REPLACES = {
     "circuit2d_fwd": "tensornetworks_tpu/ops/pallas/circuit2d.py:185",
@@ -151,6 +186,8 @@ REPLACES = {
     "stein2d_grid": "tensornetworks_tpu/ops/pallas/stein2d.py:121",
     "circuit2d_grid_fwd": "tensornetworks_tpu/ops/pallas/circuit2d_grid.py:150",
     "circuit2d_grid_bwd": "tensornetworks_tpu/ops/pallas/circuit2d_grid.py:187",
+    # No Pallas kernel: the XLA correction step of stein_matvec_gcorr_tables.
+    "stein_gcorr": "tensornetworks_tpu/ops/stein.py:406",
 }
 SOURCES = {
     "circuit2d_fwd": "tensornetworks_tpu_torch/csrc/circuit2d.cu",
@@ -159,17 +196,20 @@ SOURCES = {
     "stein2d_grid": "tensornetworks_tpu_torch/csrc/stein2d.cu",
     "circuit2d_grid_fwd": "tensornetworks_tpu_torch/csrc/circuit2d_grid.cu",
     "circuit2d_grid_bwd": "tensornetworks_tpu_torch/csrc/circuit2d_grid.cu",
+    "stein_gcorr": "tensornetworks_tpu_torch/csrc/stein_gcorr.cu",
 }
 # The kernels each path must launch; it must launch no other kernel. The
-# bn_structured paths run exactly the kernel sets of main16 and scale20.
+# bn_structured and exact paths run exactly the kernel sets of main16 and
+# scale20.
 PATH_KERNELS = {
-    "main16": ("circuit2d_fwd", "circuit2d_bwd", "stein2d"),
-    "scale20": ("circuit2d_grid_fwd", "circuit2d_grid_bwd", "stein2d_grid"),
+    "main16": ("circuit2d_fwd", "circuit2d_bwd", "stein2d", "stein_gcorr"),
+    "scale20": ("circuit2d_grid_fwd", "circuit2d_grid_bwd", "stein2d_grid", "stein_gcorr"),
 }
 PATH_KERNELS.update(bn16=PATH_KERNELS["main16"], bn20=PATH_KERNELS["scale20"],
-                    sprinkler_classical=(), classical16=("stein2d",),
-                    classical20=("stein2d_grid",), sprinkler_adversarial=(),
-                    adversarial16=("circuit2d_fwd", "circuit2d_bwd"))
+                    sprinkler_classical=(), classical16=("stein2d", "stein_gcorr"),
+                    classical20=("stein2d_grid", "stein_gcorr"), sprinkler_adversarial=(),
+                    adversarial16=("circuit2d_fwd", "circuit2d_bwd"),
+                    exact22=PATH_KERNELS["scale20"], exact24=PATH_KERNELS["scale20"])
 
 
 class PhaseError(RuntimeError):
@@ -217,9 +257,11 @@ def rel_err(a, b):
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
+@functools.lru_cache(maxsize=None)
 def path_inputs(n):
     """The n-qubit workload's network, latent names and observation (the
-    scale problem: a random chain network of n+1 variables, seed 0)."""
+    scale problem: a random chain network of n+1 variables, seed 0); one
+    network per n, so that its joint table is built once."""
     from tensornetworks_tpu_torch.runners import make_scale_problem
 
     return make_scale_problem(n, seed=0)
@@ -241,11 +283,19 @@ def circuit_bounds(R, C, L):
             bound(24 * L * dense, 4 * (4 * L * R * R + 4 * L * C * C + 3 * R * C)))
 
 
-def check_circuit(n, device, timing, grid=False, ansatz=ANSATZ, layers=LAYERS, edges=None):
+def timer(n):
+    """``time_ms``, with fewer calls from n = 22."""
+    if n < N_EXACT22:
+        return time_ms
+    return lambda fn: time_ms(fn, reps=WIDE_REPS, rounds=WIDE_ROUNDS)
+
+
+def check_circuit(n, device, timing, grid=False, ansatz=ANSATZ, layers=LAYERS, edges=None,
+                  oracle=True):
     """A circuit kernel pair (circuit2d, or circuit2d_grid with ``grid``)
     against its plain version, and the θ-gradient through the model against
-    plain autograd; for bn_structured also probabilities and θ-gradient
-    against the float64 oracle."""
+    plain autograd; for bn_structured with ``oracle`` also probabilities and
+    θ-gradient against the float64 oracle."""
     import torch
     from tensornetworks_tpu_torch.models import QuantumBornMachine
     from tensornetworks_tpu_torch.ops.kernels import circuit2d as kc
@@ -309,8 +359,8 @@ def check_circuit(n, device, timing, grid=False, ansatz=ANSATZ, layers=LAYERS, e
         th_grads.append(p.grad)
     theta_err = rel_err(*th_grads)
     require(theta_err <= TOL[f"{name}_bwd"], f"{what}: θ-gradient rel err {theta_err:.3e}")
-    oracle = ""
-    if ansatz == BN:
+    note = ""
+    if ansatz == BN and oracle:
         # The oracle in float64: its own 2x2 rotations applied qubit by qubit
         # and per-edge masked flips, not the Mr/Mc fold and index maps.
         p64 = theta.double().requires_grad_(True)
@@ -321,20 +371,21 @@ def check_circuit(n, device, timing, grid=False, ansatz=ANSATZ, layers=LAYERS, e
         require(o_fwd <= TOL[f"{name}_fwd"], f"{what}: probs vs oracle rel err {o_fwd:.3e}")
         require(o_grad <= TOL[f"{name}_bwd"], f"{what}: θ-gradient vs oracle rel err "
                                                f"{o_grad:.3e}")
-        oracle = f", vs float64 oracle: probs rel {o_fwd:.2e}, θ-grad rel {o_grad:.2e}"
+        note = f", vs float64 oracle: probs rel {o_fwd:.2e}, θ-grad rel {o_grad:.2e}"
     print(f"{what}: fwd rel {fwd_err:.2e} (abs {abs_fwd:.2e}), bwd rel {bwd_err:.2e} "
-          f"(abs {abs_bwd:.2e}), θ-grad rel {theta_err:.2e}{oracle}", flush=True)
+          f"(abs {abs_bwd:.2e}), θ-grad rel {theta_err:.2e}{note}", flush=True)
     if not timing:
         return []
     fwd_bound, bwd_bound = circuit_bounds(plan.R, plan.C, layers)
+    t = timer(n)
     return [
         dict(name=f"{name}_fwd", max_abs_err=abs_fwd, rel_err=fwd_err,
-             ms=time_ms(lambda: fwd(*planes, plan)),
-             plain_ms=time_ms(lambda: fwd_p(*planes, plan)),
+             ms=t(lambda: fwd(*planes, plan)),
+             plain_ms=t(lambda: fwd_p(*planes, plan)),
              bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=None),
         dict(name=f"{name}_bwd", max_abs_err=abs_bwd, rel_err=bwd_err,
-             ms=time_ms(lambda: bwd(*planes, out_k[1], out_k[2], g, plan)),
-             plain_ms=time_ms(lambda: bwd_p(*planes, out_p[1], out_p[2], g, plan)),
+             ms=t(lambda: bwd(*planes, out_k[1], out_k[2], g, plan)),
+             plain_ms=t(lambda: bwd_p(*planes, out_p[1], out_p[2], g, plan)),
              bound_ms=bwd_bound[0], bound_by=bwd_bound[1], library_ms=None),
     ]
 
@@ -402,37 +453,150 @@ def check_stein2d_random(n, device):
     check_stein_result("stein2d", n, a, V, stein2d_apply(a, V))
 
 
-def check_stein2d(n, device, timing=True):
-    """The path's stein2d kernel (stein2d at n ≤ 17, stein2d_grid above)
-    against its plain version in FP32 and float64, on the path's columns:
-    its Stein operator at the length scale the path uses, applied to the
-    Born machine's initial q."""
+def path_config(n, ls=None):
+    """(ansatz, layers, edges, length scale) of the KSD path at n qubits:
+    main16 (ℓ = 1) or bn16 (ℓ = 1/16, bn_structured L=8) at 16, exact24's
+    bn_structured L=8 at 24, otherwise hardware_efficient L=4 at the
+    ``auto`` length scale (scale20, exact22)."""
+    from tensornetworks_tpu_torch.ops.hamming import resolve_length_scale
+
+    if n == N:
+        ls = 1.0 if ls is None else ls
+        return (BN, BN_LAYERS, path_edges(n), ls) if ls == BN_LENGTH_SCALE else (
+            ANSATZ, LAYERS, None, ls)
+    ls = resolve_length_scale("auto", n) if ls is None else ls
+    if n == N_EXACT24:
+        return BN, BN_LAYERS, path_edges(n), ls
+    return ANSATZ, LAYERS, None, ls
+
+
+@functools.lru_cache(maxsize=1)
+def path_operator(n, device, ls=None):
+    """The path's Stein operator at n qubits and the Born machine's initial
+    q (θ from seed 0, as the engines draw it); the last one is kept for the
+    next check at the same n."""
     import torch
     from tensornetworks_tpu_torch.models import QuantumBornMachine
     from tensornetworks_tpu_torch.ops import stein
-    from tensornetworks_tpu_torch.ops.hamming import resolve_length_scale
-    from tensornetworks_tpu_torch.ops.kernels.stein2d import kron_factors, stein2d_apply_plain
 
+    ansatz, layers, edges, ls = path_config(n, ls)
     bn, latent, obs = path_inputs(n)
-    ls = 1.0 if n == N else resolve_length_scale("auto", n)
     op = stein.SteinOperator(stein.score_table(bn.conditional_joint_table(latent, obs)), n,
                              length_scale=ls, device=device)
-    name = "stein2d_grid" if op._grid else "stein2d"
-    qbm = QuantumBornMachine(n, LAYERS, ANSATZ, device=device)
+    qbm = QuantumBornMachine(n, layers, ansatz, device=device, edges=edges)
     with torch.no_grad():
         q = qbm.probs(qbm.init(torch.Generator().manual_seed(0)))
-    V = (op._Vw * q).reshape(-1, op._R, op._C)
+    return op, q
+
+
+def check_stein2d(n, device, timing=True):
+    """The path's stein2d kernel (stein2d at n ≤ 17, stein2d_grid above)
+    against its plain version in FP32 and float64, on the path's columns:
+    the n+1 gcorr columns of its Stein operator at the path's length scale,
+    applied to the Born machine's initial q."""
+    import torch
+    from tensornetworks_tpu_torch.ops.kernels.stein2d import kron_factors, stein2d_apply_plain
+
+    op, q = path_operator(n, device, None)
+    name = "stein2d_grid" if op._grid else "stein2d"
+    V = op.columns(q)
     cols, R, C = V.shape
     abs_err, err = check_stein_result(name, n, op._a, V, op.kron_apply(V))
     if not timing:
         return []
     Ar, Ac = kron_factors(op._a, R, C, torch.float32, device)
     b = stein_bound(cols, n)
-    return [dict(name=name, max_abs_err=abs_err, rel_err=err,
-                 ms=time_ms(lambda: op.kron_apply(V)),
-                 plain_ms=time_ms(lambda: stein2d_apply_plain(Ar, Ac, V)),
+    t = timer(n)
+    return [dict(name=name, n=n, cols=cols, max_abs_err=abs_err, rel_err=err,
+                 ms=t(lambda: op.kron_apply(V)),
+                 plain_ms=t(lambda: stein2d_apply_plain(Ar, Ac, V)),
                  bound_ms=b[0], bound_by=b[1],
-                 library_ms=time_ms(lambda: torch.einsum("rs,bsc,dc->brd", Ar, V, Ac)))]
+                 library_ms=t(lambda: torch.einsum("rs,bsc,dc->brd", Ar, V, Ac)))]
+
+
+def check_stein2d_3n1(n, device):
+    """stein2d on the 3n+1 columns the TPU kernel takes
+    (``stein_weight_tables``), untimed."""
+    import torch
+    from tensornetworks_tpu_torch.ops import stein
+
+    op, q = path_operator(n, device, None)
+    Vw, _ = stein.stein_weight_tables(op._score_np, n, op.length_scale)
+    V = (torch.as_tensor(Vw, dtype=torch.float32, device=device) * q).reshape(-1, op._R, op._C)
+    check_stein_result("stein2d_grid" if op._grid else "stein2d", n, op._a, V, op.kron_apply(V))
+
+
+def gcorr_bound(n):
+    """stein_gcorr's least work: S and Q (n rows each), P0 and Rv read once
+    and y written once, against about 9 FLOPs per element and bit."""
+    return bound(9 * n * 2**n, (2 * n + 3) * 4 * 2**n)
+
+
+def check_gcorr(n, device, timing=True, ls=None, f64=False):
+    """stein_gcorr against its plain version (FP32, the per-bit flip loop)
+    on the path's own P0 and Q, and with ``f64`` against the plain version
+    in float64 on the same inputs."""
+    import torch
+    from tensornetworks_tpu_torch.ops.kernels.stein_gcorr import gcorr_combine, gcorr_combine_plain
+
+    op, q = path_operator(n, device, ls)
+    Y = op.kron_apply(op.columns(q)).reshape(n + 1, -1)
+    args = (Y[0], Y[1:], op.gcorr.St, op.gcorr.Rv)
+    y_k = gcorr_combine(*args, op._a, n)
+    y_p = gcorr_combine_plain(*args, op._a, n)
+    torch.cuda.synchronize()
+    what = f"stein_gcorr n={n} ℓ={op.length_scale:.4g}"
+    require(bool(torch.isfinite(y_k).all()), f"{what}: not finite")
+    err, abs_err = rel_err(y_k, y_p), float((y_k - y_p).abs().max())
+    require(err <= TOL["stein_gcorr"], f"{what}: rel err {err:.3e}")
+    note = ""
+    if f64:
+        y64 = gcorr_combine_plain(*(t.double() for t in args), op._a, n)
+        err64 = rel_err(y_k.double(), y64)
+        require(err64 <= TOL["stein_gcorr"], f"{what}: rel err {err64:.3e} against float64")
+        note = f", against float64 rel {err64:.2e}"
+    print(f"{what}: rel {err:.2e} (abs {abs_err:.2e}){note}", flush=True)
+    if not timing:
+        return []
+    b = gcorr_bound(n)
+    t = timer(n)
+    return [dict(name="stein_gcorr", n=n, length_scale=op.length_scale, max_abs_err=abs_err,
+                 rel_err=err, ms=t(lambda: gcorr_combine(*args, op._a, n)),
+                 plain_ms=t(lambda: gcorr_combine_plain(*args, op._a, n)),
+                 bound_ms=b[0], bound_by=b[1], library_ms=None)]
+
+
+def check_large_n(device):
+    """Step 10's wide checks: stein_gcorr at n = 13 and 14 untimed, at 16
+    (ℓ = 1/16, bn16's), 20, 22 and 24 timed; stein2d_grid at 22 and 24 and
+    circuit2d_grid (bn_structured, L=8) at 24, timed. Returns the timed
+    records."""
+    import torch
+
+    def timed(label, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        print(f"  ({label}: {time.perf_counter() - t0:.1f}s)", flush=True)
+        return out
+
+    for n in (13, 14):
+        check_gcorr(n, device, timing=False)
+    records = check_gcorr(N, device, ls=BN_LENGTH_SCALE, f64=True)
+    records += check_gcorr(N_GRID, device, f64=True)
+    for n in (N_EXACT22, N_EXACT24):
+        records += timed(f"stein_gcorr n={n}", check_gcorr, n, device)
+        records += timed(f"stein2d_grid n={n}", check_stein2d, n, device)
+    path_operator.cache_clear()
+    torch.cuda.reset_peak_memory_stats()
+    n = N_EXACT24
+    records += timed(f"circuit2d_grid n={n}", check_circuit, n, device, True, grid=True,
+                     ansatz=BN, layers=BN_LAYERS, edges=path_edges(n), oracle=False)
+    print(f"circuit2d_grid n={n} check: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    for r in records:
+        r.setdefault("n", n)
+        r["share"] = r["bound_ms"] / r["ms"]
+    return records
 
 
 # Mangled-name parts of the kernels whose registers are printed on a line of
@@ -844,6 +1008,152 @@ def run_adversarial16_path(device):
     return launches, eps
 
 
+def gcorr_reference_loss(n, q64, S, length_scale):
+    """The KSD loss of the float64 distribution q64 on the device for the
+    score table S (host float64): the gcorr columns through the dense
+    two-sided Kronecker split in float64, then the plain recombination."""
+    import torch
+    from tensornetworks_tpu_torch.ops.hamming import decay_factor
+    from tensornetworks_tpu_torch.ops.kernels.stein2d import kron_factors, stein2d_apply_plain
+    from tensornetworks_tpu_torch.ops.kernels.stein_gcorr import gcorr_combine_plain
+    from tensornetworks_tpu_torch.ops.stein import gcorr_columns, make_gcorr_tables
+
+    a = decay_factor(n, length_scale)
+    rb = (n + 1) // 2
+    R, C = 1 << rb, 1 << (n - rb)
+    with torch.no_grad():
+        St, Rv = make_gcorr_tables(S, n, dtype=torch.float64, device=q64.device)
+        V = gcorr_columns(q64, St).reshape(-1, R, C)
+        Y = stein2d_apply_plain(*kron_factors(a, R, C, torch.float64, q64.device), V)
+        del V
+        Y = Y.reshape(n + 1, -1)
+        y = gcorr_combine_plain(Y[0], Y[1:], St, Rv, a, n)
+        return math.sqrt(max(float(q64 @ y), 1e-12))
+
+
+def run_exact22_path(device):
+    """The tempered target at 22 qubits: ``run_scale_experiment(22, L=4,
+    temper_betas=[0.5, 1.0])``, hardware_efficient, chunks of 10 epochs."""
+    import torch
+    from tensornetworks_tpu_torch.engines import QuantumKSDVariationalInference
+    from tensornetworks_tpu_torch.models import QuantumBornMachine
+    from tensornetworks_tpu_torch.ops import kernels
+    from tensornetworks_tpu_torch.ops.hamming import resolve_length_scale
+    from tensornetworks_tpu_torch.ops.kernels import circuit2d_grid as kg
+    from tensornetworks_tpu_torch.ops.stein import score_table
+    from tensornetworks_tpu_torch.runners import run_scale_experiment
+
+    n = N_EXACT22
+    theta0 = QuantumBornMachine(n, LAYERS, ANSATZ, device=device).init(
+        torch.Generator().manual_seed(0))
+    built = []
+    build = QuantumKSDVariationalInference.build_operator
+
+    def counted(self, x, temper_beta=1.0):
+        built.append(temper_beta)
+        return build(self, x, temper_beta)
+
+    QuantumKSDVariationalInference.build_operator = counted
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = run_scale_experiment(num_qubits=n, layers=LAYERS, num_epochs=EXACT22_EPOCHS,
+                                   chunk_epochs=EXACT22_CHUNK, temper_betas=EXACT22_BETAS,
+                                   seed=0, verbose=False, device=device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        QuantumKSDVariationalInference.build_operator = build
+    model, hist = out["model"], out["history"]
+    require(model.born_machine.backend == "circuit2d_grid",
+            f"exact22 path is on {model.born_machine.backend}, not circuit2d_grid")
+    check_launches("exact22", launches)
+    loss = hist["loss_ksd"]
+    require(all(math.isfinite(x) for x in loss), "exact22 loss not finite")
+    require(hist["num_skipped_updates"] == 0, "exact22 skipped updates")
+    require(sorted(built) == sorted(EXACT22_BETAS),
+            f"exact22 built operators for β = {built}, want one each for {EXACT22_BETAS}")
+    # Epoch 0 trains against p^0.5: its loss against the β = 0.5 operator's
+    # in float64 (the grid kernels' plain circuit, the gcorr plain version).
+    bn, latent, obs = path_inputs(n)
+    S = 1.0 - (1.0 - score_table(bn.conditional_joint_table(latent, obs))) ** EXACT22_BETAS[0]
+    plan = kg.GridPlan(n, LAYERS, ANSATZ)
+    with torch.no_grad():
+        q64 = kg.circuit2d_grid_forward_plain(*kg.grid_operators(theta0.double(), plan),
+                                              plan)[0].reshape(-1)
+    ref_loss = gcorr_reference_loss(n, q64, S, resolve_length_scale("auto", n))
+    loss_err = abs(loss[0] - ref_loss) / abs(ref_loss)
+    require(loss_err < 1e-4, f"exact22 epoch-0 loss {loss[0]} vs float64 {ref_loss}")
+    eps = hist.get("epochs_per_sec_steady", hist["epochs_per_sec"])
+    print(f"exact22 path: {EXACT22_EPOCHS} epochs, β {EXACT22_BETAS} per chunk of "
+          f"{EXACT22_CHUNK}, operators built for β {built}, loss {loss[0]:.5f} -> "
+          f"{loss[-1]:.5f} (epoch-0 rel err vs float64 β=0.5 {loss_err:.1e}), "
+          f"{eps:.2f} epochs/s steady, {seconds:.1f}s in run_scale_experiment, "
+          f"launches {launches}", flush=True)
+    return launches, eps
+
+
+def run_exact24_path(device):
+    """The widest exact path: ``run_scale_experiment(24, L=8,
+    ansatz="bn_structured", lr=0.05, track_tvd=True)``, 10 epochs in chunks
+    of 5."""
+    import torch
+    from tensornetworks_tpu_torch.models import QuantumBornMachine
+    from tensornetworks_tpu_torch.ops import kernels
+    from tensornetworks_tpu_torch.ops.hamming import resolve_length_scale
+    from tensornetworks_tpu_torch.ops.stein import score_table
+    from tensornetworks_tpu_torch.runners import run_scale_experiment
+    from tensornetworks_tpu_torch.sim import make_structured_probs_fn
+
+    n = N_EXACT24
+    edges = path_edges(n)
+    theta0 = QuantumBornMachine(n, BN_LAYERS, BN, device=device, edges=edges).init(
+        torch.Generator().manual_seed(0))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = run_scale_experiment(num_qubits=n, layers=BN_LAYERS, ansatz=BN, lr=BN_LR,
+                               num_epochs=EXACT24_EPOCHS, chunk_epochs=EXACT24_CHUNK,
+                               track_tvd=True, seed=0, verbose=False, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    model, hist = out["model"], out["history"]
+    require(model.born_machine.backend == "circuit2d_grid",
+            f"exact24 path is on {model.born_machine.backend}, not circuit2d_grid")
+    check_launches("exact24", launches)
+    loss, tvd = hist["loss_ksd"], hist["tvd"]
+    require(all(math.isfinite(x) for x in loss), "exact24 loss not finite")
+    require(hist["num_skipped_updates"] == 0, "exact24 skipped updates")
+    first = statistics.mean(loss[:EXACT24_CHUNK])
+    last = statistics.mean(loss[-EXACT24_CHUNK:])
+    require(last < first, f"exact24 last chunk's mean loss {last} not below the first's {first}")
+    require(all(math.isfinite(x) for x in tvd) and math.isfinite(model.best_tvd_),
+            "exact24 TVD not finite")
+    # Epoch 0's loss in float64: the bn_structured oracle and the gcorr plain
+    # version (the 3n+1 oracle's float64 columns and tables would take about
+    # 30 GB here).
+    bn, latent, obs = path_inputs(n)
+    S = score_table(bn.conditional_joint_table(latent, obs))
+    with torch.no_grad():
+        q64 = make_structured_probs_fn(n, BN_LAYERS, edges)(theta0.double())
+    ref_loss = gcorr_reference_loss(n, q64, S, resolve_length_scale("auto", n))
+    loss_err = abs(loss[0] - ref_loss) / abs(ref_loss)
+    require(loss_err < 1e-4, f"exact24 epoch-0 loss {loss[0]} vs float64 {ref_loss}")
+    steady = hist.get("epochs_per_sec_steady")
+    require(steady is not None, "exact24 has no steady rate")
+    print(f"exact24 path: {EXACT24_EPOCHS} epochs, {len(edges)} edges, loss {loss[0]:.5f} -> "
+          f"{loss[-1]:.5f}, chunk means {first:.5f} -> {last:.5f} (epoch-0 rel err vs float64 "
+          f"{loss_err:.1e}), TVD {tvd[0]:.5f} -> {tvd[-1]:.5f}, best {model.best_tvd_:.5f}, "
+          f"{hist['epochs_per_sec']:.3f} epochs/s, {steady:.3f} epochs/s steady, "
+          f"{seconds:.1f}s in run_scale_experiment, peak device memory {peak:.2f} GiB, "
+          f"launches {launches}", flush=True)
+    return launches, steady
+
+
 def main() -> int:
     import torch
 
@@ -881,16 +1191,21 @@ def main() -> int:
         check_stein2d_random(n, device)
     for n in N_STEIN:
         check_stein2d(n, device, timing=False)
+    check_stein2d_3n1(N, device)  # the 3n+1 columns the TPU kernel takes
     for n in (N_GRID_MIN, N_GRID_ODD):  # fewest tiles; R != C, both GEMM loops
         check_circuit(n, device, timing=False, grid=True)
         check_stein2d(n, device, timing=False)
     check_circuit(N_GRID_WIDE, device, timing=False, grid=True)  # scatter on the large loop
-    records = (check_circuit(N, device, timing=True) + check_stein2d(N, device)
-               + check_circuit(N_GRID, device, timing=True, grid=True)
-               + check_stein2d(N_GRID, device))
+    records = [dict(r, path="main16") for r in (
+        check_circuit(N, device, timing=True) + check_stein2d(N, device)
+        + check_gcorr(N, device, f64=True))]
+    records += [dict(r, path="scale20") for r in (
+        check_circuit(N_GRID, device, timing=True, grid=True) + check_stein2d(N_GRID, device))]
     t0 = phase("kernel checks", t0)
     bn_records = check_bn_circuits(device)
     t0 = phase("bn_structured kernel checks", t0)
+    wide_records = check_large_n(device)
+    t0 = phase("large-n kernel checks", t0)
     path_launches = {}
     path_launches["main16"], eps = run_main_path(device)
     t0 = phase("main16 path", t0)
@@ -907,23 +1222,24 @@ def main() -> int:
                       ("classical16", run_classical16_path),
                       ("classical20", run_classical20_path),
                       ("sprinkler_adversarial", run_sprinkler_adversarial),
-                      ("adversarial16", run_adversarial16_path)):
+                      ("adversarial16", run_adversarial16_path),
+                      ("exact22", run_exact22_path),
+                      ("exact24", run_exact24_path)):
         path_launches[path], new_paths[path] = run(device)
         t0 = phase(f"{path} path", t0)
 
-    kernel_path = {k: path for path in ("main16", "scale20") for k in PATH_KERNELS[path]}
     kernels_line = []
     for r in records:
         kernels_line.append({
             "name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],
             "replaces": REPLACES[r["name"]],
-            "launches": path_launches[kernel_path[r["name"]]][r["name"]],
+            "launches": path_launches[r["path"]][r["name"]],
             "launches_by_path": {p: c[r["name"]] for p, c in path_launches.items()
                                  if r["name"] in PATH_KERNELS[p]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
-    require(sorted(k["name"] for k in kernels_line) == sorted(kernel_path),
+    require(sorted(k["name"] for k in kernels_line) == sorted(SOURCES),
             "the kernels line does not list every kernel")
     bn_path = {k: path for path in ("bn16", "bn20") for k in PATH_KERNELS[path]}
     bn_line = []
@@ -932,6 +1248,12 @@ def main() -> int:
         bn_line.append({k: r[k] for k in ("name", "n", "layers", "max_abs_err", "rel_err", "ms",
                                           "plain_ms", "bound_ms", "bound_by", "share")}
                        | {"path": path, "launches": path_launches[path][r["name"]]})
+    wide_path = {N: "bn16", N_GRID: "scale20", N_EXACT22: "exact22", N_EXACT24: "exact24"}
+    wide_line = [{k: r[k] for k in ("name", "n", "max_abs_err", "rel_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms", "share")}
+                 | {"path": wide_path[r["n"]],
+                    "launches": path_launches[wide_path[r["n"]]][r["name"]]}
+                 for r in wide_records]
     print(f"main path {eps:.2f} epochs/s, scale20 path {eps20:.2f} epochs/s, bn16 path "
           f"{eps_bn16:.2f} epochs/s, bn20 path {eps_bn20:.2f} epochs/s, "
           + "".join(f"{p} path {e:.2f} epochs/s, " for p, e in new_paths.items())
@@ -939,6 +1261,7 @@ def main() -> int:
           f"{time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"bn_structured": bn_line}))
+    print(json.dumps({"large_n": wide_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -87,19 +87,18 @@ class BayesianNetwork:
         if self._joint_cache is not None:
             return self._joint_cache
         n = self.num_nodes
-        idx = np.arange(2**n, dtype=np.int64)
-        p = np.ones(2**n, dtype=np.float64)
+        p = np.ones((2,) * n, dtype=np.float64)
         for name in self.nodes:
-            pos = self.node_to_index[name]
-            own_bit = (idx >> (n - 1 - pos)) & 1
-            parent_pos = [self.node_to_index[q] for q in self.parents[name]]
-            k = len(parent_pos)
-            parent_idx = np.zeros(2**n, dtype=np.int64)
-            for j, pp in enumerate(parent_pos):
-                parent_idx |= ((idx >> (n - 1 - pp)) & 1) << (k - 1 - j)
-            p *= self._cpt_arrays[name][parent_idx, own_bit]
-        self._joint_cache = p
-        return p
+            # The CPT as a factor over (parents MSB-first, own value), its
+            # axes moved to their nodes' positions and broadcast over the rest.
+            axes = [self.node_to_index[q] for q in self.parents[name]] + [self.node_to_index[name]]
+            factor = self._cpt_arrays[name].reshape((2,) * len(axes))
+            shape = [1] * n
+            for a in axes:
+                shape[a] = 2
+            p *= np.transpose(factor, np.argsort(axes)).reshape(shape)
+        self._joint_cache = p.reshape(-1)
+        return self._joint_cache
 
     def marginal_table(self, var_names: Sequence[str]) -> np.ndarray:
         """p(var_names) as a ``(2^k,)`` vector, MSB-first in the given order."""

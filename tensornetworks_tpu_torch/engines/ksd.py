@@ -50,7 +50,8 @@ def run_ksd_scan(*, probs_fn, params0: torch.Tensor, op: SteinOperator, num_epoc
                  optimizer, posterior_vec: Optional[torch.Tensor],
                  chunk_epochs: Optional[int] = None, entropy_weight: Optional[float] = None,
                  eval_probs_fn=None, noisy_eval: bool = False, early_stopping: bool = False,
-                 patience: int = 200, min_epochs_before_stop: int = 300) -> dict:
+                 patience: int = 200, min_epochs_before_stop: int = 300,
+                 op_schedule=None) -> dict:
     """Train for ``num_epochs``; returns final/best params and the history.
 
     Two evaluation modes, as in the JAX engine:
@@ -75,7 +76,14 @@ def run_ksd_scan(*, probs_fn, params0: torch.Tensor, op: SteinOperator, num_epoc
     (per-chunk wall times go to ``chunk_seconds``); the results are the same.
     The stop flag stays on the device and is read at a chunk's end, where a
     stopped run breaks: the history then ends there.
+
+    ``op_schedule`` (needs ``chunk_epochs``): ``chunk_index -> SteinOperator``
+    in place of ``op`` for that chunk's loss, the tempered-target hook (the
+    JAX engine's ``stein_args_schedule``, which swaps the operator's jit
+    arguments where this loop swaps the operator).
     """
+    if op_schedule is not None and not chunk_epochs:
+        raise ValueError("op_schedule requires chunk_epochs")
     dev = params0.device
     params = params0.detach().clone()
     opt_state = optimizer.init(params)
@@ -101,10 +109,11 @@ def run_ksd_scan(*, probs_fn, params0: torch.Tensor, op: SteinOperator, num_epoc
     dispatched = 0
     for start in range(0, num_epochs, chunk):
         t_chunk = time.perf_counter()
+        chunk_op = op if op_schedule is None else op_schedule(start // chunk)
         for epoch in range(start, min(start + chunk, num_epochs)):
             p = params.detach().requires_grad_(True)
             q = probs_fn(p)
-            ksd = op.ksd_loss(q)
+            ksd = chunk_op.ksd_loss(q)
             loss = ksd
             if entropy_weight is not None:
                 ent = -(q * torch.log(q.clamp(min=1e-10))).sum()
@@ -357,20 +366,46 @@ class QuantumKSDVariationalInference:
         self.params = self.born_machine.init(torch.Generator().manual_seed(seed))
         self.history_: Optional[dict] = None
 
-    def build_operator(self, x_observation_dict) -> SteinOperator:
+    def build_operator(self, x_observation_dict, temper_beta: float = 1.0) -> SteinOperator:
+        """The Stein operator of the observation's posterior, or of the
+        tempered target p^β: the discrete score ``s = 1 - p(flip)/p`` becomes
+        ``1 - (1 - s)^β``; the zero-probability guard rows (s = 0) are fixed
+        points, so the guard is kept."""
         t = self.bn.conditional_joint_table(self.latent_vars_names, x_observation_dict)
-        return SteinOperator(score_table(t), self.num_latent_vars,
-                             self.base_kernel_length_scale, dtype=self.dtype,
-                             device=self.device)
+        S = score_table(t)
+        if temper_beta != 1.0:
+            S = 1.0 - np.power(1.0 - S, temper_beta)
+        return SteinOperator(S, self.num_latent_vars, self.base_kernel_length_scale,
+                             dtype=self.dtype, device=self.device)
 
     def train(self, x_observation_dict: Dict[str, int], num_epochs: int,
               lr_born_machine: float, verbose: bool = True, true_posterior_for_tvd=None,
               use_lr_scheduler: bool = True, gradient_clip_norm: float = 10.0,
               optimizer_type: str = "adam", adam_betas=(0.9, 0.999),
-              chunk_epochs: Optional[int] = None) -> dict:
+              chunk_epochs: Optional[int] = None,
+              temper_betas: Optional[Sequence[float]] = None) -> dict:
+        """``temper_betas`` (needs ``chunk_epochs``): per-chunk inverse
+        temperatures; chunk i trains against p^β[i], β past the list's end
+        holding at its last value (end with 1.0 to finish on the posterior).
+        One operator per distinct β, built when its first chunk starts;
+        β = 1.0 is the untempered operator. The TVD is always taken against
+        the untempered posterior, so the best snapshot is chosen by true
+        quality."""
+        if temper_betas is not None and not chunk_epochs:
+            raise ValueError("temper_betas requires chunk_epochs")
         if self.num_observed_vars > 0 and set(x_observation_dict) != set(self.observed_vars_names):
             raise ValueError("Keys in x_observation_dict must match self.observed_vars_names.")
         op = self.build_operator(x_observation_dict)
+        schedule = None
+        if temper_betas is not None:
+            betas = [float(b) for b in temper_betas]
+            ops = {1.0: op}
+
+            def schedule(chunk_index):
+                beta = betas[min(chunk_index, len(betas) - 1)]
+                if beta not in ops:
+                    ops[beta] = self.build_operator(x_observation_dict, temper_beta=beta)
+                return ops[beta]
         posterior_vec = _posterior_vec_from(true_posterior_for_tvd, self.num_latent_vars,
                                             self.dtype, self.device)
         optimizer = make_optimizer(optimizer_type, lr_born_machine, num_epochs,
@@ -378,7 +413,8 @@ class QuantumKSDVariationalInference:
         t0 = time.perf_counter()
         out = run_ksd_scan(probs_fn=self.born_machine.probs, params0=self.params, op=op,
                            num_epochs=num_epochs, optimizer=optimizer,
-                           posterior_vec=posterior_vec, chunk_epochs=chunk_epochs)
+                           posterior_vec=posterior_vec, chunk_epochs=chunk_epochs,
+                           op_schedule=schedule)
         elapsed = time.perf_counter() - t0
 
         self.params = out["params"]

@@ -28,12 +28,13 @@ from typing import Dict
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "tn_kernels"
-SOURCES = ("circuit2d", "circuit2d_grid", "stein2d")
+SOURCES = ("circuit2d", "circuit2d_grid", "stein2d", "stein_gcorr")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {"circuit2d_fwd": 0, "circuit2d_bwd": 0, "stein2d": 0,
-                            "circuit2d_grid_fwd": 0, "circuit2d_grid_bwd": 0, "stein2d_grid": 0}
+                            "circuit2d_grid_fwd": 0, "circuit2d_grid_bwd": 0, "stein2d_grid": 0,
+                            "stein_gcorr": 0}
 
 # The C interface of each library: pointers and the stream as c_void_p (a
 # bare Python int would be passed as a 32-bit int), sizes as c_int; every
@@ -62,6 +63,10 @@ SIGNATURES = {
         "tn_stein2d_apply": [_P] * 2 + [ctypes.c_float] + [_I] * 2 + [_P],
         # v, y, a, n, cols, chunk, stream
         "tn_stein2d_apply_grid": [_P] * 2 + [ctypes.c_float] + [_I] * 3 + [_P],
+    },
+    "stein_gcorr": {
+        # p0, q, st, rv, y, alpha, gamma, w1, w0, n, stream
+        "tn_stein_gcorr_combine": [_P] * 5 + [ctypes.c_float] * 4 + [_I, _P],
     },
 }
 

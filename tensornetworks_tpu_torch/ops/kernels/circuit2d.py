@@ -94,26 +94,28 @@ def layer_masks(n: int, layers: int, ansatz_type: str, edges=None, chain=None) -
 def expand_maps(rows: np.ndarray, cz: np.ndarray, device, index=None) -> tuple:
     """(dst (2^n,) int64, sign (K, 2^n) float64) of n row masks and K rows of
     CZ masks: the map sends flat index i to dst[i], times sign[k, i]. With
-    ``index`` (int64 array), the same at those flat indices only."""
+    ``index`` (int64 array), the same at those flat indices only. Computed
+    on ``device`` (n² bit-parity passes over 2^n indices: minutes on a host
+    at n=24)."""
     n = len(rows)
-    i = np.arange(1 << n, dtype=np.int64) if index is None else np.asarray(index, np.int64)
+    i = (torch.arange(1 << n, dtype=torch.int64, device=device) if index is None
+         else torch.as_tensor(np.asarray(index, np.int64), device=device))
 
-    def parity(x):
-        p = np.zeros_like(x)
-        for k in range(n):
-            p ^= (x >> k) & 1
-        return p
+    def parity(x):  # of the low 32 bits (n <= 30), by XOR folding
+        for shift in (16, 8, 4, 2, 1):
+            x = x ^ (x >> shift)
+        return x & 1
 
-    dst = np.zeros_like(i)
+    dst = torch.zeros_like(i)
     for k in range(n):
-        dst |= parity(rows[k].astype(np.int64) & i) << k
-    sign = np.ones((len(cz), len(i)))
+        dst |= parity(i & int(rows[k])) << k
+    sign = torch.ones((len(cz), len(i)), dtype=torch.float64, device=device)
     for row in range(len(cz)):
-        par = np.zeros_like(i)
+        par = torch.zeros_like(i)
         for k in range(n):
-            par ^= ((dst >> k) & 1) & parity(dst & cz[row, k].astype(np.int64))
+            par ^= ((dst >> k) & 1) & parity(dst & int(cz[row, k]))
         sign[row] = 1.0 - 2.0 * par
-    return torch.as_tensor(dst, device=device), torch.as_tensor(sign, device=device)
+    return dst, sign
 
 
 def layer_tables(rows: np.ndarray, cz: np.ndarray, device) -> tuple:

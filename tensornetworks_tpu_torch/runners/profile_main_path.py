@@ -16,7 +16,8 @@ engine is one of
   batch 256, 3 discriminator steps, lr 5e-3 and 5e-2, the log p floor).
 It prints: wall time per epoch, device busy time per epoch (the sum of
 kernel times; one stream, so kernels do not overlap), the device's idle
-share, the operators with the most device and host time, and, for the
+share, the peak device memory of the profiled run (operator build
+included), the operators with the most device and host time, and, for the
 quantum engines, how many of the epoch's aten calls the θ → Mr/Mc
 Kronecker fold and its autograd make on their own. The last line is the
 same summary as JSON. Needs a CUDA device.
@@ -79,6 +80,7 @@ def profile_main_path(epochs: int = 50, n: int = 16, layers: int = 4, top: int =
     train, qbm = _trainer(engine, n, layers, ansatz, epochs)
     train()  # warm-up: kernel build, allocator, cuBLAS handles
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         train()
@@ -122,6 +124,7 @@ def profile_main_path(epochs: int = 50, n: int = 16, layers: int = 4, top: int =
         "top_host_us_per_epoch": {e.key[:80]: e.self_cpu_time_total / epochs for e in by_host},
         "host_op_calls_per_epoch": aten_calls(prof) / epochs,
         "fold_fwd_bwd_aten_calls": fold_calls,
+        "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     return summary
 
@@ -143,6 +146,7 @@ def main(argv=None):
           f"{s['wall_ms_per_epoch']:.3f} ms/epoch wall, "
           f"{s['device_busy_ms_per_epoch']:.3f} ms/epoch device busy, "
           f"idle share {s['device_idle_share']:.3f}, "
+          f"peak device memory {s['peak_device_gib']:.2f} GiB, "
           f"{s['host_op_calls_per_epoch']:.0f} aten calls/epoch{fold}")
     for title, key in (("device", "top_device_us_per_epoch"), ("host", "top_host_us_per_epoch")):
         print(f"top {title} time, µs per epoch:")

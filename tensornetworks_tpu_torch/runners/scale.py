@@ -5,13 +5,14 @@ branches of ``run_scale_experiment`` in
 ``tensornetworks_tpu/runners/scale.py``.
 
 At n ≥ 18 the Born machine resolves ``auto`` to the ``circuit2d_grid``
-kernels and the Stein operator runs ``stein2d_apply_grid``; the 20-qubit
-hardware_efficient L=4 run is the port's large-n path, and the 20-qubit
-bn_structured L=8 run (the JAX package's
-``examples/structured_ansatz_20_qubits.py``) its structured one
-(``chip_smoke.py`` drives both on the card). ``ansatz="bn_structured"``
-takes its entanglers from the network's latent edges, as the JAX runner's
-engine does.
+kernels and the Stein operator runs ``stein2d_apply_grid`` on its n+1
+gcorr columns, up to 24 qubits; the 20-qubit hardware_efficient L=4 run is
+the port's large-n path, the 20-qubit bn_structured L=8 run (the JAX
+package's ``examples/structured_ansatz_20_qubits.py``) its structured one,
+and the 24-qubit bn_structured L=8 run (``examples/exact_ksd_24_qubits.py``)
+its widest (``chip_smoke.py`` drives all three on the card).
+``ansatz="bn_structured"`` takes its entanglers from the network's latent
+edges, as the JAX runner's engine does.
 """
 
 from __future__ import annotations
@@ -75,9 +76,12 @@ def run_scale_experiment(num_qubits: int = 8, layers: int = 4, num_epochs: int =
     ignored) restarts from the previous phase's best with the seed
     ``seed + 7919·phase``; the across-phase best is restored at the end.
 
+    ``temper_betas`` (ksd objective, needs ``chunk_epochs``): per-chunk
+    inverse temperatures of the target p^β, passed to
+    ``QuantumKSDVariationalInference.train``.
+
     Not ported yet, and raising ``NotImplementedError``: the sampled-ksd
-    objective, ``warm_start``, ``resume_state_path``, ``temper_betas`` and
-    ``checkpoint_path``.
+    objective, ``warm_start``, ``resume_state_path`` and ``checkpoint_path``.
     """
     if objective == "sampled-ksd":
         not_ported("objective='sampled-ksd'", "A9")
@@ -87,8 +91,6 @@ def run_scale_experiment(num_qubits: int = 8, layers: int = 4, num_epochs: int =
         not_ported("warm_start (fit_born_machine, marginals_product)", "A10")
     if resume_state_path is not None or checkpoint_path is not None:
         not_ported("resume_state_path / checkpoint_path", "A11")
-    if temper_betas is not None:
-        not_ported("temper_betas", "A4")
 
     bn, latent, observed = make_scale_problem(num_qubits, seed)
     if track_tvd is None:
@@ -114,7 +116,8 @@ def run_scale_experiment(num_qubits: int = 8, layers: int = 4, num_epochs: int =
             p_epochs, p_lr = phase
         history = model.train(observed, num_epochs=int(p_epochs), lr_born_machine=float(p_lr),
                               verbose=verbose, true_posterior_for_tvd=posterior,
-                              gradient_clip_norm=10.0, chunk_epochs=chunk_epochs)
+                              gradient_clip_norm=10.0, chunk_epochs=chunk_epochs,
+                              temper_betas=temper_betas)
         # Each train() restores its own phase-best into model.params (the next
         # phase restarts from it); a later phase can end worse than an earlier
         # one, so keep the across-phase best.

@@ -74,9 +74,13 @@ def test_stein2d_path_matches_jax(n):
     _close(y_t, y_j)
     op_t = tstein.SteinOperator(S, n, dtype=F64, device="cpu")
     assert not op_t.dense
-    # The kernel takes contiguous operands only: V = Vw∘q must come out so.
-    V = (op_t._Vw * torch.as_tensor(q)).reshape(-1, op_t._R, op_t._C)
-    assert V.is_contiguous() and op_t._W.is_contiguous()
+    # The kernels take contiguous operands only: the 3n+1 build V = Vw∘q and
+    # the operator's n+1 columns must come out so.
+    Vw, W = (torch.as_tensor(t) for t in tstein.stein_weight_tables(S, n))
+    V = (Vw * torch.as_tensor(q)).reshape(-1, op_t._R, op_t._C)
+    assert V.is_contiguous() and W.is_contiguous()
+    assert op_t.columns(torch.as_tensor(q)).is_contiguous()
+    _close((W * tk.stein2d_apply(op_t._a, V).reshape(W.shape)).sum(dim=0), y_j)
     before = dict(_lib.LAUNCHES)
     _close(op_t.matvec(torch.as_tensor(q)), y_j)
     op_j = jstein.SteinOperator(S, n, dtype=jnp.float64)

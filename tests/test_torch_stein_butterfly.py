@@ -21,7 +21,7 @@ from tensornetworks_tpu.core import all_bitstrings as j_all_bitstrings
 from tensornetworks_tpu.ops.kron import kron_power_np as j_kron_power_np
 from tensornetworks_tpu.ops.pallas.stein2d import make_pallas_stein2d_matvec_grid
 from tensornetworks_tpu_torch.ops import stein as tstein
-from tensornetworks_tpu_torch.ops.hamming import resolve_length_scale
+from tensornetworks_tpu_torch.ops.hamming import decay_factor, resolve_length_scale
 from tensornetworks_tpu_torch.ops.kernels import _lib
 from tensornetworks_tpu_torch.ops.kernels import stein2d as tk
 from tensornetworks_tpu_torch.runners import scale as tscale
@@ -58,8 +58,9 @@ def test_butterfly_mirror_matches_dense_apply(n, tile_bits):
 
 @pytest.mark.parametrize("n,tile_bits", [(6, 3), (7, 4), (8, 5)])
 def test_butterfly_mirror_in_the_operator_matches_pallas_grid_kernel(n, tile_bits):
-    """The operator's column build and recombination around the butterfly
-    against the TPU grid kernel's matvec."""
+    """The 3n+1 column build and recombination the TPU kernel consumes
+    (``stein_weight_tables``) around the butterfly against the TPU grid
+    kernel's matvec."""
     bn, latent, obs = tscale.make_scale_problem(n, seed=0)
     S = tstein.score_table(bn.conditional_joint_table(latent, obs))
     q = np.random.default_rng(n).random(2**n)
@@ -67,10 +68,11 @@ def test_butterfly_mirror_in_the_operator_matches_pallas_grid_kernel(n, tile_bit
     ls = resolve_length_scale("auto", n)
     mv = make_pallas_stein2d_matvec_grid(n, ls, interpret=True)
     y_j = mv(jnp.asarray(q), jnp.asarray(S), jnp.asarray(j_all_bitstrings(n).astype(np.float64)))
-    op = tstein.SteinOperator(S, n, ls, dtype=F64, dense=False, device="cpu")
-    V = (op._Vw * torch.as_tensor(q)).reshape(-1, op._R, op._C)
-    Y = tk.stein2d_butterfly_plain(op._a, V, tile_bits)
-    _close((op._W * Y.reshape(op._W.shape)).sum(dim=0), y_j, rel=1e-5)
+    Vw, W = (torch.as_tensor(t) for t in tstein.stein_weight_tables(S, n, ls))
+    rb = (n + 1) // 2
+    V = (Vw * torch.as_tensor(q)).reshape(-1, 1 << rb, 1 << (n - rb))
+    Y = tk.stein2d_butterfly_plain(decay_factor(n, ls), V, tile_bits)
+    _close((W * Y.reshape(W.shape)).sum(dim=0), y_j, rel=1e-5)
 
 
 def test_butterfly_mirror_default_tiles_at_n18():

@@ -22,6 +22,7 @@ from tensornetworks_tpu.core import all_bitstrings as j_all_bitstrings
 from tensornetworks_tpu.ops.kron import kron_power_np as j_kron_power_np
 from tensornetworks_tpu.ops.pallas.stein2d import make_pallas_stein2d_matvec
 from tensornetworks_tpu_torch.ops import stein as tstein
+from tensornetworks_tpu_torch.ops.hamming import decay_factor
 from tensornetworks_tpu_torch.ops.kernels import _lib
 from tensornetworks_tpu_torch.ops.kernels import stein2d as tk
 from tensornetworks_tpu_torch.runners import scale as tscale
@@ -76,18 +77,20 @@ def test_cluster_mirror_rejects_clusters_above_eight(n, tile_bits):
 
 @pytest.mark.parametrize("n,tile_bits", [(6, 4), (13, 11)])
 def test_cluster_mirror_in_the_operator_matches_pallas_kernel(n, tile_bits):
-    """The operator's column build and recombination around the mirror (a
-    cluster of four tiles) against the TPU kernel's matvec."""
+    """The 3n+1 column build and recombination the TPU kernel consumes
+    (``stein_weight_tables``) around the mirror (a cluster of four tiles)
+    against the TPU kernel's matvec."""
     bn, latent, obs = tscale.make_scale_problem(n, seed=0)
     S = tstein.score_table(bn.conditional_joint_table(latent, obs))
     q = np.random.default_rng(n).random(2**n)
     q /= q.sum()
     mv = make_pallas_stein2d_matvec(n, 1.0, interpret=True)
     y_j = mv(jnp.asarray(q), jnp.asarray(S), jnp.asarray(j_all_bitstrings(n).astype(np.float64)))
-    op = tstein.SteinOperator(S, n, 1.0, dtype=F64, dense=False, device="cpu")
-    V = (op._Vw * torch.as_tensor(q)).reshape(-1, op._R, op._C)
-    Y = tk.stein2d_cluster_plain(op._a, V, tile_bits)
-    _close((op._W * Y.reshape(op._W.shape)).sum(dim=0), y_j, rel=1e-5)
+    Vw, W = (torch.as_tensor(t) for t in tstein.stein_weight_tables(S, n, 1.0))
+    rb = (n + 1) // 2
+    V = (Vw * torch.as_tensor(q)).reshape(-1, 1 << rb, 1 << (n - rb))
+    Y = tk.stein2d_cluster_plain(decay_factor(n, 1.0), V, tile_bits)
+    _close((W * Y.reshape(W.shape)).sum(dim=0), y_j, rel=1e-5)
 
 
 def test_wrapper_on_cpu_is_the_dense_plain_version():

@@ -2,8 +2,9 @@
 """Times the kernels of a checkout of this repo with this checkout's timers,
 so that two commits are compared by one timer.
 
-    python3 time_tree.py [--tree DIR]                  # the six kernels, three timers
-    python3 time_tree.py [--tree DIR] --path main16    # a path's epochs/s (main16, scale20)
+    python3 time_tree.py [--tree DIR]                  # the timed kernels, three timers
+    python3 time_tree.py [--tree DIR] --path main16    # a path's epochs/s (main16, scale20, bn20)
+    python3 time_tree.py [--tree DIR] --stein-memory 20  # the Stein operator's device bytes
 
 DIR is the root of a checkout (by default this one), for example an earlier
 commit unpacked with ``git archive`` into a git-ignored directory. The script
@@ -23,8 +24,12 @@ its own ``time_ms``:
 Prints one JSON line per timer: ``{"timer": ..., "kernels": {name: {"ms",
 "plain_ms", "library_ms"}}}``. With ``--path main16`` it runs DIR's
 ``chip_smoke.run_main_path`` instead (300 epochs), with ``--path scale20``
-its ``run_scale_path`` (60 epochs at 20 qubits), and prints
-``{"path": ..., "epochs_per_s": x}``. Run each tree in its own process, in
+its ``run_scale_path`` (60 epochs at 20 qubits), with ``--path bn20`` its
+``run_bn20_path`` (30 epochs, bn_structured L=8), and prints
+``{"path": ..., "epochs_per_s": x}``. With ``--stein-memory N`` it builds
+DIR's ``SteinOperator`` for the N-qubit workload at the ``auto`` length
+scale and prints the device bytes the operator holds and the peak device
+bytes of one matvec above them. Run each tree in its own process, in
 alternating order, since the host's speed drifts within one machine.
 Needs a CUDA device; imports nothing of JAX.
 """
@@ -39,6 +44,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 REPS = 20
+PATHS = {"main16": "run_main_path", "scale20": "run_scale_path", "bn20": "run_bn20_path"}
 
 
 def _load(path: Path, name: str):
@@ -68,11 +74,35 @@ def profiler_ms(fn, reps=REPS):
     return us / 1e3 / reps if us > 0 else None
 
 
+def stein_memory(smoke, n, device) -> dict:
+    """Device bytes held by the n-qubit workload's Stein operator (the
+    tree's own), and the peak above them during one matvec."""
+    import torch
+    from tensornetworks_tpu_torch.ops import stein
+    from tensornetworks_tpu_torch.ops.hamming import resolve_length_scale
+
+    bn, latent, obs = smoke.path_inputs(n)
+    score = stein.score_table(bn.conditional_joint_table(latent, obs))
+    q = torch.full((2**n,), 2.0**-n, device=device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    op = stein.SteinOperator(score, n, resolve_length_scale("auto", n), device=device)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    op.matvec(q)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base - held
+    return {"stein_memory_qubits": n, "operator_bytes": held, "matvec_peak_bytes": peak}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(HERE), help="root of the checkout to time")
-    ap.add_argument("--path", choices=("main16", "scale20"),
+    ap.add_argument("--path", choices=tuple(PATHS),
                     help="time this path's epochs/s, not the kernels")
+    ap.add_argument("--stein-memory", type=int, metavar="N",
+                    help="measure the N-qubit Stein operator's device memory")
     args = ap.parse_args(argv)
 
     timer_smoke = _load(HERE / "chip_smoke.py", "_timer_smoke")
@@ -91,9 +121,12 @@ def main(argv=None) -> int:
 
     device = torch.device("cuda")
     kernels.build_all()
+    if args.stein_memory:
+        print(json.dumps({"tree": str(tree), **stein_memory(smoke, args.stein_memory, device)}),
+              flush=True)
+        return 0
     if args.path:
-        run = smoke.run_main_path if args.path == "main16" else smoke.run_scale_path
-        _, eps = run(device)
+        _, eps = getattr(smoke, PATHS[args.path])(device)
         print(json.dumps({"tree": str(tree), "path": args.path, "epochs_per_s": eps}),
               flush=True)
         return 0
