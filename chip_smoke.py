@@ -86,13 +86,38 @@ Phases (any failure exits non-zero):
    against float64 (the Stein part from the gcorr plain version: the 3n+1
    oracle's float64 columns would take about 30 GB). Both launch exactly
    the grid circuit kernels, stein2d_grid and stein_gcorr.
+12. Sampled KSD (``SampledKSDVariationalInference``), first its ops on the
+   card: ``sample_indices`` at n=16 (the inverse-CDF branch) and
+   ``sample_indices_2d`` at n=20 and 28 on the Born machines' initial q
+   (1024 shots) against their float64 evaluation on the CPU on the same
+   uniforms, where an index may differ only at a rounding tie (its uniform
+   within 1e-6 of the CDF step it crossed; the count is printed);
+   ``stein_gram_samples`` at n=24, M=1024, against float64 on the same
+   samples and scores; the blocked adjoint's probabilities and θ-gradient
+   against the circuit2d_grid kernels' at n = 20 and 24 (same θ, same
+   upstream gradient: two independent algorithms). Then four paths:
+   sampled16 (``scripts/quality_sampled.py``'s defaults: bn_structured
+   L=8, ℓ = 1/16, 1024 shots, loo, one phase of 2000 epochs at lr 0.05,
+   eval on the loss forward), circuit kernels 1-2 only, every loss finite,
+   best TVD within 0.1 of the JAX package's on the same configuration;
+   sampled24 (``examples/sampled_ksd_large_n.py``, HE L=4, two-stage shots,
+   TVD against the exact 2^24 posterior, cut to 20 epochs in chunks of
+   10), kernels 5-6 only, epoch 0's U-statistic against float64 on the
+   recorded shots; sampled28 (``scripts/probe_sampled_28.py``: the blocked
+   executor with the adjoint backward, cut to 6 epochs in chunks of 3), no
+   kernel. Both wide paths: every loss finite, no skipped update, the last
+   chunk's mean U-statistic below the first's. sampling20:
+   ``run_sampling_throughput(20, layers=2, num_samples=65536)``, kernel 5
+   only.
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line (each kernel
 with the launch count of the path that runs it, and its launches on every
 path that runs it), a ``{"bn_structured": [...]}`` line (the timed
 bn_structured checks and each bn path's launches), a ``{"large_n": [...]}``
 line (the timed checks at the wide shapes of step 10, with the exact paths'
-launches) and, last, the ``{"ok": true, ...}`` line. Imports nothing of JAX
+launches), a ``{"sampled": [...]}`` line (step 12's paths: epochs/s or
+samples/s, launches, first and last U-statistic, best TVD, peak memory)
+and, last, the ``{"ok": true, ...}`` line. Imports nothing of JAX
 or of the JAX package.
 """
 
@@ -156,6 +181,39 @@ ADV_SPRINKLER_TVD_MAX = 0.08
 ADV16_EPOCHS, ADV16_CHUNK = 1000, 250
 ADV16_JAX_TVD = 0.12030
 ADV16_TVD_MAX = ADV16_JAX_TVD + 0.1
+# Sampled KSD (ROADMAP A9), 1024 shots a step. sampled16:
+# scripts/quality_sampled.py's defaults (bn_structured L=8, ℓ auto = 1/16,
+# loo, eval on the loss forward, seed 0), one phase of 2000 epochs at lr
+# 0.05 in chunks of 500; its limit is the JAX package's best TVD for the same
+# configuration in float32 on a CPU (0.33152 at epoch 1897, 131 s on 8 CPU
+# cores; scripts/jax_reference_tvd.py sampled16) + 0.1, a margin for the
+# port's other shots. sampled24: examples/sampled_ksd_large_n.py (a random
+# chain network of 26 variables, seed 11, V24=1 and V25=0 observed; HE L=4,
+# lr 0.05, two-stage shots, the TVD against the exact posterior on a second
+# forward), cut from 300 epochs to 20. sampled28: scripts/probe_sampled_28.py
+# (29 variables, seed 11, V28=1; HE L=4, ℓ = 1, lr 0.05, no TVD), cut from 60
+# epochs to 6. sampling20: run_sampling_throughput at its defaults.
+SHOTS = 1024
+SAMPLED16_EPOCHS, SAMPLED16_CHUNK = 2000, 500
+SAMPLED16_JAX_TVD = 0.33152
+SAMPLED16_TVD_MAX = SAMPLED16_JAX_TVD + 0.1
+N_SAMPLED24, SAMPLED24_EPOCHS, SAMPLED24_CHUNK = 24, 20, 10
+N_SAMPLED28, SAMPLED28_EPOCHS, SAMPLED28_CHUNK = 28, 6, 3
+N_SAMPLING, SAMPLING_LAYERS, SAMPLING_SHOTS = 20, 2, 65536
+# An index drawn on the card may differ from the float64 draw on the same
+# uniform only at a rounding tie: the uniform within this much of the CDF
+# step it crossed (the CDFs are FP32 sums, the total 1).
+TIE_DISTANCE = 1e-6
+# stein_gram_samples in FP32 against float64 on the same samples and scores:
+# on the CPU it read 1.8e-7 of max |K_p| at n=24, M=1024 (ℓ = 1 and 1/n).
+GRAM_TOL = 1e-5
+# The blocked adjoint (complex64 block matmuls) against the grid kernels:
+# on the CPU each read about 3e-6 of the largest probability and gradient
+# component against float64 at n=20, so their difference gets the grid
+# kernels' own margins against their plain version (2e-5 and 2e-4) from
+# n=20 on, and twice the forward's at n=24.
+BLOCKED_TOL = {"fwd": 4e-5, "bwd": 2e-4}
+
 # n=5 edges: high -> low, low -> high, and two pairs listed twice.
 N_BN_EDGES, BN_EDGES = 5, [(4, 0), (2, 1), (0, 3), (0, 3), (3, 4), (1, 2), (1, 2), (4, 2)]
 
@@ -209,7 +267,10 @@ PATH_KERNELS.update(bn16=PATH_KERNELS["main16"], bn20=PATH_KERNELS["scale20"],
                     sprinkler_classical=(), classical16=("stein2d", "stein_gcorr"),
                     classical20=("stein2d_grid", "stein_gcorr"), sprinkler_adversarial=(),
                     adversarial16=("circuit2d_fwd", "circuit2d_bwd"),
-                    exact22=PATH_KERNELS["scale20"], exact24=PATH_KERNELS["scale20"])
+                    exact22=PATH_KERNELS["scale20"], exact24=PATH_KERNELS["scale20"],
+                    sampled16=("circuit2d_fwd", "circuit2d_bwd"),
+                    sampled24=("circuit2d_grid_fwd", "circuit2d_grid_bwd"),
+                    sampled28=(), sampling20=("circuit2d_grid_fwd",))
 
 
 class PhaseError(RuntimeError):
@@ -1153,6 +1214,300 @@ def run_exact24_path(device):
           f"launches {launches}", flush=True)
     return launches, steady
 
+@functools.lru_cache(maxsize=None)
+def sampled_problem(n):
+    """(network, latent names, observation) of sampled24 (a random chain
+    network of 26 variables, seed 11, V24=1 and V25=0) or sampled28 (29
+    variables, seed 11, V28=1)."""
+    from tensornetworks_tpu_torch.core import get_random_chain_network
+
+    latent = [f"V{i}" for i in range(n)]
+    if n == N_SAMPLED24:
+        return get_random_chain_network(n + 2, seed=11), latent, {f"V{n}": 1, f"V{n + 1}": 0}
+    return get_random_chain_network(n + 1, seed=11), latent, {f"V{n}": 1}
+
+
+def initial_q(n, layers, device, ansatz=ANSATZ, edges=None):
+    """A Born machine's q at its initial θ (seed 0, as the engines draw it)."""
+    import torch
+    from tensornetworks_tpu_torch.models import QuantumBornMachine
+
+    qbm = QuantumBornMachine(n, layers, ansatz, device=device, edges=edges)
+    with torch.no_grad():
+        return qbm.probs(qbm.init(torch.Generator().manual_seed(0)))
+
+
+def grid_view(q, n):
+    """The (R, C) = (2^⌈n/2⌉, 2^⌊n/2⌋) view of a flat distribution."""
+    return q.reshape(1 << ((n + 1) // 2), -1)
+
+
+def check_draws(label, P, device, seed):
+    """Shots on the card against the float64 draw on the CPU from the same
+    uniforms (flat P: sample_indices; (R, C) P: sample_indices_2d): every
+    index that differs must be a rounding tie. Returns the count."""
+    import torch
+    from tensornetworks_tpu_torch.sim.sampling import (draw_uniforms, sample_indices,
+                                                       sample_indices_2d, step_distances)
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u = [draw_uniforms(gen, SHOTS) for _ in range(P.ndim)]
+    u_cpu = [x.double().cpu() for x in u]
+    if P.ndim == 1:
+        got, want = sample_indices(P, *u), sample_indices(P.double().cpu(), *u_cpu)
+    else:
+        got, want = sample_indices_2d(P, *u)[0], sample_indices_2d(P.double().cpu(), *u_cpu)[0]
+    dist = step_distances(P, got.cpu(), want, *u_cpu)
+    require(bool((dist <= TIE_DISTANCE).all()),
+            f"{label}: shots differ from float64 off a rounding tie: distances {dist}")
+    print(f"{label}: {SHOTS} shots, {dist.size} differ from the float64 draw, each within "
+          f"{TIE_DISTANCE} of its CDF step (max {dist.max() if dist.size else 0.0:.1e})",
+          flush=True)
+    return int(dist.size)
+
+
+def check_blocked_adjoint(n, device):
+    """The blocked executor with its adjoint backward against the
+    circuit2d_grid kernels (HE L=4): probabilities and the θ-gradient of
+    q·g for the same θ and g. Returns (forward rel err, gradient rel err)."""
+    import torch
+    from tensornetworks_tpu_torch.models import QuantumBornMachine
+
+    gen = torch.Generator().manual_seed(n)
+    theta = (0.1 * torch.randn(3 * n * LAYERS, generator=gen)).to(device)
+    g = torch.randn(2**n, generator=gen).to(device)
+    out = []
+    for backend, kw in (("circuit2d_grid", {}), ("blocked", {"grad_method": "adjoint"})):
+        qbm = QuantumBornMachine(n, LAYERS, ANSATZ, backend=backend, device=device, **kw)
+        p = theta.clone().requires_grad_(True)
+        probs = qbm.probs(p)
+        (probs @ g).backward()
+        out.append((probs.detach(), p.grad))
+    torch.cuda.synchronize()
+    (q_k, g_k), (q_b, g_b) = out
+    fwd, bwd = rel_err(q_b, q_k), rel_err(g_b, g_k)
+    what = f"blocked adjoint n={n} (HE L={LAYERS})"
+    require(bool(torch.isfinite(q_b).all() and torch.isfinite(g_b).all()), f"{what}: not finite")
+    require(fwd <= BLOCKED_TOL["fwd"], f"{what}: probs vs circuit2d_grid rel err {fwd:.3e}")
+    require(bwd <= BLOCKED_TOL["bwd"], f"{what}: θ-gradient vs circuit2d_grid rel err {bwd:.3e}")
+    print(f"{what} against circuit2d_grid: probs rel {fwd:.2e}, θ-grad rel {bwd:.2e}",
+          flush=True)
+    return fwd, bwd
+
+
+def check_sampling_ops(device):
+    """Step 12's op checks: the samplers at n = 16, 20 and 28, the sample
+    Gram at n=24, the blocked adjoint at n = 20 and 24."""
+    import torch
+    from tensornetworks_tpu_torch.core.bits import torch_index_to_bits
+    from tensornetworks_tpu_torch.core.factors import make_latent_log_joint_fn
+    from tensornetworks_tpu_torch.engines import SampledKSDVariationalInference
+    from tensornetworks_tpu_torch.ops.stein_sampled import score_at_samples, stein_gram_samples
+    from tensornetworks_tpu_torch.sim.sampling import inverse_cdf_sampler
+
+    ties = {}
+    ties[N] = check_draws(f"sample_indices n={N} (bn16's initial q)",
+                          initial_q(N, BN_LAYERS, device, BN, path_edges(N)), device, 1)
+    q20 = initial_q(N_SAMPLING, SAMPLING_LAYERS, device)
+    ties[N_SAMPLING] = check_draws(f"sample_indices_2d n={N_SAMPLING}",
+                                   grid_view(q20, N_SAMPLING), device, 2)
+    bn, latent, obs = sampled_problem(N_SAMPLED28)
+    eng = SampledKSDVariationalInference(bn, latent, list(obs), num_samples=SHOTS, seed=0,
+                                         device=device)
+    with torch.no_grad():
+        q28 = eng.born_machine.probs(eng.params)
+    ties[N_SAMPLED28] = check_draws(f"sample_indices_2d n={N_SAMPLED28}",
+                                    grid_view(q28, N_SAMPLED28), device, 3)
+    del q28, eng
+    n = N_SAMPLED24
+    bn, latent, obs = sampled_problem(n)
+    P = grid_view(initial_q(n, LAYERS, device), n)
+    idx, _, _ = inverse_cdf_sampler(P, SHOTS, torch.Generator(device=device).manual_seed(4))
+    Z = torch_index_to_bits(idx, n)
+    S = score_at_samples(make_latent_log_joint_fn(bn, latent, obs, device=device), Z)
+    gram = stein_gram_samples(S, Z, n, 1.0)
+    gram64 = stein_gram_samples(S.double(), Z.double(), n, 1.0)
+    torch.cuda.synchronize()
+    err = rel_err(gram.double(), gram64)
+    require(bool(torch.isfinite(gram).all()), "stein_gram_samples n=24 not finite")
+    require(err <= GRAM_TOL, f"stein_gram_samples n={n}: rel err {err:.3e} against float64")
+    print(f"stein_gram_samples n={n}, M={SHOTS}: rel {err:.2e} against float64 "
+          f"(limit {GRAM_TOL})", flush=True)
+    blocked = {m: check_blocked_adjoint(m, device) for m in (N_GRID, N_EXACT24)}
+    return {"ties": ties, "gram_rel_err": err,
+            "blocked_rel_err": {m: {"fwd": f, "bwd": b} for m, (f, b) in blocked.items()}}
+
+
+def check_ustat_history(path, hist, chunk):
+    """Every U-statistic finite, no skipped update, and the last chunk's
+    mean below the first's. Returns (first chunk's mean, last chunk's)."""
+    loss = hist["loss_ksd"]
+    require(all(math.isfinite(x) for x in loss), f"{path} U-statistic not finite")
+    require(hist["num_skipped_updates"] == 0, f"{path} skipped updates")
+    first, last = statistics.mean(loss[:chunk]), statistics.mean(loss[-chunk:])
+    require(last < first, f"{path} last chunk's mean U-statistic {last} not below the "
+                          f"first's {first}")
+    return first, last
+
+
+def sampled_row(path, hist, launches, peak, best_tvd=None):
+    eps = hist.get("epochs_per_sec_steady", hist["epochs_per_sec"])
+    return {"path": path, "epochs_per_sec": eps, "launches": launches,
+            "ustat_first": hist["loss_ksd"][0], "ustat_last": hist["loss_ksd"][-1],
+            "best_tvd": best_tvd, "peak_gib": peak}
+
+
+def run_sampled16_path(device):
+    """scripts/quality_sampled.py's configuration, one phase of 2000 epochs:
+    bn_structured L=8 at 16 qubits through the circuit kernels."""
+    import torch
+    from tensornetworks_tpu_torch.engines import SampledKSDVariationalInference
+    from tensornetworks_tpu_torch.ops import kernels
+
+    bn, latent, obs = path_inputs(N)
+    post = bn.posterior_vector(latent, obs)
+    eng = SampledKSDVariationalInference(bn, latent, list(obs), qbm_ansatz_layers=BN_LAYERS,
+                                         qbm_ansatz_type=BN, num_samples=SHOTS, seed=0,
+                                         base_kernel_length_scale="auto", grad_baseline="loo",
+                                         device=device)
+    require(eng.born_machine.backend == "circuit2d", "sampled16 is not on circuit2d")
+    require(eng.sampling == "flat", f"sampled16 samples {eng.sampling}")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    hist = eng.train(obs, num_epochs=SAMPLED16_EPOCHS, lr_born_machine=BN_LR, verbose=False,
+                     true_posterior_for_tvd=post, chunk_epochs=SAMPLED16_CHUNK,
+                     reuse_loss_forward_for_eval=True, seed=0)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_launches("sampled16", launches)
+    loss = hist["loss_ksd"]
+    require(all(math.isfinite(x) for x in loss), "sampled16 U-statistic not finite")
+    require(eng.best_tvd_ <= SAMPLED16_TVD_MAX,
+            f"sampled16 best TVD {eng.best_tvd_} > {SAMPLED16_TVD_MAX}")
+    row = sampled_row("sampled16", hist, launches, peak, eng.best_tvd_)
+    print(f"sampled16 path: {SAMPLED16_EPOCHS} epochs, U-statistic {loss[0]:.4f} -> "
+          f"{loss[-1]:.4f}, best TVD {eng.best_tvd_:.5f} (limit {SAMPLED16_TVD_MAX:.5f}) at "
+          f"epoch {eng.best_epoch_}, {hist['num_skipped_updates']} skipped, "
+          f"{row['epochs_per_sec']:.1f} epochs/s steady, peak device memory {peak:.2f} GiB, "
+          f"launches {launches}", flush=True)
+    return launches, row
+
+
+def run_sampled24_path(device):
+    """examples/sampled_ksd_large_n.py at full width, 20 epochs in chunks of
+    10; epoch 0's U-statistic against float64 on the recorded shots."""
+    import numpy as np
+    import torch
+    from tensornetworks_tpu_torch.core.bits import torch_index_to_bits
+    from tensornetworks_tpu_torch.core.factors import make_latent_log_joint_fn
+    from tensornetworks_tpu_torch.engines import SampledKSDVariationalInference
+    from tensornetworks_tpu_torch.ops import kernels
+    from tensornetworks_tpu_torch.ops.stein_sampled import (ksd_ustat, score_at_samples,
+                                                            stein_gram_samples)
+    from tensornetworks_tpu_torch.sim.sampling import inverse_cdf_sampler
+
+    n = N_SAMPLED24
+    bn, latent, obs = sampled_problem(n)
+    t0 = time.perf_counter()
+    post = bn.posterior_vector(latent, obs).astype(np.float32)
+    t_post = time.perf_counter() - t0
+    eng = SampledKSDVariationalInference(bn, latent, list(obs), qbm_ansatz_layers=LAYERS,
+                                         num_samples=SHOTS, seed=0, device=device)
+    require(eng.born_machine.backend == "circuit2d_grid", "sampled24 is not on circuit2d_grid")
+    require(eng.sampling == "two_stage", f"sampled24 samples {eng.sampling}")
+    shots = []
+
+    def recording(P, num_samples, generator):
+        out = inverse_cdf_sampler(P, num_samples, generator)
+        if not shots:
+            shots.append(out[0].clone())
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    hist = eng.train(obs, num_epochs=SAMPLED24_EPOCHS, lr_born_machine=0.05, verbose=False,
+                     true_posterior_for_tvd=post, chunk_epochs=SAMPLED24_CHUNK,
+                     sampler=recording)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_launches("sampled24", launches)
+    first, last = check_ustat_history("sampled24", hist, SAMPLED24_CHUNK)
+    # Epoch 0's U-statistic in float64 on its recorded shots.
+    Z = torch_index_to_bits(shots[0], n, dtype=torch.float64)
+    S = score_at_samples(make_latent_log_joint_fn(bn, latent, obs, torch.float64, device), Z)
+    ref = float(ksd_ustat(stein_gram_samples(S, Z, n, eng.length_scale)))
+    u0 = hist["loss_ksd"][0]
+    err = abs(u0 - ref) / abs(ref)
+    require(err < 1e-4, f"sampled24 epoch-0 U-statistic {u0} vs float64 {ref}")
+    row = sampled_row("sampled24", hist, launches, peak, eng.best_tvd_)
+    require(math.isfinite(eng.best_tvd_), "sampled24 TVD not finite")
+    print(f"sampled24 path: {SAMPLED24_EPOCHS} epochs, U-statistic {u0:.3f} -> "
+          f"{hist['loss_ksd'][-1]:.3f}, chunk means {first:.3f} -> {last:.3f} (epoch-0 rel err "
+          f"vs float64 {err:.1e}), TVD {hist['tvd'][0]:.5f} -> {hist['tvd'][-1]:.5f}, best "
+          f"{eng.best_tvd_:.5f}, {hist['epochs_per_sec']:.3f} epochs/s, "
+          f"{row['epochs_per_sec']:.3f} epochs/s steady, posterior {t_post:.1f}s on the host, "
+          f"peak device memory {peak:.2f} GiB, launches {launches}", flush=True)
+    return launches, row
+
+
+def run_sampled28_path(device):
+    """scripts/probe_sampled_28.py, 6 epochs in chunks of 3: the blocked
+    executor with the adjoint backward, no kernel."""
+    import torch
+    from tensornetworks_tpu_torch.engines import SampledKSDVariationalInference
+    from tensornetworks_tpu_torch.ops import kernels
+
+    n = N_SAMPLED28
+    bn, latent, obs = sampled_problem(n)
+    eng = SampledKSDVariationalInference(bn, latent, list(obs), qbm_ansatz_layers=LAYERS,
+                                         num_samples=SHOTS, seed=0, base_kernel_length_scale=1.0,
+                                         device=device)
+    bm = eng.born_machine
+    require((bm.backend, bm.grad_method) == ("blocked", "adjoint"),
+            f"sampled28 runs {bm.backend}/{bm.grad_method}, not the blocked adjoint")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    hist = eng.train(obs, num_epochs=SAMPLED28_EPOCHS, lr_born_machine=0.05, verbose=False,
+                     chunk_epochs=SAMPLED28_CHUNK)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_launches("sampled28", launches)
+    first, last = check_ustat_history("sampled28", hist, SAMPLED28_CHUNK)
+    row = sampled_row("sampled28", hist, launches, peak)
+    print(f"sampled28 path: {SAMPLED28_EPOCHS} epochs, U-statistic {hist['loss_ksd'][0]:.3f} "
+          f"-> {hist['loss_ksd'][-1]:.3f}, chunk means {first:.3f} -> {last:.3f}, "
+          f"{hist['epochs_per_sec']:.3f} epochs/s, {row['epochs_per_sec']:.3f} epochs/s "
+          f"steady, peak device memory {peak:.2f} GiB, launches {launches}", flush=True)
+    return launches, row
+
+
+def run_sampling20(device):
+    """run_sampling_throughput at its defaults: the n=20 HE L=2 forward and
+    65536 inverse-CDF shots per draw."""
+    import torch
+    from tensornetworks_tpu_torch.ops import kernels
+    from tensornetworks_tpu_torch.runners import run_sampling_throughput
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    out = run_sampling_throughput(N_SAMPLING, layers=SAMPLING_LAYERS, num_samples=SAMPLING_SHOTS,
+                                  verbose=False, device=device)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_launches("sampling20", launches)
+    require(out["samples_per_sec"] > 0, "sampling20 drew nothing")
+    print(f"sampling20 path: {out['samples_per_sec']:,.0f} samples/s ({SAMPLING_SHOTS} shots a "
+          f"draw, forward included), peak device memory {peak:.2f} GiB, launches {launches}",
+          flush=True)
+    return launches, {"path": "sampling20", "samples_per_sec": out["samples_per_sec"],
+                      "launches": launches, "peak_gib": peak}
+
 
 def main() -> int:
     import torch
@@ -1227,6 +1582,14 @@ def main() -> int:
                       ("exact24", run_exact24_path)):
         path_launches[path], new_paths[path] = run(device)
         t0 = phase(f"{path} path", t0)
+    sampled_ops = check_sampling_ops(device)
+    t0 = phase("sampled-KSD op checks", t0)
+    sampled_line = []
+    for path, run in (("sampled16", run_sampled16_path), ("sampled24", run_sampled24_path),
+                      ("sampled28", run_sampled28_path), ("sampling20", run_sampling20)):
+        path_launches[path], row = run(device)
+        sampled_line.append(row)
+        t0 = phase(f"{path} path", t0)
 
     kernels_line = []
     for r in records:
@@ -1257,11 +1620,15 @@ def main() -> int:
     print(f"main path {eps:.2f} epochs/s, scale20 path {eps20:.2f} epochs/s, bn16 path "
           f"{eps_bn16:.2f} epochs/s, bn20 path {eps_bn20:.2f} epochs/s, "
           + "".join(f"{p} path {e:.2f} epochs/s, " for p, e in new_paths.items())
+          + "".join(f"{r['path']} path {r['epochs_per_sec']:.3f} epochs/s, "
+                    for r in sampled_line if "epochs_per_sec" in r)
+          + f"sampling20 {sampled_line[-1]['samples_per_sec']:,.0f} samples/s, "
           + f"on {card}; "
           f"{time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"bn_structured": bn_line}))
     print(json.dumps({"large_n": wide_line}))
+    print(json.dumps({"sampled": sampled_line, "checks": sampled_ops}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

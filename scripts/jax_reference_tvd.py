@@ -8,8 +8,12 @@ PyTorch port.
 - ``adversarial16``: ``run_scale_experiment(16, layers=8,
   objective="adversarial", ansatz="bn_structured", lr=5e-3)`` for 1000
   epochs at seed 0. About 22 minutes on 8 CPU cores.
+- ``sampled16``: ``SampledKSDVariationalInference`` on the same network
+  with ``scripts/quality_sampled.py``'s defaults (bn_structured L=8, ℓ auto,
+  1024 shots, loo baseline, eval on the loss forward, seed 0), one phase of
+  2000 epochs at lr 0.05 in chunks of 500.
 
-Usage: python scripts/jax_reference_tvd.py classical16|adversarial16
+Usage: python scripts/jax_reference_tvd.py classical16|adversarial16|sampled16
 Prints one JSON line.
 """
 
@@ -49,8 +53,25 @@ def adversarial16():
             "tvd_epoch0": out["history"]["tvd"][0]}
 
 
+def sampled16():
+    from tensornetworks_tpu.engines import SampledKSDVariationalInference
+    from tensornetworks_tpu.runners.scale import make_scale_problem
+
+    bn, latent, obs = make_scale_problem(16, 0)
+    eng = SampledKSDVariationalInference(bn, latent, list(obs), qbm_ansatz_layers=8,
+                                         qbm_ansatz_type="bn_structured", num_samples=1024,
+                                         seed=0, base_kernel_length_scale="auto",
+                                         grad_baseline="loo")
+    hist = eng.train(obs, num_epochs=2000, lr_born_machine=0.05, verbose=False,
+                     true_posterior_for_tvd=bn.posterior_vector(latent, obs), chunk_epochs=500,
+                     reuse_loss_forward_for_eval=True, seed=0)
+    return {"best_tvd": eng.best_tvd_, "best_epoch": eng.best_epoch_,
+            "ustat_first": float(hist["loss_ksd"][0]), "ustat_last": float(hist["loss_ksd"][-1])}
+
+
 if __name__ == "__main__":
     which = sys.argv[1] if len(sys.argv) > 1 else "classical16"
     t0 = time.time()
-    result = {"classical16": classical16, "adversarial16": adversarial16}[which]()
+    result = {"classical16": classical16, "adversarial16": adversarial16,
+              "sampled16": sampled16}[which]()
     print(json.dumps({"config": which, **result, "seconds": time.time() - t0}))

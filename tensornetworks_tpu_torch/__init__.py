@@ -1,7 +1,8 @@
 """tensornetworks_tpu_torch — the PyTorch/CUDA port of ``tensornetworks_tpu``.
 
 Variational inference with quantum Born machines on discrete Bayesian
-networks, trained by exact kernelized Stein discrepancy, for an NVIDIA H100.
+networks, trained by exact or sampled kernelized Stein discrepancy, or
+adversarially, for an NVIDIA H100.
 The JAX package is the reference; this package imports neither it nor JAX.
 The kernels it ran as Pallas kernels on the TPU are hand-written CUDA here
 (``csrc/``, built with ``nvcc`` at first use; see ``ops/kernels``).
@@ -22,13 +23,14 @@ torch.backends.cudnn.allow_tf32 = False
 __version__ = "0.1.0"
 
 from .core import BayesianNetwork, calculate_tvd, get_random_chain_network, get_sprinkler_network  # noqa: E402
-from .engines import QuantumKSDVariationalInference  # noqa: E402
+from .engines import QuantumKSDVariationalInference, SampledKSDVariationalInference  # noqa: E402
 from .models import QuantumBornMachine  # noqa: E402
 
 __all__ = [
     "BayesianNetwork",
     "QuantumBornMachine",
     "QuantumKSDVariationalInference",
+    "SampledKSDVariationalInference",
     "calculate_tvd",
     "get_random_chain_network",
     "get_sprinkler_network",

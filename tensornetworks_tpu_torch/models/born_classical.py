@@ -17,8 +17,9 @@ Born machine.
 
 Raw outputs map to probabilities by ``softmax`` or, with
 ``use_logits=False``, by ``|raw| / Σ|raw|``. Fixed-probs mode freezes an
-explicit distribution for evaluation after training. ``sample`` and
-``log_q`` are not ported yet (ROADMAP A9, their first user).
+explicit distribution for evaluation after training. ``log_q`` reads
+log q at sampled bit rows by a gather; ``sample`` draws bit rows by the
+inverse CDF (``sim/sampling.py``), one distribution per condition row.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from ..core.bits import generate_all_binary_outcomes
+from ..core.bits import generate_all_binary_outcomes, torch_bits_to_index
+from ..sim.sampling import draw_uniforms, sample_bits
 
 PROB_EPS = 1e-10
 LAYER_NORM_EPS = 1e-6
@@ -183,6 +185,25 @@ class ClassicalBornMachine:
 
     def log_probs(self, params, x_condition=None, **kw) -> torch.Tensor:
         return torch.log(self.probs(params, x_condition, **kw).clamp(min=PROB_EPS))
+
+    def log_q(self, params, z_samples, x_condition=None, **kw) -> torch.Tensor:
+        """log q(z|x) per sample row: a gather in the (2^n,) log table, or
+        for a batch of conditions (B, 2^n) row i's entry at z_samples[i]."""
+        lp = self.log_probs(params, x_condition, **kw)
+        idx = torch_bits_to_index(z_samples)
+        if lp.ndim == 1:
+            return lp[idx]
+        return lp.gather(-1, idx[:, None])[:, 0]
+
+    def sample(self, generator: torch.Generator, params, num_samples: int, x_condition=None,
+               train: bool = False) -> torch.Tensor:
+        """(num_samples, n) float32 bit rows, or (num_samples, B, n) for a
+        batch of B conditions, with uniforms (after any dropout masks, with
+        ``train``) from ``generator``."""
+        p = self.probs(params, x_condition, train=train, generator=generator)
+        shape = (num_samples,) + tuple(p.shape[:-1])
+        return sample_bits(p, draw_uniforms(generator, shape, p.dtype, p.device),
+                           self.num_latent_vars)
 
     def entropy(self, params, x_condition=None, **kw) -> torch.Tensor:
         p = self.probs(params, x_condition, **kw)

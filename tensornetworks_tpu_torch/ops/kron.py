@@ -1,7 +1,8 @@
-"""Kronecker-structured application of the Hamming base kernel.
+"""Kronecker-structured application of the Hamming base kernel, and of a
+gate block to adjacent variables.
 
-Counterpart of ``kron_power_np``, ``kron_matvec`` and ``kron_matvec_rows``
-in ``tensornetworks_tpu/ops/kron.py``. ``K = A^{⊗n}`` is applied to a
+Counterpart of ``kron_power_np``, ``apply_adjacent_block``, ``kron_matvec``
+and ``kron_matvec_rows`` in ``tensornetworks_tpu/ops/kron.py``. ``K = A^{⊗n}`` is applied to a
 ``(2^n, C)`` operand (or, ``kron_matvec_rows``, along the rows of a
 ``(C, 2^n)`` one) as a sequence of grouped adjacent-block contractions,
 O(n·2^n·C) instead of the dense O(4^n·C). Variable 0 is the most
@@ -20,6 +21,24 @@ def kron_power_np(A: np.ndarray, g: int) -> np.ndarray:
     for _ in range(g):
         M = np.kron(M, np.asarray(A, dtype=np.float64))
     return M
+
+
+def apply_adjacent_block(v: torch.Tensor, M: torch.Tensor, start: int, g: int,
+                         num_vars: int) -> torch.Tensor:
+    """Apply M (2^g, 2^g) to the adjacent variable block [start, start+g)
+    of a flat (2^n,) ``v``: one matmul over the (pre, 2^g, post) view, the
+    (pre, 2^g) @ Mᵀ product when the block is last. ``M`` must not carry a
+    lazy conjugate: the batched product would resolve it over the batch."""
+    pre = 1 << start
+    blk = 1 << g
+    post = 1 << (num_vars - start - g)
+    if post == 1:
+        return (v.reshape(pre, blk) @ M.T).reshape(v.shape)
+    if pre == 1:
+        return (M @ v.reshape(blk, post)).reshape(v.shape)
+    # bmm on M broadcast with a zero batch stride: no copy of M or of v, and
+    # a contiguous result (torch.matmul transposes this case and copies).
+    return torch.bmm(M.expand(pre, blk, blk), v.reshape(pre, blk, post)).reshape(v.shape)
 
 
 def kron_matvec(v: torch.Tensor, A: np.ndarray, num_vars: int, group: int = 7) -> torch.Tensor:

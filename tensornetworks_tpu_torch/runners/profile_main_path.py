@@ -1,7 +1,7 @@
 """Where an epoch of the main path spends its time, on the card.
 
     python -m tensornetworks_tpu_torch.runners.profile_main_path [--epochs 50] [--qubits 16]
-        [--ansatz hardware_efficient] [--layers 4] [--engine quantum]
+        [--ansatz hardware_efficient] [--layers 4] [--engine quantum] [--shots 1024]
 
 Trains a workload on the random chain network of n+1 variables (seed 0,
 V{n}=1 observed; n=16 by default, n=20 for the large-n path through the
@@ -13,7 +13,13 @@ engine is one of
   (``KSDVariationalInference``; ℓ = 1, lr 5e-3, clip 5, entropy 1e-3);
 - ``adversarial``: adversarial VI of the quantum Born machine
   (``AdversarialVariationalInference`` with the scale runner's settings:
-  batch 256, 3 discriminator steps, lr 5e-3 and 5e-2, the log p floor).
+  batch 256, 3 discriminator steps, lr 5e-3 and 5e-2, the log p floor);
+- ``sampled``: sampled KSD-VI of the quantum Born machine
+  (``SampledKSDVariationalInference``, ``--shots`` per epoch, ℓ = 1, lr
+  0.05, the TVD on a second forward up to 24 qubits). It also times each
+  piece of an epoch at the run's shapes by CUDA events: the loss forward,
+  the shots, the scores, the Gram, the backward (forward and backward less
+  the forward) and the evaluation forward.
 It prints: wall time per epoch, device busy time per epoch (the sum of
 kernel times; one stream, so kernels do not overlap), the device's idle
 share, the peak device memory of the profiled run (operator build
@@ -32,26 +38,86 @@ import time
 import torch
 
 from ..core import get_random_chain_network
+from ..core.bits import torch_index_to_bits
+from ..core.factors import make_latent_log_joint_fn
 from ..engines import (AdversarialVariationalInference, KSDVariationalInference,
-                       QuantumKSDVariationalInference)
+                       QuantumKSDVariationalInference, SampledKSDVariationalInference)
 from ..models import QuantumBornMachine
+from ..ops.stein_sampled import ksd_ustat, reinforce_surrogate, score_at_samples, stein_gram_samples
 from ..sim.gates import rotation_operators
+from ..sim.sampling import gather_2d, inverse_cdf_sampler
 from ..sim.structured import latent_edges
 
-ENGINES = ("quantum", "classical", "adversarial")
+ENGINES = ("quantum", "classical", "adversarial", "sampled")
 
 
-def _trainer(engine, n, layers, ansatz, epochs):
-    """(a function that trains once, the quantum Born machine or None)."""
+def _device_ms(fn, reps=5):
+    """Median device ms of ``fn`` over ``reps`` calls by CUDA events, after
+    a warm-up call; returns (ms, the last output)."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2], out
+
+
+def sampled_pieces(eng: SampledKSDVariationalInference, obs: dict) -> dict:
+    """Device ms of each piece of a sampled-KSD epoch at the engine's shapes
+    (two-stage shots from 20 qubits, as the engine samples)."""
+    bm, n, M = eng.born_machine, eng.num_latent_vars, eng.num_samples
+    log_joint = make_latent_log_joint_fn(eng.bn, eng.latent_vars_names, obs, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = eng.params.detach().requires_grad_(True)
+    rb = (n + 1) // 2
+    two_stage = eng.sampling == "two_stage"
+
+    def forward():
+        return bm.probs(p).to(torch.float32)
+
+    def shots(q):
+        P = q.detach().reshape(1 << rb, -1) if two_stage else q.detach()
+        out = inverse_cdf_sampler(P, M, gen)
+        return out if two_stage else (out, None, None)
+
+    def loss_and_grad():
+        q = forward()
+        idx, r, c = shots(q)
+        q_at = gather_2d(q.reshape(1 << rb, -1), r, c) if two_stage else q[idx]
+        Z = torch_index_to_bits(idx, n)
+        gram = stein_gram_samples(score_at_samples(log_joint, Z), Z, n, eng.length_scale)
+        loss = ksd_ustat(gram) + reinforce_surrogate(gram, torch.log(q_at.clamp(min=1e-12)))
+        return torch.autograd.grad(loss, p)
+
+    pieces = {}
+    pieces["loss forward"], q = _device_ms(forward)
+    pieces["shots"], (idx, _, _) = _device_ms(lambda: shots(q))
+    Z = torch_index_to_bits(idx, n)
+    pieces["scores"], S = _device_ms(lambda: score_at_samples(log_joint, Z))
+    pieces["gram"], _ = _device_ms(lambda: stein_gram_samples(S, Z, n, eng.length_scale))
+    whole, _ = _device_ms(loss_and_grad)
+    pieces["backward (epoch less the above)"] = whole - sum(pieces.values())
+    with torch.no_grad():
+        pieces["eval forward"], _ = _device_ms(forward)
+    return pieces
+
+
+def _trainer(engine, n, layers, ansatz, epochs, shots=1024):
+    """(a function that trains once, the quantum Born machine or None, the
+    sampled engine or None)."""
     bn = get_random_chain_network(n + 1, seed=0)
     latent, obs = [f"V{i}" for i in range(n)], {f"V{n}": 1}
-    post = bn.posterior_vector(latent, obs)
+    post = bn.posterior_vector(latent, obs) if n <= 24 else None
     kw = dict(num_epochs=epochs, verbose=False, true_posterior_for_tvd=post)
     if engine == "classical":
         eng = KSDVariationalInference(bn, latent, list(obs), {"conditioning_dim": 0},
                                       base_kernel_length_scale=1.0, seed=0)
         return lambda: eng.train(obs, lr_born_machine=5e-3, gradient_clip_norm=5.0,
-                                 entropy_weight=1e-3, **kw), None
+                                 entropy_weight=1e-3, **kw), None, None
     if engine == "adversarial":
         edges = latent_edges(bn, latent) if ansatz == "bn_structured" else None
         qbm = QuantumBornMachine(n, layers, ansatz, edges=edges)
@@ -61,15 +127,20 @@ def _trainer(engine, n, layers, ansatz, epochs):
         return lambda: eng.train(obs, batch_size=256, lr_born_machine=5e-3,
                                  lr_classifier=5e-2, k_classifier_steps=3,
                                  gradient_clip_norm=5.0, baseline_decay=0.95,
-                                 adam_betas=(0.5, 0.999), log_p_floor=60.0, **kw), qbm
+                                 adam_betas=(0.5, 0.999), log_p_floor=60.0, **kw), qbm, None
+    if engine == "sampled":
+        eng = SampledKSDVariationalInference(bn, latent, list(obs), qbm_ansatz_layers=layers,
+                                             qbm_ansatz_type=ansatz, num_samples=shots, seed=0)
+        return (lambda: eng.train(obs, lr_born_machine=0.05, **kw)), eng.born_machine, (eng, obs)
     eng = QuantumKSDVariationalInference(bn, latent, list(obs), qbm_num_latent_vars=n,
                                          qbm_ansatz_layers=layers, qbm_ansatz_type=ansatz,
                                          seed=0)
-    return lambda: eng.train(obs, lr_born_machine=5e-3, **kw), eng.born_machine
+    return lambda: eng.train(obs, lr_born_machine=5e-3, **kw), eng.born_machine, None
 
 
 def profile_main_path(epochs: int = 50, n: int = 16, layers: int = 4, top: int = 12,
-                      ansatz: str = "hardware_efficient", engine: str = "quantum") -> dict:
+                      ansatz: str = "hardware_efficient", engine: str = "quantum",
+                      shots: int = 1024) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_main_path measures the card: no CUDA device")
     if engine not in ENGINES:
@@ -77,7 +148,7 @@ def profile_main_path(epochs: int = 50, n: int = 16, layers: int = 4, top: int =
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    train, qbm = _trainer(engine, n, layers, ansatz, epochs)
+    train, qbm, sampled = _trainer(engine, n, layers, ansatz, epochs, shots)
     train()  # warm-up: kernel build, allocator, cuBLAS handles
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -102,7 +173,7 @@ def profile_main_path(epochs: int = 50, n: int = 16, layers: int = 4, top: int =
         return sum(e.count for e in prof_.key_averages() if e.key.startswith("aten::"))
 
     fold_calls = None
-    if qbm is not None:
+    if qbm is not None and qbm.backend != "blocked":
         theta = qbm.init(torch.Generator().manual_seed(0)).requires_grad_(True)
         with profile(activities=[ProfilerActivity.CPU]) as fold_prof:
             planes = [t.contiguous() for M in rotation_operators(theta, n, layers, 3)
@@ -126,6 +197,9 @@ def profile_main_path(epochs: int = 50, n: int = 16, layers: int = 4, top: int =
         "fold_fwd_bwd_aten_calls": fold_calls,
         "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
+    if sampled is not None:
+        summary["shots"] = shots
+        summary["sampled_pieces_ms"] = sampled_pieces(*sampled)
     return summary
 
 
@@ -136,9 +210,10 @@ def main(argv=None):
     ap.add_argument("--ansatz", default="hardware_efficient")
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--engine", choices=ENGINES, default="quantum")
+    ap.add_argument("--shots", type=int, default=1024, help="sampled engine: shots per epoch")
     args = ap.parse_args(argv)
     s = profile_main_path(args.epochs, n=args.qubits, layers=args.layers, ansatz=args.ansatz,
-                          engine=args.engine)
+                          engine=args.engine, shots=args.shots)
     fold = ("" if s["fold_fwd_bwd_aten_calls"] is None else
             f", of which the θ fold forward+backward makes {s['fold_fwd_bwd_aten_calls']}")
     print(f"{s['device']}, {s['engine']} engine, {s['qubits']} qubits, {s['ansatz']} "
@@ -152,6 +227,10 @@ def main(argv=None):
         print(f"top {title} time, µs per epoch:")
         for name, us in s[key].items():
             print(f"  {us:10.1f}  {name}")
+    if "sampled_pieces_ms" in s:
+        print(f"pieces of a sampled epoch ({s['shots']} shots), device ms:")
+        for name, ms in s["sampled_pieces_ms"].items():
+            print(f"  {ms:10.3f}  {name}")
     print(json.dumps(s))
 
 

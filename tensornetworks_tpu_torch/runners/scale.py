@@ -1,7 +1,8 @@
 """Large-n runs: a random chain network of n+1 variables with an n-qubit
-Born machine, trained by exact KSD or adversarially. Counterpart of
-``make_scale_problem`` and the ``objective="ksd"`` and ``"adversarial"``
-branches of ``run_scale_experiment`` in
+Born machine, trained by exact KSD, by sampled KSD or adversarially.
+Counterpart of ``make_scale_problem``, the ``objective="ksd"``,
+``"sampled-ksd"`` and ``"adversarial"`` branches of
+``run_scale_experiment`` and ``run_sampling_throughput`` in
 ``tensornetworks_tpu/runners/scale.py``.
 
 At n ≥ 18 the Born machine resolves ``auto`` to the ``circuit2d_grid``
@@ -12,19 +13,23 @@ package's ``examples/structured_ansatz_20_qubits.py``) its structured one,
 and the 24-qubit bn_structured L=8 run (``examples/exact_ksd_24_qubits.py``)
 its widest (``chip_smoke.py`` drives all three on the card).
 ``ansatz="bn_structured"`` takes its entanglers from the network's latent
-edges, as the JAX runner's engine does.
+edges, as the JAX runner's engine does. The sampled objective needs no 2^n
+Stein structure; past 24 qubits its Born machine runs the blocked executor
+(the adjoint backward from 26), which launches no kernel.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import time
 from typing import Optional
 
 import numpy as np
 
 from ..core import get_random_chain_network
-from ..engines import AdversarialVariationalInference, QuantumKSDVariationalInference
+from ..engines import (AdversarialVariationalInference, QuantumKSDVariationalInference,
+                       SampledKSDVariationalInference)
 from ..engines.ksd import not_ported
 from ..models import QuantumBornMachine
 from ..ops.hamming import resolve_length_scale
@@ -51,9 +56,11 @@ def run_scale_experiment(num_qubits: int = 8, layers: int = 4, num_epochs: int =
                          warm_start: Optional[str] = None,
                          lr_phases=None, length_scale="auto", adv_batch_size: int = 256,
                          adv_k_classifier: int = 3, adv_lr_classifier_mult: float = 10.0,
-                         device="cuda"):
-    """Exact KSD (``objective="ksd"``) or adversarial training of the scale
-    problem, with the JAX runner's keywords for these objectives.
+                         num_samples: int = 1024, grad_method: str = "auto",
+                         grad_baseline: str = "loo", device="cuda"):
+    """Exact KSD (``objective="ksd"``), sampled KSD (``"sampled-ksd"``) or
+    adversarial training of the scale problem, with the JAX runner's
+    keywords for these objectives.
 
     ``lr_phases``: list of ``(epochs, lr)`` or ``(epochs, lr, length_scale)``
     — LR-annealed warm restarts. Each phase restarts the cosine schedule from
@@ -80,13 +87,21 @@ def run_scale_experiment(num_qubits: int = 8, layers: int = 4, num_epochs: int =
     inverse temperatures of the target p^β, passed to
     ``QuantumKSDVariationalInference.train``.
 
-    Not ported yet, and raising ``NotImplementedError``: the sampled-ksd
-    objective, ``warm_start``, ``resume_state_path`` and ``checkpoint_path``.
+    The sampled objective trains ``SampledKSDVariationalInference`` with
+    ``num_samples`` shots per epoch, ``grad_method`` (the Born machine's
+    ``qbm_grad_method``) and ``grad_baseline``, for ``num_epochs`` at
+    ``lr``, clip 10, in chunks of ``chunk_epochs`` (default 50 from 20
+    qubits). Like the JAX runner it runs hardware_efficient; a different
+    ``ansatz`` raises, where the JAX runner ignores it.
+
+    Not ported yet, and raising ``NotImplementedError``: ``warm_start``,
+    ``resume_state_path`` and ``checkpoint_path``.
     """
-    if objective == "sampled-ksd":
-        not_ported("objective='sampled-ksd'", "A9")
-    if objective not in ("ksd", "adversarial"):
+    if objective not in ("ksd", "adversarial", "sampled-ksd"):
         raise ValueError(f"unknown objective {objective!r}")
+    if objective == "sampled-ksd" and ansatz != "hardware_efficient":
+        raise ValueError("objective='sampled-ksd' runs the hardware_efficient ansatz, "
+                         f"got ansatz={ansatz!r}")
     if warm_start is not None:
         not_ported("warm_start (fit_born_machine, marginals_product)", "A10")
     if resume_state_path is not None or checkpoint_path is not None:
@@ -96,6 +111,18 @@ def run_scale_experiment(num_qubits: int = 8, layers: int = 4, num_epochs: int =
     if track_tvd is None:
         track_tvd = num_qubits <= 20
     posterior = bn.posterior_vector(latent, observed) if track_tvd else None
+    if objective == "sampled-ksd":
+        model = SampledKSDVariationalInference(
+            bn, latent, list(observed), qbm_ansatz_layers=layers,
+            qbm_ansatz_type="hardware_efficient", qbm_init_method="small_random",
+            num_samples=num_samples, seed=seed, qbm_grad_method=grad_method,
+            grad_baseline=grad_baseline, base_kernel_length_scale=length_scale, device=device)
+        history = model.train(observed, num_epochs=num_epochs, lr_born_machine=lr,
+                              verbose=verbose, true_posterior_for_tvd=posterior,
+                              gradient_clip_norm=10.0,
+                              chunk_epochs=(chunk_epochs if chunk_epochs
+                                            else (50 if num_qubits >= 20 else None)))
+        return _report(history, model, num_qubits, objective, verbose)
     if objective == "adversarial":
         model, history = _train_adversarial(
             bn, latent, observed, posterior, num_qubits, layers, ansatz, backend, seed,
@@ -174,6 +201,37 @@ def _report(history, model, num_qubits, objective, verbose):
         print_stability_stats(history)
     return {"history": history, "model": model, "num_qubits": num_qubits,
             "objective": objective}
+
+
+def run_sampling_throughput(num_qubits: int = 20, layers: int = 2, num_samples: int = 1 << 16,
+                            verbose: bool = True, backend: str = "auto", device="cuda"):
+    """Born-machine sampling throughput (the JAX package's BASELINE config
+    5): the hardware_efficient forward and ``num_samples`` inverse-CDF
+    shots, timed over 5 draws after a warm-up, each ending in a sync."""
+    import torch
+
+    qbm = QuantumBornMachine(num_qubits, ansatz_layers=layers, ansatz_type="hardware_efficient",
+                             backend=backend, device=device)
+    params = qbm.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=qbm.device).manual_seed(1)
+
+    def draw():
+        with torch.no_grad():
+            s = qbm.sample(gen, params, num_samples)
+        float(s[0, 0])  # the value fetch waits for the device
+        return s
+
+    draw()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        draw()
+    dt = (time.perf_counter() - t0) / reps
+    rate = num_samples / dt
+    if verbose:
+        print(f"{num_qubits}-qubit sampling: {rate:,.0f} samples/s "
+              f"({num_samples} samples in {dt * 1e3:.1f} ms incl. statevector forward)")
+    return {"samples_per_sec": rate, "num_qubits": num_qubits}
 
 
 def main(argv=None):

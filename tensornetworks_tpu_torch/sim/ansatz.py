@@ -20,14 +20,11 @@ from __future__ import annotations
 
 import torch
 
-from .blocked import _chain_gates, _cz_pairs
+from .blocked import FIXED_ANSATZ_TYPES, _chain_gates, _cz_pairs
 from .gates import layer_rotations
 from .statevector import (apply_cnot, apply_cz, apply_gate, hadamard_wall, probabilities,
                           zero_state)
 
-# The ansätze whose entanglers are fixed by n and the layer: built gate for
-# gate here and in ``blocked2d``.
-FIXED_ANSATZ_TYPES = ("hardware_efficient", "all_to_all", "basic")
 ANSATZ_TYPES = FIXED_ANSATZ_TYPES + ("bn_structured",)
 
 

@@ -11,6 +11,9 @@ import numpy as np
 import torch
 
 H = np.array([[1, 1], [1, -1]], dtype=np.complex128) / np.sqrt(2.0)
+X = np.array([[0, 1], [1, 0]], dtype=np.complex128)
+Y = np.array([[0, -1j], [1j, 0]], dtype=np.complex128)
+Z = np.array([[1, 0], [0, -1]], dtype=np.complex128)
 
 
 def _mat2(a00, a01, a10, a11) -> torch.Tensor:

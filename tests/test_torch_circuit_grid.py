@@ -172,7 +172,8 @@ def test_grid_function_backward_matches_autograd(ansatz, n, L):
 
 def test_backend_ranges_and_plan_validation():
     for n, backend in ((2, "circuit2d"), (17, "circuit2d"), (18, "circuit2d_grid"),
-                       (kg.MAX_QUBITS, "circuit2d_grid"), (kg.MAX_QUBITS + 1, "einsum")):
+                       (kg.MAX_QUBITS, "circuit2d_grid"), (kg.MAX_QUBITS + 1, "blocked"),
+                       (1, "einsum")):
         assert QuantumBornMachine(n, 1, device="cpu").backend == backend, n
     assert kg.MAX_QUBITS >= 22
     with pytest.raises(ValueError):
