@@ -109,6 +109,32 @@ Phases (any failure exits non-zero):
    chunk's mean U-statistic below the first's. sampling20:
    ``run_sampling_throughput(20, layers=2, num_samples=65536)``, kernel 5
    only.
+13. Amortized inference and distillation (conditioned Born machines, whose
+   RY wall is folded into the circuit kernels' operator planes). First the
+   conditioned kernel checks: one forward and θ-gradient (the learned
+   embedding W and the per-layer scales s included) through the kernels
+   against the float64 plain path, at n=16 (bn_structured L=8, the wall
+   re-uploaded before every layer, learned embedding with per-layer
+   scales, d=2) and n=20 (hardware_efficient L=4, one fixed wall, folded
+   before the grid's row gather). Then four paths: amortized16
+   (``scripts/quality_amortized16.py``'s model: a random chain network of
+   18 variables, seed 0, V16 and V17 observed, so 4 observations;
+   bn_structured L=8, re-uploading, ℓ = 1/16, clip 10, entropy 0; one phase
+   of 2000 epochs at lr 0.05 in chunks of 500), kernels 1-2, stein2d and
+   stein_gcorr launched 4 times an epoch (the circuit forward 4 more for
+   the final evaluation), every loss finite, the best mean TVD below epoch
+   0's and within 0.1 of the JAX package's on the same configuration,
+   epoch 0's loss against float64; amortized20
+   (``run_amortized_experiment(20, quantum=True, layers=4)``, 20 epochs in
+   chunks of 10), the grid kernels, stein2d_grid and stein_gcorr, no
+   skipped update, epoch 0 against float64, the per-observation TVDs
+   printed; warm16 (``run_scale_experiment(16, layers=4,
+   warm_start="marginals", warm_start_epochs=1000)``, 300 epochs in chunks
+   of 100), the distillation's best TVD to the surrogate below its first
+   epoch's and its 1000 epochs counted in kernels 1-2's launches;
+   multiseed16 (``train_multi_seed`` on the 16-qubit workload, 4 seeds,
+   HE L=2, 100 epochs), every loss finite and replica k equal to a
+   one-seed run from its θ (1e-5 relative).
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line (each kernel
 with the launch count of the path that runs it, and its launches on every
@@ -116,8 +142,9 @@ path that runs it), a ``{"bn_structured": [...]}`` line (the timed
 bn_structured checks and each bn path's launches), a ``{"large_n": [...]}``
 line (the timed checks at the wide shapes of step 10, with the exact paths'
 launches), a ``{"sampled": [...]}`` line (step 12's paths: epochs/s or
-samples/s, launches, first and last U-statistic, best TVD, peak memory)
-and, last, the ``{"ok": true, ...}`` line. Imports nothing of JAX
+samples/s, launches, first and last U-statistic, best TVD, peak memory),
+an ``{"amortized": [...]}`` line (step 13's checks and paths: errors,
+epochs/s, launches, TVDs) and, last, the ``{"ok": true, ...}`` line. Imports nothing of JAX
 or of the JAX package.
 """
 
@@ -200,6 +227,28 @@ SAMPLED16_TVD_MAX = SAMPLED16_JAX_TVD + 0.1
 N_SAMPLED24, SAMPLED24_EPOCHS, SAMPLED24_CHUNK = 24, 20, 10
 N_SAMPLED28, SAMPLED28_EPOCHS, SAMPLED28_CHUNK = 28, 6, 3
 N_SAMPLING, SAMPLING_LAYERS, SAMPLING_SHOTS = 20, 2, 65536
+# Amortized inference (ROADMAP A10). amortized16: scripts/quality_amortized16.py's
+# model (18 variables, seed 0, V16 and V17 observed: 4 observations;
+# bn_structured L=8 re-uploading the fixed wall, ℓ auto = 1/16, clip 10,
+# entropy 0, seed 0), one phase of 2000 epochs at lr 0.05 in chunks of 500;
+# its limit is the JAX package's best mean TVD for the same configuration
+# in float32 on a CPU (0.11213 at epoch 547, from 0.82093 after epoch 0;
+# 558 s on 8 CPU cores; scripts/jax_reference_tvd.py amortized16) + 0.1, a
+# margin for the port's other θ init. amortized20: run_amortized_experiment
+# (20, quantum=True, hardware_efficient, L=4) for 20 epochs in chunks of 10.
+# warm16: run_scale_experiment(16, L=4, warm_start="marginals") with a
+# 1000-epoch distillation, then 300 KSD epochs in chunks of 100.
+# multiseed16: train_multi_seed on the 16-qubit workload, 4 seeds, HE L=2,
+# 100 epochs.
+N_COND_GRID = 20
+COND_D, COND_X = 2, (1.0, 1.0)
+AMORTIZED16_EPOCHS, AMORTIZED16_CHUNK, AMORTIZED16_LR = 2000, 500, 0.05
+AMORTIZED16_JAX_TVD = 0.11213
+AMORTIZED16_TVD_MAX = AMORTIZED16_JAX_TVD + 0.1
+AMORTIZED20_EPOCHS, AMORTIZED20_CHUNK = 20, 10
+WARM16_LAYERS, WARM16_EPOCHS, WARM16_DISTILL_EPOCHS, WARM16_CHUNK = 4, 300, 1000, 100
+MULTISEED_SEEDS, MULTISEED_LAYERS, MULTISEED_EPOCHS = 4, 2, 100
+MULTISEED_TOL = 1e-5
 # An index drawn on the card may differ from the float64 draw on the same
 # uniform only at a rounding tie: the uniform within this much of the CDF
 # step it crossed (the CDFs are FP32 sums, the total 1).
@@ -270,7 +319,9 @@ PATH_KERNELS.update(bn16=PATH_KERNELS["main16"], bn20=PATH_KERNELS["scale20"],
                     exact22=PATH_KERNELS["scale20"], exact24=PATH_KERNELS["scale20"],
                     sampled16=("circuit2d_fwd", "circuit2d_bwd"),
                     sampled24=("circuit2d_grid_fwd", "circuit2d_grid_bwd"),
-                    sampled28=(), sampling20=("circuit2d_grid_fwd",))
+                    sampled28=(), sampling20=("circuit2d_grid_fwd",),
+                    amortized16=PATH_KERNELS["main16"], amortized20=PATH_KERNELS["scale20"],
+                    warm16=PATH_KERNELS["main16"], multiseed16=PATH_KERNELS["main16"])
 
 
 class PhaseError(RuntimeError):
@@ -1509,6 +1560,295 @@ def run_sampling20(device):
                       "launches": launches, "peak_gib": peak}
 
 
+def plain_conditioned_probs(qbm, p64, x64):
+    """A conditioned Born machine's q in float64 through its kernels' plain
+    version: the wall of x folded into float64 operator planes, autograd
+    through the plain forward (differentiable in p64, W and s included)."""
+    from tensornetworks_tpu_torch.ops.kernels import circuit2d as kc
+    from tensornetworks_tpu_torch.ops.kernels import circuit2d_grid as kg
+
+    n, L, ansatz = qbm.num_latent_vars, qbm.ansatz_layers, qbm.ansatz_type
+    angles = qbm._embed_angles(x64, p64)
+    circ = p64[:qbm.num_circuit_params]
+    if qbm.backend == "circuit2d_grid":
+        plan = kg.GridPlan(n, L, ansatz, qbm.edges)
+        planes = kg.grid_operators(circ, plan, angles, qbm.cond_reupload)
+        return kg.circuit2d_grid_forward_plain(*planes, plan)[0].reshape(-1)
+    plan = kc.CircuitPlan(n, L, ansatz, qbm.edges)
+    Mr, Mc = kc.circuit_operators(circ, plan, angles, qbm.cond_reupload)
+    return kc.circuit2d_forward_plain(Mr.real, Mr.imag, Mc.real, Mc.imag, plan)[0].reshape(-1)
+
+
+def check_conditioned(n, device, grid, ansatz, layers, edges=None, **cond):
+    """A conditioned machine's probabilities and θ-gradient through the
+    kernels (the wall folded into their operator planes) against the
+    float64 plain path on the same θ, W and s moved off their init."""
+    import torch
+    from tensornetworks_tpu_torch.models import QuantumBornMachine
+
+    name = "circuit2d_grid" if grid else "circuit2d"
+    qbm = QuantumBornMachine(n, layers, ansatz, backend=name, device=device, edges=edges,
+                             conditioning_dim=COND_D, **cond)
+    gen = torch.Generator().manual_seed(n)
+    theta = qbm.init(gen) + (0.1 * torch.randn(qbm.num_params, generator=gen)).to(device)
+    x = torch.tensor(COND_X, device=device)
+    v = torch.randn(2**n, generator=gen).to(device)
+    p = theta.clone().requires_grad_(True)
+    q = qbm.probs(p, x)
+    (g,) = torch.autograd.grad(q @ v, p)
+    p64 = theta.double().requires_grad_(True)
+    q64 = plain_conditioned_probs(qbm, p64, x.double())
+    (g64,) = torch.autograd.grad(q64 @ v.double(), p64)
+    torch.cuda.synchronize()
+    nc = qbm.num_circuit_params
+    fwd = rel_err(q.detach().double(), q64.detach())
+    bwd = rel_err(g.double(), g64)
+    emb = rel_err(g[nc:].double(), g64[nc:]) if qbm.num_params > nc else None
+    what = (f"conditioned {name} n={n} L={layers} {ansatz} "
+            + ", ".join(k for k, on in cond.items() if on))
+    require(bool(torch.isfinite(q).all() and torch.isfinite(g).all()), f"{what}: not finite")
+    require(fwd <= TOL[f"{name}_fwd"], f"{what}: probs vs float64 rel err {fwd:.3e}")
+    require(bwd <= TOL[f"{name}_bwd"], f"{what}: gradient vs float64 rel err {bwd:.3e}")
+    if emb is not None:
+        require(emb <= TOL[f"{name}_bwd"], f"{what}: W, s gradient vs float64 rel err {emb:.3e}")
+        require(float(g[nc:].abs().max()) > 0, f"{what}: no gradient reaches W and s")
+    print(f"{what}: probs rel {fwd:.2e}, gradient rel {bwd:.2e}"
+          + ("" if emb is None else f" (W and s: {emb:.2e})") + " against float64", flush=True)
+    return {"check": what, "probs_rel_err": fwd, "grad_rel_err": bwd, "embed_grad_rel_err": emb}
+
+
+def check_conditioned_kernels(device):
+    """n=16: bn_structured L=8, the wall re-uploaded before every layer,
+    learned embedding with per-layer scales; n=20: hardware_efficient L=4,
+    one fixed wall folded before the grid's row gather."""
+    from tensornetworks_tpu_torch.ops.kernels import circuit2d_grid as kg
+
+    rows = [check_conditioned(N, device, False, BN, BN_LAYERS, path_edges(N),
+                              cond_reupload=True, cond_learned_embedding=True,
+                              cond_embed_per_layer=True)]
+    require(kg.GridPlan(N_COND_GRID, LAYERS, ANSATZ).row_src is not None,
+            "the n=20 grid plan has no row gather")
+    rows.append(check_conditioned(N_COND_GRID, device, True, ANSATZ, LAYERS))
+    return rows
+
+
+def amortized16_problem():
+    """scripts/quality_amortized16.py's network: 18 variables, seed 0,
+    V0..V15 latent, V16 and V17 observed, all 4 observations."""
+    from itertools import product
+
+    from tensornetworks_tpu_torch.core import get_random_chain_network
+
+    bn = get_random_chain_network(N + 2, seed=0)
+    latent = [f"V{i}" for i in range(N)]
+    observed = [f"V{N}", f"V{N + 1}"]
+    return bn, latent, observed, [dict(zip(observed, b)) for b in product((0, 1), repeat=2)]
+
+
+def amortized_reference_loss(eng, theta0, observations, entropy_weight):
+    """Epoch 0's amortized loss at θ0 in float64: each observation's q from
+    the plain circuit path, its KSD from the 3n+1-column Stein oracle."""
+    import torch
+    from tensornetworks_tpu_torch.core import all_bitstrings
+    from tensornetworks_tpu_torch.ops.stein import score_table, stein_matvec
+
+    n, dev = eng.num_latent_vars, theta0.device
+    f64 = dict(dtype=torch.float64, device=dev)
+    B = torch.as_tensor(all_bitstrings(n), **f64)
+    losses = []
+    with torch.no_grad():
+        for obs in observations:
+            q = plain_conditioned_probs(eng.born_machine, theta0.double(),
+                                        torch.tensor(eng._x(obs), **f64))
+            S = torch.as_tensor(score_table(eng.bn.conditional_joint_table(
+                eng.latent_vars_names, obs)), **f64)
+            ksd = math.sqrt(max(float(q @ stein_matvec(q, S, B, n, eng.length_scale)), 1e-12))
+            ent = float(-(q * torch.log(q.clamp(min=1e-10))).sum())
+            losses.append(ksd - entropy_weight * ent)
+            del S
+    return sum(losses) / len(losses)
+
+
+def amortized_row(path, hist, launches, eng, extra=None):
+    eps = hist.get("epochs_per_sec_steady", hist["epochs_per_sec"])
+    return {"path": path, "epochs_per_sec": eps, "launches": launches,
+            "loss_first": float(hist["loss"][0]), "loss_last": float(hist["loss"][-1]),
+            "best_mean_tvd": eng.best_mean_tvd_, "best_epoch": eng.best_epoch_} | (extra or {})
+
+
+def run_amortized16_path(device):
+    """One conditioned bn_structured circuit (L=8, re-uploading) trained
+    against the 4 observations of the 18-variable network."""
+    import torch
+    from tensornetworks_tpu_torch.engines import AmortizedKSD
+    from tensornetworks_tpu_torch.models import QuantumBornMachine
+    from tensornetworks_tpu_torch.ops import kernels
+    from tensornetworks_tpu_torch.sim import latent_edges
+
+    bn, latent, observed, observations = amortized16_problem()
+    qbm = QuantumBornMachine(N, BN_LAYERS, BN, device=device, edges=latent_edges(bn, latent),
+                             conditioning_dim=len(observed), cond_reupload=True)
+    require(qbm.backend == "circuit2d", f"amortized16 is on {qbm.backend}, not circuit2d")
+    eng = AmortizedKSD(bn, latent, observed, born_machine=qbm, seed=0,
+                       base_kernel_length_scale="auto")
+    theta0 = eng.params.clone()
+    kernels.reset_launches()
+    hist = eng.train(observations, num_epochs=AMORTIZED16_EPOCHS, lr=AMORTIZED16_LR,
+                     gradient_clip_norm=10.0, entropy_weight=0.0, verbose=False, seed=0,
+                     chunk_epochs=AMORTIZED16_CHUNK)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check_launches("amortized16", launches)
+    X, E = len(observations), AMORTIZED16_EPOCHS
+    want = {"circuit2d_fwd": X * E + X, "circuit2d_bwd": X * E, "stein2d": X * E,
+            "stein_gcorr": X * E}
+    for name, count in want.items():
+        require(launches[name] == count,
+                f"amortized16 launched {name} {launches[name]}x, want {count}")
+    loss, tvd = hist["loss"], hist["mean_tvd"]
+    require(all(math.isfinite(x) for x in loss), "amortized16 loss not finite")
+    require(hist["num_skipped_updates"] == 0, "amortized16 skipped updates")
+    require(eng.best_mean_tvd_ < tvd[0],
+            f"amortized16 best mean TVD {eng.best_mean_tvd_} not below epoch 0's {tvd[0]}")
+    require(eng.best_mean_tvd_ <= AMORTIZED16_TVD_MAX,
+            f"amortized16 best mean TVD {eng.best_mean_tvd_} > {AMORTIZED16_TVD_MAX}")
+    ref = amortized_reference_loss(eng, theta0, observations, 0.0)
+    err = abs(loss[0] - ref) / abs(ref)
+    require(err < 1e-4, f"amortized16 epoch-0 loss {loss[0]} vs float64 {ref}")
+    per_obs = [float(0.5 * (eng.posterior_for(o).double() - torch.as_tensor(
+        bn.posterior_vector(latent, o), device=device)).abs().sum()) for o in observations]
+    row = amortized_row("amortized16", hist, launches, eng,
+                        {"per_obs_tvd": per_obs, "mean_tvd_epoch0": float(tvd[0])})
+    print(f"amortized16 path: {E} epochs over {X} observations, loss {loss[0]:.5f} -> "
+          f"{loss[-1]:.5f} (epoch-0 rel err vs float64 {err:.1e}), mean TVD {tvd[0]:.5f} -> "
+          f"best {eng.best_mean_tvd_:.5f} (limit {AMORTIZED16_TVD_MAX:.5f}) at epoch "
+          f"{eng.best_epoch_}, per observation {', '.join(f'{t:.4f}' for t in per_obs)}, "
+          f"{row['epochs_per_sec']:.1f} epochs/s steady, launches {launches}", flush=True)
+    return launches, row
+
+
+def run_amortized20_path(device):
+    """``run_amortized_experiment`` at 20 qubits: one conditioned
+    hardware_efficient circuit (L=4, one fixed wall) over V20 ∈ {0, 1}."""
+    import torch
+    from tensornetworks_tpu_torch.models import QuantumBornMachine
+    from tensornetworks_tpu_torch.ops import kernels
+    from tensornetworks_tpu_torch.runners import run_amortized_experiment
+
+    n = N_COND_GRID
+    # The run's initial θ: the engine draws it from its seed exactly so.
+    theta0 = QuantumBornMachine(n, LAYERS, ANSATZ, device=device, conditioning_dim=1).init(
+        torch.Generator().manual_seed(0))
+    kernels.reset_launches()
+    out = run_amortized_experiment(n, num_epochs=AMORTIZED20_EPOCHS, layers=LAYERS, quantum=True,
+                                   ansatz=ANSATZ, seed=0, verbose=False,
+                                   chunk_epochs=AMORTIZED20_CHUNK, device=device)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    eng, hist = out["model"], out["history"]
+    require(eng.born_machine.backend == "circuit2d_grid",
+            f"amortized20 is on {eng.born_machine.backend}, not circuit2d_grid")
+    check_launches("amortized20", launches)
+    loss = hist["loss"]
+    require(all(math.isfinite(x) for x in loss), "amortized20 loss not finite")
+    require(hist["num_skipped_updates"] == 0, "amortized20 skipped updates")
+    obs_var = f"V{n}"
+    ref = amortized_reference_loss(eng, theta0, [{obs_var: 0}, {obs_var: 1}], 1e-3)
+    err = abs(loss[0] - ref) / abs(ref)
+    require(err < 1e-4, f"amortized20 epoch-0 loss {loss[0]} vs float64 {ref}")
+    row = amortized_row("amortized20", hist, launches, eng,
+                        {"per_obs_tvd": out["per_obs_tvd"]})
+    print(f"amortized20 path: {AMORTIZED20_EPOCHS} epochs, loss {loss[0]:.5f} -> {loss[-1]:.5f} "
+          f"(epoch-0 rel err vs float64 {err:.1e}), best mean TVD {eng.best_mean_tvd_:.5f}, "
+          f"TVD per observation {out['per_obs_tvd']}, {row['epochs_per_sec']:.2f} epochs/s "
+          f"steady, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"launches {launches}", flush=True)
+    return launches, row
+
+
+def run_warm16_path(device):
+    """``run_scale_experiment(16, L=4, warm_start="marginals")``: a
+    1000-epoch distillation toward the posterior's marginals product, then
+    KSD from the fitted θ."""
+    import torch
+    from tensornetworks_tpu_torch.ops import kernels
+    from tensornetworks_tpu_torch.runners import run_scale_experiment
+
+    kernels.reset_launches()
+    out = run_scale_experiment(num_qubits=N, layers=WARM16_LAYERS, num_epochs=WARM16_EPOCHS,
+                               warm_start="marginals", warm_start_epochs=WARM16_DISTILL_EPOCHS,
+                               chunk_epochs=WARM16_CHUNK, seed=0, verbose=False, device=device)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    model, hist, warm = out["model"], out["history"], out["warm_start"]
+    require(model.born_machine.backend == "circuit2d", "warm16 is not on circuit2d")
+    check_launches("warm16", launches)
+    D, E = WARM16_DISTILL_EPOCHS, WARM16_EPOCHS
+    # The KSD run's forwards: one an epoch, the last epoch's evaluation, and
+    # the best parameters' distribution at the end.
+    for name, count in (("circuit2d_fwd", D + E + 2), ("circuit2d_bwd", D + E)):
+        require(launches[name] == count, f"warm16 launched {name} {launches[name]}x, want "
+                                         f"{count} (the distillation's {D} included)")
+    require(warm["best_tvd"] < warm["tvd"][0],
+            f"warm16 distillation best TVD {warm['best_tvd']} not below its first {warm['tvd'][0]}")
+    loss = hist["loss_ksd"]
+    require(all(math.isfinite(x) for x in loss), "warm16 loss not finite")
+    require(hist["num_skipped_updates"] == 0, "warm16 skipped updates")
+    eps = hist.get("epochs_per_sec_steady", hist["epochs_per_sec"])
+    distill_eps = D / warm["train_seconds"]
+    print(f"warm16 path: distillation TVD to the surrogate {warm['tvd'][0]:.5f} -> best "
+          f"{warm['best_tvd']:.5f} in {D} epochs ({distill_eps:.1f} epochs/s), then {E} KSD "
+          f"epochs, loss {loss[0]:.5f} -> {loss[-1]:.5f}, TVD {hist['tvd'][0]:.5f} -> best "
+          f"{model.best_tvd_:.5f}, {eps:.1f} epochs/s steady, launches {launches}", flush=True)
+    return launches, {"path": "warm16", "epochs_per_sec": eps, "launches": launches,
+                      "distill_epochs_per_sec": distill_eps,
+                      "distill_tvd_first": float(warm["tvd"][0]),
+                      "distill_best_tvd": warm["best_tvd"], "best_tvd": model.best_tvd_}
+
+
+def run_multiseed16_path(device):
+    """``train_multi_seed`` on the 16-qubit workload: 4 replicas from the
+    inits of seeds 0-3, each then against a one-seed run from its θ."""
+    import numpy as np
+    import torch
+    from tensornetworks_tpu_torch.engines import train_multi_seed
+    from tensornetworks_tpu_torch.models import QuantumBornMachine
+    from tensornetworks_tpu_torch.ops import kernels
+
+    bn, latent, obs = path_inputs(N)
+    K = MULTISEED_SEEDS
+    qbm = QuantumBornMachine(N, MULTISEED_LAYERS, ANSATZ, device=device)
+    params0 = torch.stack([qbm.init(torch.Generator().manual_seed(k)) for k in range(K)])
+    kw = dict(ansatz_layers=MULTISEED_LAYERS, num_epochs=MULTISEED_EPOCHS, device=device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    params, tvds, losses = train_multi_seed(bn, latent, obs, num_seeds=K, params0=params0, **kw)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check_launches("multiseed16", launches)
+    require(bool(np.isfinite(losses).all()), "multiseed16 loss not finite")
+    worst = 0.0
+    for k in range(K):
+        p1, t1, l1 = train_multi_seed(bn, latent, obs, num_seeds=1, params0=params0[k:k + 1],
+                                      **kw)
+        errs = (float(np.abs(l1[:, 0] - losses[:, k]).max() / np.abs(losses[:, k]).max()),
+                float(np.abs(t1[:, 0] - tvds[:, k]).max() / np.abs(tvds[:, k]).max()),
+                rel_err(p1[0], params[k]))
+        worst = max(worst, *errs)
+        require(max(errs) <= MULTISEED_TOL, f"multiseed16 replica {k} differs from its "
+                                            f"one-seed run: rel errs {errs}")
+    eps = MULTISEED_EPOCHS / elapsed
+    print(f"multiseed16 path: {K} seeds x {MULTISEED_EPOCHS} epochs, loss "
+          f"{[round(float(x), 5) for x in losses[0]]} -> {[round(float(x), 5) for x in losses[-1]]}, "
+          f"final TVD {[round(float(x), 5) for x in tvds[-1]]}, replicas against one-seed runs: "
+          f"max rel err {worst:.1e}, {eps:.1f} epochs/s ({K} replicas an epoch), launches "
+          f"{launches}", flush=True)
+    return launches, {"path": "multiseed16", "epochs_per_sec": eps, "launches": launches,
+                      "loss_first": losses[0].tolist(), "loss_last": losses[-1].tolist(),
+                      "tvd_last": tvds[-1].tolist(), "replica_rel_err": worst}
+
+
 def main() -> int:
     import torch
 
@@ -1590,6 +1930,14 @@ def main() -> int:
         path_launches[path], row = run(device)
         sampled_line.append(row)
         t0 = phase(f"{path} path", t0)
+    amortized_line = check_conditioned_kernels(device)
+    t0 = phase("conditioned kernel checks", t0)
+    for path, run in (("amortized16", run_amortized16_path),
+                      ("amortized20", run_amortized20_path), ("warm16", run_warm16_path),
+                      ("multiseed16", run_multiseed16_path)):
+        path_launches[path], row = run(device)
+        amortized_line.append(row)
+        t0 = phase(f"{path} path", t0)
 
     kernels_line = []
     for r in records:
@@ -1623,12 +1971,15 @@ def main() -> int:
           + "".join(f"{r['path']} path {r['epochs_per_sec']:.3f} epochs/s, "
                     for r in sampled_line if "epochs_per_sec" in r)
           + f"sampling20 {sampled_line[-1]['samples_per_sec']:,.0f} samples/s, "
+          + "".join(f"{r['path']} path {r['epochs_per_sec']:.2f} epochs/s, "
+                    for r in amortized_line if "path" in r)
           + f"on {card}; "
           f"{time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"bn_structured": bn_line}))
     print(json.dumps({"large_n": wide_line}))
     print(json.dumps({"sampled": sampled_line, "checks": sampled_ops}))
+    print(json.dumps({"amortized": amortized_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -12,8 +12,14 @@ PyTorch port.
   with ``scripts/quality_sampled.py``'s defaults (bn_structured L=8, ℓ auto,
   1024 shots, loo baseline, eval on the loss forward, seed 0), one phase of
   2000 epochs at lr 0.05 in chunks of 500.
+- ``amortized16``: ``AmortizedKSD`` with ``scripts/quality_amortized16.py``'s
+  model (a random chain network of 18 variables, seed 0, V16 and V17
+  observed, so 4 observations; one conditioned bn_structured circuit, L=8,
+  re-uploading the fixed RY(π·x) wall before every layer, ℓ auto = 1/16,
+  clip 10, entropy 0, seed 0), one phase of 2000 epochs at lr 0.05 in
+  chunks of 500.
 
-Usage: python scripts/jax_reference_tvd.py classical16|adversarial16|sampled16
+Usage: python scripts/jax_reference_tvd.py classical16|adversarial16|sampled16|amortized16
 Prints one JSON line.
 """
 
@@ -69,9 +75,39 @@ def sampled16():
             "ustat_first": float(hist["loss_ksd"][0]), "ustat_last": float(hist["loss_ksd"][-1])}
 
 
+def amortized16():
+    from itertools import product
+
+    import numpy as np
+
+    from tensornetworks_tpu import get_random_chain_network
+    from tensornetworks_tpu.engines.amortized import AmortizedKSD
+    from tensornetworks_tpu.models import QuantumBornMachine
+    from tensornetworks_tpu.sim.structured import latent_edges
+
+    n = 16
+    bn = get_random_chain_network(n + 2, seed=0)
+    latent = [f"V{i}" for i in range(n)]
+    observed = [f"V{n}", f"V{n + 1}"]
+    observations = [dict(zip(observed, bits)) for bits in product((0, 1), repeat=2)]
+    qbm = QuantumBornMachine(n, ansatz_layers=8, ansatz_type="bn_structured",
+                             conditioning_dim=2, edges=latent_edges(bn, latent),
+                             cond_reupload=True)
+    eng = AmortizedKSD(bn, latent, observed, born_machine=qbm, seed=0,
+                       base_kernel_length_scale="auto")
+    hist = eng.train(observations, num_epochs=2000, lr=0.05, gradient_clip_norm=10.0,
+                     entropy_weight=0.0, verbose=False, seed=0, chunk_epochs=500)
+    return {"best_mean_tvd": eng.best_mean_tvd_, "best_epoch": eng.best_epoch_,
+            "mean_tvd_epoch0": float(hist["mean_tvd"][0]),
+            "loss_first": float(hist["loss"][0]), "loss_last": float(hist["loss"][-1]),
+            "per_obs_tvd": [float(0.5 * np.abs(np.asarray(eng.posterior_for(o))
+                                               - bn.posterior_vector(latent, o)).sum())
+                            for o in observations]}
+
+
 if __name__ == "__main__":
     which = sys.argv[1] if len(sys.argv) > 1 else "classical16"
     t0 = time.time()
     result = {"classical16": classical16, "adversarial16": adversarial16,
-              "sampled16": sampled16}[which]()
+              "sampled16": sampled16, "amortized16": amortized16}[which]()
     print(json.dumps({"config": which, **result, "seconds": time.time() - t0}))

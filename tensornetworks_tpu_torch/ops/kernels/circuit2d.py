@@ -26,8 +26,15 @@ short:
 Each wrapper takes the plain torch version (same algorithm: matmuls and the
 same index maps) only for CPU tensors; a CUDA tensor launches the kernel or
 raises. ``Circuit2dFunction`` ties the two directions together for autograd;
-``_build`` folds θ into the per-layer operators ``Mr``/``Mc`` in plain
-torch, so autograd carries ``dMr``/``dMc`` back to θ.
+``circuit_operators`` folds θ into the per-layer operators ``Mr``/``Mc`` in
+plain torch, so autograd carries ``dMr``/``dMc`` back to θ.
+
+A conditioned circuit runs the same kernels on other operator planes: its
+RY(angles) wall is folded into them before the launch (``sim.gates.
+fold_wall``: ``Mr[0]·Er`` and ``Mc[0]·Ec`` for one wall, as the JAX package
+folds it outside its Pallas kernel, or ``Mr[l]·Er_l`` for every layer when
+re-uploading). The input stays |+⟩^n, so the forward's closed-form first
+phase still holds.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ import numpy as np
 import torch
 
 from ...sim.blocked import _chain_gates, _cnot_map, _cz_pairs
-from ...sim.gates import rotation_operators
+from ...sim.gates import fold_wall, rotation_operators
 from ...sim.structured import check_edges
 from . import _lib
 
@@ -486,16 +493,48 @@ class Circuit2dFunction(torch.autograd.Function):
         return (*grads, None)
 
 
-def make_circuit2d_probs_fn(num_wires: int, layers: int, ansatz_type: str, edges=None):
+def circuit_operators(params: torch.Tensor, plan, embed_angles=None,
+                      reupload: bool = False) -> tuple:
+    """(Mr, Mc): the complex per-layer operators of θ, with the conditioning
+    wall of ``embed_angles`` folded in when given (``sim.gates.fold_wall``)."""
+    Mr, Mc = rotation_operators(params, plan.n, plan.layers, plan.per_qubit)
+    if embed_angles is None:
+        return Mr, Mc
+    return fold_wall(Mr, Mc, embed_angles, plan.n, reupload)
+
+
+def make_probs_fn(plan, launch, conditioning: bool, reupload: bool):
+    """probs(params[, embed_angles]) of a circuit plan, ``launch(Mr, Mc)``
+    giving the (2^n,) probabilities of the operators. A conditioned
+    function also has ``batch(params, angles_seq)``, (X, 2^n) for X walls:
+    the θ fold once, then a wall fold and a launch for each."""
+
+    def probs_fn(params: torch.Tensor, embed_angles=None) -> torch.Tensor:
+        if conditioning and embed_angles is None:
+            raise ValueError("conditioning=True requires embed_angles")
+        return launch(*circuit_operators(params, plan, embed_angles if conditioning else None,
+                                         reupload))
+
+    def batch(params: torch.Tensor, angles_seq) -> torch.Tensor:
+        M = rotation_operators(params, plan.n, plan.layers, plan.per_qubit)
+        return torch.stack([launch(*fold_wall(*M, a, plan.n, reupload)) for a in angles_seq])
+
+    if conditioning:
+        probs_fn.batch = batch
+    return probs_fn
+
+
+def make_circuit2d_probs_fn(num_wires: int, layers: int, ansatz_type: str, edges=None,
+                            conditioning: bool = False, reupload: bool = False):
     """probs(params) -> (2^n,) through the circuit kernels (``edges`` for
-    bn_structured)."""
+    bn_structured); with ``conditioning``, probs(params, embed_angles), the
+    wall folded into the operator planes (``reupload``: before every
+    layer). ``probs.batch`` runs several walls on one θ fold."""
     plan = CircuitPlan(num_wires, layers, ansatz_type, edges)
 
-    def probs_fn(params: torch.Tensor) -> torch.Tensor:
-        Mr, Mc = rotation_operators(params, num_wires, layers, plan.per_qubit)
-        probs = Circuit2dFunction.apply(
-            Mr.real.contiguous(), Mr.imag.contiguous(),
-            Mc.real.contiguous(), Mc.imag.contiguous(), plan)
-        return probs.reshape(-1)
+    def launch(Mr, Mc):
+        return Circuit2dFunction.apply(Mr.real.contiguous(), Mr.imag.contiguous(),
+                                       Mc.real.contiguous(), Mc.imag.contiguous(),
+                                       plan).reshape(-1)
 
-    return probs_fn
+    return make_probs_fn(plan, launch, conditioning, reupload)

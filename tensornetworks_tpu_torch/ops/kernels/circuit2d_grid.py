@@ -17,6 +17,10 @@ note there gives the design; in short:
 - ``bn_structured`` folds nothing into Mr: its index maps alternate (the DAG
   edges' CNOTs on even layers, the identity on odd ones), and the same
   epilogue applies them, since it takes any GF(2)-linear map.
+- A conditioned circuit's wall is folded into the rotation operators first
+  (``circuit2d.circuit_operators``) and the row gather taken after, so the
+  streamed operator is ``P_row·(Mr·Er)``: the wall acts before the
+  rotations, the row chain after them, as in the JAX grid builder.
 
 ``GridPlan`` holds both forms of that structure: the masks the CUDA kernels
 take, and the TPU kernel's own banks (``P_col``, the W matrices, the CZ
@@ -48,11 +52,10 @@ import torch
 
 from ...sim.blocked import _chain_gates, _cnot_map, _cz_pairs
 from ...sim.blocked2d import _cz_sign_mask, _kron_h, _perm_matrix
-from ...sim.gates import rotation_operators
 from . import _lib
 from .circuit2d import (WALL_ANSATZE, _check, _cmm, circuit2d_backward_plain,
-                        circuit2d_forward_plain, layer_masks, layer_tables,
-                        rotation_pullback)
+                        circuit2d_forward_plain, circuit_operators, layer_masks,
+                        layer_tables, make_probs_fn, rotation_pullback)
 
 MIN_QUBITS, AUTO_MIN_QUBITS, MAX_QUBITS = 2, 18, 24
 
@@ -307,24 +310,34 @@ class Circuit2dGridFunction(torch.autograd.Function):
         return (*grads, None)
 
 
-def grid_operators(params: torch.Tensor, plan: GridPlan) -> list:
-    """[(P_row·Mr)_re, (P_row·Mr)_im, Mc_re, Mc_im]: the operator planes the
-    grid kernels take. P_row is a row gather, so autograd carries the
-    gradient through it back to θ."""
-    Mr, Mc = rotation_operators(params, plan.n, plan.layers, plan.per_qubit)
+def grid_planes(Mr: torch.Tensor, Mc: torch.Tensor, plan: GridPlan) -> list:
+    """[(P_row·Mr)_re, (P_row·Mr)_im, Mc_re, Mc_im] of complex operators:
+    the planes the grid kernels take. P_row is a row gather, so autograd
+    carries the gradient through it."""
     mr_re, mr_im = Mr.real, Mr.imag
-    idx = plan.row_index(params.device)
+    idx = plan.row_index(Mr.device)
     if idx is not None:
         mr_re, mr_im = mr_re[:, idx], mr_im[:, idx]
     return [t.contiguous() for t in (mr_re, mr_im, Mc.real, Mc.imag)]
 
 
-def make_circuit2d_grid_probs_fn(num_wires: int, layers: int, ansatz_type: str, edges=None):
+def grid_operators(params: torch.Tensor, plan: GridPlan, embed_angles=None,
+                   reupload: bool = False) -> list:
+    """The grid kernels' operator planes of θ, the conditioning wall of
+    ``embed_angles`` (if given) folded into Mr and Mc before the gather."""
+    return grid_planes(*circuit_operators(params, plan, embed_angles, reupload), plan)
+
+
+def make_circuit2d_grid_probs_fn(num_wires: int, layers: int, ansatz_type: str, edges=None,
+                                 conditioning: bool = False, reupload: bool = False):
     """probs(params) -> (2^n,) through the grid circuit kernels (``edges``
-    for bn_structured)."""
+    for bn_structured); with ``conditioning``, probs(params, embed_angles),
+    the wall folded into the operator planes before the row gather
+    (``reupload``: before every layer). ``probs.batch`` runs several walls
+    on one θ fold."""
     plan = GridPlan(num_wires, layers, ansatz_type, edges)
 
-    def probs_fn(params: torch.Tensor) -> torch.Tensor:
-        return Circuit2dGridFunction.apply(*grid_operators(params, plan), plan).reshape(-1)
+    def launch(Mr, Mc):
+        return Circuit2dGridFunction.apply(*grid_planes(Mr, Mc, plan), plan).reshape(-1)
 
-    return probs_fn
+    return make_probs_fn(plan, launch, conditioning, reupload)

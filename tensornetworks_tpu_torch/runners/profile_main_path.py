@@ -2,6 +2,7 @@
 
     python -m tensornetworks_tpu_torch.runners.profile_main_path [--epochs 50] [--qubits 16]
         [--ansatz hardware_efficient] [--layers 4] [--engine quantum] [--shots 1024]
+    python -m tensornetworks_tpu_torch.runners.profile_main_path --engine amortized
 
 Trains a workload on the random chain network of n+1 variables (seed 0,
 V{n}=1 observed; n=16 by default, n=20 for the large-n path through the
@@ -19,7 +20,16 @@ engine is one of
   0.05, the TVD on a second forward up to 24 qubits). It also times each
   piece of an epoch at the run's shapes by CUDA events: the loss forward,
   the shots, the scores, the Gram, the backward (forward and backward less
-  the forward) and the evaluation forward.
+  the forward) and the evaluation forward; and the circuit kernels alone
+  and their plain versions on the same planes;
+- ``amortized``: amortized KSD-VI (``AmortizedKSD``) of one conditioned
+  circuit over the 4 observations of a network of n+2 variables (seed 0,
+  V{n} and V{n+1} observed), ``scripts/quality_amortized16.py``'s model:
+  bn_structured L=8 re-uploading the wall (``--ansatz``/``--layers`` set
+  it), ℓ auto, lr 0.05, clip 10, entropy 0. It also times each piece of an
+  epoch, device and host ms: the θ fold, the X wall folds, the X circuit
+  forwards, the X Stein applies, and the X backwards (the epoch less the
+  rest).
 It prints: wall time per epoch, device busy time per epoch (the sum of
 kernel times; one stream, so kernels do not overlap), the device's idle
 share, the peak device memory of the profiled run (operator build
@@ -40,7 +50,7 @@ import torch
 from ..core import get_random_chain_network
 from ..core.bits import torch_index_to_bits
 from ..core.factors import make_latent_log_joint_fn
-from ..engines import (AdversarialVariationalInference, KSDVariationalInference,
+from ..engines import (AdversarialVariationalInference, AmortizedKSD, KSDVariationalInference,
                        QuantumKSDVariationalInference, SampledKSDVariationalInference)
 from ..models import QuantumBornMachine
 from ..ops.stein_sampled import ksd_ustat, reinforce_surrogate, score_at_samples, stein_gram_samples
@@ -48,7 +58,7 @@ from ..sim.gates import rotation_operators
 from ..sim.sampling import gather_2d, inverse_cdf_sampler
 from ..sim.structured import latent_edges
 
-ENGINES = ("quantum", "classical", "adversarial", "sampled")
+ENGINES = ("quantum", "classical", "adversarial", "sampled", "amortized")
 
 
 def _device_ms(fn, reps=5):
@@ -103,12 +113,133 @@ def sampled_pieces(eng: SampledKSDVariationalInference, obs: dict) -> dict:
     pieces["backward (epoch less the above)"] = whole - sum(pieces.values())
     with torch.no_grad():
         pieces["eval forward"], _ = _device_ms(forward)
+    if bm.backend in ("circuit2d", "circuit2d_grid"):
+        pieces.update(circuit_kernel_and_plain_ms(bm, p.detach()))
     return pieces
+
+
+def circuit_kernel_and_plain_ms(bm, theta) -> dict:
+    """Device ms of the Born machine's circuit kernels alone and of their
+    plain versions on the same operator planes (θ's), one forward and one
+    backward each."""
+    from ..ops.kernels import circuit2d as kc
+    from ..ops.kernels import circuit2d_grid as kg
+
+    n, L, ansatz = bm.num_latent_vars, bm.ansatz_layers, bm.ansatz_type
+    if bm.backend == "circuit2d_grid":
+        plan = kg.GridPlan(n, L, ansatz, bm.edges)
+        planes = kg.grid_operators(theta, plan)
+        fwd, bwd = kg.circuit2d_grid_forward, kg.circuit2d_grid_backward
+        fwd_p, bwd_p = kg.circuit2d_grid_forward_plain, kg.circuit2d_grid_backward_plain
+    else:
+        plan = kc.CircuitPlan(n, L, ansatz, bm.edges)
+        Mr, Mc = kc.circuit_operators(theta, plan)
+        planes = [t.contiguous() for t in (Mr.real, Mr.imag, Mc.real, Mc.imag)]
+        fwd, bwd = kc.circuit2d_forward, kc.circuit2d_backward
+        fwd_p, bwd_p = kc.circuit2d_forward_plain, kc.circuit2d_backward_plain
+    out = {}
+    with torch.no_grad():
+        out["kernel forward alone"], (_, xr, xi) = _device_ms(lambda: fwd(*planes, plan))
+        out["plain forward alone"], _ = _device_ms(lambda: fwd_p(*planes, plan))
+        g = torch.ones_like(xr)
+        out["kernel backward alone"], _ = _device_ms(lambda: bwd(*planes, xr, xi, g, plan))
+        out["plain backward alone"], _ = _device_ms(lambda: bwd_p(*planes, xr, xi, g, plan))
+    return out
+
+
+def _host_and_device_ms(fn, reps=5):
+    """(median device ms by CUDA events, median host ms to issue the calls,
+    the last output) of ``fn`` after a warm-up call."""
+    out = fn()
+    dev, host = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        host.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        dev.append(start.elapsed_time(end))
+    return sorted(dev)[reps // 2], sorted(host)[reps // 2], out
+
+
+def amortized_pieces(eng: AmortizedKSD, observations) -> dict:
+    """Device and host ms of each piece of an amortized epoch at the
+    engine's shapes: the θ → Mr/Mc fold, the X wall folds, the X circuit
+    forwards, the X Stein applies (forward matvecs) and the X backwards
+    (the epoch's loss and gradient less the rest)."""
+    from ..ops.kernels import circuit2d as kc
+    from ..ops.kernels import circuit2d_grid as kg
+    from ..sim.gates import fold_wall
+
+    bm = eng.born_machine
+    grid = bm.backend == "circuit2d_grid"
+    plan = (kg.GridPlan if grid else kc.CircuitPlan)(bm.num_latent_vars, bm.ansatz_layers,
+                                                     bm.ansatz_type, bm.edges)
+    fn = kg.Circuit2dGridFunction if grid else kc.Circuit2dFunction
+    ops = eng.operators(observations)
+    X = torch.tensor([eng._x(o) for o in observations], dtype=eng.dtype, device=eng.device)
+    p = eng.params.detach().requires_grad_(True)
+    circ = p[:bm.num_circuit_params]
+
+    def theta_fold():
+        return rotation_operators(circ, plan.n, plan.layers, plan.per_qubit)
+
+    def wall_folds(M):
+        out = []
+        for x in X:
+            Mr, Mc = fold_wall(*M, bm._embed_angles(x, p), plan.n, bm.cond_reupload)
+            out.append(kg.grid_planes(Mr, Mc, plan) if grid else
+                       [t.contiguous() for t in (Mr.real, Mr.imag, Mc.real, Mc.imag)])
+        return out
+
+    def forwards(planes):
+        return [fn.apply(*pl, plan).reshape(-1) for pl in planes]
+
+    def stein(qs):
+        return [op.ksd_loss(q) for op, q in zip(ops, qs)]
+
+    def epoch():
+        q = bm.probs_batch(p, X)
+        loss = torch.stack([op.ksd_loss(qx) for op, qx in zip(ops, q)]).mean()
+        return torch.autograd.grad(loss, p)
+
+    pieces = {}
+    dev, host, M = _host_and_device_ms(theta_fold)
+    pieces["theta fold"] = (dev, host)
+    dev, host, planes = _host_and_device_ms(lambda: wall_folds(M))
+    pieces[f"wall folds (x{len(X)})"] = (dev, host)
+    with torch.no_grad():
+        dev, host, qs = _host_and_device_ms(lambda: forwards(planes))
+        pieces[f"circuit forwards (x{len(X)})"] = (dev, host)
+        dev, host, _ = _host_and_device_ms(lambda: stein(qs))
+        pieces[f"Stein applies (x{len(X)})"] = (dev, host)
+    dev, host, _ = _host_and_device_ms(epoch)
+    pieces[f"backwards (x{len(X)}, the epoch less the above)"] = (
+        dev - sum(d for d, _ in pieces.values()), host - sum(h for _, h in pieces.values()))
+    pieces["whole epoch (loss and gradient)"] = (dev, host)
+    return {k: {"device_ms": d, "host_ms": h} for k, (d, h) in pieces.items()}
 
 
 def _trainer(engine, n, layers, ansatz, epochs, shots=1024):
     """(a function that trains once, the quantum Born machine or None, the
-    sampled engine or None)."""
+    (engine, observation) of the per-piece timing or None)."""
+    if engine == "amortized":
+        from itertools import product
+
+        bn = get_random_chain_network(n + 2, seed=0)
+        latent, observed = [f"V{i}" for i in range(n)], [f"V{n}", f"V{n + 1}"]
+        observations = [dict(zip(observed, b)) for b in product((0, 1), repeat=2)]
+        edges = latent_edges(bn, latent) if ansatz == "bn_structured" else None
+        qbm = QuantumBornMachine(n, layers, ansatz, edges=edges, conditioning_dim=2,
+                                 cond_reupload=ansatz == "bn_structured")
+        eng = AmortizedKSD(bn, latent, observed, born_machine=qbm, seed=0,
+                           base_kernel_length_scale="auto")
+        return (lambda: eng.train(observations, num_epochs=epochs, lr=0.05,
+                                  gradient_clip_norm=10.0, entropy_weight=0.0, verbose=False)), \
+            qbm, (eng, observations)
     bn = get_random_chain_network(n + 1, seed=0)
     latent, obs = [f"V{i}" for i in range(n)], {f"V{n}": 1}
     post = bn.posterior_vector(latent, obs) if n <= 24 else None
@@ -148,7 +279,7 @@ def profile_main_path(epochs: int = 50, n: int = 16, layers: int = 4, top: int =
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    train, qbm, sampled = _trainer(engine, n, layers, ansatz, epochs, shots)
+    train, qbm, pieces_of = _trainer(engine, n, layers, ansatz, epochs, shots)
     train()  # warm-up: kernel build, allocator, cuBLAS handles
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -197,9 +328,12 @@ def profile_main_path(epochs: int = 50, n: int = 16, layers: int = 4, top: int =
         "fold_fwd_bwd_aten_calls": fold_calls,
         "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
-    if sampled is not None:
+    if engine == "sampled":
         summary["shots"] = shots
-        summary["sampled_pieces_ms"] = sampled_pieces(*sampled)
+        summary["sampled_pieces_ms"] = sampled_pieces(*pieces_of)
+    if engine == "amortized":
+        summary["observations"] = len(pieces_of[1])
+        summary["amortized_pieces_ms"] = amortized_pieces(*pieces_of)
     return summary
 
 
@@ -207,11 +341,17 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--epochs", type=int, default=50)
     ap.add_argument("--qubits", type=int, default=16)
-    ap.add_argument("--ansatz", default="hardware_efficient")
-    ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--ansatz", default=None,
+                    help="hardware_efficient (bn_structured for --engine amortized)")
+    ap.add_argument("--layers", type=int, default=None, help="4 (8 for --engine amortized)")
     ap.add_argument("--engine", choices=ENGINES, default="quantum")
     ap.add_argument("--shots", type=int, default=1024, help="sampled engine: shots per epoch")
     args = ap.parse_args(argv)
+    amortized = args.engine == "amortized"
+    if args.ansatz is None:
+        args.ansatz = "bn_structured" if amortized else "hardware_efficient"
+    if args.layers is None:
+        args.layers = 8 if amortized else 4
     s = profile_main_path(args.epochs, n=args.qubits, layers=args.layers, ansatz=args.ansatz,
                           engine=args.engine, shots=args.shots)
     fold = ("" if s["fold_fwd_bwd_aten_calls"] is None else
@@ -231,6 +371,11 @@ def main(argv=None):
         print(f"pieces of a sampled epoch ({s['shots']} shots), device ms:")
         for name, ms in s["sampled_pieces_ms"].items():
             print(f"  {ms:10.3f}  {name}")
+    if "amortized_pieces_ms" in s:
+        print(f"pieces of an amortized epoch ({s['observations']} observations), device ms, "
+              "host ms:")
+        for name, t in s["amortized_pieces_ms"].items():
+            print(f"  {t['device_ms']:10.3f} {t['host_ms']:10.3f}  {name}")
     print(json.dumps(s))
 
 

@@ -29,7 +29,7 @@ import numpy as np
 
 from ..core import get_random_chain_network
 from ..engines import (AdversarialVariationalInference, QuantumKSDVariationalInference,
-                       SampledKSDVariationalInference)
+                       SampledKSDVariationalInference, fit_born_machine, marginals_product)
 from ..engines.ksd import not_ported
 from ..models import QuantumBornMachine
 from ..ops.hamming import resolve_length_scale
@@ -53,7 +53,7 @@ def run_scale_experiment(num_qubits: int = 8, layers: int = 4, num_epochs: int =
                          resume_state_path: Optional[str] = None,
                          temper_betas=None, backend: str = "auto",
                          checkpoint_path: Optional[str] = None,
-                         warm_start: Optional[str] = None,
+                         warm_start: Optional[str] = None, warm_start_epochs: int = 2000,
                          lr_phases=None, length_scale="auto", adv_batch_size: int = 256,
                          adv_k_classifier: int = 3, adv_lr_classifier_mult: float = 10.0,
                          num_samples: int = 1024, grad_method: str = "auto",
@@ -94,7 +94,14 @@ def run_scale_experiment(num_qubits: int = 8, layers: int = 4, num_epochs: int =
     qubits). Like the JAX runner it runs hardware_efficient; a different
     ``ansatz`` raises, where the JAX runner ignores it.
 
-    Not ported yet, and raising ``NotImplementedError``: ``warm_start``,
+    ``warm_start="marginals"`` (ksd objective): before KSD training, fit
+    the Born machine toward the product of the exact posterior's marginals
+    (``engines.marginals_product``, ``fit_born_machine`` at lr 0.05 for
+    ``warm_start_epochs``, in chunks of ``chunk_epochs``) and start from the
+    fitted parameters; the fit's history is returned under
+    ``"warm_start"``.
+
+    Not ported yet, and raising ``NotImplementedError``:
     ``resume_state_path`` and ``checkpoint_path``.
     """
     if objective not in ("ksd", "adversarial", "sampled-ksd"):
@@ -102,8 +109,10 @@ def run_scale_experiment(num_qubits: int = 8, layers: int = 4, num_epochs: int =
     if objective == "sampled-ksd" and ansatz != "hardware_efficient":
         raise ValueError("objective='sampled-ksd' runs the hardware_efficient ansatz, "
                          f"got ansatz={ansatz!r}")
-    if warm_start is not None:
-        not_ported("warm_start (fit_born_machine, marginals_product)", "A10")
+    if warm_start is not None and warm_start != "marginals":
+        raise ValueError(f"unknown warm_start {warm_start!r}; expected 'marginals'")
+    if warm_start is not None and objective != "ksd":
+        raise ValueError(f"warm_start applies to the ksd objective, not {objective!r}")
     if resume_state_path is not None or checkpoint_path is not None:
         not_ported("resume_state_path / checkpoint_path", "A11")
 
@@ -133,6 +142,16 @@ def run_scale_experiment(num_qubits: int = 8, layers: int = 4, num_epochs: int =
         bn, latent, list(observed), qbm_num_latent_vars=num_qubits,
         qbm_ansatz_layers=layers, qbm_ansatz_type=ansatz, qbm_init_method="small_random",
         seed=seed, qbm_backend=backend, base_kernel_length_scale=length_scale, device=device)
+    warm = None
+    if warm_start is not None:
+        target = posterior if posterior is not None else bn.posterior_vector(latent, observed)
+        t0 = time.perf_counter()
+        model.params, warm = fit_born_machine(
+            model.born_machine, marginals_product(target, num_qubits),
+            num_epochs=warm_start_epochs, lr=0.05, chunk_epochs=chunk_epochs, seed=seed)
+        if verbose:
+            print(f"warm start: TVD(model, marginals surrogate) = {warm['best_tvd']:.4f} "
+                  f"in {time.perf_counter() - t0:.0f}s")
     phases = list(lr_phases) if lr_phases else [(num_epochs, lr)]
     best_tvd, best_params = np.inf, None
     for phase in phases:
@@ -157,7 +176,10 @@ def run_scale_experiment(num_qubits: int = 8, layers: int = 4, num_epochs: int =
         model.params = best_params
         model.best_params_ = best_params
         model.best_tvd_ = best_tvd
-    return _report(history, model, num_qubits, objective, verbose)
+    out = _report(history, model, num_qubits, objective, verbose)
+    if warm is not None:
+        out["warm_start"] = warm
+    return out
 
 
 def _train_adversarial(bn, latent, observed, posterior, n, layers, ansatz, backend, seed,

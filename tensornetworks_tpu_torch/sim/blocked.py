@@ -1,8 +1,8 @@
 """Blocked statevector execution: the reference ansätze as block matmuls on
 the flat (2^n,) state, the path past the circuit kernels' 24 qubits.
 
-Counterpart of ``tensornetworks_tpu/sim/blocked.py``, unconditioned. A layer
-of an ansatz becomes:
+Counterpart of ``tensornetworks_tpu/sim/blocked.py``. A layer of an ansatz
+becomes:
 
 1. **Rotations**: consecutive qubits are grouped into blocks of ``b`` (8 by
    default, the remainder first); each block's per-qubit 2x2 rotations fold
@@ -21,6 +21,12 @@ what sets n here, not a kernel: the circuit kernels' dense (L, R, R)
 operators stop at 24 qubits, the 2^b-wide blocks do not. The sign vectors
 are built on the state's device from an index range once per executor and
 kept (one 2^n real vector per distinct CZ pattern).
+
+``conditioning=True`` adds the conditioning wall: RY(angles[q]) on every
+qubit after the Hadamard wall, one block operator per block, and the
+executor takes ``(params, embed_angles)``. It is the reference-ansatz
+oracle of the conditioned circuit kernels and the executor of conditioned
+machines past 24 qubits.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .gates import kron_fold, layer_rotations
+from .gates import kron_fold, layer_rotations, ry_batched
 
 # The ansätze whose entanglers are fixed by n and the layer: built gate for
 # gate in ``sim.ansatz`` and by the blocked executors here.
@@ -244,11 +250,14 @@ class _Entanglers:
 
 
 def make_blocked_state_fn(num_wires: int, layers: int, ansatz_type: str, block: int = 8,
-                          dtype=torch.complex64, remat_layers: bool = False):
+                          dtype=torch.complex64, remat_layers: bool = False,
+                          conditioning: bool = False):
     """``state(params)``: the flat (2^n,) state of the ansatz by blocked
-    execution, on ``params``' device. ``remat_layers`` wraps each layer in
-    ``torch.utils.checkpoint``, so that autograd keeps the L layer-boundary
-    states and recomputes the rest in the backward."""
+    execution, on ``params``' device; ``state(params, embed_angles)`` with
+    ``conditioning`` (the (n,) RY wall after the Hadamard wall).
+    ``remat_layers`` wraps each layer in ``torch.utils.checkpoint``, so that
+    autograd keeps the L layer-boundary states and recomputes the rest in
+    the backward."""
     _check_ansatz(ansatz_type)
     n = num_wires
     ent = _Entanglers(n, layers, ansatz_type, block)
@@ -259,12 +268,19 @@ def make_blocked_state_fn(num_wires: int, layers: int, ansatz_type: str, block: 
             state = ent.apply_block(state, M, s, bs, n)
         return ent.forward_tail(state, layer)
 
-    def state_fn(params: torch.Tensor) -> torch.Tensor:
+    def state_fn(params: torch.Tensor, embed_angles=None) -> torch.Tensor:
         state = torch.zeros(1 << n, dtype=dtype, device=params.device)
         state[0] = 1.0
         if ent.h_blocks is not None:
             for i, (s, bs) in enumerate(ent.blocks):
                 state = ent.apply(state, "h", i, s, bs)
+        if conditioning:
+            if embed_angles is None:
+                raise ValueError("conditioning=True requires embed_angles")
+            E = ry_batched(embed_angles.reshape(n)).to(dtype)  # (n, 2, 2)
+            for s, bs in ent.blocks:
+                state = ent.apply_block(state, kron_fold([E[q] for q in range(s, s + bs)]),
+                                        s, bs, n)
         mats = block_matrices(params)
         for layer in range(layers):
             layer_mats = [m[layer] for m in mats]
@@ -279,14 +295,15 @@ def make_blocked_state_fn(num_wires: int, layers: int, ansatz_type: str, block: 
 
 
 def make_blocked_probs_fn(num_wires: int, layers: int, ansatz_type: str, block: int = 8,
-                          dtype=torch.complex64, remat_layers: bool = False):
-    """``probs(params)`` = |state|² of :func:`make_blocked_state_fn`,
-    differentiable by autograd."""
+                          dtype=torch.complex64, remat_layers: bool = False,
+                          conditioning: bool = False):
+    """``probs(params[, embed_angles])`` = |state|² of
+    :func:`make_blocked_state_fn`, differentiable by autograd."""
     state_fn = make_blocked_state_fn(num_wires, layers, ansatz_type, block, dtype,
-                                     remat_layers=remat_layers)
+                                     remat_layers=remat_layers, conditioning=conditioning)
 
-    def probs_fn(params: torch.Tensor) -> torch.Tensor:
-        amp = state_fn(params)
+    def probs_fn(params: torch.Tensor, embed_angles=None) -> torch.Tensor:
+        amp = state_fn(params, embed_angles)
         return amp.real ** 2 + amp.imag ** 2
 
     return probs_fn

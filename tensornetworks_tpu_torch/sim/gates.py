@@ -95,3 +95,30 @@ def rotation_operators(params: torch.Tensor, num_wires: int, layers: int,
     rb = (num_wires + 1) // 2
     return (kron_fold([U[:, q] for q in range(rb)]),
             kron_fold([U[:, q] for q in range(rb, num_wires)]))
+
+
+def wall_operators(embed_angles: torch.Tensor, num_wires: int) -> tuple:
+    """The conditioning wall RY(angles) on every qubit as row and column
+    operators of the 2D view: ``Er`` (..., R, R) folds qubits 0..rb-1, ``Ec``
+    (..., C, C) the rest. ``embed_angles`` is (n,) for one wall or (L, n)
+    for one wall per layer."""
+    E = ry_batched(embed_angles)
+    rb = (num_wires + 1) // 2
+    return (kron_fold([E[..., q, :, :] for q in range(rb)]),
+            kron_fold([E[..., q, :, :] for q in range(rb, num_wires)]))
+
+
+def fold_wall(Mr: torch.Tensor, Mc: torch.Tensor, embed_angles: torch.Tensor,
+              num_wires: int, reupload: bool) -> tuple:
+    """Per-layer operators (L, R, R), (L, C, C) with the conditioning wall
+    folded in before the rotations: ``X ← Mr (Er X Ecᵀ) Mcᵀ = (Mr Er) X
+    (Mc Ec)ᵀ``. A single wall (``reupload=False``) goes into layer 0 only;
+    re-uploading puts it before every layer, one wall for all layers from
+    (n,) angles or wall l before layer l from (L, n) angles."""
+    if embed_angles.dim() == 2 and not reupload:
+        raise ValueError("per-layer embed_angles require reupload=True")
+    Er, Ec = wall_operators(embed_angles.to(Mr.real.dtype), num_wires)
+    if reupload:
+        return Mr @ Er, Mc @ Ec
+    return (torch.cat([(Mr[0] @ Er)[None], Mr[1:]]),
+            torch.cat([(Mc[0] @ Ec)[None], Mc[1:]]))

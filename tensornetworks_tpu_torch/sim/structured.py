@@ -2,11 +2,15 @@
 Bayesian network's latent edges instead of a hardware chain.
 
 Counterpart of ``latent_edges`` and ``make_structured_probs_fn`` in
-``tensornetworks_tpu/sim/structured.py``, unconditioned. A layer ℓ is
+``tensornetworks_tpu/sim/structured.py``. A layer ℓ is
 RZ·RY·RX on every qubit (the ``hardware_efficient`` layout, 3·L·n
 parameters), after the uniform start (the Hadamard wall), then along every
 edge (parent, child), in the order given: CNOT(parent → child) on even
-layers, CZ(parent, child) on odd layers.
+layers, CZ(parent, child) on odd layers. With ``conditioning=True`` the
+function takes ``(params, embed_angles)`` and puts one RY(angles[q]) wall
+after the Hadamard wall, as the JAX oracle does; re-uploading the wall
+before every layer is the circuit kernels' (``ops/kernels``), held against
+the JAX package's structured executors in the tests.
 
 ``make_structured_probs_fn`` is the 2D flip-select form in plain torch
 (per-edge masked flips of the (R, C) super-block view), differentiated by
@@ -72,10 +76,11 @@ def _rotations(params: torch.Tensor, num_wires: int, layers: int) -> torch.Tenso
     return rz @ ry @ rx
 
 
-def make_structured_probs_fn(num_wires: int, layers: int, edges):
+def make_structured_probs_fn(num_wires: int, layers: int, edges, conditioning: bool = False):
     """probs(params) -> (2^n,) of the DAG-structured ansatz; params (3·L·n,)
     laid out (layer, qubit, angle). Complex128 for float64 params, complex64
-    for float32."""
+    for float32. ``conditioning``: probs(params, embed_angles), the (n,) RY
+    wall applied qubit by qubit after the Hadamard wall."""
     n = num_wires
     rb = (n + 1) // 2
     cb = n - rb
@@ -107,10 +112,18 @@ def make_structured_probs_fn(num_wires: int, layers: int, edges):
         """The 2×2 operator U on qubit q."""
         return torch.einsum("ab,pbqc->paqc", U, qubit_view(X, q)).reshape(R, C)
 
-    def probs(params: torch.Tensor) -> torch.Tensor:
+    def probs(params: torch.Tensor, embed_angles=None) -> torch.Tensor:
         U = _rotations(params, n, layers)
         real, dev = params.dtype, params.device
         X = torch.full((R, C), 2.0 ** (-0.5 * n), dtype=U.dtype, device=dev)
+        if conditioning:
+            if embed_angles is None:
+                raise ValueError("conditioning=True requires embed_angles")
+            half = embed_angles.reshape(n).to(real) / 2
+            c, s = torch.cos(half).to(U.dtype), torch.sin(half).to(U.dtype)
+            for q in range(n):  # RY(a) = [[c, -s], [s, c]]
+                X = rotate(X, torch.stack([torch.stack([c[q], -s[q]]),
+                                           torch.stack([s[q], c[q]])]), q)
         # All of an odd layer's CZ signs in one mask (CZs are diagonal, so
         # they commute); a pair listed twice cancels, as two CZs do.
         sign = torch.ones((1, 1), dtype=real, device=dev)

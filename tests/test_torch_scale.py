@@ -157,7 +157,6 @@ def test_run_scale_experiment_lr_phases_equal_phases_by_hand():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(warm_start="marginals"), "A10"),
     (dict(resume_state_path="r"), "A11"), (dict(checkpoint_path="c"), "A11")])
 def test_run_scale_experiment_names_what_is_not_ported(kwargs, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
