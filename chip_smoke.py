@@ -135,6 +135,36 @@ Phases (any failure exits non-zero):
    multiseed16 (``train_multi_seed`` on the 16-qubit workload, 4 seeds,
    HE L=2, 100 epochs), every loss finite and replica k equal to a
    one-seed run from its θ (1e-5 relative).
+   sampled24 and sampled28 also report the per-variable posterior-marginal
+   error at init and at the end (mean and max |Δp| against likelihood
+   weighting with 2,000,000 samples, with its ESS; the model marginals from
+   two axis reductions of the (R, C) probabilities, the FP32 reduction held
+   to 1e-6 of a float64 one).
+14. The command line, durable resume, checkpoints and the profiler
+   (``tensornetworks_tpu_torch.runners.cli``, ``train/``) and the machine's
+   state. cli16: bn16 at full width through ``cli.main`` (``scale --qubits
+   16 --layers 8 --ansatz bn_structured --epochs 600 --lr 0.05
+   --length-scale 0.0625 --chunk-epochs 100``), exactly 602/600/600/600
+   launches of kernels 1, 2, 3 and stein_gcorr, its steady epochs/s; then
+   killed after 3 chunks (the fault injected into the engine module's
+   ``run_ksd_scan``) with ``--resume-state S --checkpoint B``, and resumed
+   by ``python -m tensornetworks_tpu_torch.runners.cli`` in another
+   process, which must exit 0 and remove S; the two checkpoints equal bit
+   for bit. cli20: scale20 with ``--temper-betas 0.5,1.0``, killed after
+   chunk 1 and resumed in process: history, θ, best θ, best TVD and epoch
+   and checkpoints equal bit for bit. cli_adv16: the adversarial objective
+   (bn_structured L=8) over two lr phases of 100 epochs, killed after phase
+   2's first chunk and run again, under ``torch.use_deterministic_algorithms``
+   in a process of its own (``chip_smoke.py --cli-adv16``, started with
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, so that no other phase runs under
+   either): phase 1 replays from ``S.phase0`` with no epoch dispatched, both
+   snapshots go, the best Born and discriminator parameters equal the
+   uninterrupted run's bit for bit. Snapshot write and load times are
+   printed. profile16: main16's engine for 2 chunks of 25 epochs with
+   ``profile_dir``; the trace must name the __global__ functions of kernels
+   1, 2, 3 and stein_gcorr. state16/state20: ``QuantumBornMachine.state``
+   (HE L=4) from kernel 1 and kernel 5: |state|² against ``probs`` (1e-6
+   absolute and 1e-5 of the largest probability) and against the float64 blocked executor's state (1e-5 relative).
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line (each kernel
 with the launch count of the path that runs it, and its launches on every
@@ -144,17 +174,23 @@ line (the timed checks at the wide shapes of step 10, with the exact paths'
 launches), a ``{"sampled": [...]}`` line (step 12's paths: epochs/s or
 samples/s, launches, first and last U-statistic, best TVD, peak memory),
 an ``{"amortized": [...]}`` line (step 13's checks and paths: errors,
-epochs/s, launches, TVDs) and, last, the ``{"ok": true, ...}`` line. Imports nothing of JAX
+epochs/s, launches, TVDs), a ``{"cli": [...]}`` line (step 14's paths:
+epochs/s, launches, snapshot bytes and ms, the trace's kernels, the state's
+errors) and, last, the ``{"ok": true, ...}`` line. Imports nothing of JAX
 or of the JAX package.
 """
 
+import contextlib
 import functools
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # Published H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor
 # cores, and HBM3 bandwidth. The port runs FP32 FMA only (no TF32).
@@ -249,6 +285,39 @@ AMORTIZED20_EPOCHS, AMORTIZED20_CHUNK = 20, 10
 WARM16_LAYERS, WARM16_EPOCHS, WARM16_DISTILL_EPOCHS, WARM16_CHUNK = 4, 300, 1000, 100
 MULTISEED_SEEDS, MULTISEED_LAYERS, MULTISEED_EPOCHS = 4, 2, 100
 MULTISEED_TOL = 1e-5
+# The command line, durable resume and checkpoints (ROADMAP A11), through
+# ``tensornetworks_tpu_torch.runners.cli``. cli16: bn16's configuration at
+# full width, 600 epochs in chunks of 100, killed after 3 chunks and resumed
+# by the CLI in another process; cli20: scale20 with the tempered target
+# (β 0.5 then 1.0), killed after chunk 1 and resumed in process; cli_adv16:
+# adversarial16's model over two lr phases of 100 epochs in chunks of 50,
+# killed after phase 2's first chunk and run again. Every resumed result
+# must equal the uninterrupted one bit for bit. profile16: main16's engine
+# for 2 chunks of 25 epochs under the profiler. state16/state20: the
+# machine's state (HE L=4) through kernels 1 and 5.
+CLI16_ARGV = ["scale", "--qubits", "16", "--layers", "8", "--ansatz", "bn_structured",
+              "--epochs", "600", "--lr", "0.05", "--length-scale", "0.0625",
+              "--chunk-epochs", "100"]
+CLI16_EPOCHS, CLI16_KILL = 600, 3
+CLI20_ARGV = ["scale", "--qubits", "20", "--layers", "4", "--epochs", "60",
+              "--chunk-epochs", "20", "--temper-betas", "0.5,1.0"]
+CLI20_KILL = 1
+CLI_ADV16_ARGV = ["scale", "--qubits", "16", "--objective", "adversarial", "--ansatz",
+                  "bn_structured", "--layers", "8", "--lr-phases", "100:0.003,100:0.001",
+                  "--chunk-epochs", "50"]
+CLI_ADV16_PHASE_EPOCHS, CLI_ADV16_CHUNK = 100, 50
+PROFILE16_EPOCHS, PROFILE16_CHUNK = 50, 25
+# The __global__ functions of kernels 1, 2, 3 (n=16 runs the cluster
+# butterfly) and stein_gcorr, as the profiler's trace names them.
+PROFILE16_KERNELS = ("circuit2d_fwd_kernel", "circuit2d_bwd_kernel", "cluster_butterfly_kernel",
+                     "gcorr_combine_kernel")
+# |state|² against probs: absolute, and relative to the largest probability
+# (at n = 20 a probability is ~1e-6, so the absolute limit alone holds little).
+STATE_TOL_PROBS, STATE_TOL_PROBS_REL, STATE_TOL_F64 = 1e-6, 1e-5, 1e-5
+# The wide sampled paths' quality report: per-variable posterior marginals
+# against likelihood weighting (scripts/quality28_sampled.py's measure).
+LW_SAMPLES = 2_000_000
+MARGINAL_REDUCTION_TOL = 1e-6
 # An index drawn on the card may differ from the float64 draw on the same
 # uniform only at a rounding tie: the uniform within this much of the CDF
 # step it crossed (the CDFs are FP32 sums, the total 1).
@@ -321,7 +390,11 @@ PATH_KERNELS.update(bn16=PATH_KERNELS["main16"], bn20=PATH_KERNELS["scale20"],
                     sampled24=("circuit2d_grid_fwd", "circuit2d_grid_bwd"),
                     sampled28=(), sampling20=("circuit2d_grid_fwd",),
                     amortized16=PATH_KERNELS["main16"], amortized20=PATH_KERNELS["scale20"],
-                    warm16=PATH_KERNELS["main16"], multiseed16=PATH_KERNELS["main16"])
+                    warm16=PATH_KERNELS["main16"], multiseed16=PATH_KERNELS["main16"],
+                    cli16=PATH_KERNELS["main16"], cli20=PATH_KERNELS["scale20"],
+                    cli_adv16=("circuit2d_fwd", "circuit2d_bwd"),
+                    profile16=PATH_KERNELS["main16"], state16=("circuit2d_fwd",),
+                    state20=("circuit2d_grid_fwd",))
 
 
 class PhaseError(RuntimeError):
@@ -1293,6 +1366,56 @@ def grid_view(q, n):
     return q.reshape(1 << ((n + 1) // 2), -1)
 
 
+def model_marginals(q, n):
+    """P(z_i = 1) of every latent bit, in q's dtype, from two axis reductions
+    of the (R, C) view (scripts/quality28_sampled.py's measure: no 2^n
+    buffer beyond q)."""
+    import torch
+
+    P = grid_view(q, n)
+    rb, cb = (n + 1) // 2, n // 2
+    r, c = P.sum(dim=1).reshape((2,) * rb), P.sum(dim=0).reshape((2,) * cb)
+    return torch.stack([r.sum(dim=tuple(j for j in range(rb) if j != i))[1] for i in range(rb)]
+                       + [c.sum(dim=tuple(j for j in range(cb) if j != i))[1]
+                          for i in range(cb)])
+
+
+def marginal_report(path, n, qbm, theta_init, theta_end):
+    """The per-variable posterior-marginal error of the Born machine at its
+    initial and final θ: mean and max |Δp| over the n latent bits against
+    likelihood weighting (LW_SAMPLES samples, seed 0) on the path's network.
+    The card's FP32 reduction is held against a float64 reduction of the
+    same probabilities. A report, not a limit."""
+    import numpy as np
+    import torch
+
+    bn, latent, obs = sampled_problem(n)
+    t0 = time.perf_counter()
+    target = bn.likelihood_weighted_marginals(latent, obs, num_samples=LW_SAMPLES, seed=0)
+    ess = target.pop("__ess__")
+    t_lw = time.perf_counter() - t0
+    want = np.array([target[v] for v in latent])
+    out, red_err = {"lw_ess": ess}, 0.0
+    for label, theta in (("init", theta_init), ("end", theta_end)):
+        with torch.no_grad():
+            q = qbm.probs(theta)
+            m32 = model_marginals(q, n)
+            m64 = model_marginals(q.double(), n)
+            del q
+        red_err = max(red_err, float((m32.double() - m64).abs().max()))
+        d = np.abs(m32.double().cpu().numpy() - want)
+        out[f"marginal_err_{label}"] = [float(d.mean()), float(d.max())]
+    require(red_err <= MARGINAL_REDUCTION_TOL,
+            f"{path} FP32 marginals {red_err:.1e} from float64 (limit {MARGINAL_REDUCTION_TOL})")
+    out["marginal_reduction_err"] = red_err
+    print(f"{path} marginal error against likelihood weighting ({LW_SAMPLES:,} samples, ESS "
+          f"{ess:,.0f}, {t_lw:.1f}s on the host): mean/max |dp| "
+          f"{out['marginal_err_init'][0]:.4f}/{out['marginal_err_init'][1]:.4f} at init -> "
+          f"{out['marginal_err_end'][0]:.4f}/{out['marginal_err_end'][1]:.4f} at the end; "
+          f"FP32 reduction {red_err:.1e} from float64", flush=True)
+    return out
+
+
 def check_draws(label, P, device, seed):
     """Shots on the card against the float64 draw on the CPU from the same
     uniforms (flat P: sample_indices; (R, C) P: sample_indices_2d): every
@@ -1475,6 +1598,7 @@ def run_sampled24_path(device):
             shots.append(out[0].clone())
         return out
 
+    theta0 = eng.params.clone()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -1501,6 +1625,7 @@ def run_sampled24_path(device):
           f"{eng.best_tvd_:.5f}, {hist['epochs_per_sec']:.3f} epochs/s, "
           f"{row['epochs_per_sec']:.3f} epochs/s steady, posterior {t_post:.1f}s on the host, "
           f"peak device memory {peak:.2f} GiB, launches {launches}", flush=True)
+    row |= marginal_report("sampled24", n, eng.born_machine, theta0, eng.params)
     return launches, row
 
 
@@ -1519,6 +1644,7 @@ def run_sampled28_path(device):
     bm = eng.born_machine
     require((bm.backend, bm.grad_method) == ("blocked", "adjoint"),
             f"sampled28 runs {bm.backend}/{bm.grad_method}, not the blocked adjoint")
+    theta0 = eng.params.clone()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -1534,6 +1660,7 @@ def run_sampled28_path(device):
           f"-> {hist['loss_ksd'][-1]:.3f}, chunk means {first:.3f} -> {last:.3f}, "
           f"{hist['epochs_per_sec']:.3f} epochs/s, {row['epochs_per_sec']:.3f} epochs/s "
           f"steady, peak device memory {peak:.2f} GiB, launches {launches}", flush=True)
+    row |= marginal_report("sampled28", n, bm, theta0, eng.params)
     return launches, row
 
 
@@ -1849,6 +1976,365 @@ def run_multiseed16_path(device):
                       "tvd_last": tvds[-1].tolist(), "replica_rel_err": worst}
 
 
+def work_dir(name):
+    """An empty directory for a phase's files under the checkout's
+    git-ignored ``build/``."""
+    d = Path(__file__).resolve().parent / "build" / "chip_smoke" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+@contextlib.contextmanager
+def killed_after(chunks):
+    """Fault injection, as the JAX package's tests/test_chunked_resume.py
+    injects it: the KSD engines' ``run_ksd_scan`` raises after saving
+    ``chunks`` chunks."""
+    from tensornetworks_tpu_torch.engines import ksd as ksd_mod
+
+    orig = ksd_mod.run_ksd_scan
+    ksd_mod.run_ksd_scan = lambda **kw: orig(**kw, fail_after_chunks=chunks)
+    try:
+        yield
+    finally:
+        ksd_mod.run_ksd_scan = orig
+
+
+@contextlib.contextmanager
+def timed_snapshots(times):
+    """Seconds of each snapshot write and load of the engines, appended to
+    ``times["save"]`` and ``times["load"]``."""
+    from tensornetworks_tpu_torch.engines import advi, ksd as ksd_mod
+
+    saved = {(m, f): getattr(m, f) for m in (ksd_mod, advi)
+             for f in ("_save_chunk_state", "_load_chunk_state")}
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            times[key].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    for (m, f), fn in saved.items():
+        setattr(m, f, timed(fn, "save" if "save" in f else "load"))
+    try:
+        yield
+    finally:
+        for (m, f), fn in saved.items():
+            setattr(m, f, fn)
+
+
+def require_same_checkpoints(path, a, b):
+    """Two checkpoints with the same keys and every tensor equal bit for bit."""
+    import torch
+    from tensornetworks_tpu_torch.train import load_checkpoint
+
+    ca, cb = load_checkpoint(a), load_checkpoint(b)
+    require(set(ca) == set(cb), f"{path} checkpoints' keys differ: {sorted(ca)} {sorted(cb)}")
+    for key in ca:
+        require(torch.equal(ca[key], cb[key]), f"{path} checkpoints differ in {key}")
+    return sorted(ca)
+
+
+def require_same_runs(path, a, b):
+    """Two runs' histories, final and best parameters, best TVD and epoch,
+    bit for bit (a KSD engine, or the adversarial engine's Born machine and
+    discriminator)."""
+    import numpy as np
+    import torch
+
+    for key, col in a.history_.items():
+        if isinstance(col, list):
+            require(np.array_equal(col, b.history_[key], equal_nan=True),
+                    f"{path} resumed history {key} differs from the uninterrupted run's")
+    require((a.best_tvd_, a.best_epoch_) == (b.best_tvd_, b.best_epoch_),
+            f"{path} best TVD/epoch {(b.best_tvd_, b.best_epoch_)} after the resume, "
+            f"{(a.best_tvd_, a.best_epoch_)} uninterrupted")
+    for name in ("params", "best_params_", "born_params", "classifier_params"):
+        if hasattr(a, name):
+            require(torch.equal(getattr(a, name), getattr(b, name)),
+                    f"{path} {name} after the resume differs from the uninterrupted run's")
+
+
+def run_cli16_path(device):
+    """bn16 at full width through the command line: (a) uninterrupted in
+    process, with --checkpoint A; (b) killed after 3 chunks with
+    --resume-state S --checkpoint B; (c) resumed by ``python -m
+    tensornetworks_tpu_torch.runners.cli`` in another process; (d) A and B
+    equal bit for bit."""
+    import torch
+    from tensornetworks_tpu_torch.engines import ksd as ksd_mod
+    from tensornetworks_tpu_torch.ops import kernels
+    from tensornetworks_tpu_torch.runners import cli
+
+    d = work_dir("cli16")
+    A, B, S = str(d / "a.pt"), str(d / "b.pt"), str(d / "resume.pt")
+    argv = CLI16_ARGV + ["--device", str(device)]
+    kernels.reset_launches()
+    out = cli.main(argv + ["--checkpoint", A])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check_launches("cli16", launches)
+    want = {"circuit2d_fwd": CLI16_EPOCHS + 2, "circuit2d_bwd": CLI16_EPOCHS,
+            "stein2d": CLI16_EPOCHS, "stein_gcorr": CLI16_EPOCHS}
+    require(all(launches[k] == v for k, v in want.items()),
+            f"cli16 launches {launches}, want {want}")
+    hist = out["history"]
+    eps = hist["epochs_per_sec_steady"]
+    times = {"save": [], "load": []}
+    with timed_snapshots(times), killed_after(CLI16_KILL):
+        try:
+            cli.main(argv + ["--resume-state", S, "--checkpoint", B])
+            require(False, "cli16: the injected fault did not stop the run")
+        except RuntimeError as e:
+            require("fault injection" in str(e), f"cli16 run failed: {e}")
+    require(os.path.exists(S) and not os.path.exists(B),
+            "cli16: after the kill the snapshot must exist and the checkpoint must not")
+    snapshot_bytes = os.path.getsize(S)
+    fingerprint = torch.load(S, weights_only=True)["fingerprint"]
+    t0 = time.perf_counter()
+    ksd_mod._load_chunk_state(S, fingerprint, (), device)
+    torch.cuda.synchronize()
+    times["load"].append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tensornetworks_tpu_torch.runners.cli",
+                           *CLI16_ARGV, "--resume-state", S, "--checkpoint", B],
+                          cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                          timeout=600)
+    t_sub = time.perf_counter() - t0
+    require(proc.returncode == 0, f"cli16 resume exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    require(not os.path.exists(S), "cli16: the snapshot was not removed after the resume")
+    keys = require_same_checkpoints("cli16", A, B)
+    resumed = [ln for ln in proc.stdout.splitlines() if "Quantum KSD training" in ln]
+    print(f"cli16 path: {CLI16_EPOCHS} epochs through the CLI, best TVD "
+          f"{out['model'].best_tvd_:.5f} at epoch {out['model'].best_epoch_}, {eps:.1f} epochs/s "
+          f"steady, launches {launches}; killed after {CLI16_KILL} chunks, resumed by the CLI in "
+          f"another process ({t_sub:.1f}s, {resumed[-1].strip() if resumed else 'no summary'}); "
+          f"checkpoints {keys} equal bit for bit; snapshot {snapshot_bytes} bytes, write "
+          f"{1e3 * statistics.median(times['save']):.2f} ms (median of {len(times['save'])}), "
+          f"load {1e3 * times['load'][0]:.2f} ms", flush=True)
+    return launches, {"path": "cli16", "epochs_per_sec": eps, "launches": launches,
+                      "best_tvd": out["model"].best_tvd_, "bit_equal": True,
+                      "resume_subprocess_s": t_sub, "snapshot_bytes": snapshot_bytes,
+                      "snapshot_save_ms": 1e3 * statistics.median(times["save"]),
+                      "snapshot_load_ms": 1e3 * times["load"][0]}
+
+
+def run_cli20_path(device):
+    """scale20 with the tempered target through the command line: an
+    uninterrupted run, then one killed after chunk 1 (the β = 0.5 chunk) and
+    resumed in process, which trains chunk 1 on through β = 1.0."""
+    import torch
+    from tensornetworks_tpu_torch.ops import kernels
+    from tensornetworks_tpu_torch.runners import cli
+
+    d = work_dir("cli20")
+    A, B, S = str(d / "a.pt"), str(d / "b.pt"), str(d / "resume.pt")
+    argv = CLI20_ARGV + ["--device", str(device)]
+    kernels.reset_launches()
+    ref = cli.main(argv + ["--checkpoint", A])
+    times = {"save": [], "load": []}
+    with timed_snapshots(times):
+        with killed_after(CLI20_KILL):
+            try:
+                cli.main(argv + ["--resume-state", S, "--checkpoint", B])
+                require(False, "cli20: the injected fault did not stop the run")
+            except RuntimeError as e:
+                require("fault injection" in str(e), f"cli20 run failed: {e}")
+        require(os.path.exists(S) and not os.path.exists(B),
+                "cli20: after the kill the snapshot must exist and the checkpoint must not")
+        snapshot_bytes = os.path.getsize(S)
+        out = cli.main(argv + ["--resume-state", S, "--checkpoint", B])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check_launches("cli20", launches)
+    require(out["model"].born_machine.backend == "circuit2d_grid", "cli20 is not on the grid")
+    require(not os.path.exists(S), "cli20: the snapshot was not removed after the resume")
+    require_same_runs("cli20", ref["model"], out["model"])
+    keys = require_same_checkpoints("cli20", A, B)
+    eps = ref["history"]["epochs_per_sec_steady"]
+    print(f"cli20 path: uninterrupted and resumed after chunk {CLI20_KILL} equal bit for bit "
+          f"(history, θ, best θ, best TVD {ref['model'].best_tvd_:.5f} at epoch "
+          f"{ref['model'].best_epoch_}; checkpoints {keys}), {eps:.2f} epochs/s steady; snapshot "
+          f"{snapshot_bytes} bytes, write {1e3 * statistics.median(times['save']):.2f} ms "
+          f"(median of {len(times['save'])}), load {1e3 * times['load'][0]:.2f} ms, launches "
+          f"{launches}", flush=True)
+    return launches, {"path": "cli20", "epochs_per_sec": eps, "launches": launches,
+                      "best_tvd": ref["model"].best_tvd_, "bit_equal": True,
+                      "snapshot_bytes": snapshot_bytes,
+                      "snapshot_save_ms": 1e3 * statistics.median(times["save"]),
+                      "snapshot_load_ms": 1e3 * times["load"][0]}
+
+
+def run_cli_adv16_path(device):
+    """cli_adv16 in a process of its own: ``chip_smoke.py --cli-adv16``,
+    with ``CUBLAS_WORKSPACE_CONFIG`` set before CUDA starts there, as
+    ``torch.use_deterministic_algorithms`` needs for cuBLAS. Its launches
+    and row come back on its last line."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--cli-adv16",
+                           str(device)], cwd=Path(__file__).resolve().parent, env=env,
+                          capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    require(proc.returncode == 0, f"cli_adv16 exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    out = json.loads(lines[-1])
+    return out["launches"], out["row"]
+
+
+def cli_adv16_in_process(device):
+    """adversarial16's model over two lr phases through the command line:
+    an uninterrupted run; one killed after phase 2's first chunk; the rerun,
+    which must replay phase 1 from S.phase0 without dispatching an epoch (no
+    backward launched), resume phase 2 from S.phase1, remove both and end
+    with the uninterrupted run's best Born and discriminator parameters.
+    The REINFORCE log q gather's backward is an atomic scatter on the card,
+    whose sums part runs (sampled16, PR 9), so all three runs go under
+    ``torch.use_deterministic_algorithms``."""
+    import torch
+    from tensornetworks_tpu_torch.engines import AdversarialVariationalInference as Adv
+    from tensornetworks_tpu_torch.ops import kernels
+    from tensornetworks_tpu_torch.runners import cli
+
+    d = work_dir("cli_adv16")
+    S = str(d / "resume.pt")
+    train = Adv.train
+    phases, kill = [], {"phase": None}
+
+    def spy(self, *args, **kwargs):
+        if len(phases) + 1 == kill["phase"]:
+            kwargs["fail_after_chunks"] = 1
+        before = dict(kernels.LAUNCHES)
+        try:
+            out = train(self, *args, **kwargs)
+        finally:
+            phases.append({k: kernels.LAUNCHES[k] - before[k] for k in before})
+        phases[-1]["epochs_dispatched"] = out["epochs_dispatched"]
+        return out
+
+    argv = CLI_ADV16_ARGV + ["--device", str(device)]
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    Adv.train = spy
+    try:
+        kernels.reset_launches()
+        ref = cli.main(argv)["model"]
+        kill["phase"] = 2
+        phases.clear()
+        try:
+            cli.main(argv + ["--resume-state", S])
+            require(False, "cli_adv16: the injected fault did not stop the run")
+        except RuntimeError as e:
+            require("fault injection" in str(e), f"cli_adv16 run failed: {e}")
+        require(os.path.exists(S + ".phase0") and os.path.exists(S + ".phase1"),
+                "cli_adv16: after the kill both phases' snapshots must exist")
+        kill["phase"] = None
+        phases.clear()
+        out = cli.main(argv + ["--resume-state", S])["model"]
+    finally:
+        Adv.train = train
+        torch.use_deterministic_algorithms(was)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check_launches("cli_adv16", launches)
+    replay, resumed = phases
+    require(replay["epochs_dispatched"] == 0 and replay["circuit2d_bwd"] == 0,
+            f"cli_adv16: phase 1 was not replayed from its snapshot: {replay}")
+    require(resumed["epochs_dispatched"] == CLI_ADV16_PHASE_EPOCHS - CLI_ADV16_CHUNK,
+            f"cli_adv16: phase 2 dispatched {resumed['epochs_dispatched']} epochs")
+    require(not any(os.path.exists(f"{S}.phase{i}") for i in range(2)),
+            "cli_adv16: the phases' snapshots were not removed")
+    require(ref.best_tvd_ == out.best_tvd_, f"cli_adv16 best TVD {out.best_tvd_} after the "
+                                            f"rerun, {ref.best_tvd_} uninterrupted")
+    for name in ("born_params", "classifier_params"):
+        require(torch.equal(getattr(ref, name), getattr(out, name)),
+                f"cli_adv16 best {name} after the rerun differs from the uninterrupted run's")
+    print(f"cli_adv16 path: two phases of {CLI_ADV16_PHASE_EPOCHS} epochs, best TVD "
+          f"{ref.best_tvd_:.5f}; the rerun replayed phase 1 from its snapshot ({replay}) and "
+          f"resumed phase 2 ({resumed}); best Born and discriminator parameters equal bit for "
+          f"bit; launches {launches}", flush=True)
+    return launches, {"path": "cli_adv16", "launches": launches, "best_tvd": ref.best_tvd_,
+                      "bit_equal": True, "phase1_replay": replay, "phase2_resumed": resumed}
+
+
+def run_profile16_path(device):
+    """main16's engine for 2 chunks of 25 epochs with ``profile_dir``: the
+    trace must name the __global__ functions of kernels 1, 2, 3 and
+    stein_gcorr (the ctypes launches are seen by the profiler)."""
+    import torch
+    from tensornetworks_tpu_torch.engines import QuantumKSDVariationalInference
+    from tensornetworks_tpu_torch.ops import kernels
+
+    d = work_dir("profile16")
+    bn, latent, obs = path_inputs(N)
+    eng = QuantumKSDVariationalInference(bn, latent, list(obs), qbm_num_latent_vars=N,
+                                         qbm_ansatz_layers=LAYERS, qbm_ansatz_type=ANSATZ,
+                                         seed=0, device=device)
+    kernels.reset_launches()
+    hist = eng.train(obs, num_epochs=PROFILE16_EPOCHS, lr_born_machine=5e-3, verbose=False,
+                     true_posterior_for_tvd=bn.posterior_vector(latent, obs),
+                     chunk_epochs=PROFILE16_CHUNK, profile_dir=str(d))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check_launches("profile16", launches)
+    traces = sorted(d.glob("*.pt.trace.json"))
+    require(len(traces) == 1, f"profile16 wrote {len(traces)} traces to {d}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    device_events = [e for e in events if e.get("cat") == "kernel"]
+    found = {}
+    for k in PROFILE16_KERNELS:
+        hits = [e for e in device_events if k in e.get("name", "")]
+        require(hits, f"profile16: no device event names {k} "
+                      f"({len(device_events)} device kernel events in the trace)")
+        found[k] = {"events": len(hits), "device_us": sum(e.get("dur", 0) for e in hits)}
+    eps = hist["epochs_per_sec"]
+    print(f"profile16 path: {PROFILE16_EPOCHS} epochs under the profiler at {eps:.1f} epochs/s, "
+          f"trace {traces[0].name} ({traces[0].stat().st_size} bytes, {len(device_events)} "
+          f"device kernel events), kernels {found}, launches {launches}", flush=True)
+    return launches, {"path": "profile16", "epochs_per_sec": eps, "launches": launches,
+                      "trace_bytes": traces[0].stat().st_size,
+                      "device_kernel_events": len(device_events), "kernels": found}
+
+
+def run_state_path(path, n, device):
+    """``QuantumBornMachine.state`` (HE L=4) from the forward kernel's final
+    planes: |state|² against ``probs`` of the same θ (FP32), and state
+    against the float64 blocked executor's state of the same θ."""
+    import torch
+    from tensornetworks_tpu_torch.models import QuantumBornMachine
+    from tensornetworks_tpu_torch.ops import kernels
+
+    qbm = QuantumBornMachine(n, LAYERS, ANSATZ, device=device)
+    require(qbm.backend == ("circuit2d" if n <= 17 else "circuit2d_grid"),
+            f"{path} runs {qbm.backend}")
+    theta = qbm.init(torch.Generator().manual_seed(3))
+    kernels.reset_launches()
+    st = qbm.state(theta)
+    with torch.no_grad():
+        probs = qbm.probs(theta)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check_launches(path, launches)
+    require(st.shape == (2,) * n and st.dtype == torch.complex64, f"{path} state {st.shape}")
+    probs_err = float((st.abs().reshape(-1) ** 2 - probs).abs().max())
+    probs_rel = probs_err / float(probs.max())
+    ref = QuantumBornMachine(n, LAYERS, ANSATZ, backend="blocked", dtype=torch.float64,
+                             device=device).state(theta.double())
+    f64_err = rel_err(st.to(torch.complex128), ref)
+    require(probs_err <= STATE_TOL_PROBS and probs_rel <= STATE_TOL_PROBS_REL,
+            f"{path} |state|² {probs_err:.1e} from probs ({probs_rel:.1e} of the largest)")
+    require(f64_err <= STATE_TOL_F64, f"{path} state {f64_err:.1e} from float64 (relative)")
+    print(f"{path}: state from {qbm.backend}'s forward kernel, |state|^2 - probs max abs "
+          f"{probs_err:.1e} (limit {STATE_TOL_PROBS}), {probs_rel:.1e} of the largest "
+          f"probability (limit {STATE_TOL_PROBS_REL}), against the float64 blocked state "
+          f"{f64_err:.1e} relative (limit {STATE_TOL_F64}), launches {launches}", flush=True)
+    return launches, {"path": path, "launches": launches, "probs_max_abs_err": probs_err,
+                      "probs_rel_err": probs_rel,
+                      "f64_rel_err": f64_err}
+
+
 def main() -> int:
     import torch
 
@@ -1939,6 +2425,15 @@ def main() -> int:
         amortized_line.append(row)
         t0 = phase(f"{path} path", t0)
 
+    cli_line = []
+    for path, run in (("cli16", run_cli16_path), ("cli20", run_cli20_path),
+                      ("cli_adv16", run_cli_adv16_path), ("profile16", run_profile16_path),
+                      ("state16", functools.partial(run_state_path, "state16", N)),
+                      ("state20", functools.partial(run_state_path, "state20", N_GRID))):
+        path_launches[path], row = run(device)
+        cli_line.append(row)
+        t0 = phase(f"{path} path", t0)
+
     kernels_line = []
     for r in records:
         kernels_line.append({
@@ -1973,6 +2468,8 @@ def main() -> int:
           + f"sampling20 {sampled_line[-1]['samples_per_sec']:,.0f} samples/s, "
           + "".join(f"{r['path']} path {r['epochs_per_sec']:.2f} epochs/s, "
                     for r in amortized_line if "path" in r)
+          + "".join(f"{r['path']} path {r['epochs_per_sec']:.2f} epochs/s, "
+                    for r in cli_line if "epochs_per_sec" in r)
           + f"on {card}; "
           f"{time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps({"kernels": kernels_line}))
@@ -1980,14 +2477,32 @@ def main() -> int:
     print(json.dumps({"large_n": wide_line}))
     print(json.dumps({"sampled": sampled_line, "checks": sampled_ops}))
     print(json.dumps({"amortized": amortized_line}))
+    print(json.dumps({"cli": cli_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
 
 
+def cli_adv16_main(device) -> int:
+    """The entry of ``chip_smoke.py --cli-adv16 DEVICE``: cli_adv16 alone,
+    its launches and row as JSON on the last line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import tensornetworks_tpu_torch  # noqa: F401  (sets FP32 matmul precision)
+    from tensornetworks_tpu_torch.ops import kernels
+
+    kernels.build_all()
+    launches, row = cli_adv16_in_process(torch.device(device))
+    print(json.dumps({"launches": launches, "row": row}))
+    return 0
+
+
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(cli_adv16_main(sys.argv[2]) if sys.argv[1:2] == ["--cli-adv16"] else main())
     except PhaseError as e:
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         sys.exit(1)

@@ -17,7 +17,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from .bits import all_bitstrings, generate_all_binary_outcomes
+from .bits import all_bitstrings, bits_to_index, generate_all_binary_outcomes
 
 CPTDict = Dict[tuple, Dict[int, float]]
 CPT = Union[CPTDict, Callable[[tuple], Dict[int, float]]]
@@ -100,6 +100,16 @@ class BayesianNetwork:
         self._joint_cache = p.reshape(-1)
         return self._joint_cache
 
+    def log_joint_table(self, floor: float = 1e-300) -> np.ndarray:
+        """``log p(v)``, the table floored at ``floor`` so that zeros stay finite."""
+        return np.log(np.maximum(self.joint_table(), floor))
+
+    def get_joint_probability(self, full_assignment_tuple: Sequence[int]) -> float:
+        """P(V = full assignment), the values in ``self.nodes`` order."""
+        if len(full_assignment_tuple) != self.num_nodes:
+            raise ValueError("Full assignment tuple length must match the number of nodes.")
+        return float(self.joint_table()[int(bits_to_index(np.asarray(full_assignment_tuple)))])
+
     def marginal_table(self, var_names: Sequence[str]) -> np.ndarray:
         """p(var_names) as a ``(2^k,)`` vector, MSB-first in the given order."""
         positions = [self.node_to_index[v] for v in var_names]
@@ -174,6 +184,62 @@ class BayesianNetwork:
         unnorm = self.conditional_joint_table(latent_vars_names, observed_vars_dict)
         s = unnorm.sum()
         return unnorm / s if s > 0 else np.zeros_like(unnorm)
+
+
+    def sample_forward(self, num_samples: int = 1, seed: Optional[int] = None):
+        """Ancestral sampling of ``num_samples`` full assignments, all at once
+        with ``np.random.default_rng(seed)`` (one uniform per sample per node,
+        in node order: the JAX package's draws). Returns (list of dicts, list
+        of tuples)."""
+        rng = np.random.default_rng(seed)
+        n = self.num_nodes
+        vals = np.zeros((num_samples, n), dtype=np.int64)
+        for name in self.nodes:  # parents first
+            pos = self.node_to_index[name]
+            parent_pos = [self.node_to_index[q] for q in self.parents[name]]
+            k = len(parent_pos)
+            parent_idx = np.zeros(num_samples, dtype=np.int64)
+            for j, pp in enumerate(parent_pos):
+                parent_idx |= vals[:, pp] << (k - 1 - j)
+            p1 = self._cpt_arrays[name][parent_idx, 1]
+            vals[:, pos] = (rng.random(num_samples) < p1).astype(np.int64)
+        dicts = [{self.nodes[j]: int(v[j]) for j in range(n)} for v in vals]
+        tuples = [tuple(int(b) for b in v) for v in vals]
+        return dicts, tuples
+
+    def likelihood_weighted_marginals(
+        self, latent_vars_names: Sequence[str], observed_vars_dict: Dict[str, int],
+        num_samples: int = 1_000_000, seed: int = 0,
+    ) -> Dict[str, float]:
+        """Posterior single-variable marginals ``P(z_i = 1 | x)`` by likelihood
+        weighting: ancestral sampling with the evidence clamped, each sample
+        weighted by ``Π p(x_j | parents)``. Consistent at any network size,
+        so it is the quality target where the dense ``2^n`` posterior cannot
+        be built. The dict also holds the effective sample size under
+        ``"__ess__"`` (the Monte-Carlo error is about ``1/sqrt(ESS)``)."""
+        rng = np.random.default_rng(seed)
+        m = num_samples
+        vals = np.zeros((m, self.num_nodes), dtype=np.int8)
+        logw = np.zeros(m, dtype=np.float64)
+        for name in self.nodes:  # parents first
+            pos = self.node_to_index[name]
+            parent_pos = [self.node_to_index[q] for q in self.parents[name]]
+            k = len(parent_pos)
+            parent_idx = np.zeros(m, dtype=np.int64)
+            for j, pp in enumerate(parent_pos):
+                parent_idx |= vals[:, pp].astype(np.int64) << (k - 1 - j)
+            p1 = self._cpt_arrays[name][parent_idx, 1]
+            if name in observed_vars_dict:
+                v = int(observed_vars_dict[name])
+                vals[:, pos] = v
+                logw += np.log(np.clip(p1 if v == 1 else 1.0 - p1, 1e-300, None))
+            else:
+                vals[:, pos] = rng.random(m) < p1
+        w = np.exp(logw - logw.max())
+        w /= w.sum()
+        out = {nm: float(w @ (vals[:, self.node_to_index[nm]] == 1)) for nm in latent_vars_names}
+        out["__ess__"] = float(1.0 / np.square(w).sum())
+        return out
 
 
 def get_sprinkler_network(random_cpts: bool = False, seed: Optional[int] = None) -> BayesianNetwork:

@@ -52,6 +52,28 @@ def flip_index(idx, num_vars: int, var: int):
     return idx ^ (1 << (num_vars - 1 - var))
 
 
+def popcount(x: np.ndarray) -> np.ndarray:
+    """Number of set bits per element (numpy, int64). The input is copied:
+    the JAX package's ``popcount`` shifts an int64 array in place, leaving
+    the caller's array zeroed."""
+    x = np.array(x, dtype=np.int64)
+    count = np.zeros_like(x)
+    while np.any(x):
+        count += x & 1
+        x >>= 1
+    return count
+
+
+def get_binary_key(outcome_tuple) -> str:
+    """(1, 0, 1) -> '101'."""
+    return "".join(str(int(b)) for b in outcome_tuple)
+
+
+def get_outcome_tuple(binary_key: str) -> tuple:
+    """'101' -> (1, 0, 1)."""
+    return tuple(int(c) for c in binary_key)
+
+
 def generate_all_binary_outcomes(num_vars: int) -> list:
     """All assignments as a list of tuples, in index order."""
     return [tuple(int(b) for b in row) for row in all_bitstrings(num_vars)]

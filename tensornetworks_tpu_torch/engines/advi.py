@@ -36,6 +36,7 @@ forwards per epoch for the same values.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, Dict, Optional, Sequence
 
@@ -47,8 +48,10 @@ from ..core.bayes_net import BayesianNetwork
 from ..core.bits import generate_all_binary_outcomes, torch_index_to_bits
 from ..models.born_classical import ClassicalBornMachine
 from ..models.classifier import BinaryClassifierMLP
+from ..train import profile_trace, save_checkpoint, training_bundle
 from .common import global_norm, guarded_update, make_optimizer
-from .ksd import _posterior_vec_from, not_ported, steady_epochs_per_sec
+from .ksd import (_load_chunk_state, _posterior_vec_from, _resume_fingerprint,
+                  _save_chunk_state, steady_epochs_per_sec)
 
 
 def multinomial_sampler(probs: torch.Tensor, num_samples: int,
@@ -125,16 +128,33 @@ class AdversarialVariationalInference:
               adam_betas=(0.9, 0.999), seed: Optional[int] = None,
               checkpoint_path: Optional[str] = None, profile_dir: Optional[str] = None,
               chunk_epochs: Optional[int] = None, resume_state_path: Optional[str] = None,
-              log_p_floor: Optional[float] = None,
-              sampler: Callable = multinomial_sampler) -> dict:
+              fail_after_chunks: Optional[int] = None, log_p_floor: Optional[float] = None,
+              sampler: Callable = multinomial_sampler,
+              keep_resume_state: bool = False) -> dict:
         """``chunk_epochs``: host sync after every chunk (per-chunk wall
         times give the steady rate); the results are the same. ``seed``
         overrides the engine's seed for the run's generator (dropout and
         sampling). ``sampler(probs, num_samples, generator)`` returns indices;
         per epoch it is called, in order, for each discriminator step's Born
-        batch and prior batch, then for each REINFORCE step's batch."""
-        if checkpoint_path is not None or profile_dir is not None or resume_state_path is not None:
-            not_ported("checkpoint_path / profile_dir / resume_state_path", "A11")
+        batch and prior batch, then for each REINFORCE step's batch.
+
+        ``resume_state_path`` (needs ``chunk_epochs``): durable per-chunk
+        resume, as ``run_ksd_scan``'s. The snapshot holds both parameter
+        sets with their Adam states, the discriminator's BatchNorm
+        statistics, the REINFORCE baseline, the best snapshots, the history
+        so far and the run's generator state; a resumed run is bit-identical
+        to an uninterrupted one. On CUDA this holds only with
+        ``torch.use_deterministic_algorithms(True)`` (and
+        ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set before CUDA starts) around
+        both runs: the backward of the REINFORCE log q gather is an atomic
+        scatter there, whose sums vary from run to run. It is removed at the end unless
+        ``keep_resume_state``. ``fail_after_chunks``: raise ``RuntimeError``
+        after saving that many chunks of this call (fault injection).
+        ``checkpoint_path``: at the end, ``{"born": training_bundle(born
+        params), "classifier": {"params", "batch_stats"}, "best_tvd"}``, the
+        JAX engine's layout. ``profile_dir``: a ``torch.profiler`` trace."""
+        if resume_state_path and not chunk_epochs:
+            raise ValueError("resume_state_path requires chunk_epochs")
         if self.num_observed_vars > 0 and set(x_observation_dict) != set(self.observed_vars_names):
             raise ValueError("Keys in x_observation_dict must match self.observed_vars_names.")
         n, dtype, dev = self.num_latent_vars, self.dtype, self.device
@@ -206,78 +226,112 @@ class AdversarialVariationalInference:
             return tvd
 
         chunk = chunk_epochs or num_epochs
+
+        def carry(end):
+            state = {"bp": bp, "cp": cp, "baseline": baseline, "best_tvd": best_tvd,
+                     "best_epoch": best_epoch, "best_bp": best_bp, "best_cp": best_cp,
+                     "best_probs": best_probs, "hist": hist[:, :end],
+                     **{f"bo_{k}": v for k, v in bo.items()},
+                     **{f"co_{k}": v for k, v in co.items()}}
+            if stats is not None:
+                state.update(stats=stats, best_stats=best_stats)
+            return state
+
+        first = 0
+        if resume_state_path:
+            fingerprint = _resume_fingerprint(carry(num_epochs), (gen,), num_epochs, chunk)
+            if os.path.exists(resume_state_path):
+                saved, first = _load_chunk_state(resume_state_path, fingerprint, (gen,), dev)
+                bp, cp, baseline = saved["bp"], saved["cp"], saved["baseline"]
+                best_tvd, best_epoch = saved["best_tvd"], saved["best_epoch"]
+                best_bp, best_cp, best_probs = saved["best_bp"], saved["best_cp"], saved["best_probs"]
+                bo = {k: saved[f"bo_{k}"] for k in bo}
+                co = {k: saved[f"co_{k}"] for k in co}
+                if stats is not None:
+                    stats, best_stats = saved["stats"], saved["best_stats"]
+                hist[:, :first] = saved["hist"]
         chunk_seconds = []
         t0 = time.perf_counter()
-        for start in range(0, num_epochs, chunk):
-            t_chunk = time.perf_counter()
-            for epoch in range(start, min(start + chunk, num_epochs)):
-                if not self.is_classical:
-                    # θ is fixed until the REINFORCE step: one forward for
-                    # the epoch's samples and its gradient, which is also the
-                    # previous epoch's post-update distribution.
-                    p_req = bp.detach().requires_grad_(True)
-                    q = forward(p_req, True)
-                    q_sample = sampling_probs(q)
-                    if track and epoch > 0:
-                        hist[2, epoch - 1] = take_best(q.detach(), epoch - 1)
-
-                loss_d = torch.zeros((), dtype=dtype, device=dev)
-                gnorm_d = torch.zeros((), dtype=dtype, device=dev)
-                for _ in range(k_classifier_steps):
-                    if self.is_classical:
-                        with torch.no_grad():
-                            idx_q = sampler(sampling_probs(forward(bp, True)), batch_size, gen)
-                    else:
-                        idx_q = sampler(q_sample, batch_size, gen)
-                    idx_p = sampler(prior_w, batch_size, gen)
-                    inputs = torch.cat([clf_input(idx_q), clf_input(idx_p)])
-                    c_req = cp.detach().requires_grad_(True)
-                    logits, new_stats = clf.logits(c_req, inputs, stats, train=True)
-                    loss_d = F.binary_cross_entropy_with_logits(logits, labels)
-                    (grads,) = torch.autograd.grad(loss_d, c_req)
-                    gnorm_d = global_norm([grads])
-                    cp, co = guarded_update(opt_clf, grads, co, cp, torch.isfinite(loss_d))
-                    stats = new_stats
-                    loss_d = loss_d.detach()
-
-                loss_q = torch.full((), float("nan"), dtype=dtype, device=dev)
-                gnorm_q = torch.zeros((), dtype=dtype, device=dev)
-                for step in range(k_born_steps):
-                    if self.is_classical or step > 0:
+        with profile_trace(profile_dir):
+            for start in range(first, num_epochs, chunk):
+                t_chunk = time.perf_counter()
+                for epoch in range(start, min(start + chunk, num_epochs)):
+                    if not self.is_classical:
+                        # θ is fixed until the REINFORCE step: one forward for
+                        # the epoch's samples and its gradient, which is also the
+                        # previous epoch's post-update distribution.
                         p_req = bp.detach().requires_grad_(True)
                         q = forward(p_req, True)
                         q_sample = sampling_probs(q)
-                    idx = sampler(q_sample, batch_size, gen)
-                    with torch.no_grad():
-                        logit_vals = clf.logits(cp, clf_input(idx), stats)[0][:, 0]
-                        raw_reward = logit_vals - log_p_table[idx]
-                        batch_mean = raw_reward.mean()
-                        baseline = (batch_mean if epoch == 0 else
-                                    baseline_decay * baseline + (1 - baseline_decay) * batch_mean)
-                        advantage = raw_reward - baseline
-                    log_q = torch.log(q.clamp(min=1e-10))[idx]
-                    loss_q = (log_q * advantage + 0.01 * log_q).mean()
-                    (grads,) = torch.autograd.grad(loss_q, p_req)
-                    gnorm_q = global_norm([grads])
-                    bp, bo = guarded_update(opt_born, grads, bo, bp, torch.isfinite(loss_q))
-                    loss_q = loss_q.detach()
+                        if track and epoch > 0:
+                            hist[2, epoch - 1] = take_best(q.detach(), epoch - 1)
 
-                if track and self.is_classical:
-                    with torch.no_grad():
-                        hist[2, epoch] = take_best(forward(bp, False), epoch)
-                hist[[0, 1, 3, 4], epoch] = torch.stack([loss_d, loss_q, gnorm_q, gnorm_d])
-            best_tvd.item()  # host sync closes the chunk
-            chunk_seconds.append((min(chunk, num_epochs - start), time.perf_counter() - t_chunk))
-        if track and not self.is_classical:
-            with torch.no_grad():
-                hist[2, num_epochs - 1] = take_best(forward(bp, False), num_epochs - 1)
+                    loss_d = torch.zeros((), dtype=dtype, device=dev)
+                    gnorm_d = torch.zeros((), dtype=dtype, device=dev)
+                    for _ in range(k_classifier_steps):
+                        if self.is_classical:
+                            with torch.no_grad():
+                                idx_q = sampler(sampling_probs(forward(bp, True)), batch_size, gen)
+                        else:
+                            idx_q = sampler(q_sample, batch_size, gen)
+                        idx_p = sampler(prior_w, batch_size, gen)
+                        inputs = torch.cat([clf_input(idx_q), clf_input(idx_p)])
+                        c_req = cp.detach().requires_grad_(True)
+                        logits, new_stats = clf.logits(c_req, inputs, stats, train=True)
+                        loss_d = F.binary_cross_entropy_with_logits(logits, labels)
+                        (grads,) = torch.autograd.grad(loss_d, c_req)
+                        gnorm_d = global_norm([grads])
+                        cp, co = guarded_update(opt_clf, grads, co, cp, torch.isfinite(loss_d))
+                        stats = new_stats
+                        loss_d = loss_d.detach()
+
+                    loss_q = torch.full((), float("nan"), dtype=dtype, device=dev)
+                    gnorm_q = torch.zeros((), dtype=dtype, device=dev)
+                    for step in range(k_born_steps):
+                        if self.is_classical or step > 0:
+                            p_req = bp.detach().requires_grad_(True)
+                            q = forward(p_req, True)
+                            q_sample = sampling_probs(q)
+                        idx = sampler(q_sample, batch_size, gen)
+                        with torch.no_grad():
+                            logit_vals = clf.logits(cp, clf_input(idx), stats)[0][:, 0]
+                            raw_reward = logit_vals - log_p_table[idx]
+                            batch_mean = raw_reward.mean()
+                            baseline = (batch_mean if epoch == 0 else
+                                        baseline_decay * baseline + (1 - baseline_decay) * batch_mean)
+                            advantage = raw_reward - baseline
+                        log_q = torch.log(q.clamp(min=1e-10))[idx]
+                        loss_q = (log_q * advantage + 0.01 * log_q).mean()
+                        (grads,) = torch.autograd.grad(loss_q, p_req)
+                        gnorm_q = global_norm([grads])
+                        bp, bo = guarded_update(opt_born, grads, bo, bp, torch.isfinite(loss_q))
+                        loss_q = loss_q.detach()
+
+                    if track and self.is_classical:
+                        with torch.no_grad():
+                            hist[2, epoch] = take_best(forward(bp, False), epoch)
+                    hist[[0, 1, 3, 4], epoch] = torch.stack([loss_d, loss_q, gnorm_q, gnorm_d])
+                best_tvd.item()  # host sync closes the chunk
+                end = min(start + chunk, num_epochs)
+                chunk_seconds.append((end - start, time.perf_counter() - t_chunk))
+                if resume_state_path:
+                    _save_chunk_state(resume_state_path, carry(end), (gen,), end, fingerprint)
+                if fail_after_chunks is not None and len(chunk_seconds) >= fail_after_chunks:
+                    raise RuntimeError(f"fault injection: killed after {len(chunk_seconds)} chunks")
+            if resume_state_path and not keep_resume_state and os.path.exists(resume_state_path):
+                os.remove(resume_state_path)
+            if track and not self.is_classical:
+                with torch.no_grad():
+                    hist[2, num_epochs - 1] = take_best(forward(bp, False), num_epochs - 1)
         elapsed = time.perf_counter() - t0
 
         loss_d_h, loss_q_h, tvd_h, gq_h, gd_h = hist.cpu().numpy()
         history = {"loss_classifier": loss_d_h.tolist(), "loss_born_machine": loss_q_h.tolist(),
                    "tvd": tvd_h.tolist(), "grad_norm_born": gq_h.tolist(),
                    "grad_norm_classifier": gd_h.tolist()}
-        history["epochs_per_sec"] = num_epochs / elapsed if elapsed > 0 else float("inf")
+        dispatched = sum(e for e, _ in chunk_seconds)
+        history["epochs_dispatched"] = dispatched
+        history["epochs_per_sec"] = dispatched / elapsed if elapsed > 0 else float("inf")
         history["train_seconds"] = elapsed
         steady = steady_epochs_per_sec(chunk_seconds)
         if steady is not None:
@@ -291,8 +345,15 @@ class AdversarialVariationalInference:
                 print(f"Restoring best parameters (TVD: {self.best_tvd_:.6f})")
             self.born_params = best_bp
             self.classifier_params, self.classifier_stats = best_cp, best_stats
+        if checkpoint_path:
+            classifier = {"params": self.classifier_params}
+            if self.classifier_stats is not None:
+                classifier["batch_stats"] = self.classifier_stats
+            save_checkpoint(checkpoint_path, {
+                "born": training_bundle(self.born_params), "classifier": classifier,
+                "best_tvd": torch.tensor(self.best_tvd_, dtype=dtype)})
         if verbose:
-            print(f"Adversarial training: {num_epochs} epochs in {elapsed:.3f}s "
+            print(f"Adversarial training: {dispatched} epochs in {elapsed:.3f}s "
                   f"({history['epochs_per_sec']:.1f} epochs/s)")
         return history
 

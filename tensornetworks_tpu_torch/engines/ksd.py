@@ -18,6 +18,7 @@ early).
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, Optional, Sequence
 
@@ -31,6 +32,7 @@ from ..models.born_quantum import QuantumBornMachine
 from ..ops.hamming import resolve_length_scale
 from ..ops.stein import SteinOperator, score_table
 from ..sim.structured import latent_edges
+from ..train import profile_trace, save_checkpoint, training_bundle
 from .common import global_norm, guarded_update, make_optimizer
 
 
@@ -46,12 +48,55 @@ def _posterior_vec_from(true_posterior, num_latent_vars, dtype, device):
     return torch.as_tensor(vec, dtype=dtype, device=device)
 
 
+def _resume_fingerprint(carry: dict, generators, num_epochs: int, chunk_epochs: int) -> str:
+    """The configuration a resume snapshot was written under: the epoch
+    budget, the chunking, and the shape and dtype of every carried tensor
+    and generator state. Resuming under another one would replay a stale
+    carry, so it raises instead."""
+    shapes = ";".join(f"{k}:{tuple(v.shape)}:{v.dtype}" for k, v in carry.items())
+    gens = ";".join(f"{tuple(g.get_state().shape)}" for g in generators)
+    return f"torch-v1|epochs={num_epochs}|chunk={chunk_epochs}|{shapes}|generators={gens}"
+
+
+def _save_chunk_state(path: str, carry: dict, generators, next_start: int,
+                      fingerprint: str) -> None:
+    """The durable chunk-resume snapshot: every carried tensor moved to the
+    CPU, the state of every generator the run draws from, the next epoch and
+    the fingerprint, written with ``torch.save`` to ``path + ".tmp"`` and
+    moved into place (a killed run never leaves a torn snapshot)."""
+    payload = {"carry": {k: v.detach().cpu() for k, v in carry.items()},
+               "generators": [g.get_state() for g in generators],
+               "next_start": next_start, "fingerprint": fingerprint}
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def _load_chunk_state(path: str, fingerprint: str, generators, device):
+    """Inverse of ``_save_chunk_state``: (carry on ``device``, next epoch),
+    the generators set to their saved states. The round trip is bit-exact,
+    so a resumed run replays an uninterrupted one. Raises ``ValueError`` for
+    a snapshot written under another configuration."""
+    data = torch.load(path, weights_only=True)
+    saved = data.get("fingerprint")
+    if saved != fingerprint:
+        raise ValueError(
+            f"resume snapshot {path!r} was written under a different configuration "
+            f"(saved fingerprint {saved!r} != current {fingerprint!r}); delete it or "
+            "restore the original configuration")
+    for g, state in zip(generators, data["generators"]):
+        g.set_state(state)
+    return {k: v.to(device) for k, v in data["carry"].items()}, int(data["next_start"])
+
+
 def run_ksd_scan(*, probs_fn, params0: torch.Tensor, op: SteinOperator, num_epochs: int,
                  optimizer, posterior_vec: Optional[torch.Tensor],
                  chunk_epochs: Optional[int] = None, entropy_weight: Optional[float] = None,
                  eval_probs_fn=None, noisy_eval: bool = False, early_stopping: bool = False,
                  patience: int = 200, min_epochs_before_stop: int = 300,
-                 op_schedule=None) -> dict:
+                 op_schedule=None, resume_state_path: Optional[str] = None,
+                 fail_after_chunks: Optional[int] = None, generators=(),
+                 keep_resume_state: bool = False) -> dict:
     """Train for ``num_epochs``; returns final/best params and the history.
 
     Two evaluation modes, as in the JAX engine:
@@ -80,10 +125,25 @@ def run_ksd_scan(*, probs_fn, params0: torch.Tensor, op: SteinOperator, num_epoc
     ``op_schedule`` (needs ``chunk_epochs``): ``chunk_index -> SteinOperator``
     in place of ``op`` for that chunk's loss, the tempered-target hook (the
     JAX engine's ``stein_args_schedule``, which swaps the operator's jit
-    arguments where this loop swaps the operator).
+    arguments where this loop swaps the operator); it is indexed by the
+    absolute chunk, so a resumed run trains each chunk against its target.
+
+    ``resume_state_path`` (needs ``chunk_epochs``): durable resume. After
+    every chunk the carry (parameters, optimizer state with its step count,
+    best snapshot, early-stop state, the history so far) and the state of
+    each of ``generators`` (the ``torch.Generator``s the forward draws from)
+    are written there (``_save_chunk_state``); an existing snapshot is
+    loaded first and its chunks skipped, so the run is bit-identical to an
+    uninterrupted one. The snapshot is removed at the end, unless
+    ``keep_resume_state`` (the scale runner keeps a finished phase's until
+    its last phase ends). ``fail_after_chunks``: raise ``RuntimeError`` after
+    saving that many chunks of this call (fault injection for the tests).
+    Without a path there is no file I/O and no extra host sync.
     """
     if op_schedule is not None and not chunk_epochs:
         raise ValueError("op_schedule requires chunk_epochs")
+    if resume_state_path and not chunk_epochs:
+        raise ValueError("resume_state_path requires chunk_epochs")
     dev = params0.device
     params = params0.detach().clone()
     opt_state = optimizer.init(params)
@@ -105,9 +165,28 @@ def run_ksd_scan(*, probs_fn, params0: torch.Tensor, op: SteinOperator, num_epoc
         best_params = torch.where(improved, candidate, best_params)
 
     chunk = chunk_epochs or num_epochs
+
+    def carry(end):
+        return {"params": params, **{f"opt_{k}": v for k, v in opt_state.items()},
+                "best_tvd": best_tvd, "best_epoch": best_epoch, "best_params": best_params,
+                "stopped": stopped, "since_best": since_best, "stop_at": stop_at,
+                "hist": hist[:, :end]}
+
+    first = 0
+    if resume_state_path:
+        fingerprint = _resume_fingerprint(carry(num_epochs), generators, num_epochs, chunk)
+        if os.path.exists(resume_state_path):
+            saved, first = _load_chunk_state(resume_state_path, fingerprint, generators, dev)
+            params, best_params = saved["params"], saved["best_params"]
+            opt_state = {k: saved[f"opt_{k}"] for k in opt_state}
+            best_tvd, best_epoch, stopped = saved["best_tvd"], saved["best_epoch"], saved["stopped"]
+            since_best, stop_at = saved["since_best"], saved["stop_at"]
+            hist[:, :first] = saved["hist"]
+    end = first
+    # A run that had stopped early when it was saved dispatches nothing more.
+    last = first if (first and early_stopping and bool(stopped)) else num_epochs
     chunk_seconds = []
-    dispatched = 0
-    for start in range(0, num_epochs, chunk):
+    for start in range(first, last, chunk):
         t_chunk = time.perf_counter()
         chunk_op = op if op_schedule is None else op_schedule(start // chunk)
         for epoch in range(start, min(start + chunk, num_epochs)):
@@ -148,11 +227,17 @@ def run_ksd_scan(*, probs_fn, params0: torch.Tensor, op: SteinOperator, num_epoc
             if entropy_weight is not None:
                 row.append(ent.detach())
             hist[:, epoch] = torch.stack(row)
-        dispatched = min(start + chunk, num_epochs)
+        end = min(start + chunk, num_epochs)
         best_tvd.item()  # host sync closes the chunk
-        chunk_seconds.append((min(chunk, num_epochs - start), time.perf_counter() - t_chunk))
+        chunk_seconds.append((end - start, time.perf_counter() - t_chunk))
+        if resume_state_path:
+            _save_chunk_state(resume_state_path, carry(end), generators, end, fingerprint)
+        if fail_after_chunks is not None and len(chunk_seconds) >= fail_after_chunks:
+            raise RuntimeError(f"fault injection: killed after {len(chunk_seconds)} chunks")
         if early_stopping and bool(stopped):
             break  # every later epoch would be a frozen no-op
+    if resume_state_path and not keep_resume_state and os.path.exists(resume_state_path):
+        os.remove(resume_state_path)
 
     with torch.no_grad():
         if track and reuse:
@@ -162,7 +247,7 @@ def run_ksd_scan(*, probs_fn, params0: torch.Tensor, op: SteinOperator, num_epoc
             take_best(tvd_last, num_epochs - 1, params, tvd_last < best_tvd)
             hist[1] = torch.cat([hist[1, 1:], tvd_last[None]])
         best_probs = (probs_fn if reuse else eval_probs_fn)(best_params)
-    hist = hist[:, :dispatched].cpu().numpy()
+    hist = hist[:, :end].cpu().numpy()
     out = {
         "params": params,
         "best_tvd": float(best_tvd),
@@ -174,7 +259,7 @@ def run_ksd_scan(*, probs_fn, params0: torch.Tensor, op: SteinOperator, num_epoc
         "grad_norm": hist[2],
         "skipped": hist[3],
         "stop_epoch": int(stop_at),
-        "epochs_dispatched": dispatched,
+        "epochs_dispatched": end - first,
         "chunk_seconds": chunk_seconds,
     }
     if entropy_weight is not None:
@@ -261,9 +346,16 @@ class KSDVariationalInference:
         dropout on). ``chunk_epochs`` defaults to 100 when the TVD is
         tracked, so that an early-stopped run breaks soon after its stop;
         the results do not depend on it. ``seed`` overrides the engine's
-        seed for the dropout generator."""
-        if checkpoint_path is not None or profile_dir is not None or resume_state_path is not None:
-            not_ported("checkpoint_path / profile_dir / resume_state_path", "A11")
+        seed for the dropout generator.
+
+        ``resume_state_path`` (needs ``chunk_epochs``): durable per-chunk
+        resume (``run_ksd_scan``), the dropout generator's state included.
+        ``checkpoint_path``: at the end, ``training_bundle(params,
+        best_params, best_tvd, epoch=stop epoch)`` by ``save_checkpoint``.
+        ``profile_dir``: a ``torch.profiler`` trace of the run
+        (``train.profile_trace``)."""
+        if resume_state_path and not chunk_epochs:
+            raise ValueError("resume_state_path requires chunk_epochs")
         if eval_convention not in ("deterministic", "train_noisy"):
             raise ValueError(f"unknown eval_convention {eval_convention!r}")
         noisy_eval = eval_convention == "train_noisy"
@@ -284,12 +376,14 @@ class KSDVariationalInference:
             chunk_epochs = 100
 
         t0 = time.perf_counter()
-        out = run_ksd_scan(
-            probs_fn=lambda p: bm.probs(p, x_cond, train=True, generator=gen),
-            eval_probs_fn=lambda p: bm.probs(p, x_cond), params0=self.params, op=op,
-            num_epochs=num_epochs, optimizer=optimizer, posterior_vec=posterior_vec,
-            chunk_epochs=chunk_epochs, entropy_weight=entropy_weight, noisy_eval=noisy_eval,
-            early_stopping=track, patience=patience)
+        with profile_trace(profile_dir):
+            out = run_ksd_scan(
+                probs_fn=lambda p: bm.probs(p, x_cond, train=True, generator=gen),
+                eval_probs_fn=lambda p: bm.probs(p, x_cond), params0=self.params, op=op,
+                num_epochs=num_epochs, optimizer=optimizer, posterior_vec=posterior_vec,
+                chunk_epochs=chunk_epochs, entropy_weight=entropy_weight,
+                noisy_eval=noisy_eval, early_stopping=track, patience=patience,
+                resume_state_path=resume_state_path, generators=(gen,))
         elapsed = time.perf_counter() - t0
 
         stop_epoch = out["stop_epoch"]
@@ -325,8 +419,13 @@ class KSDVariationalInference:
                 elif verbose:
                     print(f"Restored best probabilities from epoch {self.best_epoch_ + 1}: "
                           f"TVD {final_tvd:.6f}")
+        if checkpoint_path:
+            save_checkpoint(checkpoint_path, training_bundle(
+                self.params, best_params=self.best_params_,
+                best_tvd=torch.tensor(self.best_tvd_, dtype=self.dtype),
+                epoch=torch.tensor(stop_epoch)))
         if verbose:
-            print(f"KSD training: {stop_epoch} epochs in {elapsed:.3f}s "
+            print(f"KSD training: {ran} epochs in {elapsed:.3f}s "
                   f"({history['epochs_per_sec']:.1f} epochs/s)")
         return history
 
@@ -382,15 +481,31 @@ class QuantumKSDVariationalInference:
               lr_born_machine: float, verbose: bool = True, true_posterior_for_tvd=None,
               use_lr_scheduler: bool = True, gradient_clip_norm: float = 10.0,
               optimizer_type: str = "adam", adam_betas=(0.9, 0.999),
-              chunk_epochs: Optional[int] = None,
-              temper_betas: Optional[Sequence[float]] = None) -> dict:
+              seed: Optional[int] = None, checkpoint_path: Optional[str] = None,
+              profile_dir: Optional[str] = None, chunk_epochs: Optional[int] = None,
+              resume_state_path: Optional[str] = None,
+              temper_betas: Optional[Sequence[float]] = None,
+              keep_resume_state: bool = False) -> dict:
         """``temper_betas`` (needs ``chunk_epochs``): per-chunk inverse
         temperatures; chunk i trains against p^β[i], β past the list's end
         holding at its last value (end with 1.0 to finish on the posterior).
         One operator per distinct β, built when its first chunk starts;
         β = 1.0 is the untempered operator. The TVD is always taken against
         the untempered posterior, so the best snapshot is chosen by true
-        quality."""
+        quality.
+
+        ``resume_state_path`` (needs ``chunk_epochs``): durable per-chunk
+        resume (``run_ksd_scan``); a run resumed inside a β chunk trains
+        against that chunk's target. ``checkpoint_path``: at the end,
+        ``training_bundle(params, best_params, best_tvd)`` (the JAX engine's
+        keys: no epoch) by ``save_checkpoint``. ``profile_dir``: a
+        ``torch.profiler`` trace of the run. ``seed`` is the JAX engine's
+        argument; the quantum forward draws nothing, so it changes nothing.
+        ``keep_resume_state``: leave the snapshot in place at the end (the
+        scale runner's phases)."""
+        del seed
+        if resume_state_path and not chunk_epochs:
+            raise ValueError("resume_state_path requires chunk_epochs")
         if temper_betas is not None and not chunk_epochs:
             raise ValueError("temper_betas requires chunk_epochs")
         if self.num_observed_vars > 0 and set(x_observation_dict) != set(self.observed_vars_names):
@@ -411,10 +526,12 @@ class QuantumKSDVariationalInference:
         optimizer = make_optimizer(optimizer_type, lr_born_machine, num_epochs,
                                    use_lr_scheduler, adam_betas, gradient_clip_norm)
         t0 = time.perf_counter()
-        out = run_ksd_scan(probs_fn=self.born_machine.probs, params0=self.params, op=op,
-                           num_epochs=num_epochs, optimizer=optimizer,
-                           posterior_vec=posterior_vec, chunk_epochs=chunk_epochs,
-                           op_schedule=schedule)
+        with profile_trace(profile_dir):
+            out = run_ksd_scan(probs_fn=self.born_machine.probs, params0=self.params, op=op,
+                               num_epochs=num_epochs, optimizer=optimizer,
+                               posterior_vec=posterior_vec, chunk_epochs=chunk_epochs,
+                               op_schedule=schedule, resume_state_path=resume_state_path,
+                               keep_resume_state=keep_resume_state)
         elapsed = time.perf_counter() - t0
 
         self.params = out["params"]
@@ -422,7 +539,10 @@ class QuantumKSDVariationalInference:
         self.best_tvd_ = out["best_tvd"]
         self.best_epoch_ = out["best_epoch"]
         history = {k: out[k].tolist() for k in ("loss_ksd", "tvd", "grad_norm")}
-        history["epochs_per_sec"] = num_epochs / elapsed if elapsed > 0 else float("inf")
+        # The rate over the epochs dispatched in this call: a resumed run
+        # skips its finished chunks.
+        history["epochs_per_sec"] = (out["epochs_dispatched"] / elapsed if elapsed > 0
+                                     else float("inf"))
         history["train_seconds"] = elapsed
         history["num_skipped_updates"] = int(out["skipped"].sum())
         steady = steady_epochs_per_sec(out["chunk_seconds"])
@@ -434,8 +554,12 @@ class QuantumKSDVariationalInference:
             if verbose:
                 print(f"Restoring best parameters (TVD: {self.best_tvd_:.6f})")
             self.params = self.best_params_
+        if checkpoint_path:
+            save_checkpoint(checkpoint_path, training_bundle(
+                self.params, best_params=self.best_params_,
+                best_tvd=torch.tensor(self.best_tvd_, dtype=self.dtype)))
         if verbose:
-            print(f"Quantum KSD training: {num_epochs} epochs in {elapsed:.3f}s "
+            print(f"Quantum KSD training: {out['epochs_dispatched']} epochs in {elapsed:.3f}s "
                   f"({history['epochs_per_sec']:.1f} epochs/s)")
         return history
 

@@ -5,8 +5,9 @@ reference ansätze (``hardware_efficient``, ``all_to_all``,
 ``basic``) and the DAG-structured ``bn_structured``, whose entanglers follow
 ``edges`` (required; see ``sim.structured.latent_edges``). ``probs(params)``
 is the analytic |ψ(θ)|² over all 2^n outcomes; gradients flow through torch
-autograd. ``log_probs``, ``log_q`` (log q at sampled bit rows) and
-``sample`` (by the inverse CDF, uniforms from a generator) build on it.
+autograd. ``state(params)`` is ψ(θ) itself, as a (2,)*n complex tensor.
+``log_probs``, ``log_q`` (log q at sampled bit rows) and ``sample`` (by the
+inverse CDF, uniforms from a generator) build on ``probs``.
 
 Backends (all give the same distribution):
 - ``circuit2d``: the hand-written CUDA circuit kernels (forward and adjoint
@@ -56,8 +57,8 @@ import torch
 
 from ..core.bits import all_bitstrings, generate_all_binary_outcomes, torch_bits_to_index
 from ..ops.kernels import circuit2d, circuit2d_grid
-from ..sim.ansatz import ansatz_probs, num_ansatz_params
-from ..sim.blocked import make_blocked_probs_fn
+from ..sim.ansatz import ansatz_probs, ansatz_state, num_ansatz_params
+from ..sim.blocked import make_blocked_probs_fn, make_blocked_state_fn
 from ..sim.blocked2d import make_blocked2d_probs_fn
 from ..sim.blocked_adjoint import make_blocked_adjoint_probs_fn
 from ..sim.sampling import draw_uniforms, sample_bits
@@ -176,6 +177,8 @@ class QuantumBornMachine:
             self._probs = make_blocked2d_probs_fn(n, ansatz_layers, ansatz_type)
         else:
             self._probs = lambda p: ansatz_probs(p, n, ansatz_layers, ansatz_type)
+        self._block = block
+        self._state_fn = getattr(self._probs, "state", None)
         self._all_outcome_tuples = None
 
     def init(self, generator: torch.Generator) -> torch.Tensor:
@@ -247,6 +250,45 @@ class QuantumBornMachine:
             return batch(circ, angles)
         return torch.stack([self._probs(circ, a) for a in angles])
 
+    def state(self, params: torch.Tensor, x_condition=None) -> torch.Tensor:
+        """ψ(θ) (or ψ(θ | x)) as a (2,)*n complex tensor, index for index
+        the amplitudes of ``probs`` (``|state|² == probs``). On the circuit
+        backends it is the final state the forward kernel writes for its
+        backward, re-indexed from the (R, C) view, with no autograd graph;
+        ``blocked`` runs its state function, ``blocked2d`` and ``einsum``
+        the gate-by-gate ansatz. bn_structured exposes probabilities only,
+        as in the JAX package."""
+        if self.ansatz_type == "bn_structured":
+            raise NotImplementedError(
+                "bn_structured exposes probabilities only; use probs/sample/log_q")
+        if self._state_fn is None:
+            n, L, kind = self.num_latent_vars, self.ansatz_layers, self.ansatz_type
+            if self.backend == "blocked":
+                cdtype = torch.complex128 if self.dtype == torch.float64 else torch.complex64
+                self._state_fn = make_blocked_state_fn(n, L, kind, block=self._block,
+                                                       dtype=cdtype,
+                                                       conditioning=self.conditioning_dim > 0)
+            else:
+                self._state_fn = lambda p: ansatz_state(p, n, L, kind)
+        shape = (2,) * self.num_latent_vars
+        if self.conditioning_dim == 0:
+            if x_condition is not None:
+                raise ValueError("x_condition provided but conditioning_dim is 0.")
+            return self._state_fn(params).reshape(shape)
+        if x_condition is None:
+            raise ValueError("x_condition must be provided for a conditioned quantum Born "
+                             "machine.")
+        return self._state_fn(params[:self.num_circuit_params],
+                              self._embed_angles(x_condition, params)).reshape(shape)
+
+    @property
+    def all_outcome_tuples(self) -> list:
+        """Every outcome as a tuple of bits, in index order (built on first
+        use: 2^n tuples)."""
+        if self._all_outcome_tuples is None:
+            self._all_outcome_tuples = generate_all_binary_outcomes(self.num_latent_vars)
+        return self._all_outcome_tuples
+
     def log_probs(self, params: torch.Tensor, x_condition=None) -> torch.Tensor:
         return torch.log(self.probs(params, x_condition).clamp(min=LOG_PROB_EPS))
 
@@ -267,6 +309,4 @@ class QuantumBornMachine:
     def get_prob_dict(self, params: torch.Tensor, x_condition=None) -> dict:
         with torch.no_grad():
             p = self.probs(params, x_condition).detach().cpu().numpy()
-        if self._all_outcome_tuples is None:
-            self._all_outcome_tuples = generate_all_binary_outcomes(self.num_latent_vars)
-        return {t: float(p[i]) for i, t in enumerate(self._all_outcome_tuples)}
+        return {t: float(p[i]) for i, t in enumerate(self.all_outcome_tuples)}

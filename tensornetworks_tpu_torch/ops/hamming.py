@@ -9,6 +9,9 @@ distance ``d``; over all ``2^n`` states it is the Kronecker power
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ..core.bits import all_bitstrings
 
 
 def resolve_length_scale(length_scale, num_vars: int) -> float:
@@ -32,3 +35,29 @@ def decay_factor(num_vars: int, length_scale: float = 1.0) -> float:
     if num_vars == 0:
         return 1.0
     return float(np.exp(-1.0 / (num_vars * length_scale)))
+
+
+def hamming_distance(z1: torch.Tensor, z2: torch.Tensor) -> torch.Tensor:
+    """L1 distance of bit vectors along the last axis (batched, broadcast)."""
+    return (z1 - z2).abs().sum(dim=-1)
+
+
+def base_hamming_kernel(z1: torch.Tensor, z2: torch.Tensor, num_vars: int,
+                        length_scale: float = 1.0) -> torch.Tensor:
+    """``exp(-d/(n·l))`` between (batched) bit vectors; 1 for n = 0."""
+    if num_vars == 0:
+        shape = torch.broadcast_shapes(z1.shape[:-1], z2.shape[:-1])
+        return torch.ones(shape, dtype=torch.result_type(z1, z2), device=z1.device)
+    return torch.exp(-hamming_distance(z1, z2) / (num_vars * length_scale))
+
+
+def hamming_kernel_matrix(num_vars: int, length_scale: float = 1.0, dtype=torch.float32,
+                          device="cuda") -> torch.Tensor:
+    """Dense (2^n, 2^n) Gram matrix ``K[i, j] = a^popcount(i ^ j)``, from the
+    bits matrix by one matmul (``D = h1ᵀ + 1hᵀ - 2BBᵀ``); 4^n memory, so for
+    moderate n only."""
+    B = torch.as_tensor(all_bitstrings(num_vars), dtype=dtype, device=device)
+    h = B.sum(dim=1)
+    D = h[:, None] + h[None, :] - 2.0 * (B @ B.T)
+    return torch.pow(torch.tensor(decay_factor(num_vars, length_scale), dtype=dtype,
+                                  device=device), D)

@@ -503,11 +503,19 @@ def circuit_operators(params: torch.Tensor, plan, embed_angles=None,
     return fold_wall(Mr, Mc, embed_angles, plan.n, reupload)
 
 
-def make_probs_fn(plan, launch, conditioning: bool, reupload: bool):
-    """probs(params[, embed_angles]) of a circuit plan, ``launch(Mr, Mc)``
-    giving the (2^n,) probabilities of the operators. A conditioned
-    function also has ``batch(params, angles_seq)``, (X, 2^n) for X walls:
-    the θ fold once, then a wall fold and a launch for each."""
+def make_probs_fn(plan, planes, function, forward, conditioning: bool, reupload: bool):
+    """probs(params[, embed_angles]) of a circuit plan: ``planes(Mr, Mc)``
+    gives the operator planes of the complex operators, ``function`` (an
+    autograd Function) the (R, C) probabilities of the planes. A
+    conditioned function also has ``batch(params, angles_seq)``, (X, 2^n)
+    for X walls: the θ fold once, then a wall fold and a launch for each.
+    Every function has ``state(params[, embed_angles])``: the flat (2^n,)
+    final state from ``forward``'s planes xr, xi — the state the forward
+    kernel writes for the backward, in the index order of the
+    probabilities — with no autograd graph."""
+
+    def launch(Mr, Mc):
+        return function.apply(*planes(Mr, Mc), plan).reshape(-1)
 
     def probs_fn(params: torch.Tensor, embed_angles=None) -> torch.Tensor:
         if conditioning and embed_angles is None:
@@ -519,8 +527,17 @@ def make_probs_fn(plan, launch, conditioning: bool, reupload: bool):
         M = rotation_operators(params, plan.n, plan.layers, plan.per_qubit)
         return torch.stack([launch(*fold_wall(*M, a, plan.n, reupload)) for a in angles_seq])
 
+    def state(params: torch.Tensor, embed_angles=None) -> torch.Tensor:
+        if conditioning and embed_angles is None:
+            raise ValueError("conditioning=True requires embed_angles")
+        with torch.no_grad():
+            M = circuit_operators(params, plan, embed_angles if conditioning else None, reupload)
+            _, xr, xi = forward(*planes(*M), plan)
+        return torch.complex(xr, xi).reshape(-1)
+
     if conditioning:
         probs_fn.batch = batch
+    probs_fn.state = state
     return probs_fn
 
 
@@ -529,12 +546,12 @@ def make_circuit2d_probs_fn(num_wires: int, layers: int, ansatz_type: str, edges
     """probs(params) -> (2^n,) through the circuit kernels (``edges`` for
     bn_structured); with ``conditioning``, probs(params, embed_angles), the
     wall folded into the operator planes (``reupload``: before every
-    layer). ``probs.batch`` runs several walls on one θ fold."""
+    layer). ``probs.batch`` runs several walls on one θ fold;
+    ``probs.state`` gives the final state from the forward kernel."""
     plan = CircuitPlan(num_wires, layers, ansatz_type, edges)
 
-    def launch(Mr, Mc):
-        return Circuit2dFunction.apply(Mr.real.contiguous(), Mr.imag.contiguous(),
-                                       Mc.real.contiguous(), Mc.imag.contiguous(),
-                                       plan).reshape(-1)
+    def planes(Mr, Mc):
+        return [t.contiguous() for t in (Mr.real, Mr.imag, Mc.real, Mc.imag)]
 
-    return make_probs_fn(plan, launch, conditioning, reupload)
+    return make_probs_fn(plan, planes, Circuit2dFunction, circuit2d_forward, conditioning,
+                         reupload)

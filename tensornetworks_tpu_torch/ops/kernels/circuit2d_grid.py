@@ -334,10 +334,8 @@ def make_circuit2d_grid_probs_fn(num_wires: int, layers: int, ansatz_type: str, 
     for bn_structured); with ``conditioning``, probs(params, embed_angles),
     the wall folded into the operator planes before the row gather
     (``reupload``: before every layer). ``probs.batch`` runs several walls
-    on one θ fold."""
+    on one θ fold; ``probs.state`` gives the final state from the forward
+    kernel."""
     plan = GridPlan(num_wires, layers, ansatz_type, edges)
-
-    def launch(Mr, Mc):
-        return Circuit2dGridFunction.apply(*grid_planes(Mr, Mc, plan), plan).reshape(-1)
-
-    return make_probs_fn(plan, launch, conditioning, reupload)
+    return make_probs_fn(plan, lambda Mr, Mc: grid_planes(Mr, Mc, plan), Circuit2dGridFunction,
+                         circuit2d_grid_forward, conditioning, reupload)

@@ -61,6 +61,19 @@ def score_table(cond_joint: np.ndarray, eps: float = SCORE_EPS) -> np.ndarray:
     return St.T
 
 
+def score_table_from_log(log_t: torch.Tensor, num_vars: int,
+                         log_eps: float = float(np.log(SCORE_EPS))) -> torch.Tensor:
+    """The score table (2^n, n) from a log joint table, on ``log_t``'s
+    device: ``S[i, m] = 1 - exp(log_t[i ^ bit_m] - log_t[i])``, rows with
+    ``log_t < log_eps`` zeroed (``score_table``'s guard in log space)."""
+    if num_vars == 0:
+        return torch.zeros((1, 0), dtype=log_t.dtype, device=log_t.device)
+    idx = torch.arange(log_t.shape[0], device=log_t.device)
+    S = torch.stack([1.0 - torch.exp(log_t[idx ^ (1 << (num_vars - 1 - m))] - log_t)
+                     for m in range(num_vars)], dim=1)
+    return torch.where(log_t[:, None] < log_eps, torch.zeros_like(S), S)
+
+
 def stein_gram_dense(S: torch.Tensor, num_vars: int, length_scale: float = 1.0) -> torch.Tensor:
     """The full (2^n, 2^n) Stein Gram matrix K_p, in S's dtype and device."""
     if num_vars == 0:

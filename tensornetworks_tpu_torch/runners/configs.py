@@ -1,6 +1,5 @@
 """Typed experiment configurations: the reference runners' shipped values.
-Counterpart of ``tensornetworks_tpu/runners/configs.py`` (all but
-``ScaleConfig``)."""
+Counterpart of ``tensornetworks_tpu/runners/configs.py``."""
 
 from __future__ import annotations
 
@@ -75,4 +74,18 @@ class AdversarialConfig:
     baseline_decay: float = 0.95
     optimizer_type: str = "adam"
     adam_betas: Tuple[float, float] = (0.5, 0.999)
+    seed: int = 0
+
+
+@dataclass
+class ScaleConfig:
+    """The scale configurations: the 8-variable custom network and the
+    16/20-qubit large-state-space stress runs."""
+
+    num_vars: int = 8
+    num_observed: int = 1
+    ansatz_layers: int = 4
+    ansatz_type: str = "hardware_efficient"
+    num_epochs: int = 200
+    lr: float = 5e-3
     seed: int = 0

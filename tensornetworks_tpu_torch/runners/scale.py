@@ -20,8 +20,7 @@ Stein structure; past 24 qubits its Born machine runs the blocked executor
 
 from __future__ import annotations
 
-import argparse
-import json
+import os
 import time
 from typing import Optional
 
@@ -30,7 +29,6 @@ import numpy as np
 from ..core import get_random_chain_network
 from ..engines import (AdversarialVariationalInference, QuantumKSDVariationalInference,
                        SampledKSDVariationalInference, fit_born_machine, marginals_product)
-from ..engines.ksd import not_ported
 from ..models import QuantumBornMachine
 from ..ops.hamming import resolve_length_scale
 from ..sim.structured import latent_edges
@@ -101,8 +99,16 @@ def run_scale_experiment(num_qubits: int = 8, layers: int = 4, num_epochs: int =
     fitted parameters; the fit's history is returned under
     ``"warm_start"``.
 
-    Not ported yet, and raising ``NotImplementedError``:
-    ``resume_state_path`` and ``checkpoint_path``.
+    ``resume_state_path`` (ksd and adversarial objectives, needs
+    ``chunk_epochs``): durable per-chunk resume, passed to each phase's
+    ``train``. With several ``lr_phases`` phase i resumes from its own
+    ``f"{path}.phase{i}"`` (see ``phase_resume_paths``), and every phase's
+    snapshot is kept until the last phase ends, so a rerun after a kill
+    replays the finished phases from their snapshots without training and
+    resumes the interrupted one. ``checkpoint_path`` (ksd and adversarial):
+    each phase's ``train`` writes its checkpoint there at its end, so the
+    last phase's stays. The sampled objective has neither hook and raises
+    for them (the JAX runner ignores them).
     """
     if objective not in ("ksd", "adversarial", "sampled-ksd"):
         raise ValueError(f"unknown objective {objective!r}")
@@ -113,8 +119,9 @@ def run_scale_experiment(num_qubits: int = 8, layers: int = 4, num_epochs: int =
         raise ValueError(f"unknown warm_start {warm_start!r}; expected 'marginals'")
     if warm_start is not None and objective != "ksd":
         raise ValueError(f"warm_start applies to the ksd objective, not {objective!r}")
-    if resume_state_path is not None or checkpoint_path is not None:
-        not_ported("resume_state_path / checkpoint_path", "A11")
+    if objective == "sampled-ksd" and (resume_state_path or checkpoint_path):
+        raise ValueError("the sampled engine has no resume or checkpoint hook "
+                         "(resume_state_path, checkpoint_path)")
 
     bn, latent, observed = make_scale_problem(num_qubits, seed)
     if track_tvd is None:
@@ -136,7 +143,8 @@ def run_scale_experiment(num_qubits: int = 8, layers: int = 4, num_epochs: int =
         model, history = _train_adversarial(
             bn, latent, observed, posterior, num_qubits, layers, ansatz, backend, seed,
             lr_phases or [(num_epochs, lr)], chunk_epochs, verbose, adv_batch_size,
-            adv_k_classifier, adv_lr_classifier_mult, device)
+            adv_k_classifier, adv_lr_classifier_mult, device, resume_state_path,
+            checkpoint_path)
         return _report(history, model, num_qubits, objective, verbose)
     model = QuantumKSDVariationalInference(
         bn, latent, list(observed), qbm_num_latent_vars=num_qubits,
@@ -153,8 +161,9 @@ def run_scale_experiment(num_qubits: int = 8, layers: int = 4, num_epochs: int =
             print(f"warm start: TVD(model, marginals surrogate) = {warm['best_tvd']:.4f} "
                   f"in {time.perf_counter() - t0:.0f}s")
     phases = list(lr_phases) if lr_phases else [(num_epochs, lr)]
+    resume_paths = phase_resume_paths(resume_state_path, len(phases))
     best_tvd, best_params = np.inf, None
-    for phase in phases:
+    for phase, resume_path in zip(phases, resume_paths):
         if len(phase) == 3:
             p_epochs, p_lr, p_ls = phase
             model.base_kernel_length_scale = resolve_length_scale(p_ls, num_qubits)
@@ -163,7 +172,9 @@ def run_scale_experiment(num_qubits: int = 8, layers: int = 4, num_epochs: int =
         history = model.train(observed, num_epochs=int(p_epochs), lr_born_machine=float(p_lr),
                               verbose=verbose, true_posterior_for_tvd=posterior,
                               gradient_clip_norm=10.0, chunk_epochs=chunk_epochs,
-                              temper_betas=temper_betas)
+                              temper_betas=temper_betas, resume_state_path=resume_path,
+                              checkpoint_path=checkpoint_path,
+                              keep_resume_state=len(phases) > 1)
         # Each train() restores its own phase-best into model.params (the next
         # phase restarts from it); a later phase can end worse than an earlier
         # one, so keep the across-phase best.
@@ -172,6 +183,7 @@ def run_scale_experiment(num_qubits: int = 8, layers: int = 4, num_epochs: int =
         if verbose and len(phases) > 1:
             print(f"phase ({int(p_epochs)} epochs @ lr {p_lr}): "
                   f"best TVD {model.best_tvd_:.6f}")
+    remove_phase_snapshots(resume_paths)
     if best_params is not None:
         model.params = best_params
         model.best_params_ = best_params
@@ -182,14 +194,36 @@ def run_scale_experiment(num_qubits: int = 8, layers: int = 4, num_epochs: int =
     return out
 
 
+def phase_resume_paths(path: Optional[str], num_phases: int) -> list:
+    """The resume snapshot of each ``lr_phases`` phase: the path itself for
+    one phase, ``f"{path}.phase{i}"`` for phase i of several. The JAX runner
+    passes one path to every phase (``runners/scale.py:134`` and ``:190``
+    there), so its phase 2 replays phase 1's snapshot or raises a
+    fingerprint mismatch (ADVICE.md); here each phase has its own."""
+    if path is None or num_phases == 1:
+        return [path] * num_phases
+    return [f"{path}.phase{i}" for i in range(num_phases)]
+
+
+def remove_phase_snapshots(paths) -> None:
+    """After the last phase: the phases' snapshots, kept until then so that
+    a rerun replays the finished phases, are removed."""
+    if len(paths) > 1:
+        for p in paths:
+            if p is not None and os.path.exists(p):
+                os.remove(p)
+
+
 def _train_adversarial(bn, latent, observed, posterior, n, layers, ansatz, backend, seed,
-                       phases, chunk_epochs, verbose, batch_size, k_classifier, lr_mult, device):
+                       phases, chunk_epochs, verbose, batch_size, k_classifier, lr_mult, device,
+                       resume_state_path, checkpoint_path):
     edges = latent_edges(bn, latent) if ansatz == "bn_structured" else None
     qbm = QuantumBornMachine(n, ansatz_layers=layers, ansatz_type=ansatz, backend=backend,
                              init_method="small_random", device=device, edges=edges)
     model = AdversarialVariationalInference(
         bn, latent, list(observed), born_machine=qbm, seed=seed, device=device,
         classifier_config={"hidden_dims": [max(2 * n, 32), max(n, 16)]})
+    resume_paths = phase_resume_paths(resume_state_path, len(phases))
     best_tvd, best = np.inf, None
     for pi, (p_epochs, p_lr, *_) in enumerate(phases):
         history = model.train(observed, num_epochs=int(p_epochs), batch_size=batch_size,
@@ -198,7 +232,9 @@ def _train_adversarial(bn, latent, observed, posterior, n, layers, ansatz, backe
                               true_posterior_for_tvd=posterior, gradient_clip_norm=5.0,
                               baseline_decay=0.95, adam_betas=(0.5, 0.999),
                               chunk_epochs=chunk_epochs, seed=seed + 7919 * pi,
-                              log_p_floor=60.0)
+                              log_p_floor=60.0, resume_state_path=resume_paths[pi],
+                              checkpoint_path=checkpoint_path,
+                              keep_resume_state=len(phases) > 1)
         # train() restores its phase-best (the next phase restarts from it);
         # keep the across-phase best.
         if posterior is not None and model.best_tvd_ < best_tvd:
@@ -207,6 +243,7 @@ def _train_adversarial(bn, latent, observed, posterior, n, layers, ansatz, backe
         if verbose and len(phases) > 1:
             print(f"phase ({int(p_epochs)} epochs @ lr {p_lr}): "
                   f"best TVD {model.best_tvd_:.6f}")
+    remove_phase_snapshots(resume_paths)
     if best is not None:
         model.born_params, model.classifier_params, model.classifier_stats = best
         model.best_tvd_ = best_tvd
@@ -255,31 +292,3 @@ def run_sampling_throughput(num_qubits: int = 20, layers: int = 2, num_samples: 
               f"({num_samples} samples in {dt * 1e3:.1f} ms incl. statevector forward)")
     return {"samples_per_sec": rate, "num_qubits": num_qubits}
 
-
-def main(argv=None):
-    ap = argparse.ArgumentParser(description="one run_scale_experiment on the card")
-    ap.add_argument("--qubits", type=int, default=16)
-    ap.add_argument("--layers", type=int, default=4)
-    ap.add_argument("--ansatz", default="hardware_efficient")
-    ap.add_argument("--objective", choices=("ksd", "adversarial"), default="ksd")
-    ap.add_argument("--epochs", type=int, default=200)
-    ap.add_argument("--lr", type=float, default=5e-3)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--chunk", type=int, default=500, help="epochs between host syncs")
-    args = ap.parse_args(argv)
-    import torch
-
-    out = run_scale_experiment(num_qubits=args.qubits, layers=args.layers,
-                               num_epochs=args.epochs, lr=args.lr, objective=args.objective,
-                               seed=args.seed, verbose=False, ansatz=args.ansatz,
-                               chunk_epochs=args.chunk)
-    model, hist = out["model"], out["history"]
-    print(json.dumps({"device": torch.cuda.get_device_name(0), **vars(args),
-                      "best_tvd": model.best_tvd_, "best_epoch": model.best_epoch_,
-                      "tvd_epoch0": hist["tvd"][0], "train_seconds": hist["train_seconds"],
-                      "epochs_per_sec": hist["epochs_per_sec"],
-                      "epochs_per_sec_steady": hist.get("epochs_per_sec_steady")}))
-
-
-if __name__ == "__main__":
-    main()

@@ -12,8 +12,8 @@ from typing import Optional
 
 from ..core import calculate_tvd, get_sprinkler_network
 from ..engines import AdversarialVariationalInference
-from ..engines.ksd import not_ported
 from .configs import AdversarialConfig
+from ..utils import plot_training_results
 from .reporting import print_final_report, print_stability_stats
 
 
@@ -21,9 +21,7 @@ def run_sprinkler_experiment(config: Optional[AdversarialConfig] = None, verbose
                              plot_path: Optional[str] = None, device="cuda"):
     """Train the configuration (shipped values by default); returns the
     history, final TVD, learned and true posteriors, the model and the
-    config as a dict. ``plot_path`` is not ported yet."""
-    if plot_path is not None:
-        not_ported("plot_path (utils/plotting)", "A11")
+    config as a dict; ``plot_path`` saves the training curves there."""
     cfg = config or AdversarialConfig()
     bn = get_sprinkler_network(random_cpts=False)
     latent, x_obs = cfg.latent_vars, cfg.observed
@@ -71,6 +69,8 @@ def run_sprinkler_experiment(config: Optional[AdversarialConfig] = None, verbose
     if verbose:
         print_final_report(latent, x_obs, true_posterior, learned, final_tvd)
         print_stability_stats(history)
+    if plot_path:
+        plot_training_results(history, "Adversarial VI", save_path=plot_path)
     return {"history": history, "final_tvd": final_tvd, "learned": learned,
             "true_posterior": true_posterior, "model": model, "config": asdict(cfg)}
 

@@ -12,11 +12,16 @@ from typing import Optional
 
 from ..core import calculate_tvd, get_sprinkler_network
 from ..engines import QuantumKSDVariationalInference
+from ..utils import plot_training_results
 from .configs import QuantumKSDConfig
 
 
 def run_sprinkler_quantum_ksd_experiment(config: Optional[QuantumKSDConfig] = None,
-                                         verbose: bool = True, device="cuda"):
+                                         verbose: bool = True, plot_path: Optional[str] = None,
+                                         device="cuda"):
+    """Train the configuration (shipped values by default); returns the
+    history, final TVD, learned and true posteriors, the model and the
+    config as a dict; ``plot_path`` saves the training curves there."""
     cfg = config or QuantumKSDConfig()
     bn = get_sprinkler_network(random_cpts=False)
     latent, x_obs = cfg.latent_vars, cfg.observed
@@ -57,6 +62,8 @@ def run_sprinkler_quantum_ksd_experiment(config: Optional[QuantumKSDConfig] = No
         for key in sorted(true_posterior):
             print(f"{str(key):<24}{true_posterior[key]:>12.6f}{learned.get(key, 0.0):>12.6f}")
         print(f"Final TVD vs true posterior (evidence {x_obs}): {final_tvd:.6f}")
+    if plot_path:
+        plot_training_results(history, "Quantum KSD VI", save_path=plot_path)
     return {"history": history, "final_tvd": final_tvd, "learned": learned,
             "true_posterior": true_posterior, "model": model, "config": asdict(cfg)}
 

@@ -371,7 +371,7 @@ def test_multinomial_sampler_draws_from_the_distribution():
     assert int(freq[1]) == 0
 
 
-def test_sprinkler_adversarial_runner_returns_the_jax_runner_keys():
+def test_sprinkler_adversarial_runner_returns_the_jax_runner_keys(tmp_path):
     cfg = AdversarialConfig(num_epochs=20)
     out = run_sprinkler_experiment(cfg, verbose=False, device="cpu")
     jout = j_run(JAdvConfig(num_epochs=20), verbose=False)
@@ -382,9 +382,11 @@ def test_sprinkler_adversarial_runner_returns_the_jax_runner_keys():
     model = out["model"]
     assert model.classifier_input_dim == 4 and model.classifier.hidden_dims == (32, 16)
     assert model.best_tvd_ == pytest.approx(min(out["history"]["tvd"]))
-    with pytest.raises(NotImplementedError, match="A11"):
-        run_sprinkler_experiment(cfg, verbose=False, plot_path="x.png", device="cpu")
+    plot = tmp_path / "adv.png"
+    run_sprinkler_experiment(AdversarialConfig(num_epochs=3), verbose=False,
+                             plot_path=str(plot), device="cpu")
+    assert plot.exists()
     eng = AdversarialVariationalInference(get_sprinkler_network(), *SPRINKLER[:1], ["W"],
                                           device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        eng.train({"W": 1}, 1, 4, 0.1, 0.1, checkpoint_path="c")
+    with pytest.raises(ValueError, match="chunk_epochs"):
+        eng.train({"W": 1}, 1, 4, 0.1, 0.1, resume_state_path=str(tmp_path / "r"))

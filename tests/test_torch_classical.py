@@ -283,20 +283,26 @@ def test_second_run_trains_the_parameters_again():
     assert h["grad_norm"][0] > 0 and not torch.equal(eng.params, after_first)
 
 
-def test_engine_names_what_is_not_ported():
+def test_engine_names_what_is_not_ported(tmp_path):
+    """The engine's hooks that were not ported before ROADMAP A11 now run (a
+    checkpoint file, a profiler trace); resuming needs chunks; the rest
+    raises as in the JAX engine."""
     latent, obs = SPRINKLER
     eng = KSDVariationalInference(get_sprinkler_network(), latent, list(obs),
                                   {"conditioning_dim": 0}, device="cpu")
-    for kw in (dict(checkpoint_path="c"), dict(profile_dir="p"), dict(resume_state_path="r")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            eng.train(obs, num_epochs=1, lr_born_machine=0.1, verbose=False, **kw)
+    with pytest.raises(ValueError, match="chunk_epochs"):
+        eng.train(obs, num_epochs=1, lr_born_machine=0.1, verbose=False,
+                  resume_state_path=str(tmp_path / "r"))
+    eng.train(obs, num_epochs=1, lr_born_machine=0.1, verbose=False,
+              checkpoint_path=str(tmp_path / "c"), profile_dir=str(tmp_path / "p"))
+    assert (tmp_path / "c").exists() and list((tmp_path / "p").iterdir())
     with pytest.raises(ValueError):
         eng.train(obs, num_epochs=1, lr_born_machine=0.1, eval_convention="other")
     with pytest.raises(ValueError):
         eng.train({"X": 1}, num_epochs=1, lr_born_machine=0.1)
 
 
-def test_sprinkler_ksd_runner_returns_the_jax_runner_keys():
+def test_sprinkler_ksd_runner_returns_the_jax_runner_keys(tmp_path):
     cfg = ClassicalKSDConfig(num_epochs=30)
     out = run_sprinkler_ksd_experiment(cfg, verbose=False, device="cpu")
     jout = j_run(__import__("tensornetworks_tpu.runners.configs", fromlist=["x"])
@@ -307,8 +313,10 @@ def test_sprinkler_ksd_runner_returns_the_jax_runner_keys():
     assert set(out["history"]) >= {"loss_ksd", "tvd", "grad_norm", "entropy"}
     assert 0.0 <= out["final_tvd"] <= 1.0
     assert out["model"].born_machine.conditioning_dim == 1
-    with pytest.raises(NotImplementedError, match="A11"):
-        run_sprinkler_ksd_experiment(cfg, verbose=False, plot_path="x.png", device="cpu")
+    plot = tmp_path / "ksd.png"
+    run_sprinkler_ksd_experiment(ClassicalKSDConfig(num_epochs=3), verbose=False,
+                                 plot_path=str(plot), device="cpu")
+    assert plot.exists()
 
 
 def test_print_final_report_matches_jax():

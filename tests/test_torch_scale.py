@@ -156,11 +156,13 @@ def test_run_scale_experiment_lr_phases_equal_phases_by_hand():
     assert torch.equal(model.params, best_params)
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(resume_state_path="r"), "A11"), (dict(checkpoint_path="c"), "A11")])
-def test_run_scale_experiment_names_what_is_not_ported(kwargs, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tscale.run_scale_experiment(num_qubits=3, layers=1, num_epochs=1, device="cpu", **kwargs)
+@pytest.mark.parametrize("kwargs", [dict(resume_state_path="r"), dict(checkpoint_path="c")])
+def test_run_scale_experiment_names_what_is_not_ported(kwargs):
+    """Resume and checkpoint run on the ksd and adversarial objectives
+    (tests/test_torch_resume.py); the sampled engine has neither hook."""
+    with pytest.raises(ValueError, match="no resume or checkpoint hook"):
+        tscale.run_scale_experiment(num_qubits=3, layers=1, num_epochs=1, device="cpu",
+                                    objective="sampled-ksd", **kwargs)
 
 
 def test_print_stability_stats_matches_jax():
