@@ -165,6 +165,34 @@ Phases (any failure exits non-zero):
    1, 2, 3 and stein_gcorr. state16/state20: ``QuantumBornMachine.state``
    (HE L=4) from kernel 1 and kernel 5: |state|² against ``probs`` (1e-6
    absolute and 1e-5 of the largest probability) and against the float64 blocked executor's state (1e-5 relative).
+15. The distributed engines (``parallel/``, ``engines/distributed*.py``) on
+   torch.distributed, one process a rank. NCCL runs one rank a card, so on
+   one card it runs D=1; several ranks share the card over gloo, whose
+   collectives stage through host memory (each row prints its transport).
+   dist20: ``cli scale --qubits 20 --layers 4 --mesh 1 --epochs 60
+   --chunk-epochs 20`` (nccl), scale20's configuration at full width:
+   kernel 4 (stein2d_grid) exactly 60 times, epoch 0 within 1e-4 of float64,
+   the loss history within 1e-3 (relative) of scale20's from the same θ0.
+   dist20x4: the same with ``--mesh 4 --dist-backend gloo`` (2^18
+   amplitudes a rank), kernel 4 60 times on every rank, the history within
+   1e-4 of dist20's; then killed after its first chunk (every rank's engine
+   module's ``run_ksd_scan`` raising, in ranks of this script) and resumed
+   by the CLI with ``--resume-state``: history, θ, best θ, best TVD and
+   epoch equal bit for bit, the snapshot gone. In one 4-rank gloo world:
+   dist_sampled20x4, ``DistributedSampledKSDVariationalInference`` (HE L=4,
+   512 shots, lr 0.05, 20 epochs, the TVD on the loss forward), no kernel,
+   against the single-device engine (kernel 5) at each epoch's θ of the
+   ranks' run on the same uniforms: the shots equal but at FP32 CDF ties
+   (within 1e-5 of the step; counted and printed), the U-statistics within
+   1e-4 (two FP32 circuits drift apart over the epochs, so the two engines
+   run free would part at their first tie);
+   amortized_mesh16x4, amortized16's model over dp=4 for 200 epochs, and
+   multiseed_mesh16x4, multiseed16 over dp=4: losses and (mean) TVDs within
+   rtol 1e-4 and atol 5e-4 of the single-device runs, every rank launching
+   kernels 1-3 and stein_gcorr a quarter of their counts. In each rank the
+   launch and collective byte counts start at 0 with the phase; every
+   rank's are read after it, with its peak device memory, and θ must be
+   equal bit for bit on every rank.
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line (each kernel
 with the launch count of the path that runs it, and its launches on every
@@ -176,8 +204,10 @@ samples/s, launches, first and last U-statistic, best TVD, peak memory),
 an ``{"amortized": [...]}`` line (step 13's checks and paths: errors,
 epochs/s, launches, TVDs), a ``{"cli": [...]}`` line (step 14's paths:
 epochs/s, launches, snapshot bytes and ms, the trace's kernels, the state's
-errors) and, last, the ``{"ok": true, ...}`` line. Imports nothing of JAX
-or of the JAX package.
+errors), a ``{"distributed": [...]}`` line (step 15's paths: transport,
+epochs/s, each rank's launches, peak memory and collective bytes an epoch,
+the checks' errors) and, last, the ``{"ok": true, ...}`` line. Imports
+nothing of JAX or of the JAX package.
 """
 
 import contextlib
@@ -332,6 +362,35 @@ GRAM_TOL = 1e-5
 # n=20 on, and twice the forward's at n=24.
 BLOCKED_TOL = {"fwd": 4e-5, "bwd": 2e-4}
 
+# The distributed engines (ROADMAP A12) on torch.distributed, one process a
+# rank (tensornetworks_tpu_torch.parallel.launch.spawn). NCCL runs one rank a
+# card, so one card runs it at D=1; gloo runs several ranks on the one card,
+# its collectives staged through host memory. dist20: scale20's configuration
+# through ``cli scale --mesh 1`` (nccl); dist20x4: the same with ``--mesh 4
+# --dist-backend gloo`` (2^18 amplitudes a rank), then killed after its
+# first chunk and resumed by the CLI; dist_sampled20x4: the distributed
+# sampled engine (HE L=4, 512 shots, lr 0.05, 20 epochs) on 4 gloo ranks
+# against the single-device engine on the same uniforms;
+# amortized_mesh16x4 and multiseed_mesh16x4: amortized16's model (200
+# epochs) and multiseed16 (4 seeds, 100 epochs) over dp=4, against their
+# single-device runs (the JAX spec's tolerances for the seeds, rtol 1e-4 and
+# atol 5e-4, for both).
+DIST_RANKS = 4
+DIST20_ARGV = ["scale", "--qubits", "20", "--layers", "4", "--epochs", "60",
+               "--chunk-epochs", "20"]
+DIST20_EPOCHS, DIST20_CHUNK, DIST20_KILL = 60, 20, 1
+DIST20_TOL, DIST20X4_TOL = 1e-3, 1e-4
+DIST_SAMPLED_SHOTS, DIST_SAMPLED_EPOCHS, DIST_SAMPLED_LR, DIST_SAMPLED_TOL = 512, 20, 0.05, 1e-4
+# dist_sampled20x4 against the single-device engine at each epoch's θ of the
+# ranks' run (the two FP32 circuits' trajectories drift apart, and so would
+# their shots): a shot may differ only where its uniform lies within this
+# much of the CDF step it crossed, the grid forward's margin against its
+# plain version (2e-5 of the largest probability) carried into CDF steps.
+DIST_TIE_DISTANCE = 1e-5
+AMORTIZED_MESH_EPOCHS, MULTISEED_MESH_EPOCHS = 200, 100
+MESH_RTOL, MESH_ATOL = 1e-4, 5e-4
+DIST_TIMEOUT_S = 600
+
 # n=5 edges: high -> low, low -> high, and two pairs listed twice.
 N_BN_EDGES, BN_EDGES = 5, [(4, 0), (2, 1), (0, 3), (0, 3), (3, 4), (1, 2), (1, 2), (4, 2)]
 
@@ -394,7 +453,13 @@ PATH_KERNELS.update(bn16=PATH_KERNELS["main16"], bn20=PATH_KERNELS["scale20"],
                     cli16=PATH_KERNELS["main16"], cli20=PATH_KERNELS["scale20"],
                     cli_adv16=("circuit2d_fwd", "circuit2d_bwd"),
                     profile16=PATH_KERNELS["main16"], state16=("circuit2d_fwd",),
-                    state20=("circuit2d_grid_fwd",))
+                    state20=("circuit2d_grid_fwd",),
+                    # On every rank: the distributed Stein matvec's local apply
+                    # (20 and 18 local bits: kernel 4); the sharded sampler runs
+                    # no kernel; the dp ranks run amortized16's and multiseed16's.
+                    dist20=("stein2d_grid",), dist20x4=("stein2d_grid",),
+                    dist_sampled20x4=(), amortized_mesh16x4=PATH_KERNELS["main16"],
+                    multiseed_mesh16x4=PATH_KERNELS["main16"])
 
 
 class PhaseError(RuntimeError):
@@ -895,12 +960,8 @@ def run_main_path(device):
 def run_scale_path(device):
     """The 20-qubit exact KSD-VI run through ``run_scale_experiment``."""
     import torch
-    from tensornetworks_tpu_torch.core import all_bitstrings
     from tensornetworks_tpu_torch.models import QuantumBornMachine
     from tensornetworks_tpu_torch.ops import kernels
-    from tensornetworks_tpu_torch.ops.hamming import resolve_length_scale
-    from tensornetworks_tpu_torch.ops.kernels import circuit2d_grid as kg
-    from tensornetworks_tpu_torch.ops.stein import score_table, stein_matvec
     from tensornetworks_tpu_torch.runners import run_scale_experiment
 
     n = N_GRID
@@ -919,26 +980,37 @@ def run_scale_path(device):
     check_history("scale20", hist)
     check_launches("scale20", launches)
     loss = hist["loss_ksd"]
-    # Epoch 0's loss against a float64 plain evaluation of the same θ: the
-    # grid kernels' plain circuit and the 3n+1-column Stein oracle, at the
-    # run's length scale ("auto": 2/n).
-    bn, latent, obs = path_inputs(n)
-    plan = kg.GridPlan(n, LAYERS, ANSATZ)
-    f64 = dict(dtype=torch.float64, device=device)
-    S = torch.as_tensor(score_table(bn.conditional_joint_table(latent, obs)), **f64)
-    B = torch.as_tensor(all_bitstrings(n), **f64)
-    with torch.no_grad():
-        q = kg.circuit2d_grid_forward_plain(*kg.grid_operators(theta0.double(), plan),
-                                            plan)[0].reshape(-1)
-        y = stein_matvec(q, S, B, n, resolve_length_scale("auto", n))
-        ref_loss = math.sqrt(max(float(q @ y), 1e-12))
+    ref_loss = scale20_reference_loss(theta0)
     loss_err = abs(loss[0] - ref_loss) / abs(ref_loss)
     require(loss_err < 1e-4, f"scale20 epoch-0 loss {loss[0]} vs float64 {ref_loss}")
     eps = hist.get("epochs_per_sec_steady", hist["epochs_per_sec"])
     print(f"scale20 path: {SCALE_EPOCHS} epochs, loss {loss[0]:.5f} -> {loss[-1]:.5f} "
           f"(epoch-0 rel err vs float64 {loss_err:.1e}), best TVD {model.best_tvd_:.5f}, "
           f"{eps:.2f} epochs/s steady, launches {launches}", flush=True)
-    return launches, eps
+    return launches, eps, hist
+
+
+def scale20_reference_loss(theta0):
+    """Epoch 0's loss of the scale20 configuration at θ0 in float64: the
+    grid kernels' plain circuit and the 3n+1-column Stein oracle, at the
+    run's length scale ("auto": 2/n)."""
+    import torch
+    from tensornetworks_tpu_torch.core import all_bitstrings
+    from tensornetworks_tpu_torch.ops.hamming import resolve_length_scale
+    from tensornetworks_tpu_torch.ops.kernels import circuit2d_grid as kg
+    from tensornetworks_tpu_torch.ops.stein import score_table, stein_matvec
+
+    n = N_GRID
+    bn, latent, obs = path_inputs(n)
+    plan = kg.GridPlan(n, LAYERS, ANSATZ)
+    f64 = dict(dtype=torch.float64, device=theta0.device)
+    S = torch.as_tensor(score_table(bn.conditional_joint_table(latent, obs)), **f64)
+    B = torch.as_tensor(all_bitstrings(n), **f64)
+    with torch.no_grad():
+        q = kg.circuit2d_grid_forward_plain(*kg.grid_operators(theta0.double(), plan),
+                                            plan)[0].reshape(-1)
+        y = stein_matvec(q, S, B, n, resolve_length_scale("auto", n))
+        return math.sqrt(max(float(q @ y), 1e-12))
 
 
 def bn_reference_loss(n, theta0, length_scale):
@@ -2335,6 +2407,392 @@ def run_state_path(path, n, device):
                       "f64_rel_err": f64_err}
 
 
+def check_rank_launches(path, reports, want):
+    """Every rank launched the path's kernel set and no other kernel, each
+    kernel of ``want`` exactly so many times."""
+    for r in reports:
+        check_launches(path, r["launches"])
+        for name, count in want.items():
+            require(r["launches"][name] == count,
+                    f"{path} rank {r['rank']} launched {name} {r['launches'][name]}x, want {count}")
+
+
+def max_rel_diff(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def within(path, what, got, want):
+    """``got`` against the single-device ``want`` at the mesh phases'
+    tolerance (rtol ``MESH_RTOL``, atol ``MESH_ATOL``); the largest
+    difference."""
+    import numpy as np
+
+    got, want = np.asarray(got, dtype=np.float64), np.asarray(want, dtype=np.float64)
+    diff = np.abs(got - want)
+    require(bool(np.all(diff <= MESH_ATOL + MESH_RTOL * np.abs(want))),
+            f"{path} {what} differs from the single-device run by {diff.max():.2e}")
+    return float(diff.max())
+
+
+def dist_row(path, reports, epochs, rate, extra):
+    """A row of the ``{"distributed": [...]}`` line: the transport, the rate,
+    each rank's peak device memory, launches and collective bytes an epoch."""
+    return {"path": path, "ranks": len(reports), "transport": reports[0]["transport"],
+            "epochs_per_sec": rate,
+            "peak_gib_per_rank": [(r["peak_bytes"] or 0) / 2**30 for r in reports],
+            "launches_per_rank": [r["launches"] for r in reports],
+            "comm_bytes_per_epoch": [{k: v / epochs for k, v in r["comm_bytes"].items()}
+                                     for r in reports]} | extra
+
+
+def print_dist(path, row, detail):
+    comm = row["comm_bytes_per_epoch"][0]
+    print(f"{path} path: {row['ranks']} rank(s) over {row['transport']}, {detail}, "
+          f"{row['epochs_per_sec']:.2f} epochs/s, peak "
+          f"{max(row['peak_gib_per_rank']):.2f} GiB a rank, collective bytes an epoch on "
+          f"rank 0 {', '.join(f'{k} {v:,.0f}' for k, v in comm.items())}, launches per rank "
+          f"{[r for r in row['launches_per_rank']]}", flush=True)
+
+
+def run_dist20_path(device, scale20_hist):
+    """scale20's configuration through ``cli scale --mesh 1`` on nccl: kernel 4
+    once an epoch (the custom backward reuses the forward matvec), epoch 0
+    against float64, the history against the single-device scale20 run from
+    the same θ0."""
+    import torch
+    from tensornetworks_tpu_torch.models import QuantumBornMachine
+    from tensornetworks_tpu_torch.runners import cli
+
+    theta0 = QuantumBornMachine(N_GRID, LAYERS, ANSATZ, device=device).init(
+        torch.Generator().manual_seed(0))
+    out = cli.main(DIST20_ARGV + ["--mesh", "1"])
+    reports, hist = out["ranks"], out["history"]
+    require([r["transport"] for r in reports] == ["nccl"], f"dist20 ran over {reports}")
+    check_rank_launches("dist20", reports, {"stein2d_grid": DIST20_EPOCHS})
+    check_history("dist20", hist)
+    loss = hist["loss_ksd"]
+    ref = scale20_reference_loss(theta0)
+    err0 = abs(loss[0] - ref) / abs(ref)
+    require(err0 < 1e-4, f"dist20 epoch-0 loss {loss[0]} vs float64 {ref}")
+    rel = max_rel_diff(loss, scale20_hist["loss_ksd"])
+    require(rel < DIST20_TOL, f"dist20 loss history {rel:.2e} from scale20's (relative)")
+    rate = hist.get("epochs_per_sec_steady", hist["epochs_per_sec"])
+    row = dist_row("dist20", reports, DIST20_EPOCHS, rate,
+                   {"loss_first": loss[0], "loss_last": loss[-1], "epoch0_rel_err": err0,
+                    "rel_diff_scale20": rel, "best_tvd": out["best_tvd"]})
+    print_dist("dist20", row, f"{DIST20_EPOCHS} epochs, loss {loss[0]:.5f} -> {loss[-1]:.5f} "
+               f"(epoch 0 {err0:.1e} from float64, history {rel:.1e} from scale20), best TVD "
+               f"{out['best_tvd']:.5f}")
+    return reports[0]["launches"], row, hist
+
+
+def dist20x4_killed_rank(kwargs):
+    """A dist20x4 rank whose engine raises after its first chunk's snapshot
+    (the fault injected into the engine module's ``run_ksd_scan``)."""
+    from tensornetworks_tpu_torch.engines import distributed as dist_engine
+    from tensornetworks_tpu_torch.runners import run_distributed_scale_experiment
+
+    orig = dist_engine.run_ksd_scan
+    dist_engine.run_ksd_scan = lambda **kw: orig(**kw, fail_after_chunks=DIST20_KILL)
+    return run_distributed_scale_experiment(**kwargs)
+
+
+def run_dist20x4_path(device, dist20_hist):
+    """dist20 on 4 gloo ranks of the one card: the history against dist20;
+    then killed after its first chunk and resumed by the CLI, bit for bit
+    the uninterrupted run."""
+    import torch
+    from torch.multiprocessing import ProcessRaisedException
+    from tensornetworks_tpu_torch.parallel import spawn
+    from tensornetworks_tpu_torch.runners import cli
+
+    argv = DIST20_ARGV + ["--mesh", str(DIST_RANKS), "--dist-backend", "gloo"]
+    full = cli.main(argv)
+    reports, hist = full["ranks"], full["history"]
+    require([r["transport"] for r in reports] == ["gloo via host"] * DIST_RANKS,
+            f"dist20x4 ran over {[r['transport'] for r in reports]}")
+    check_rank_launches("dist20x4", reports, {"stein2d_grid": DIST20_EPOCHS})
+    check_history("dist20x4", hist)
+    rel = max_rel_diff(hist["loss_ksd"], dist20_hist["loss_ksd"])
+    require(rel < DIST20X4_TOL, f"dist20x4 loss history {rel:.2e} from dist20's (relative)")
+    state = work_dir("dist20x4") / "resume.pt"
+    kw = dict(num_qubits=N_GRID, layers=LAYERS, num_epochs=DIST20_EPOCHS, chunk_epochs=DIST20_CHUNK,
+              verbose=False, resume_state_path=str(state), device=device.type)
+    try:
+        spawn(dist20x4_killed_rank, DIST_RANKS, "gloo", device, kw, timeout_s=DIST_TIMEOUT_S)
+        killed = False
+    except ProcessRaisedException as e:
+        killed = "fault injection" in str(e)
+    require(killed and state.exists(), "dist20x4 was not killed after its first chunk with a "
+                                       "snapshot left")
+    resumed = cli.main(argv + ["--resume-state", str(state)])
+    require(not state.exists(), "dist20x4's snapshot is still there after the resumed run")
+    check_rank_launches("dist20x4", resumed["ranks"],
+                        {"stein2d_grid": DIST20_EPOCHS - DIST20_KILL * DIST20_CHUNK})
+    for key in ("loss_ksd", "tvd", "grad_norm"):
+        a, b = hist[key], resumed["history"][key]
+        parted = [t for t, (x, y) in enumerate(zip(a, b)) if x != y]
+        require(not parted, f"dist20x4 resumed {key} parts from the uninterrupted run's at "
+                            f"epoch {parted[:1]}")
+    require((full["best_tvd"], full["best_epoch"]) == (resumed["best_tvd"], resumed["best_epoch"]),
+            "dist20x4 resumed best TVD/epoch differ")
+    for key in ("params", "best_params"):
+        require(torch.equal(full[key], resumed[key]), f"dist20x4 resumed {key} differ")
+    rate = hist.get("epochs_per_sec_steady", hist["epochs_per_sec"])
+    loss = hist["loss_ksd"]
+    row = dist_row("dist20x4", reports, DIST20_EPOCHS, rate,
+                   {"loss_first": loss[0], "loss_last": loss[-1], "rel_diff_dist20": rel,
+                    "best_tvd": full["best_tvd"], "resume_bit_equal": True})
+    print_dist("dist20x4", row, f"{DIST20_EPOCHS} epochs, loss {loss[0]:.5f} -> {loss[-1]:.5f} "
+               f"(history {rel:.1e} from dist20), killed after chunk {DIST20_KILL} and resumed: "
+               f"history, θ, best θ, best TVD and epoch equal bit for bit")
+    return reports[0]["launches"], row
+
+
+def _all_ranks_equal(t) -> bool:
+    import torch.distributed as dist
+
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, t.detach().cpu())
+    return all(g.equal(got[0]) for g in got)
+
+
+def _dist_sampled_rank(device):
+    from tensornetworks_tpu_torch.engines import DistributedSampledKSDVariationalInference
+    from tensornetworks_tpu_torch.engines import distributed_sampled as ds
+    from tensornetworks_tpu_torch.parallel import make_mesh
+
+    bn, latent, obs = path_inputs(N_GRID)
+    shots = []
+    orig = ds.make_distributed_two_stage_sampler
+
+    def recording(*args, **kwargs):
+        sample = orig(*args, **kwargs)
+
+        def record(P2l, u_r, u_c):
+            idx, q_at = sample(P2l, u_r, u_c)
+            shots.append((idx.cpu(), u_r.cpu(), u_c.cpu()))
+            return idx, q_at
+        return record
+
+    ds.make_distributed_two_stage_sampler = recording
+    try:
+        eng = DistributedSampledKSDVariationalInference(
+            bn, latent, list(obs), qbm_ansatz_layers=LAYERS, num_samples=DIST_SAMPLED_SHOTS,
+            seed=0, mesh=make_mesh(DIST_RANKS), device=device)
+        thetas, probs = [], eng._probs  # θ of each epoch's loss forward
+        eng._probs = lambda p: (thetas.append(p.detach().cpu()), probs(p))[1]
+        hist = eng.train(obs, num_epochs=DIST_SAMPLED_EPOCHS, lr_born_machine=DIST_SAMPLED_LR,
+                         verbose=False, true_posterior_for_tvd=bn.posterior_vector(latent, obs),
+                         reuse_loss_forward_for_eval=True)
+    finally:
+        ds.make_distributed_two_stage_sampler = orig
+    return {"history": hist, "shots": shots, "thetas": thetas[:DIST_SAMPLED_EPOCHS],
+            "best_tvd": eng.best_tvd_, "params_equal": _all_ranks_equal(eng.params),
+            "epochs": DIST_SAMPLED_EPOCHS}
+
+
+def _amortized_mesh_rank(device):
+    from tensornetworks_tpu_torch.parallel import make_mesh
+
+    eng, observations = amortized16_engine(device)
+    hist = eng.train(observations, num_epochs=AMORTIZED_MESH_EPOCHS, lr=AMORTIZED16_LR,
+                     gradient_clip_norm=10.0, entropy_weight=0.0, verbose=False, seed=0,
+                     mesh=make_mesh(DIST_RANKS, dp=DIST_RANKS))
+    return {"history": hist, "best": eng.best_mean_tvd_, "params_equal": _all_ranks_equal(
+        eng.params), "epochs": AMORTIZED_MESH_EPOCHS}
+
+
+def _multiseed_mesh_rank(device):
+    from tensornetworks_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    params, tvds, losses = multiseed16_run(device, mesh=make_mesh(DIST_RANKS, dp=DIST_RANKS))
+    synchronize(device)
+    return {"tvds": tvds, "losses": losses, "params": params.cpu(),
+            "epochs_per_sec": MULTISEED_MESH_EPOCHS / (time.perf_counter() - t0),
+            "epochs": MULTISEED_MESH_EPOCHS}
+
+
+DIST_RANK_PHASES = (("dist_sampled20x4", _dist_sampled_rank),
+                    ("amortized_mesh16x4", _amortized_mesh_rank),
+                    ("multiseed_mesh16x4", _multiseed_mesh_rank))
+
+
+def synchronize(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def dist_phases_rank(device):
+    """One rank of the three phases that share a 4-rank gloo world: each
+    phase with the launch and byte counts and the peak memory zeroed just
+    before it, every rank's counters gathered just after."""
+    import torch
+    import torch.distributed as dist
+    from tensornetworks_tpu_torch.ops import kernels
+    from tensornetworks_tpu_torch.parallel import comm
+    from tensornetworks_tpu_torch.parallel.launch import gather_reports, local_device
+
+    device = local_device(device)
+    out = {}
+    for path, run in DIST_RANK_PHASES:
+        synchronize(device)
+        dist.barrier()
+        kernels.reset_launches()
+        comm.reset_bytes()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        result = run(device)
+        synchronize(device)
+        result["seconds"] = time.perf_counter() - t0
+        out[path] = {"result": result, "ranks": gather_reports(device)}
+    return out
+
+
+def amortized16_engine(device):
+    """amortized16's engine (seed 0) and its 4 observations."""
+    from tensornetworks_tpu_torch.engines import AmortizedKSD
+    from tensornetworks_tpu_torch.models import QuantumBornMachine
+    from tensornetworks_tpu_torch.sim import latent_edges
+
+    bn, latent, observed, observations = amortized16_problem()
+    qbm = QuantumBornMachine(N, BN_LAYERS, BN, device=device, edges=latent_edges(bn, latent),
+                             conditioning_dim=len(observed), cond_reupload=True)
+    require(qbm.backend == "circuit2d", f"amortized16 is on {qbm.backend}, not circuit2d")
+    return AmortizedKSD(bn, latent, observed, born_machine=qbm, seed=0,
+                        base_kernel_length_scale="auto"), observations
+
+
+def multiseed16_run(device, num_epochs=MULTISEED_MESH_EPOCHS, mesh=None):
+    """``train_multi_seed`` on the 16-qubit workload from the inits of seeds
+    0-3 (HE L=2)."""
+    import torch
+    from tensornetworks_tpu_torch.engines import train_multi_seed
+    from tensornetworks_tpu_torch.models import QuantumBornMachine
+
+    bn, latent, obs = path_inputs(N)
+    qbm = QuantumBornMachine(N, MULTISEED_LAYERS, ANSATZ, device=device)
+    params0 = torch.stack([qbm.init(torch.Generator().manual_seed(k))
+                           for k in range(MULTISEED_SEEDS)])
+    return train_multi_seed(bn, latent, obs, num_seeds=MULTISEED_SEEDS, params0=params0,
+                            ansatz_layers=MULTISEED_LAYERS, num_epochs=num_epochs, device=device,
+                            mesh=mesh)
+
+
+def run_dist_rank_phases(device):
+    """dist_sampled20x4, amortized_mesh16x4 and multiseed_mesh16x4 in one
+    4-rank gloo world on the card, each against its single-device run in
+    this process."""
+    import numpy as np
+    import torch
+    from tensornetworks_tpu_torch.core.bits import torch_index_to_bits
+    from tensornetworks_tpu_torch.core.factors import make_latent_log_joint_fn
+    from tensornetworks_tpu_torch.engines import SampledKSDVariationalInference
+    from tensornetworks_tpu_torch.ops import kernels
+    from tensornetworks_tpu_torch.ops.stein_sampled import (ksd_ustat, score_at_samples,
+                                                            stein_gram_samples)
+    from tensornetworks_tpu_torch.parallel import spawn
+    from tensornetworks_tpu_torch.sim.sampling import sample_indices_2d, step_distances
+
+    got = spawn(dist_phases_rank, DIST_RANKS, "gloo", device, str(device.type),
+                timeout_s=DIST_TIMEOUT_S)
+    launches, rows = {}, []
+
+    path = "dist_sampled20x4"
+    res, reports = got[path]["result"], got[path]["ranks"]
+    check_rank_launches(path, reports, {})
+    h2 = res["history"]
+    require(all(math.isfinite(x) for x in h2["loss_ksd"]) and h2["num_skipped_updates"] == 0,
+            f"{path} loss not finite or updates skipped")
+    require(res["params_equal"], f"{path} θ differs between the ranks")
+    # The single-device engine at the ranks' θ of each epoch, on the ranks'
+    # uniforms: its forward (kernel 5), two-stage shots and U-statistic.
+    bn, latent, obs = path_inputs(N_GRID)
+    single = SampledKSDVariationalInference(bn, latent, list(obs), qbm_ansatz_layers=LAYERS,
+                                            num_samples=DIST_SAMPLED_SHOTS, seed=0,
+                                            sampling="two_stage", device=device)
+    log_joint = make_latent_log_joint_fn(bn, latent, obs, device=device)
+    R, C = 1 << ((N_GRID + 1) // 2), 1 << (N_GRID // 2)
+    ties, worst, rel = 0, 0.0, 0.0
+    kernels.reset_launches()
+    for epoch, (theta, (idx2, u_r, u_c)) in enumerate(zip(res["thetas"], res["shots"])):
+        u_r, u_c = u_r.to(device), u_c.to(device)
+        with torch.no_grad():
+            P = single.born_machine.probs(theta.to(device)).to(torch.float32).reshape(R, C)
+        idx1 = sample_indices_2d(P, u_r, u_c)[0]
+        d = step_distances(P, idx1, idx2.to(device), u_r, u_c)
+        require(bool(np.all(d <= DIST_TIE_DISTANCE)),
+                f"{path} epoch {epoch}: shots differ from the single engine's off a tie: {d}")
+        ties += len(d)
+        worst = max([worst, *d])
+        if len(d) == 0:  # the same shots: the same U-statistic
+            Z = torch_index_to_bits(idx1, N_GRID, dtype=torch.float32)
+            gram = stein_gram_samples(score_at_samples(log_joint, Z), Z, N_GRID,
+                                      single.length_scale)
+            est = float(ksd_ustat(gram))
+            rel = max(rel, abs(h2["loss_ksd"][epoch] - est) / abs(est))
+    require(kernels.LAUNCHES["circuit2d_grid_fwd"] == DIST_SAMPLED_EPOCHS,
+            f"{path}: the single engine's forward did not run kernel 5 once an epoch")
+    require(rel < DIST_SAMPLED_TOL, f"{path} U-statistics {rel:.2e} from the single engine's")
+    rate = DIST_SAMPLED_EPOCHS / h2["train_seconds"]
+    rows.append(dist_row(path, reports, DIST_SAMPLED_EPOCHS, rate,
+                         {"shots": DIST_SAMPLED_SHOTS, "fp32_ties": ties, "tie_max": worst,
+                          "rel_diff_single": rel, "loss_first": h2["loss_ksd"][0],
+                          "loss_last": h2["loss_ksd"][-1], "best_tvd": res["best_tvd"]}))
+    print_dist(path, rows[-1], f"{DIST_SAMPLED_EPOCHS} epochs of {DIST_SAMPLED_SHOTS} shots; at "
+               f"each epoch's θ the single engine's shots on the same uniforms ({ties} FP32 CDF "
+               f"ties, largest distance {worst:.1e}) and U-statistic ({rel:.1e} relative), "
+               f"U-statistic {h2['loss_ksd'][0]:.4f} -> {h2['loss_ksd'][-1]:.4f}")
+    launches[path] = reports[0]["launches"]
+
+    path = "amortized_mesh16x4"
+    res, reports = got[path]["result"], got[path]["ranks"]
+    eng, observations = amortized16_engine(device)
+    kernels.reset_launches()
+    h1 = eng.train(observations, num_epochs=AMORTIZED_MESH_EPOCHS, lr=AMORTIZED16_LR,
+                   gradient_clip_norm=10.0, entropy_weight=0.0, verbose=False, seed=0)
+    synchronize(device)
+    single_launches = dict(kernels.LAUNCHES)
+    check_rank_launches(path, reports, {k: v // DIST_RANKS for k, v in single_launches.items()})
+    h2 = res["history"]
+    errs = [within(path, key, h2[key], h1[key]) for key in ("loss", "mean_tvd")]
+    require(res["params_equal"], f"{path} θ differs between the ranks")
+    rows.append(dist_row(path, reports, AMORTIZED_MESH_EPOCHS, h2["epochs_per_sec"],
+                         {"max_abs_diff_loss": errs[0], "max_abs_diff_mean_tvd": errs[1],
+                          "best_mean_tvd": res["best"], "single_best_mean_tvd": eng.best_mean_tvd_,
+                          "single_launches": single_launches}))
+    print_dist(path, rows[-1], f"{AMORTIZED_MESH_EPOCHS} epochs, one observation a rank, loss "
+               f"and mean TVD {errs[0]:.1e} and {errs[1]:.1e} from the single-device run "
+               f"(best mean TVD {res['best']:.5f} and {eng.best_mean_tvd_:.5f}), a quarter of "
+               f"its launches {single_launches}")
+    launches[path] = reports[0]["launches"]
+
+    path = "multiseed_mesh16x4"
+    res, reports = got[path]["result"], got[path]["ranks"]
+    kernels.reset_launches()
+    _, tvds, losses = multiseed16_run(device)
+    synchronize(device)
+    single_launches = dict(kernels.LAUNCHES)
+    check_rank_launches(path, reports, {k: v // DIST_RANKS for k, v in single_launches.items()})
+    errs = [within(path, "losses", res["losses"], losses),
+            within(path, "TVDs", res["tvds"], tvds)]
+    rows.append(dist_row(path, reports, MULTISEED_MESH_EPOCHS, res["epochs_per_sec"],
+                         {"max_abs_diff_loss": errs[0], "max_abs_diff_tvd": errs[1],
+                          "single_launches": single_launches}))
+    print_dist(path, rows[-1], f"{MULTISEED_SEEDS} seeds x {MULTISEED_MESH_EPOCHS} epochs, one "
+               f"seed a rank, losses and TVDs {errs[0]:.1e} and {errs[1]:.1e} from the "
+               f"single-device run, a quarter of its launches {single_launches}")
+    launches[path] = reports[0]["launches"]
+    return launches, rows
+
+
 def main() -> int:
     import torch
 
@@ -2390,7 +2848,7 @@ def main() -> int:
     path_launches = {}
     path_launches["main16"], eps = run_main_path(device)
     t0 = phase("main16 path", t0)
-    path_launches["scale20"], eps20 = run_scale_path(device)
+    path_launches["scale20"], eps20, scale20_hist = run_scale_path(device)
     t0 = phase("scale20 path", t0)
     path_launches["bn16"], eps_bn16 = run_bn16_path(device)
     t0 = phase("bn16 path", t0)
@@ -2434,6 +2892,19 @@ def main() -> int:
         cli_line.append(row)
         t0 = phase(f"{path} path", t0)
 
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    dist_line = []
+    path_launches["dist20"], row, dist20_hist = run_dist20_path(device, scale20_hist)
+    dist_line.append(row)
+    t0 = phase("dist20 path", t0)
+    path_launches["dist20x4"], row = run_dist20x4_path(device, dist20_hist)
+    dist_line.append(row)
+    t0 = phase("dist20x4 path", t0)
+    launches, rows = run_dist_rank_phases(device)
+    path_launches.update(launches)
+    dist_line += rows
+    t0 = phase("dist_sampled20x4, amortized_mesh16x4 and multiseed_mesh16x4 paths", t0)
+
     kernels_line = []
     for r in records:
         kernels_line.append({
@@ -2470,6 +2941,7 @@ def main() -> int:
                     for r in amortized_line if "path" in r)
           + "".join(f"{r['path']} path {r['epochs_per_sec']:.2f} epochs/s, "
                     for r in cli_line if "epochs_per_sec" in r)
+          + "".join(f"{r['path']} path {r['epochs_per_sec']:.2f} epochs/s, " for r in dist_line)
           + f"on {card}; "
           f"{time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps({"kernels": kernels_line}))
@@ -2478,6 +2950,7 @@ def main() -> int:
     print(json.dumps({"sampled": sampled_line, "checks": sampled_ops}))
     print(json.dumps({"amortized": amortized_line}))
     print(json.dumps({"cli": cli_line}))
+    print(json.dumps({"distributed": dist_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

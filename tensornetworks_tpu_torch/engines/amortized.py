@@ -15,7 +15,9 @@ Counterpart of ``tensornetworks_tpu/engines/amortized.py``:
 The JAX package vmaps the observations (and the replicas) into one XLA
 program; here each observation's circuit is its own kernel launch per
 direction, X launches of each circuit kernel and of each Stein kernel per
-epoch. ``mesh=`` (sharding the batch over devices) is not ported.
+epoch. ``mesh=`` (a ``parallel.make_mesh`` mesh, every rank calling) splits
+the observations, or the seeds, over the mesh's ``dp`` axis: each rank runs
+its share through the kernels, X/dp launches an epoch.
 """
 
 from __future__ import annotations
@@ -33,7 +35,20 @@ from ..ops.hamming import resolve_length_scale
 from ..ops.stein import SteinOperator, score_table
 from .common import global_norm, guarded_update, make_optimizer
 from .distill import batch_probs
-from .ksd import not_ported, steady_epochs_per_sec
+from .ksd import steady_epochs_per_sec
+
+
+def data_shard_list(items: list, mesh) -> list:
+    """This rank's contiguous share of ``items`` over the mesh's ``dp`` axis
+    (its length must divide by dp)."""
+    from ..parallel.mesh import DATA_AXIS, axis_index, axis_size
+
+    dp = axis_size(mesh, DATA_AXIS)
+    if len(items) % dp:
+        raise ValueError(f"{len(items)} items do not split over dp={dp}")
+    share = len(items) // dp
+    start = axis_index(mesh, DATA_AXIS) * share
+    return items[start:start + share]
 
 
 class AmortizedKSD:
@@ -95,6 +110,13 @@ class AmortizedKSD:
         """Train on all ``observations`` at once; restores the best-mean-TVD
         parameters.
 
+        ``mesh``: every rank of ``mesh`` calls with the same observations
+        and trains on its ``dp`` share of them (X must divide by dp); the
+        loss and the TVD are means over all X, summed over the ranks by
+        all-reduce, and so is the gradient, so every rank takes the step of
+        the single-device run (a classical machine's dropout masks are drawn
+        per rank, from ``seed``: with dropout the run is another draw).
+
         ``chunk_epochs``: host syncs every so many epochs (per-chunk wall
         times give ``epochs_per_sec_steady``); the results are the same.
         ``seed`` seeds the classical machine's dropout masks.
@@ -106,11 +128,9 @@ class AmortizedKSD:
         ``num_epochs``/``lr``. The history is the last phase's; the
         across-phase best is restored (``best_mean_tvd_``,
         ``best_params_``)."""
-        if mesh is not None:
-            not_ported("mesh= (the observation axis sharded over devices)", "A12")
         if not lr_phases:
             return self._train_single(observations, num_epochs, lr, gradient_clip_norm,
-                                      entropy_weight, verbose, seed, chunk_epochs)
+                                      entropy_weight, verbose, seed, chunk_epochs, mesh)
         best_tvd, best_params = np.inf, None
         for phase in lr_phases:
             if len(phase) == 3:
@@ -120,7 +140,7 @@ class AmortizedKSD:
                 p_epochs, p_lr = phase
             history = self._train_single(observations, int(p_epochs), float(p_lr),
                                          gradient_clip_norm, entropy_weight, verbose, seed,
-                                         chunk_epochs)
+                                         chunk_epochs, mesh)
             if self.best_mean_tvd_ < best_tvd:
                 best_tvd, best_params = self.best_mean_tvd_, self.best_params_
             if verbose:
@@ -133,11 +153,25 @@ class AmortizedKSD:
         return history
 
     def _train_single(self, observations, num_epochs, lr, gradient_clip_norm, entropy_weight,
-                      verbose, seed, chunk_epochs):
+                      verbose, seed, chunk_epochs, mesh=None):
+        total = len(observations)
+        if mesh is not None:
+            from ..parallel.comm import all_reduce, psum_replicated
+            from ..parallel.mesh import DATA_AXIS
+
+            observations = data_shard_list(observations, mesh)
         ops = self.operators(observations)
         posts = self._posteriors(observations)
         X = torch.tensor([self._x(o) for o in observations], dtype=self.dtype,
                          device=self.device)
+
+        def mean_over_all(v, grad=False):
+            """The mean over all X observations of per-observation values."""
+            if mesh is None:
+                return v.mean()
+            part = v.sum() / total
+            return (psum_replicated(part, mesh, DATA_AXIS) if grad
+                    else all_reduce(part, mesh, DATA_AXIS))
         bm = self.born_machine
         optimizer = make_optimizer("adam", lr, num_epochs, gradient_clip_norm=gradient_clip_norm)
         # The quantum forward is deterministic: epoch t's loss forward is
@@ -155,7 +189,7 @@ class AmortizedKSD:
             return bm.probs(p, X, train=train, generator=gen)
 
         def mean_tvd(q):
-            return (0.5 * (q - posts).abs().sum(dim=-1)).mean()
+            return mean_over_all(0.5 * (q - posts).abs().sum(dim=-1))
 
         params = self.params.detach().clone()
         opt_state = optimizer.init(params)
@@ -182,8 +216,10 @@ class AmortizedKSD:
                 q = forward(p, train=True)
                 ksd = torch.stack([op.ksd_loss(qx) for op, qx in zip(ops, q)])
                 ent = -(q * torch.log(q.clamp(min=1e-10))).sum(dim=-1)
-                loss = (ksd - entropy_weight * ent).mean()
+                loss = mean_over_all(ksd - entropy_weight * ent, grad=True)
                 (grads,) = torch.autograd.grad(loss, p)
+                if mesh is not None:
+                    grads = all_reduce(grads, mesh, DATA_AXIS)
                 ok = torch.isfinite(loss)
                 if reuse_eval:
                     tvd = mean_tvd(q.detach())
@@ -246,9 +282,12 @@ def train_multi_seed(bayesian_network: BayesianNetwork, latent_vars_names, obser
     alone, as K single-seed runs would. The Stein operator is the engines'
     ``SteinOperator`` (the dense Gram up to 12 variables, the gcorr form
     above), where the JAX function runs the 3n+1-column matvec from 13: the
-    same quadratic form."""
-    if mesh is not None:
-        not_ported("mesh= (the seed axis sharded over devices)", "A12")
+    same quadratic form.
+
+    ``mesh``: every rank of ``mesh`` calls with the same arguments and
+    trains its ``dp`` share of the seeds (K must divide by dp); the seeds
+    are independent, so only the results are gathered, and every rank
+    returns all K."""
     n = len(latent_vars_names)
     bn = bayesian_network
     t = bn.conditional_joint_table(latent_vars_names, observed_dict)
@@ -256,20 +295,25 @@ def train_multi_seed(bayesian_network: BayesianNetwork, latent_vars_names, obser
     post = torch.as_tensor(t / t.sum(), dtype=dtype, device=device)
     qbm = QuantumBornMachine(n, ansatz_layers=ansatz_layers, ansatz_type=ansatz_type,
                              dtype=dtype, device=device)
+    seeds = list(range(num_seeds))
+    if mesh is not None:
+        from ..parallel.comm import all_gather
+        from ..parallel.mesh import DATA_AXIS
+
+        seeds = data_shard_list(seeds, mesh)
     if params0 is None:
-        params = [qbm.init(torch.Generator().manual_seed(base_seed + k))
-                  for k in range(num_seeds)]
+        params = [qbm.init(torch.Generator().manual_seed(base_seed + k)) for k in seeds]
     else:
         params0 = torch.as_tensor(params0, dtype=dtype, device=device)
         if params0.shape[0] != num_seeds:
             raise ValueError(f"params0 leading axis {params0.shape[0]} != num_seeds {num_seeds}")
-        params = [p.clone() for p in params0]
+        params = [params0[k].clone() for k in seeds]
     optimizer = make_optimizer("adam", lr, num_epochs, gradient_clip_norm=gradient_clip_norm)
     states = [optimizer.init(p) for p in params]
-    losses = torch.empty((num_epochs, num_seeds), dtype=dtype, device=device)
+    losses = torch.empty((num_epochs, len(seeds)), dtype=dtype, device=device)
     tvds = torch.empty_like(losses)
     for epoch in range(num_epochs):
-        for k in range(num_seeds):
+        for k in range(len(seeds)):
             p = params[k].detach().requires_grad_(True)
             loss = op.ksd_loss(qbm.probs(p))
             (grads,) = torch.autograd.grad(loss, p)
@@ -278,4 +322,10 @@ def train_multi_seed(bayesian_network: BayesianNetwork, latent_vars_names, obser
             with torch.no_grad():
                 tvds[epoch, k] = 0.5 * (qbm.probs(params[k]) - post).abs().sum()
             losses[epoch, k] = loss.detach()
-    return torch.stack(params), tvds.cpu().numpy(), losses.cpu().numpy()
+    params = torch.stack(params)
+    if mesh is not None:
+        # (dp, K/dp, ...) in rank order: seed order.
+        params = all_gather(params, mesh, DATA_AXIS).reshape(num_seeds, -1)
+        tvds, losses = (all_gather(h, mesh, DATA_AXIS).permute(1, 0, 2).reshape(num_epochs, -1)
+                        for h in (tvds, losses))
+    return params, tvds.cpu().numpy(), losses.cpu().numpy()

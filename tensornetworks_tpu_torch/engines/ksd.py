@@ -96,7 +96,7 @@ def run_ksd_scan(*, probs_fn, params0: torch.Tensor, op: SteinOperator, num_epoc
                  patience: int = 200, min_epochs_before_stop: int = 300,
                  op_schedule=None, resume_state_path: Optional[str] = None,
                  fail_after_chunks: Optional[int] = None, generators=(),
-                 keep_resume_state: bool = False) -> dict:
+                 keep_resume_state: bool = False, reducer=None) -> dict:
     """Train for ``num_epochs``; returns final/best params and the history.
 
     Two evaluation modes, as in the JAX engine:
@@ -139,7 +139,24 @@ def run_ksd_scan(*, probs_fn, params0: torch.Tensor, op: SteinOperator, num_epoc
     its last phase ends). ``fail_after_chunks``: raise ``RuntimeError`` after
     saving that many chunks of this call (fault injection for the tests).
     Without a path there is no file I/O and no extra host sync.
+
+    ``reducer`` (``parallel.comm.MeshReducer``): the run is one rank of a
+    distributed run whose ``probs_fn`` returns this rank's shard of q. The
+    gradient is reduced over the ranks before the update, each TVD is summed
+    over the state shards before the best-snapshot test (so every rank keeps
+    the same best), the reducer's writer alone writes and removes the resume
+    snapshot, and a barrier orders its writes before every rank's reads.
     """
+    def tvd_of(q):
+        tvd = 0.5 * (q - posterior_vec).abs().sum()
+        return tvd if reducer is None else reducer.state_sum(tvd)
+
+    writer = reducer is None or reducer.writer
+
+    def barrier():
+        if reducer is not None:
+            reducer.barrier()
+
     if op_schedule is not None and not chunk_epochs:
         raise ValueError("op_schedule requires chunk_epochs")
     if resume_state_path and not chunk_epochs:
@@ -175,6 +192,7 @@ def run_ksd_scan(*, probs_fn, params0: torch.Tensor, op: SteinOperator, num_epoc
     first = 0
     if resume_state_path:
         fingerprint = _resume_fingerprint(carry(num_epochs), generators, num_epochs, chunk)
+        barrier()
         if os.path.exists(resume_state_path):
             saved, first = _load_chunk_state(resume_state_path, fingerprint, generators, dev)
             params, best_params = saved["params"], saved["best_params"]
@@ -198,6 +216,8 @@ def run_ksd_scan(*, probs_fn, params0: torch.Tensor, op: SteinOperator, num_epoc
                 ent = -(q * torch.log(q.clamp(min=1e-10))).sum()
                 loss = ksd - entropy_weight * ent
             (grads,) = torch.autograd.grad(loss, p)
+            if reducer is not None:
+                grads = reducer.grads(grads)
             do_update = torch.isfinite(loss)
             if early_stopping:
                 do_update = do_update & ~stopped
@@ -205,14 +225,14 @@ def run_ksd_scan(*, probs_fn, params0: torch.Tensor, op: SteinOperator, num_epoc
             if track and reuse:
                 # q at the current params is the previous epoch's post-update
                 # distribution; epoch 0's is the init, not a candidate.
-                tvd = 0.5 * (q.detach() - posterior_vec).abs().sum()
+                tvd = tvd_of(q.detach())
                 if epoch > 0:
                     take_best(tvd, epoch - 1, params, tvd < best_tvd)
             params, opt_state = guarded_update(optimizer, grads, opt_state, params, do_update)
             if track and not reuse:
                 with torch.no_grad():
                     q_eval = (probs_fn if noisy_eval else eval_probs_fn)(params)
-                tvd = 0.5 * (q_eval - posterior_vec).abs().sum()
+                tvd = tvd_of(q_eval)
                 improved = (tvd < best_tvd) & ~stopped
                 take_best(tvd, epoch, params, improved)
                 if early_stopping:
@@ -231,19 +251,22 @@ def run_ksd_scan(*, probs_fn, params0: torch.Tensor, op: SteinOperator, num_epoc
         best_tvd.item()  # host sync closes the chunk
         chunk_seconds.append((end - start, time.perf_counter() - t_chunk))
         if resume_state_path:
-            _save_chunk_state(resume_state_path, carry(end), generators, end, fingerprint)
+            if writer:
+                _save_chunk_state(resume_state_path, carry(end), generators, end, fingerprint)
+            barrier()
         if fail_after_chunks is not None and len(chunk_seconds) >= fail_after_chunks:
             raise RuntimeError(f"fault injection: killed after {len(chunk_seconds)} chunks")
         if early_stopping and bool(stopped):
             break  # every later epoch would be a frozen no-op
-    if resume_state_path and not keep_resume_state and os.path.exists(resume_state_path):
+    if (resume_state_path and not keep_resume_state and writer
+            and os.path.exists(resume_state_path)):
         os.remove(resume_state_path)
 
     with torch.no_grad():
         if track and reuse:
             # The last epoch's post-update evaluation; shift the history so
             # hist[t] is epoch t's post-update TVD.
-            tvd_last = 0.5 * (probs_fn(params) - posterior_vec).abs().sum()
+            tvd_last = tvd_of(probs_fn(params))
             take_best(tvd_last, num_epochs - 1, params, tvd_last < best_tvd)
             hist[1] = torch.cat([hist[1, 1:], tvd_last[None]])
         best_probs = (probs_fn if reuse else eval_probs_fn)(best_params)
@@ -274,11 +297,6 @@ def steady_epochs_per_sec(chunk_seconds) -> Optional[float]:
         return None
     sec = sum(s for _, s in chunk_seconds[1:])
     return sum(e for e, _ in chunk_seconds[1:]) / sec if sec > 0 else None
-
-
-def not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported to the PyTorch package yet "
-                              f"(ROADMAP {item})")
 
 
 class KSDVariationalInference:

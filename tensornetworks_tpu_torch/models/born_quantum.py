@@ -70,6 +70,17 @@ MAX_LEARNED_CONDITIONING_DIM = 10  # 2^d interaction features
 LOG_PROB_EPS = 1e-9  # the reference's clamp, quantum_born_machine.py:188
 
 
+def init_circuit_params(num_params: int, init_method: str,
+                        generator: torch.Generator) -> torch.Tensor:
+    """θ of a circuit, float64 on the host: ``zero``, ``small_random``
+    (0.1·N(0,1)) or ``random`` (U[0, 2π)) from ``generator``."""
+    if init_method == "zero":
+        return torch.zeros(num_params, dtype=torch.float64)
+    if init_method == "small_random":
+        return 0.1 * torch.randn(num_params, generator=generator, dtype=torch.float64)
+    return 2.0 * np.pi * torch.rand(num_params, generator=generator, dtype=torch.float64)
+
+
 class QuantumBornMachine:
     def __init__(self, num_latent_vars: int, ansatz_layers: int = 1,
                  ansatz_type: str = "hardware_efficient",
@@ -186,13 +197,7 @@ class QuantumBornMachine:
         (U[0, 2π)), drawn on the host from ``generator``; then, for a learned
         embedding, W with W[q, 1 << (q mod d)] = π (the fixed wall's angles)
         and the per-layer scales at 1."""
-        m, nc = self.init_method, self.num_circuit_params
-        if m == "zero":
-            theta = torch.zeros(nc, dtype=torch.float64)
-        elif m == "small_random":
-            theta = 0.1 * torch.randn(nc, generator=generator, dtype=torch.float64)
-        else:
-            theta = 2.0 * np.pi * torch.rand(nc, generator=generator, dtype=torch.float64)
+        theta = init_circuit_params(self.num_circuit_params, self.init_method, generator)
         if self._num_embed:
             n, d = self.num_latent_vars, self.conditioning_dim
             W = torch.zeros((n, 1 << d), dtype=torch.float64)

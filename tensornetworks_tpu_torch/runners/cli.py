@@ -9,17 +9,19 @@ Usage:
     python -m tensornetworks_tpu_torch.runners.cli adversarial [--batch-size B] ...
     python -m tensornetworks_tpu_torch.runners.cli scale --qubits 16 [--objective ksd]
         [--chunk-epochs 100 --resume-state S --checkpoint C]
+    python -m tensornetworks_tpu_torch.runners.cli scale --qubits 20 --mesh 4
+        [--dist-backend gloo]
     python -m tensornetworks_tpu_torch.runners.cli amortized --qubits 4 [--quantum]
 
 (``tntpu-torch`` once the package is installed.) ``main`` returns the
-runner's result dict.
+runner's result dict. ``scale --mesh D`` starts D ranks of the distributed
+engine (``runners/scale_distributed.py``) and returns rank 0's summary;
+under ``torchrun`` it runs as this rank.
 """
 
 from __future__ import annotations
 
 import argparse
-
-from ..engines.ksd import not_ported
 
 
 def _parse_phase(spec: str):
@@ -128,7 +130,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "and adversarial objectives); an optional third field sets the "
                         "phase's kernel length scale, e.g. 6000:0.05:0.25,6000:0.05:auto")
     s.add_argument("--mesh", type=int, default=None,
-                   help="shard the 2^n state over this many devices (not ported yet)")
+                   help="shard the 2^n state over this many ranks (distributed KSD engine; "
+                        "ksd objective only): spawns them, or runs as this rank under torchrun")
+    s.add_argument("--dist-backend", type=str, default=None, choices=["nccl", "gloo"],
+                   help="collective backend of --mesh (default: nccl on cuda, gloo on cpu); "
+                        "gloo on cuda runs several ranks on one card, staging through host")
     s.add_argument("--track-tvd", type=str, default="auto", choices=["auto", "on", "off"],
                    help="per-epoch exact-TVD eval against the enumerated posterior (auto: on "
                         "up to 20 qubits)")
@@ -196,7 +202,14 @@ def main(argv=None):
         return run_sprinkler_experiment(cfg, plot_path=args.plot, device=args.device)
     if args.command == "scale":
         if args.mesh:
-            not_ported("scale --mesh (the distributed KSD engine)", "A12")
+            from .scale_distributed import run_distributed_scale_experiment
+
+            return run_distributed_scale_experiment(
+                num_qubits=args.qubits, layers=args.layers, num_epochs=args.epochs, lr=args.lr,
+                seed=args.seed, ansatz=args.ansatz, num_devices=args.mesh,
+                chunk_epochs=args.chunk_epochs, length_scale=args.length_scale,
+                lr_phases=_parse_phases(args.lr_phases), resume_state_path=args.resume_state,
+                device=args.device, dist_backend=args.dist_backend)
         from .scale import run_scale_experiment
 
         betas = ([float(b) for b in args.temper_betas.split(",")]

@@ -46,7 +46,10 @@ from tensornetworks_tpu_torch.models import ClassicalBornMachine, QuantumBornMac
 from tensornetworks_tpu_torch.ops.stein import SteinOperator, score_table
 from tensornetworks_tpu_torch.runners import amortized as trun_amortized
 from tensornetworks_tpu_torch.runners import scale as tscale
+from tensornetworks_tpu_torch.parallel import spawn
 from tensornetworks_tpu_torch.sim import latent_edges
+
+import torch_dist_ranks
 
 F64 = torch.float64
 SPRINKLER = (["C", "S", "R"], ["W"])
@@ -248,13 +251,29 @@ def test_posterior_for_is_the_restored_model():
     assert np.mean(tvds) == pytest.approx(teng.best_mean_tvd_, rel=1e-10)
 
 
-def test_mesh_is_not_ported():
-    _, teng, observations, _ = _quantum_engines("sprinkler-he")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        teng.train(observations, num_epochs=1, mesh=object())
-    bn = get_sprinkler_network()
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        train_multi_seed(bn, *SPRINKLER[:1], {"W": 1}, mesh=object(), device="cpu")
+def test_mesh_on_two_ranks_matches_single_device():
+    """``mesh=`` on a 2-rank gloo mesh (one observation, one seed a rank)
+    runs and matches the single-device run: the amortized engine's history,
+    best and restored θ to 1e-9 (θ's round-off directions to 1e-6, as in
+    the JAX comparisons above), the seeds' results to 1e-12."""
+    _, teng, observations, kw = _quantum_engines("sprinkler-he")
+    _, _, L, _, _, epochs, lr, ls = QUANTUM_CASES["sprinkler-he"]
+    live = ~_null_directions(teng, observations, teng.params)
+    inp = {"layers": L, "length_scale": ls, "params": teng.params.numpy(),
+           "observations": observations, "epochs": epochs, "lr": lr}
+    got = spawn(torch_dist_ranks.amortized_two_ranks, 2, "gloo", "cpu", inp, timeout_s=120)
+    h = teng.train(observations, **kw)
+    for key in ("loss", "mean_tvd"):
+        np.testing.assert_allclose(got[key], h[key], rtol=1e-9, atol=1e-12)
+    assert got["best"] == pytest.approx(teng.best_mean_tvd_, rel=1e-9)
+    _close(got["params"][live], teng.params.numpy()[live], 1e-9, "restored params")
+    np.testing.assert_allclose(got["params"][~live], teng.params.numpy()[~live], rtol=0,
+                               atol=1e-6)
+    want = train_multi_seed(get_sprinkler_network(), *SPRINKLER[:1], {"W": 1}, num_seeds=2,
+                            ansatz_layers=2, num_epochs=20, dtype=F64, device="cpu")
+    np.testing.assert_allclose(got["seeds"][0], want[0].numpy(), rtol=1e-12, atol=1e-14)
+    for a, b in zip(got["seeds"][1:], want[1:]):
+        np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-14)
 
 
 class JQ128(JQBM):

@@ -108,9 +108,42 @@ def test_cli_calls_the_runner_as_the_jax_cli_does(case, monkeypatch):
     assert tkw == jkw == default_kw
 
 
-def test_scale_mesh_names_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        main(["scale", "--mesh", "2", "--device", "cpu"])
+def test_scale_mesh_returns_the_runner_keys(monkeypatch):
+    """``scale --mesh 2 --device cpu`` starts 2 gloo ranks of the
+    distributed engine and returns rank 0's summary: the JAX runner's keys
+    but the engine (which lives in the ranks), and each rank's counters. A
+    hung rank would fail the run at the 60 s collective timeout set here."""
+    from tensornetworks_tpu_torch.parallel import launch
+
+    monkeypatch.setattr(launch, "COLLECTIVE_TIMEOUT_S", 60.0)
+    out = main(["scale", "--mesh", "2", "--device", "cpu", "--qubits", "4", "--layers", "2",
+                "--epochs", "5"])
+    assert {"history", "num_qubits"} <= set(out) and "model" not in out
+    assert out["num_qubits"] == 4 and len(out["history"]["loss_ksd"]) == 5
+    assert np.isfinite(out["history"]["loss_ksd"]).all() and np.isfinite(out["best_tvd"])
+    assert [r["rank"] for r in out["ranks"]] == [0, 1]
+    assert {r["transport"] for r in out["ranks"]} == {"gloo"}
+    assert all(r["comm_bytes"]["all_gather"] > 0 for r in out["ranks"])
+
+
+def test_scale_mesh_calls_the_distributed_runner_as_the_jax_cli_does(monkeypatch):
+    """The same call as the JAX CLI's for ``--mesh``, plus the port's
+    ``resume_state_path``, ``device`` and ``dist_backend``."""
+    import tensornetworks_tpu.runners.scale_distributed as j_dist
+    import tensornetworks_tpu_torch.runners.scale_distributed as t_dist
+
+    calls = {}
+    for side, mod in (("jax", j_dist), ("torch", t_dist)):
+        monkeypatch.setattr(mod, "run_distributed_scale_experiment",
+                            lambda side=side, **kw: calls.setdefault(side, kw))
+    argv = ["scale", "--mesh", "4", "--qubits", "20", "--lr-phases", "10:0.05,10:0.01",
+            "--chunk-epochs", "5", "--length-scale", "0.5", "--seed", "3"]
+    jcli.main(argv)
+    main(argv + ["--dist-backend", "gloo", "--resume-state", "s"])
+    tkw = calls["torch"]
+    assert (tkw.pop("device"), tkw.pop("dist_backend"), tkw.pop("resume_state_path")) == (
+        "cuda", "gloo", "s")
+    assert tkw == calls["jax"]
 
 
 def test_parse_phase():

@@ -3,7 +3,7 @@
 so that two commits are compared by one timer.
 
     python3 time_tree.py [--tree DIR]                  # the timed kernels, three timers
-    python3 time_tree.py [--tree DIR] --path main16    # a path's epochs/s (main16, scale20, bn20)
+    python3 time_tree.py [--tree DIR] --path main16    # a path's epochs/s (PATHS; a,b: several)
     python3 time_tree.py [--tree DIR] --stein-memory 20  # the Stein operator's device bytes
 
 DIR is the root of a checkout (by default this one), for example an earlier
@@ -26,7 +26,10 @@ Prints one JSON line per timer: ``{"timer": ..., "kernels": {name: {"ms",
 ``chip_smoke.run_main_path`` instead (300 epochs), with ``--path scale20``
 its ``run_scale_path`` (60 epochs at 20 qubits), with ``--path bn20`` its
 ``run_bn20_path`` (30 epochs, bn_structured L=8), and prints
-``{"path": ..., "epochs_per_s": x}``. With ``--stein-memory N`` it builds
+``{"path": ..., "epochs_per_s": x}``; ``sprinkler_classical``,
+``classical20``, ``warm16``, ``multiseed16``, ``cli16``, ``cli20`` and
+``profile16`` run those phases of DIR's ``chip_smoke.py``, and a
+comma-separated list runs several paths in one process, in turn. With ``--stein-memory N`` it builds
 DIR's ``SteinOperator`` for the N-qubit workload at the ``auto`` length
 scale and prints the device bytes the operator holds and the peak device
 bytes of one matvec above them. Run each tree in its own process, in
@@ -44,7 +47,10 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 REPS = 20
-PATHS = {"main16": "run_main_path", "scale20": "run_scale_path", "bn20": "run_bn20_path"}
+PATHS = {"main16": "run_main_path", "scale20": "run_scale_path", "bn20": "run_bn20_path",
+         "sprinkler_classical": "run_sprinkler_classical", "classical20": "run_classical20_path",
+         "warm16": "run_warm16_path", "multiseed16": "run_multiseed16_path",
+         "cli16": "run_cli16_path", "cli20": "run_cli20_path", "profile16": "run_profile16_path"}
 
 
 def _load(path: Path, name: str):
@@ -99,11 +105,15 @@ def stein_memory(smoke, n, device) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(HERE), help="root of the checkout to time")
-    ap.add_argument("--path", choices=tuple(PATHS),
-                    help="time this path's epochs/s, not the kernels")
+    ap.add_argument("--path", type=lambda v: v.split(","),
+                    help=f"time these paths' epochs/s, not the kernels (comma-separated: "
+                         f"{', '.join(PATHS)})")
     ap.add_argument("--stein-memory", type=int, metavar="N",
                     help="measure the N-qubit Stein operator's device memory")
     args = ap.parse_args(argv)
+    for name in args.path or ():
+        if name not in PATHS:
+            ap.error(f"unknown path {name!r}; choose from {', '.join(PATHS)}")
 
     timer_smoke = _load(HERE / "chip_smoke.py", "_timer_smoke")
     tree = Path(args.tree).resolve()
@@ -126,9 +136,11 @@ def main(argv=None) -> int:
               flush=True)
         return 0
     if args.path:
-        _, eps = getattr(smoke, PATHS[args.path])(device)
-        print(json.dumps({"tree": str(tree), "path": args.path, "epochs_per_s": eps}),
-              flush=True)
+        for name in args.path:
+            rate = getattr(smoke, PATHS[name])(device)[1]
+            eps = rate["epochs_per_sec"] if isinstance(rate, dict) else rate
+            print(json.dumps({"tree": str(tree), "path": name, "epochs_per_s": eps}),
+                  flush=True)
         return 0
     timers = {"unqueued": functools.partial(timer_smoke.time_ms, queued=False),
               "queued": timer_smoke.time_ms,
