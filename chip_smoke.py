@@ -193,6 +193,25 @@ Phases (any failure exits non-zero):
    launch and collective byte counts start at 0 with the phase; every
    rank's are read after it, with its peak device memory, and θ must be
    equal bit for bit on every rank.
+16. The precision policy (``ops/kernels/precision.py``, the engines'
+   ``highest_matmul_precision``), every phase above having run at the
+   defaults. precision_kernels: kernels 1-2 at n=16 (HE L=4; bn_structured
+   L=8) and kernels 5-6 at n=20 (HE L=4) and n=24 (bn_structured L=8, one
+   timed call each), each under ``default`` and ``high`` (bf16 tensor-core
+   variants, counted under ``<kernel>.<precision>``), held against the plain
+   emulation of the same passes on the card and against float64 without
+   rounding; printed beside the FP32 kernel's time and a bound at the bf16
+   tensor-core peak. precision16: ``runners/bench_precision.py``'s two
+   configurations (the 3-qubit Sprinkler oracle; the 16-qubit chain,
+   bn_structured L=8, 800 epochs) under ``highest``, ``high`` and
+   ``default`` with both knobs, and ``high`` and ``default`` with the kernel
+   knob alone: Sprinkler's best TVD ≤ 0.01 under ``highest`` and ``high``;
+   the rest printed. exact24_high: exact24 under the kernel precision
+   ``high``, its loss history's largest relative gap to exact24's printed;
+   grid20_default: scale20's configuration for 20 epochs under the kernel
+   precision ``default`` (the path of kernels 5-6's ``default`` variants);
+   sampled28_tf32: sampled28 under ``TNTPU_MATMUL_PRECISION=default`` (its
+   cuBLAS GEMMs in TF32), its U-statistics' gap to sampled28's printed.
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line (each kernel
 with the launch count of the path that runs it, and its launches on every
@@ -206,8 +225,10 @@ epochs/s, launches, TVDs), a ``{"cli": [...]}`` line (step 14's paths:
 epochs/s, launches, snapshot bytes and ms, the trace's kernels, the state's
 errors), a ``{"distributed": [...]}`` line (step 15's paths: transport,
 epochs/s, each rank's launches, peak memory and collective bytes an epoch,
-the checks' errors) and, last, the ``{"ok": true, ...}`` line. Imports
-nothing of JAX or of the JAX package.
+the checks' errors), a ``{"precision": [...]}`` line (step 16's checks and
+paths) and, last, the ``{"ok": true, ...}`` line. The ``kernels`` line
+lists the bf16 variants that ran beside the FP32 kernels. Imports nothing
+of JAX or of the JAX package.
 """
 
 import contextlib
@@ -223,8 +244,11 @@ import time
 from pathlib import Path
 
 # Published H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor
-# cores, and HBM3 bandwidth. The port runs FP32 FMA only (no TF32).
+# cores, dense bf16 on the tensor cores, and HBM3 bandwidth. At the default
+# precision the port runs FP32 FMA only (no TF32); the circuit kernels'
+# `high` and `default` variants run bf16 passes on the tensor cores.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # Device clock cycles of sleep queued ahead of each timed call (~0.1 ms at
 # the H100's 1.98 GHz boost clock), see time_ms.
@@ -391,6 +415,33 @@ AMORTIZED_MESH_EPOCHS, MULTISEED_MESH_EPOCHS = 200, 100
 MESH_RTOL, MESH_ATOL = 1e-4, 5e-4
 DIST_TIMEOUT_S = 600
 
+# The precision policy (ROADMAP A14). precision_kernels' cases (n, grid,
+# ansatz, L): kernels 1-2 at main16's and bn16's shapes, kernels 5-6 at
+# scale20's and exact24's. Limits of a bf16 variant, relative to the largest
+# magnitude: `default` against its plain emulation 2e-2 (one flipped bf16
+# rounding of an accumulated state carries on to later layers); `high`
+# against its plain emulation and against float64 1e-4: a split operand
+# keeps about 16 bits (2^-17 ≈ 7.6e-6 relative), and any FP32-order
+# difference between kernel and emulation can move a split, so the two agree
+# to about the emulation's own distance from float64 (on the card 1.8e-5 to
+# 3.7e-5 at these shapes, the kernels 1.2e-5 to 3.5e-5; PERF.md).
+PRECISION_CASES = ((N, False, ANSATZ, LAYERS), (N, False, BN, BN_LAYERS),
+                   (N_GRID, True, ANSATZ, LAYERS), (N_EXACT24, True, BN, BN_LAYERS))
+PRECISION_TOL = {"high": 1e-4, "default": 2e-2}
+PASSES = {"high": 3, "default": 1}
+PRECISION_VARIANTS = tuple(f"{k}.{p}" for k in ("circuit2d_fwd", "circuit2d_bwd",
+                                                 "circuit2d_grid_fwd", "circuit2d_grid_bwd")
+                           for p in ("high", "default"))
+# The path each variant's launches are read on, and the check whose shape
+# matches it (n, ansatz): precision16's chain is bn16's shape, exact24_high
+# exact24's, grid20_default scale20's.
+VARIANT_PATH = {v: ("precision16", (N, BN)) if not v.startswith("circuit2d_grid")
+                else ("exact24_high", (N_EXACT24, BN)) if v.endswith("high")
+                else ("grid20_default", (N_GRID, ANSATZ)) for v in PRECISION_VARIANTS}
+GRID20_DEFAULT_EPOCHS, GRID20_DEFAULT_CHUNK = 20, 10
+# The FP32 runs that exact24_high and sampled28_tf32 are compared with.
+REFERENCE_RUNS = {}
+
 # n=5 edges: high -> low, low -> high, and two pairs listed twice.
 N_BN_EDGES, BN_EDGES = 5, [(4, 0), (2, 1), (0, 3), (0, 3), (3, 4), (1, 2), (1, 2), (4, 2)]
 
@@ -459,7 +510,15 @@ PATH_KERNELS.update(bn16=PATH_KERNELS["main16"], bn20=PATH_KERNELS["scale20"],
                     # no kernel; the dp ranks run amortized16's and multiseed16's.
                     dist20=("stein2d_grid",), dist20x4=("stein2d_grid",),
                     dist_sampled20x4=(), amortized_mesh16x4=PATH_KERNELS["main16"],
-                    multiseed_mesh16x4=PATH_KERNELS["main16"])
+                    multiseed_mesh16x4=PATH_KERNELS["main16"],
+                    exact24_high=("circuit2d_grid_fwd.high", "circuit2d_grid_bwd.high",
+                                  "stein2d_grid", "stein_gcorr"),
+                    grid20_default=("circuit2d_grid_fwd.default", "circuit2d_grid_bwd.default",
+                                    "stein2d_grid", "stein_gcorr"),
+                    sampled28_tf32=(),
+                    precision16=("circuit2d_fwd", "circuit2d_bwd", "circuit2d_fwd.high",
+                                 "circuit2d_bwd.high", "circuit2d_fwd.default",
+                                 "circuit2d_bwd.default", "stein2d", "stein_gcorr"))
 
 
 class PhaseError(RuntimeError):
@@ -852,11 +911,20 @@ def check_large_n(device):
 # Mangled-name parts of the kernels whose registers are printed on a line of
 # their own: the persistent n <= 17 forward and backward, the n <= 17
 # cluster butterfly, and the large GEMM loop's scatter instantiation
-# (<AK, BKC, CA, CB, SCATTER> = <1, 0, 0, 0, 1>).
-NEW_KERNELS = {"circuit2d_fwd_kernel": "circuit2d_fwd_kernel",
-               "circuit2d_bwd_kernel": "circuit2d_bwd_kernel",
+# (<AK, BKC, CA, CB, SCATTER, P> = <1, 0, 0, 0, 1, P>), each at the
+# precisions P (0 FP32, 1 high, 2 default) of the persistent kernels' and
+# the scatter's template parameter.
+NEW_KERNELS = {"circuit2d_fwd_kernelILi0E": "circuit2d_fwd_kernel",
+               "circuit2d_bwd_kernelILi0E": "circuit2d_bwd_kernel",
                "cluster_butterfly_kernel": "cluster_butterfly_kernel",
-               "cgemm_large_kernelILb1ELb0ELb0ELb0ELb1EE": "cgemm_large_kernel<scatter>"}
+               "cgemm_large_kernelILb1ELb0ELb0ELb0ELb1ELi0EE": "cgemm_large_kernel<scatter>",
+               "circuit2d_fwd_kernelILi1E": "circuit2d_fwd_kernel<high>",
+               "circuit2d_fwd_kernelILi2E": "circuit2d_fwd_kernel<default>",
+               "circuit2d_bwd_kernelILi1E": "circuit2d_bwd_kernel<high>",
+               "circuit2d_bwd_kernelILi2E": "circuit2d_bwd_kernel<default>",
+               "cgemm_large_kernelILb1ELb0ELb0ELb0ELb1ELi1EE": "cgemm_large_kernel<scatter, high>",
+               "cgemm_large_kernelILb1ELb0ELb0ELb0ELb1ELi2EE":
+                   "cgemm_large_kernel<scatter, default>"}
 
 
 def check_spills(logs, kernels=("cgemm_large_kernel", "butterfly_pass_kernel",
@@ -1408,6 +1476,7 @@ def run_exact24_path(device):
           f"{hist['epochs_per_sec']:.3f} epochs/s, {steady:.3f} epochs/s steady, "
           f"{seconds:.1f}s in run_scale_experiment, peak device memory {peak:.2f} GiB, "
           f"launches {launches}", flush=True)
+    REFERENCE_RUNS["exact24"] = hist
     return launches, steady
 
 @functools.lru_cache(maxsize=None)
@@ -1733,6 +1802,7 @@ def run_sampled28_path(device):
           f"{hist['epochs_per_sec']:.3f} epochs/s, {row['epochs_per_sec']:.3f} epochs/s "
           f"steady, peak device memory {peak:.2f} GiB, launches {launches}", flush=True)
     row |= marginal_report("sampled28", n, bm, theta0, eng.params)
+    REFERENCE_RUNS["sampled28"] = hist
     return launches, row
 
 
@@ -2793,6 +2863,288 @@ def run_dist_rank_phases(device):
     return launches, rows
 
 
+# ------------------------------------------------------------ precision (16)
+
+
+def bound_bf16(flops, nbytes):
+    """The bound of a bf16 tensor-core variant: its passes' FLOPs over the
+    dense bf16 peak, or its bytes over the HBM rate."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_precision_kernels(device):
+    """precision_kernels: each bf16 variant of kernels 1, 2, 5 and 6 against
+    its plain emulation on the card and against float64 without rounding,
+    timed beside the FP32 kernel, at PRECISION_CASES; then untimed against
+    the plain emulation alone at the ragged, odd and loop-switching sizes of
+    step 3 (HE L=4: n = 2, 3, 17; 18, 19, 21). Returns one record a variant
+    and timed case."""
+    import torch
+
+    records = []
+    for case in PRECISION_CASES:
+        records += check_precision_case(device, *case, timed=True)
+        torch.cuda.empty_cache()
+    for n in (N_MIN, N_RAGGED, N_MAX, N_GRID_MIN, N_GRID_ODD, N_GRID_WIDE):
+        check_precision_case(device, n, n > N_MAX, ANSATZ, LAYERS, timed=False)
+    return records
+
+
+def check_precision_case(device, n, grid, ansatz, layers, timed):
+    """One shape of check_precision_kernels."""
+    import torch
+    from tensornetworks_tpu_torch.ops import kernels
+    from tensornetworks_tpu_torch.ops.kernels import _lib
+    from tensornetworks_tpu_torch.ops.kernels import circuit2d as kc
+    from tensornetworks_tpu_torch.ops.kernels import circuit2d_grid as kg
+    from tensornetworks_tpu_torch.sim.ansatz import num_ansatz_params
+    from tensornetworks_tpu_torch.sim.gates import rotation_operators
+
+    t0 = time.perf_counter()
+    edges = path_edges(n) if ansatz == BN else None
+    if grid:
+        name, Plan = "circuit2d_grid", kg.GridPlan
+        fwd, bwd = kg.circuit2d_grid_forward, kg.circuit2d_grid_backward
+        fwd_p, bwd_p = kg.circuit2d_grid_forward_plain, kg.circuit2d_grid_backward_plain
+    else:
+        name, Plan = "circuit2d", kc.CircuitPlan
+        fwd, bwd = kc.circuit2d_forward, kc.circuit2d_backward
+        fwd_p, bwd_p = kc.circuit2d_forward_plain, kc.circuit2d_backward_plain
+    plan32 = Plan(n, layers, ansatz, edges, precision="highest")
+    gen = torch.Generator().manual_seed(n)
+    theta = (0.1 * torch.randn(num_ansatz_params(n, layers, ansatz), generator=gen)).to(device)
+    Mr, Mc = rotation_operators(theta, n, layers, plan32.per_qubit)
+    planes = (kg.grid_planes(Mr, Mc, plan32) if grid
+              else [t.contiguous() for t in (Mr.real, Mr.imag, Mc.real, Mc.imag)])
+    del Mr, Mc
+    R, C = plan32.R, plan32.C
+    g = torch.randn((R, C), generator=gen).to(device) * R * C
+    if timed:
+        p64 = [t.double() for t in planes]
+        f64 = fwd_p(*p64, plan32)
+        ref = {"fwd": f64, "bwd": bwd_p(*p64, f64[1], f64[2], g.double(), plan32)}
+        del p64, f64
+        t = time_ms if n < N_EXACT22 else functools.partial(time_ms, reps=1, rounds=1)
+        out32 = fwd(*planes, plan32)
+        ms32 = {"fwd": t(lambda: fwd(*planes, plan32)),
+                "bwd": t(lambda: bwd(*planes, out32[1], out32[2], g, plan32))}
+        del out32
+    dense = R * R * C + R * C * C
+    moved = {"fwd": 4 * (2 * layers * R * R + 2 * layers * C * C + 3 * R * C),
+             "bwd": 4 * (4 * layers * R * R + 4 * layers * C * C + 3 * R * C)}
+    records = []
+    for prec in ("default", "high"):
+        plan = Plan(n, layers, ansatz, edges, precision=prec)
+        before = dict(kernels.LAUNCHES)
+        out_k, out_p = fwd(*planes, plan), fwd_p(*planes, plan)
+        got = {"fwd": out_k, "bwd": bwd(*planes, out_k[1], out_k[2], g, plan)}
+        plain = {"fwd": out_p, "bwd": bwd_p(*planes, out_p[1], out_p[2], g, plan)}
+        torch.cuda.synchronize()
+        calls = {"fwd": (lambda: fwd(*planes, plan), lambda: fwd_p(*planes, plan)),
+                 "bwd": (lambda: bwd(*planes, out_k[1], out_k[2], g, plan),
+                         lambda: bwd_p(*planes, out_p[1], out_p[2], g, plan))}
+        for kind in ("fwd", "bwd"):
+            key = _lib.launch_key(f"{name}_{kind}", prec)
+            what = f"{key} n={n} {ansatz} L={layers}"
+            require(kernels.LAUNCHES[key] > before[key], f"{key} did not launch")
+            require(all(bool(torch.isfinite(x).all()) for x in got[kind]), f"{what}: not finite")
+            err = max(rel_err(a, b) for a, b in zip(got[kind], plain[kind]))
+            abs_err = max(float((a - b).abs().max()) for a, b in zip(got[kind], plain[kind]))
+            tol = PRECISION_TOL[prec]
+            require(err <= tol, f"{what}: rel err vs its plain emulation {err:.3e}")
+            if not timed:
+                print(f"{what}: rel vs plain emulation {err:.2e} (abs {abs_err:.2e}, limit "
+                      f"{tol:g})", flush=True)
+                continue
+            err64 = max(rel_err(a.double(), b) for a, b in zip(got[kind], ref[kind]))
+            plain64 = max(rel_err(a.double(), b) for a, b in zip(plain[kind], ref[kind]))
+            if prec == "high":
+                require(err64 <= tol, f"{what}: rel err vs float64 {err64:.3e}")
+            flops = (8 if kind == "fwd" else 24) * layers * dense * PASSES[prec]
+            bound_ms, bound_by = bound_bf16(flops, moved[kind])
+            ms = t(calls[kind][0])
+            rec = dict(name=key, n=n, ansatz=ansatz, layers=layers, max_abs_err=abs_err,
+                       rel_err=err, rel_err_f64=err64, plain_rel_err_f64=plain64, ms=ms,
+                       fp32_ms=ms32[kind], plain_ms=t(calls[kind][1]), bound_ms=bound_ms,
+                       bound_by=bound_by, share=bound_ms / ms, library_ms=None, tol=tol)
+            records.append(rec)
+            print(f"{what}: rel vs plain emulation {err:.2e} (abs {abs_err:.2e}, limit "
+                  f"{tol:g}), vs float64 {err64:.2e} (the emulation's {plain64:.2e}); "
+                  f"{ms:.5f} ms queued, FP32 kernel {ms32[kind]:.5f} ms, plain "
+                  f"{rec['plain_ms']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, "
+                  f"{PASSES[prec]} pass{'es' if PASSES[prec] > 1 else ''} at "
+                  f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s), share {rec['share']:.1%}",
+                  flush=True)
+        del out_k, out_p, got, plain, calls
+    if timed:
+        print(f"  (precision_kernels n={n} {ansatz}: {time.perf_counter() - t0:.1f}s)",
+              flush=True)
+    return records
+
+
+def run_precision16(device):
+    """precision16: runners/bench_precision.py's configurations under each
+    setting, the launches counted a setting at a time (kernels 1-2 of the
+    setting's precision, kernel 3 and stein_gcorr, no other). Returns (the
+    launches summed over the settings, the rows)."""
+    import torch
+    from tensornetworks_tpu_torch.ops import kernels
+    from tensornetworks_tpu_torch.ops.kernels import _lib
+    from tensornetworks_tpu_torch.runners import bench_precision as bp
+
+    total, rows = {}, []
+    for prec, knobs in bp.SETTINGS:
+        kernels.reset_launches()
+        got = bp.run_setting(prec, knobs, device=device)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        # kernels 1-2 at the setting's precision; the chain's Stein operator
+        # (n=16) runs kernel 3 and stein_gcorr, Sprinkler's (n=3) is dense.
+        want = {*(_lib.launch_key(k, prec) for k in ("circuit2d_fwd", "circuit2d_bwd")),
+                "stein2d", "stein_gcorr"}
+        for key, count in launches.items():
+            require((count > 0) == (key in want),
+                    f"precision16 {prec}/{knobs}: kernel {key} launched {count}x")
+            total[key] = total.get(key, 0) + count
+        for r in got:
+            rows.append(r)
+            print(f"precision16 [{prec}/{knobs}] {r['config']}: best TVD {r['best_tvd']:.6f}, "
+                  f"loss[-1] {r['final_loss']:.5f}, {r['epochs_per_sec']:.1f} epochs/s "
+                  f"({r['seconds']:.1f} s, {r['backend']})", flush=True)
+    best = {(r["config"], r["precision"], r["knobs"]): r["best_tvd"] for r in rows}
+    for prec in ("highest", "high"):
+        tvd = best[("sprinkler3", prec, "both")]
+        require(tvd <= SPRINKLER_TVD_MAX, f"precision16 sprinkler3 under {prec}: best TVD {tvd}")
+    print(f"precision16: 16q best TVD high {best[('chain16', 'high', 'both')]:.5f} vs highest "
+          f"{best[('chain16', 'highest', 'both')]:.5f} (default "
+          f"{best[('chain16', 'default', 'both')]:.5f}); Sprinkler high "
+          f"{best[('sprinkler3', 'high', 'both')]:.5f} vs highest "
+          f"{best[('sprinkler3', 'highest', 'both')]:.5f} (default "
+          f"{best[('sprinkler3', 'default', 'both')]:.5f})", flush=True)
+    return total, rows
+
+
+@contextlib.contextmanager
+def kernel_precision(name):
+    """The kernel precision ``name`` for the plans built inside."""
+    from tensornetworks_tpu_torch.ops.kernels import precision
+
+    old = precision._kernel_precision()
+    precision.set_kernel_precision(name)
+    try:
+        yield
+    finally:
+        precision.set_kernel_precision(old)
+
+
+def run_exact24_high(device, precision_records):
+    """exact24 under the kernel precision ``high``: its launches, the loss
+    history's largest relative gap to exact24's, epochs/s, and the n=24
+    high variants' times from precision_kernels."""
+    import torch
+    from tensornetworks_tpu_torch.ops import kernels
+    from tensornetworks_tpu_torch.runners import run_scale_experiment
+
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    with kernel_precision("high"):
+        out = run_scale_experiment(num_qubits=N_EXACT24, layers=BN_LAYERS, ansatz=BN, lr=BN_LR,
+                                   num_epochs=EXACT24_EPOCHS, chunk_epochs=EXACT24_CHUNK,
+                                   track_tvd=True, seed=0, verbose=False, device=device)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check_launches("exact24_high", launches)
+    hist, ref = out["history"], REFERENCE_RUNS["exact24"]
+    loss = hist["loss_ksd"]
+    require(all(math.isfinite(x) for x in loss), "exact24_high loss not finite")
+    require(hist["num_skipped_updates"] == 0, "exact24_high skipped updates")
+    gap = max(abs(a - b) / abs(b) for a, b in zip(loss, ref["loss_ksd"]))
+    steady = hist.get("epochs_per_sec_steady", hist["epochs_per_sec"])
+    k56 = {r["name"]: r["ms"] for r in precision_records
+           if r["n"] == N_EXACT24 and r["name"].endswith(".high")}
+    row = {"path": "exact24_high", "epochs_per_sec": steady,
+           "fp32_epochs_per_sec": ref.get("epochs_per_sec_steady"), "loss_gap": gap,
+           "best_tvd": out["model"].best_tvd_, "launches": launches, "kernel_ms": k56}
+    print(f"exact24_high path: {EXACT24_EPOCHS} epochs, loss {loss[0]:.5f} -> {loss[-1]:.5f}, "
+          f"largest relative gap to exact24's history {gap:.2e}, {steady:.3f} epochs/s steady "
+          f"(exact24 {row['fp32_epochs_per_sec']:.3f}), best TVD {row['best_tvd']:.5f}, "
+          f"kernel 5-6 ms {k56}, launches {launches}", flush=True)
+    return launches, row
+
+
+def run_grid20_default(device):
+    """scale20's configuration under the kernel precision ``default``, 20
+    epochs: the path of kernels 5-6's ``default`` variants."""
+    import torch
+    from tensornetworks_tpu_torch.ops import kernels
+    from tensornetworks_tpu_torch.runners import run_scale_experiment
+
+    kernels.reset_launches()
+    with kernel_precision("default"):
+        out = run_scale_experiment(num_qubits=N_GRID, layers=LAYERS,
+                                   num_epochs=GRID20_DEFAULT_EPOCHS,
+                                   chunk_epochs=GRID20_DEFAULT_CHUNK, seed=0, verbose=False,
+                                   device=device)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check_launches("grid20_default", launches)
+    hist = out["history"]
+    require(all(math.isfinite(x) for x in hist["loss_ksd"]), "grid20_default loss not finite")
+    steady = hist.get("epochs_per_sec_steady", hist["epochs_per_sec"])
+    print(f"grid20_default path: {GRID20_DEFAULT_EPOCHS} epochs, loss {hist['loss_ksd'][0]:.5f} "
+          f"-> {hist['loss_ksd'][-1]:.5f}, {steady:.2f} epochs/s steady, launches {launches}",
+          flush=True)
+    return launches, {"path": "grid20_default", "epochs_per_sec": steady, "launches": launches}
+
+
+def run_sampled28_tf32(device):
+    """sampled28 under ``TNTPU_MATMUL_PRECISION=default``: the blocked
+    executor's cuBLAS GEMMs in TF32. Its epochs/s and the U-statistics' gap
+    to sampled28's (FP32) history."""
+    import torch
+    from tensornetworks_tpu_torch.engines import SampledKSDVariationalInference
+    from tensornetworks_tpu_torch.ops import kernels
+
+    n = N_SAMPLED28
+    bn, latent, obs = sampled_problem(n)
+    eng = SampledKSDVariationalInference(bn, latent, list(obs), qbm_ansatz_layers=LAYERS,
+                                         num_samples=SHOTS, seed=0, base_kernel_length_scale=1.0,
+                                         device=device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    old = os.environ.get("TNTPU_MATMUL_PRECISION")
+    os.environ["TNTPU_MATMUL_PRECISION"] = "default"
+    try:
+        hist = eng.train(obs, num_epochs=SAMPLED28_EPOCHS, lr_born_machine=0.05, verbose=False,
+                         chunk_epochs=SAMPLED28_CHUNK)
+    finally:
+        if old is None:
+            os.environ.pop("TNTPU_MATMUL_PRECISION")
+        else:
+            os.environ["TNTPU_MATMUL_PRECISION"] = old
+    torch.cuda.synchronize()
+    require(not torch.backends.cuda.matmul.allow_tf32, "sampled28_tf32 left TF32 on")
+    launches = dict(kernels.LAUNCHES)
+    check_launches("sampled28_tf32", launches)
+    loss, ref = hist["loss_ksd"], REFERENCE_RUNS["sampled28"]
+    require(all(math.isfinite(x) for x in loss), "sampled28_tf32 U-statistic not finite")
+    require(hist["num_skipped_updates"] == 0, "sampled28_tf32 skipped updates")
+    gap = max(abs(a - b) for a, b in zip(loss, ref["loss_ksd"])) / max(
+        abs(x) for x in ref["loss_ksd"])
+    eps = hist.get("epochs_per_sec_steady", hist["epochs_per_sec"])
+    ref_eps = ref.get("epochs_per_sec_steady", ref["epochs_per_sec"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"sampled28_tf32 path: {SAMPLED28_EPOCHS} epochs, U-statistic {loss[0]:.4f} -> "
+          f"{loss[-1]:.4f} (FP32 {ref['loss_ksd'][0]:.4f} -> {ref['loss_ksd'][-1]:.4f}), largest "
+          f"gap {gap:.2e} of the largest FP32 U-statistic, {eps:.3f} epochs/s steady (FP32 "
+          f"{ref_eps:.3f}), peak device memory {peak:.2f} GiB", flush=True)
+    return launches, {"path": "sampled28_tf32", "epochs_per_sec": eps,
+                      "fp32_epochs_per_sec": ref_eps, "ustat_gap": gap, "peak_gib": peak,
+                      "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2905,6 +3257,22 @@ def main() -> int:
     dist_line += rows
     t0 = phase("dist_sampled20x4, amortized_mesh16x4 and multiseed_mesh16x4 paths", t0)
 
+    precision_records = check_precision_kernels(device)
+    t0 = phase("precision_kernels", t0)
+    path_launches["precision16"], precision16_rows = run_precision16(device)
+    t0 = phase("precision16", t0)
+    precision_line = [{k: r[k] for k in ("name", "n", "ansatz", "layers", "rel_err", "rel_err_f64",
+                                         "plain_rel_err_f64", "tol", "ms", "fp32_ms", "plain_ms",
+                                         "bound_ms", "bound_by", "share")}
+                      for r in precision_records] + precision16_rows
+    for path, run in (("exact24_high", functools.partial(run_exact24_high,
+                                                         precision_records=precision_records)),
+                      ("grid20_default", run_grid20_default),
+                      ("sampled28_tf32", run_sampled28_tf32)):
+        path_launches[path], row = run(device)
+        precision_line.append(row)
+        t0 = phase(f"{path} path", t0)
+
     kernels_line = []
     for r in records:
         kernels_line.append({
@@ -2916,8 +3284,21 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
-    require(sorted(k["name"] for k in kernels_line) == sorted(SOURCES),
-            "the kernels line does not list every kernel")
+    for variant, (path, (n, ansatz)) in VARIANT_PATH.items():
+        r = next(r for r in precision_records
+                 if (r["name"], r["n"], r["ansatz"]) == (variant, n, ansatz))
+        base = variant.split(".")[0]
+        require(path_launches[path][variant] > 0, f"{variant} never launched on {path}")
+        kernels_line.append({
+            "name": variant, "route": "cuda", "source": SOURCES[base],
+            "replaces": REPLACES[base], "launches": path_launches[path][variant],
+            "launches_by_path": {p: c[variant] for p, c in path_launches.items()
+                                 if c.get(variant)},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
+    require(sorted(k["name"] for k in kernels_line) == sorted([*SOURCES, *PRECISION_VARIANTS]),
+            "the kernels line does not list every kernel and variant")
     bn_path = {k: path for path in ("bn16", "bn20") for k in PATH_KERNELS[path]}
     bn_line = []
     for r in bn_records:
@@ -2942,6 +3323,8 @@ def main() -> int:
           + "".join(f"{r['path']} path {r['epochs_per_sec']:.2f} epochs/s, "
                     for r in cli_line if "epochs_per_sec" in r)
           + "".join(f"{r['path']} path {r['epochs_per_sec']:.2f} epochs/s, " for r in dist_line)
+          + "".join(f"{r['path']} path {r['epochs_per_sec']:.3f} epochs/s, "
+                    for r in precision_line if "path" in r)
           + f"on {card}; "
           f"{time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps({"kernels": kernels_line}))
@@ -2951,6 +3334,7 @@ def main() -> int:
     print(json.dumps({"amortized": amortized_line}))
     print(json.dumps({"cli": cli_line}))
     print(json.dumps({"distributed": dist_line}))
+    print(json.dumps({"precision": precision_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -10,9 +10,15 @@ The kernels it ran as Pallas kernels on the TPU are hand-written CUDA here
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU, where every kernel wrapper runs its plain torch version.
 
-Precision is FP32 throughout: TF32 is switched off for matmuls and cuDNN
-below, because the JAX package measured that lossy matmuls degrade the final
-TVD 16-24x.
+Precision follows the JAX package's policy, FP32 by default: TF32 is
+switched off for matmuls and cuDNN below, because the JAX package measured
+that one bf16 pass degrades the final TVD 16-24x. Two knobs lower it: the
+kernel precision (``ops/kernels/precision.py``, ``TNTPU_KERNEL_PRECISION``,
+default ``highest``: circuit kernels 1, 2, 5 and 6 as three (``high``) or
+one (``default``) bf16 tensor-core passes), and the matmul precision of the
+engines' ``train`` (``engines.common.highest_matmul_precision``,
+``TNTPU_MATMUL_PRECISION``, default ``high``, which runs FP32; ``default``
+allows TF32).
 """
 
 import torch

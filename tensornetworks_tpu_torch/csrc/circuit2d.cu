@@ -33,7 +33,9 @@
 //   forward : 8 L (R^2 C + R C^2) = 1.07 GFLOP FP32, ~4.8 MB moved
 //   backward: 24 L (R^2 C + R C^2) = 3.22 GFLOP FP32, ~8.9 MB moved
 // Both are bound by FP32 FMA throughput (67 TFLOP/s on the H100 SXM: 16 us
-// and 48 us). At these sizes a single product is 2-3 us of work, so a
+// and 48 us) at the default precision; under the kernel precision `high`
+// and `default` the products run on the bf16 tensor cores (mma_bf16.cuh:
+// three and one passes at 989 TFLOP/s). At these sizes a single product is 2-3 us of work, so a
 // sequence of launches is bound by launch latency and occupancy, not by the
 // FMA units (see PERF.md): the reason each direction is one launch.
 
@@ -46,29 +48,43 @@ extern "C" {
 
 // probs, xr, xi: (R, C) outputs; tmp: (2, R, C) scratch; masks: (2 layers,
 // n) on the device, layer l's row masks at row 2l and its CZ masks at row
-// 2l + 1. Returns the launch's error: a device that cannot run the
-// cooperative launch refuses it.
+// 2l + 1; precision: a tn::Precision code. Returns the launch's error: a
+// device that cannot run the cooperative launch refuses it, and an unknown
+// precision is refused.
 int tn_circuit2d_forward(const float* mr_re, const float* mr_im, const float* mc_re,
                          const float* mc_im, float* probs, float* xr, float* xi, float* tmp,
-                         const unsigned* masks, int n, int layers, int has_wall, void* stream) {
+                         const unsigned* masks, int n, int layers, int has_wall, int precision,
+                         void* stream) {
   if (n < 2 || n > 17 || layers < 1) return (int)cudaErrorInvalidValue;
   const tn::fwd::Args a = {mr_re, mr_im, mc_re, mc_im, probs, xr, xi, tmp, masks,
                            n, layers, has_wall, (float)std::pow(2.0, -0.5 * n)};
-  return tn::fwd::circuit_forward_persistent(a, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (precision) {
+    case tn::kHighest: return tn::fwd::circuit_forward_persistent<tn::kHighest>(a, st);
+    case tn::kHigh: return tn::fwd::circuit_forward_persistent<tn::kHigh>(a, st);
+    case tn::kDefault: return tn::fwd::circuit_forward_persistent<tn::kDefault>(a, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // xr, xi, g: (R, C) inputs; dmr_*: (layers, R, R) and dmc_*: (layers, C, C)
-// outputs; scratch: (4, 4, R, C); masks: as the forward's. Returns the
-// launch's error: a device that cannot run the cooperative launch refuses
-// it.
+// outputs; scratch: (4, 4, R, C); masks, precision: as the forward's.
+// Returns the launch's error: a device that cannot run the cooperative
+// launch refuses it, and an unknown precision is refused.
 int tn_circuit2d_backward(const float* mr_re, const float* mr_im, const float* mc_re,
                           const float* mc_im, const float* xr, const float* xi,
                           const float* g, float* dmr_re, float* dmr_im, float* dmc_re,
                           float* dmc_im, float* scratch, const unsigned* masks, int n,
-                          int layers, void* stream) {
+                          int layers, int precision, void* stream) {
   const tn::bwd::Args a = {mr_re, mr_im, mc_re, mc_im, xr, xi, g, dmr_re, dmr_im,
                            dmc_re, dmc_im, scratch, masks, n, layers};
-  return tn::bwd::circuit_backward_persistent(a, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (precision) {
+    case tn::kHighest: return tn::bwd::circuit_backward_persistent<tn::kHighest>(a, st);
+    case tn::kHigh: return tn::bwd::circuit_backward_persistent<tn::kHigh>(a, st);
+    case tn::kDefault: return tn::bwd::circuit_backward_persistent<tn::kDefault>(a, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

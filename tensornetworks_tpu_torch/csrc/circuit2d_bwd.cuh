@@ -36,6 +36,13 @@
 // MACs (phi1: 64 + 64, phi2 and phi3: 2 x 64, the last phase 64 + 64): one
 // unit on each of 128 SMs.
 //
+// Precision P (mma_bf16.cuh): every product runs the units' FP32 FMA loops
+// (kHighest) or their bf16 tensor-core passes (kHigh, kDefault); phi1's
+// unpermute is exact at every precision. The bf16 variants take 32 x 16
+// units, the forward's: with 32 x 32 units the `high` variant's fragments
+// (hi and lo of both A planes) and 32 accumulators did not fit the 255
+// registers beside the sweep's state, and ptxas spilled.
+//
 // Flat state indices are 32-bit, as in circuit_layers.cuh.
 
 #pragma once
@@ -56,12 +63,14 @@ struct Args {
   int n, layers;
 };
 
+template <int P>
 __global__ void __launch_bounds__(THREADS, 1) circuit2d_bwd_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
   __shared__ PermSpec spec;
   namespace cg = cooperative_groups;
   cg::grid_group grid = cg::this_grid();
 
+  constexpr int TN = P == kHighest ? TILE : 16;  // output columns of a unit
   const int n = a.n, rb = (n + 1) / 2, cb = n - rb;
   const int R = 1 << rb, C = 1 << cb, S = R * C;
   float* const U[2] = {a.scratch, a.scratch + 4LL * S};
@@ -83,7 +92,7 @@ __global__ void __launch_bounds__(THREADS, 1) circuit2d_bwd_kernel(Args a) {
     dmc.c_re = a.dmc_re + (long long)l * C * C; dmc.c_im = a.dmc_im + (long long)l * C * C;
     dmc.c_sm = C; dmc.M = C; dmc.N = C; dmc.K = R; dmc.batch = 1;
     set_vec(dmc);
-    run<false, true>(dmr, &dmc, smem);
+    run<false, true, TN, false, P>(dmr, &dmc, smem);
   };
 
   for (int l = a.layers - 1; l >= 0; --l) {
@@ -115,7 +124,7 @@ __global__ void __launch_bounds__(THREADS, 1) circuit2d_bwd_kernel(Args a) {
     col.c_re = V; col.c_im = V + S; col.c_sb = 2LL * S; col.c_sm = C;
     col.M = R; col.N = C; col.K = C; col.batch = 2;
     set_vec(col);
-    run<false, true>(col, nullptr, smem);
+    run<false, true, TN, false, P>(col, nullptr, smem);
     grid.sync();
 
     // phi3: W = Mr[l]^H V, state and cotangent
@@ -126,7 +135,7 @@ __global__ void __launch_bounds__(THREADS, 1) circuit2d_bwd_kernel(Args a) {
     row.c_re = W; row.c_im = W + S; row.c_sb = 2LL * S; row.c_sm = C;
     row.M = R; row.N = C; row.K = R; row.batch = 2;
     set_vec(row);
-    run<true, false>(row, nullptr, smem);
+    run<true, false, TN, false, P>(row, nullptr, smem);
     grid.sync();
   }
   grads(0);
@@ -134,9 +143,10 @@ __global__ void __launch_bounds__(THREADS, 1) circuit2d_bwd_kernel(Args a) {
 
 // One cooperative launch of one block per SM, or the error that refused it
 // (nothing launched).
+template <int P>
 inline cudaError_t circuit_backward_persistent(const Args& a, cudaStream_t st) {
   static PerDevice<LaunchPlan> plans;
-  return launch_persistent(circuit2d_bwd_kernel, plans, a, st);
+  return launch_persistent(circuit2d_bwd_kernel<P>, plans, a, st);
 }
 
 }  // namespace bwd

@@ -34,7 +34,10 @@
 //   forward : 8 L (R^2 C + R C^2) = 6.9e10 FLOP FP32 -> 1.03 ms at 67 TFLOP/s
 //   backward: 24 L (R^2 C + R C^2) = 2.1e11 FLOP FP32 -> 3.08 ms
 //   bytes: operators 2 L (R^2 + C^2) floats, 67 MB -> 20 us at 3.35 TB/s.
-// Both are bound by FP32 FMA throughput. From n=19 every non-scatter product
+// Both are bound by FP32 FMA throughput at the default precision. Under the
+// kernel precision `high` and `default` every product runs on the bf16
+// tensor cores instead (tn_gemm.cuh, mma_bf16.cuh): 3 and 1 passes, bound
+// at 989 TFLOP/s by 3x and 1x the dense products' operations. From n=19 every non-scatter product
 // has at least 128 tiles of 128x64 and takes tn_gemm.cuh's large loop
 // (cp.async pipeline, 8x4 complex register tiles); from n=20 the forward's
 // right product does too, with the scatter epilogue (the CNOT map split as
@@ -54,27 +57,29 @@ extern "C" {
 // scratch.
 // rows: (layers, n) masks of each layer's index map (HE: the boundary /
 // column-chain / ring map on every layer); cz: (layers, n) CZ masks of each
-// layer. Both are host tables.
+// layer. Both are host tables. precision: a tn::Precision code.
 int tn_circuit2d_grid_forward(const float* mr_re, const float* mr_im, const float* mc_re,
                               const float* mc_im, float* probs, float* xr, float* xi,
                               float* tmp, float* mct, int n, int layers, int has_wall,
-                              const unsigned* rows, const unsigned* cz, void* stream) {
+                              int precision, const unsigned* rows, const unsigned* cz,
+                              void* stream) {
   const tn::LayerMaps maps = {n, rows, cz};
   return tn::circuit_forward(mr_re, mr_im, mc_re, mc_im, probs, xr, xi, tmp, mct, layers,
-                             has_wall, maps, static_cast<cudaStream_t>(stream));
+                             has_wall, maps, precision, static_cast<cudaStream_t>(stream));
 }
 
 // xr, xi, g: (R, C) inputs; dmr_*: (layers, R, R) and dmc_*: (layers, C, C)
 // outputs (gradients of the P_row-folded operators); buf_a, buf_b: (4, R, C)
-// scratch each; rows, cz: as the forward's.
+// scratch each; precision, rows, cz: as the forward's.
 int tn_circuit2d_grid_backward(const float* mr_re, const float* mr_im, const float* mc_re,
                                const float* mc_im, const float* xr, const float* xi,
                                const float* g, float* dmr_re, float* dmr_im, float* dmc_re,
                                float* dmc_im, float* buf_a, float* buf_b, int n, int layers,
-                               const unsigned* rows, const unsigned* cz, void* stream) {
+                               int precision, const unsigned* rows, const unsigned* cz,
+                               void* stream) {
   const tn::LayerMaps maps = {n, rows, cz};
   return tn::circuit_backward(mr_re, mr_im, mc_re, mc_im, xr, xi, g, dmr_re, dmr_im, dmc_re,
-                              dmc_im, buf_a, buf_b, layers, maps,
+                              dmc_im, buf_a, buf_b, layers, maps, precision,
                               static_cast<cudaStream_t>(stream));
 }
 

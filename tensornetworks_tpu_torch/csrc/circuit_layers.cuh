@@ -19,6 +19,10 @@
 // back through conj(Mc), one through Mr^dagger, and two complex GEMMs form
 // dMc = lambda^T conj(x) and dMr = lambda x^H.
 //
+// `precision` (a Precision code, mma_bf16.cuh) picks every product's
+// instantiation: the FP32 FMA loops, or the bf16 tensor-core passes. The
+// transpose, the gathers and the index maps are exact at every precision.
+//
 // Flat state indices are 32-bit (tn_gemm.cuh `m * p.N + n`, `int S` below):
 // that holds to n = 30, above every size the Python wrappers accept.
 
@@ -110,7 +114,7 @@ inline int blocks_for(int size) { return (size + 255) / 256; }
 inline cudaError_t circuit_forward(const float* mr_re, const float* mr_im, const float* mc_re,
                                    const float* mc_im, float* probs, float* xr, float* xi,
                                    float* tmp, float* mct, int layers, int has_wall,
-                                   const LayerMaps& maps, cudaStream_t st) {
+                                   const LayerMaps& maps, int precision, cudaStream_t st) {
   const int n = maps.n, rb = (n + 1) / 2, cb = n - rb;
   const int R = 1 << rb, C = 1 << cb, S = R * C;
   const float amp = (float)std::pow(2.0, -0.5 * n);
@@ -131,7 +135,7 @@ inline cudaError_t circuit_forward(const float* mr_re, const float* mr_im, const
     left.b_re = xr; left.b_im = xi; left.b_sk = C; left.b_sn = 1;
     left.c_re = tmp; left.c_im = tmp + S; left.c_sm = C; left.c_sn = 1;
     left.M = R; left.N = C; left.K = R;
-    if ((err = launch_gemm(left, none, st)) != cudaSuccess) return err;
+    if ((err = launch_gemm(left, none, st, precision)) != cudaSuccess) return err;
     // X = perm/sign(tmp Mc[l]^T)
     GemmArgs right = gemm_args();
     right.a_re = tmp; right.a_im = tmp + S; right.a_sm = C; right.a_sk = 1;
@@ -141,7 +145,8 @@ inline cudaError_t circuit_forward(const float* mr_re, const float* mr_im, const
     right.M = R; right.N = C; right.K = C;
     right.scatter = 1;
     right.probs = (l == layers - 1) ? probs : nullptr;
-    if ((err = launch_gemm(right, layer_spec(maps, l), st)) != cudaSuccess) return err;
+    err = launch_gemm(right, layer_spec(maps, l), st, precision);
+    if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
@@ -152,7 +157,7 @@ inline cudaError_t circuit_backward(const float* mr_re, const float* mr_im, cons
                                     const float* mc_im, const float* xr, const float* xi,
                                     const float* g, float* dmr_re, float* dmr_im, float* dmc_re,
                                     float* dmc_im, float* buf_a, float* buf_b, int layers,
-                                    const LayerMaps& maps, cudaStream_t st) {
+                                    const LayerMaps& maps, int precision, cudaStream_t st) {
   const int n = maps.n, rb = (n + 1) / 2, cb = n - rb;
   const int R = 1 << rb, C = 1 << cb, S = R * C;
   const PermSpec none = {};
@@ -175,7 +180,7 @@ inline cudaError_t circuit_backward(const float* mr_re, const float* mr_im, cons
     col.b_re = mc_r; col.b_im = mc_i; col.b_sk = C; col.b_sn = 1; col.b_conj = -1.f;
     col.c_re = A; col.c_im = A + S; col.c_sb = 2LL * S; col.c_sm = C; col.c_sn = 1;
     col.M = R; col.N = C; col.K = C; col.batch = 2;
-    if ((err = launch_gemm(col, none, st)) != cudaSuccess) return err;
+    if ((err = launch_gemm(col, none, st, precision)) != cudaSuccess) return err;
     // dMc[l] = lambda_after^T conj(x_before)
     GemmArgs dmc = gemm_args();
     dmc.a_re = B + 2LL * S; dmc.a_im = B + 3LL * S; dmc.a_sm = 1; dmc.a_sk = C;
@@ -183,14 +188,14 @@ inline cudaError_t circuit_backward(const float* mr_re, const float* mr_im, cons
     dmc.c_re = dmc_re + (long long)l * C * C; dmc.c_im = dmc_im + (long long)l * C * C;
     dmc.c_sm = C; dmc.c_sn = 1;
     dmc.M = C; dmc.N = C; dmc.K = R;
-    if ((err = launch_gemm(dmc, none, st)) != cudaSuccess) return err;
+    if ((err = launch_gemm(dmc, none, st, precision)) != cudaSuccess) return err;
     // B = Mr^dagger A: state and cotangent before the layer.
     GemmArgs row = gemm_args();
     row.a_re = mr_r; row.a_im = mr_i; row.a_sm = 1; row.a_sk = R; row.a_conj = -1.f;
     row.b_re = A; row.b_im = A + S; row.b_sb = 2LL * S; row.b_sk = C; row.b_sn = 1;
     row.c_re = B; row.c_im = B + S; row.c_sb = 2LL * S; row.c_sm = C; row.c_sn = 1;
     row.M = R; row.N = C; row.K = R; row.batch = 2;
-    if ((err = launch_gemm(row, none, st)) != cudaSuccess) return err;
+    if ((err = launch_gemm(row, none, st, precision)) != cudaSuccess) return err;
     // dMr[l] = lambda_after x_before^H
     GemmArgs dmr = gemm_args();
     dmr.a_re = A + 2LL * S; dmr.a_im = A + 3LL * S; dmr.a_sm = C; dmr.a_sk = 1;
@@ -198,7 +203,7 @@ inline cudaError_t circuit_backward(const float* mr_re, const float* mr_im, cons
     dmr.c_re = dmr_re + (long long)l * R * R; dmr.c_im = dmr_im + (long long)l * R * R;
     dmr.c_sm = R; dmr.c_sn = 1;
     dmr.M = R; dmr.N = R; dmr.K = C;
-    if ((err = launch_gemm(dmr, none, st)) != cudaSuccess) return err;
+    if ((err = launch_gemm(dmr, none, st, precision)) != cudaSuccess) return err;
     float* t = A; A = B; B = t;
   }
   return cudaSuccess;

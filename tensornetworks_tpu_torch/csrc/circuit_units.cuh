@@ -26,6 +26,12 @@
 // operands need it); out-of-range elements are zero-filled by the copy, so
 // ragged tiles (n=3: R=4, C=2) and odd n (R = 2C) take the same code.
 //
+// Precision (template parameter P, mma_bf16.cuh): kHighest runs the FMA
+// block above; kHigh and kDefault replace it with bf16 mma.sync products on
+// the same ring, each group's two warps taking 16 rows x TN of the tile
+// (TN / 8 tiles of 16 x 8). Their partial tiles go to the same shared-memory
+// K-split sum, so the store, the scatter and its order are those of FP32.
+//
 // Flat state indices are 32-bit, as in circuit_layers.cuh.
 
 #pragma once
@@ -33,6 +39,7 @@
 #include <cooperative_groups.h>
 
 #include "layer_map.cuh"
+#include "mma_bf16.cuh"
 #include "per_device.cuh"
 
 namespace tn {
@@ -131,11 +138,11 @@ __device__ __forceinline__ void load_tile(const float* re, const float* im, long
 // Unit t of product p, by the whole block: a TILE x TN output tile. CA / CB:
 // conjugate A / B. SCATTER: element (m, n) goes to d = perm_dst(*spec,
 // m N + n) times the CZ sign there, and |z|^2 to probs[d] when probs is
-// given (batch 1).
-template <bool CA, bool CB, int TN = TILE, bool SCATTER = false>
+// given (batch 1). P: the precision.
+template <bool CA, bool CB, int TN = TILE, bool SCATTER = false, int P = kHighest>
 __device__ void gemm_unit(const Prod& p, int t, float* smem, const PermSpec* spec = nullptr,
                           float* probs = nullptr) {
-  constexpr int TNR = TN / 8;  // output columns of a thread
+  constexpr int TNR = TN / 8;  // output columns of a thread (FP32); mma tiles of a warp
   static_assert(TNR == 4 || TNR == 2, "a unit is 32 x 32 or 32 x 16");
   const int tn_ = tiles<TN>(p.N), tm = tiles(p.M);
   const int b = t / (tm * tn_), tile = t % (tm * tn_);
@@ -158,7 +165,8 @@ __device__ void gemm_unit(const Prod& p, int t, float* smem, const PermSpec* spe
                   st + 2 * PLANE, q);
   };
 
-  float acc_re[4][TNR], acc_im[4][TNR];
+  float acc_re[4][TNR], acc_im[4][TNR];  // mma: [e][j], element e of tile j
+  const int wr = 16 * ((threadIdx.x / 32) % 2);  // mma: the warp's first row
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -173,33 +181,51 @@ __device__ void gemm_unit(const Prod& p, int t, float* smem, const PermSpec* spe
     __syncthreads();   // ... and every thread's
     const float* As = ring + (s % STAGES) * STAGE;
     const float* Bs = As + 2 * PLANE;
+    if constexpr (P != kHighest) {
+      mma::FragA ar, ai;
+      mma::load_a<P>(As, ROW, wr, ar);
+      mma::load_a<P>(As + PLANE, ROW, wr, ai);
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a4r = *reinterpret_cast<const float4*>(As + kk * ROW + 4 * ty);
-      const float4 a4i = *reinterpret_cast<const float4*>(As + PLANE + kk * ROW + 4 * ty);
-      const float ar[4] = {a4r.x, a4r.y, a4r.z, a4r.w}, ai[4] = {a4i.x, a4i.y, a4i.z, a4i.w};
-      float br[TNR], bi[TNR];
-      if constexpr (TNR == 4) {
-        const float4 b4r = *reinterpret_cast<const float4*>(Bs + kk * ROW + 4 * tx);
-        const float4 b4i = *reinterpret_cast<const float4*>(Bs + PLANE + kk * ROW + 4 * tx);
-        br[0] = b4r.x; br[1] = b4r.y; br[2] = b4r.z; br[3] = b4r.w;
-        bi[0] = b4i.x; bi[1] = b4i.y; bi[2] = b4i.z; bi[3] = b4i.w;
-      } else {
-        const float2 b2r = *reinterpret_cast<const float2*>(Bs + kk * ROW + 2 * tx);
-        const float2 b2i = *reinterpret_cast<const float2*>(Bs + PLANE + kk * ROW + 2 * tx);
-        br[0] = b2r.x; br[1] = b2r.y;
-        bi[0] = b2i.x; bi[1] = b2i.y;
+      for (int j = 0; j < TNR; ++j) {
+        mma::FragB br, bi;
+        mma::load_b<P>(Bs, ROW, 8 * j, br);
+        mma::load_b<P>(Bs + PLANE, ROW, 8 * j, bi);
+        float re[4], im[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) { re[e] = acc_re[e][j]; im[e] = acc_im[e][j]; }
+        mma::complex_product<P, CA, CB>(re, im, ar, ai, br, bi);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) { acc_re[e][j] = re[e]; acc_im[e][j] = im[e]; }
       }
+    } else {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < TNR; ++j) {
-          // re += ar br - (ca cb) ai bi;  im += cb ar bi + ca ai br
-          acc_re[i][j] = fmaf(ar[i], br[j], acc_re[i][j]);
-          acc_re[i][j] = fmaf(CA != CB ? ai[i] : -ai[i], bi[j], acc_re[i][j]);
-          acc_im[i][j] = fmaf(CB ? -ar[i] : ar[i], bi[j], acc_im[i][j]);
-          acc_im[i][j] = fmaf(CA ? -ai[i] : ai[i], br[j], acc_im[i][j]);
+      for (int kk = 0; kk < BK; ++kk) {
+        const float4 a4r = *reinterpret_cast<const float4*>(As + kk * ROW + 4 * ty);
+        const float4 a4i = *reinterpret_cast<const float4*>(As + PLANE + kk * ROW + 4 * ty);
+        const float ar[4] = {a4r.x, a4r.y, a4r.z, a4r.w}, ai[4] = {a4i.x, a4i.y, a4i.z, a4i.w};
+        float br[TNR], bi[TNR];
+        if constexpr (TNR == 4) {
+          const float4 b4r = *reinterpret_cast<const float4*>(Bs + kk * ROW + 4 * tx);
+          const float4 b4i = *reinterpret_cast<const float4*>(Bs + PLANE + kk * ROW + 4 * tx);
+          br[0] = b4r.x; br[1] = b4r.y; br[2] = b4r.z; br[3] = b4r.w;
+          bi[0] = b4i.x; bi[1] = b4i.y; bi[2] = b4i.z; bi[3] = b4i.w;
+        } else {
+          const float2 b2r = *reinterpret_cast<const float2*>(Bs + kk * ROW + 2 * tx);
+          const float2 b2i = *reinterpret_cast<const float2*>(Bs + PLANE + kk * ROW + 2 * tx);
+          br[0] = b2r.x; br[1] = b2r.y;
+          bi[0] = b2i.x; bi[1] = b2i.y;
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < TNR; ++j) {
+            // re += ar br - (ca cb) ai bi;  im += cb ar bi + ca ai br
+            acc_re[i][j] = fmaf(ar[i], br[j], acc_re[i][j]);
+            acc_re[i][j] = fmaf(CA != CB ? ai[i] : -ai[i], bi[j], acc_re[i][j]);
+            acc_im[i][j] = fmaf(CB ? -ar[i] : ar[i], bi[j], acc_im[i][j]);
+            acc_im[i][j] = fmaf(CA ? -ai[i] : ai[i], br[j], acc_im[i][j]);
+          }
+      }
     }
     __syncthreads();  // every thread is done with this stage before it is refilled
   }
@@ -208,17 +234,31 @@ __device__ void gemm_unit(const Prod& p, int t, float* smem, const PermSpec* spe
   // the sum in group order, stored with lanes along n.
   constexpr int TT = TILE * TN;  // one plane of the tile
   float* const red = smem;       // [group][plane][m][n]
+  if constexpr (P != kHighest) {
+    // element e of tile j: row wr + g + 8 (e / 2), column 8 j + 2 t + e % 2
+    const int g = mma::lane_g(), tq = mma::lane_t();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float* const row = red + grp * 2 * TT + (4 * ty + i) * TN + TNR * tx;
-    if constexpr (TNR == 4) {
-      *reinterpret_cast<float4*>(row) =
-          make_float4(acc_re[i][0], acc_re[i][1], acc_re[i][2], acc_re[i][3]);
-      *reinterpret_cast<float4*>(row + TT) =
-          make_float4(acc_im[i][0], acc_im[i][1], acc_im[i][2], acc_im[i][3]);
-    } else {
-      *reinterpret_cast<float2*>(row) = make_float2(acc_re[i][0], acc_re[i][1]);
-      *reinterpret_cast<float2*>(row + TT) = make_float2(acc_im[i][0], acc_im[i][1]);
+    for (int j = 0; j < TNR; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* const row = red + grp * 2 * TT + (wr + g + 8 * h) * TN + 8 * j + 2 * tq;
+        *reinterpret_cast<float2*>(row) = make_float2(acc_re[2 * h][j], acc_re[2 * h + 1][j]);
+        *reinterpret_cast<float2*>(row + TT) =
+            make_float2(acc_im[2 * h][j], acc_im[2 * h + 1][j]);
+      }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float* const row = red + grp * 2 * TT + (4 * ty + i) * TN + TNR * tx;
+      if constexpr (TNR == 4) {
+        *reinterpret_cast<float4*>(row) =
+            make_float4(acc_re[i][0], acc_re[i][1], acc_re[i][2], acc_re[i][3]);
+        *reinterpret_cast<float4*>(row + TT) =
+            make_float4(acc_im[i][0], acc_im[i][1], acc_im[i][2], acc_im[i][3]);
+      } else {
+        *reinterpret_cast<float2*>(row) = make_float2(acc_re[i][0], acc_re[i][1]);
+        *reinterpret_cast<float2*>(row + TT) = make_float2(acc_im[i][0], acc_im[i][1]);
+      }
     }
   }
   __syncthreads();
@@ -253,13 +293,13 @@ __device__ void gemm_unit(const Prod& p, int t, float* smem, const PermSpec* spe
 }
 
 // The units of one or two products, spread over the grid.
-template <bool CA, bool CB, int TN = TILE, bool SCATTER = false>
+template <bool CA, bool CB, int TN = TILE, bool SCATTER = false, int P = kHighest>
 __device__ void run(const Prod& p0, const Prod* p1, float* smem, const PermSpec* spec = nullptr,
                     float* probs = nullptr) {
   const int u0 = units<TN>(p0), total = u0 + (p1 ? units<TN>(*p1) : 0);
   for (int u = blockIdx.x; u < total; u += gridDim.x) {
-    if (u < u0) gemm_unit<CA, CB, TN, SCATTER>(p0, u, smem, spec, probs);
-    else gemm_unit<CA, CB, TN, SCATTER>(*p1, u - u0, smem, spec, probs);
+    if (u < u0) gemm_unit<CA, CB, TN, SCATTER, P>(p0, u, smem, spec, probs);
+    else gemm_unit<CA, CB, TN, SCATTER, P>(*p1, u - u0, smem, spec, probs);
   }
 }
 

@@ -13,10 +13,12 @@
 // the n <= 17 kernels have work units of their own (circuit_units.cuh).
 // Their bound on this card
 // is FP32 FMA throughput, 67 TFLOP/s: at n=20 a complex 1024^3 product is
-// 8.6 GFLOP (128 us) against 24 MB of operands (7 us at 3.35 TB/s). The
-// tensor cores are not used: they need TF32 or lower, which the port does not
-// allow without a measured TVD comparison (ROADMAP, precision); a 3xTF32
-// emulation on mma/wgmma is a later, measured question.
+// 8.6 GFLOP (128 us) against 24 MB of operands (7 us at 3.35 TB/s). That is
+// the default precision, `highest`, and its FMA loops below. Under the
+// kernel precision `default` (one bf16 pass) and `high` (three), each loop's
+// FMA block is replaced by bf16 mma.sync products on the tensor cores
+// (mma_bf16.cuh; 989 TFLOP/s dense), on the same shared-memory ring and with
+// the same epilogues; the template parameter P picks the instantiation.
 //
 // Two main loops, chosen by shape in launch_gemm:
 //
@@ -77,6 +79,7 @@
 #include <cuda_runtime.h>
 
 #include "layer_map.cuh"
+#include "mma_bf16.cuh"
 #include "per_device.cuh"
 
 namespace tn {
@@ -91,10 +94,15 @@ struct GemmArgs {
   float* probs;          // scatter mode: optional |C|^2 output
 };
 
-template <int BM, int BN, int BK, int TM, int TN>
+// P (precision): kHighest, the FMA block; else 8 warps of bf16 mma tiles,
+// 2 x 4 warps over the block's tile (BK = 16, one mma step a stage).
+template <int BM, int BN, int BK, int TM, int TN, int P = kHighest>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 gemm_kernel(GemmArgs p, PermSpec spec) {
   constexpr int NT = (BM / TM) * (BN / TN);
+  constexpr int WM = BM / 2, WN = BN / 4, FM = WM / 16, FN = WN / 8;  // mma warp tiles
+  static_assert(P == kHighest || (NT == 256 && BK == 16 && FM >= 1 && FN >= 1),
+                "the mma path takes 8 warps and 16-deep stages");
   constexpr int TX = BN / TN;  // threads along n
   constexpr int TY = BM / TM;  // threads along m
   __shared__ float As_re[BK][BM + 1];
@@ -118,10 +126,21 @@ gemm_kernel(GemmArgs p, PermSpec spec) {
 
   float acc_re[TM][TN];
   float acc_im[TM][TN];
+  float mre[FM][FN][4], mim[FM][FN][4];
+  const int wm = (tid / 32) % 2, wn = tid / 64;
+  if constexpr (P == kHighest) {
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) { acc_re[i][j] = 0.f; acc_im[i][j] = 0.f; }
+      for (int j = 0; j < TN; ++j) { acc_re[i][j] = 0.f; acc_im[i][j] = 0.f; }
+  } else {
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+#pragma unroll
+      for (int j = 0; j < FN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) { mre[i][j][e] = 0.f; mim[i][j][e] = 0.f; }
+  }
 
   for (int k0 = 0; k0 < p.K; k0 += BK) {
     // Stage the A and B tiles; consecutive threads walk the operand's
@@ -153,58 +172,103 @@ gemm_kernel(GemmArgs p, PermSpec spec) {
       Bs_im[kk][nn] = vi;
     }
     __syncthreads();
+    if constexpr (P != kHighest) {
+      // The a_conj / b_conj signs were applied on load, so no conjugation here.
+      mma::FragB br[FN], bi[FN];
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float ar[TM], ai[TM], br[TN], bi[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        ar[i] = As_re[kk][ty + i * TY];
-        ai[i] = As_im[kk][ty + i * TY];
+      for (int j = 0; j < FN; ++j) {
+        mma::load_b<P>(&Bs_re[0][0], BN + 1, wn * WN + 8 * j, br[j]);
+        mma::load_b<P>(&Bs_im[0][0], BN + 1, wn * WN + 8 * j, bi[j]);
       }
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        br[j] = Bs_re[kk][tx + j * TX];
-        bi[j] = Bs_im[kk][tx + j * TX];
-      }
+      for (int i = 0; i < FM; ++i) {
+        mma::FragA ar, ai;
+        mma::load_a<P>(&As_re[0][0], BM + 1, wm * WM + 16 * i, ar);
+        mma::load_a<P>(&As_im[0][0], BM + 1, wm * WM + 16 * i, ai);
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+        for (int j = 0; j < FN; ++j)
+          mma::complex_product<P, false, false>(mre[i][j], mim[i][j], ar, ai, br[j], bi[j]);
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) {
+        float ar[TM], ai[TM], br[TN], bi[TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          ar[i] = As_re[kk][ty + i * TY];
+          ai[i] = As_im[kk][ty + i * TY];
+        }
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
-          acc_re[i][j] = fmaf(ar[i], br[j], acc_re[i][j]);
-          acc_re[i][j] = fmaf(-ai[i], bi[j], acc_re[i][j]);
-          acc_im[i][j] = fmaf(ar[i], bi[j], acc_im[i][j]);
-          acc_im[i][j] = fmaf(ai[i], br[j], acc_im[i][j]);
+          br[j] = Bs_re[kk][tx + j * TX];
+          bi[j] = Bs_im[kk][tx + j * TX];
         }
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            acc_re[i][j] = fmaf(ar[i], br[j], acc_re[i][j]);
+            acc_re[i][j] = fmaf(-ai[i], bi[j], acc_re[i][j]);
+            acc_im[i][j] = fmaf(ar[i], bi[j], acc_im[i][j]);
+            acc_im[i][j] = fmaf(ai[i], br[j], acc_im[i][j]);
+          }
+      }
     }
     __syncthreads();
   }
 
+  if constexpr (P != kHighest) {
+    const int g = mma::lane_g(), t = mma::lane_t();
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+    for (int i = 0; i < FM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int m = m0 + ty + i * TY;
-      const int n = n0 + tx + j * TX;
-      if (m >= p.M || n >= p.N) continue;
-      const float vr = acc_re[i][j], vi = acc_im[i][j];
-      if (p.scatter) {
-        const unsigned d = perm_dst(spec, (unsigned)(m * p.N + n));
-        const float s = perm_sign(spec, d);
-        p.c_re[d] = s * vr;
-        p.c_im[d] = s * vi;
-        if (p.probs) p.probs[d] = vr * vr + vi * vi;
-      } else {
-        const long long off = b * p.c_sb + (long long)m * p.c_sm + (long long)n * p.c_sn;
-        p.c_re[off] = vr;
-        p.c_im[off] = vi;
+      for (int j = 0; j < FN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = m0 + wm * WM + 16 * i + g + (e >= 2 ? 8 : 0);
+          const int n = n0 + wn * WN + 8 * j + 2 * t + (e & 1);
+          if (m >= p.M || n >= p.N) continue;
+          const float vr = mre[i][j][e], vi = mim[i][j][e];
+          if (p.scatter) {
+            const unsigned d = perm_dst(spec, (unsigned)(m * p.N + n));
+            const float s = perm_sign(spec, d);
+            p.c_re[d] = s * vr;
+            p.c_im[d] = s * vi;
+            if (p.probs) p.probs[d] = vr * vr + vi * vi;
+          } else {
+            const long long off = b * p.c_sb + (long long)m * p.c_sm + (long long)n * p.c_sn;
+            p.c_re[off] = vr;
+            p.c_im[off] = vi;
+          }
+        }
+  } else {
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int m = m0 + ty + i * TY;
+        const int n = n0 + tx + j * TX;
+        if (m >= p.M || n >= p.N) continue;
+        const float vr = acc_re[i][j], vi = acc_im[i][j];
+        if (p.scatter) {
+          const unsigned d = perm_dst(spec, (unsigned)(m * p.N + n));
+          const float s = perm_sign(spec, d);
+          p.c_re[d] = s * vr;
+          p.c_im[d] = s * vi;
+          if (p.probs) p.probs[d] = vr * vr + vi * vi;
+        } else {
+          const long long off = b * p.c_sb + (long long)m * p.c_sm + (long long)n * p.c_sn;
+          p.c_re[off] = vr;
+          p.c_im[off] = vi;
+        }
       }
-    }
+  }
 }
 
-template <int BM, int BN, int BK, int TM, int TN>
+template <int BM, int BN, int BK, int TM, int TN, int P>
 inline cudaError_t launch_gemm_cfg(const GemmArgs& p, const PermSpec& s, cudaStream_t st) {
   dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, p.batch);
-  gemm_kernel<BM, BN, BK, TM, TN><<<grid, (BM / TM) * (BN / TN), 0, st>>>(p, s);
+  gemm_kernel<BM, BN, BK, TM, TN, P><<<grid, (BM / TM) * (BN / TN), 0, st>>>(p, s);
   return cudaGetLastError();
 }
 
@@ -280,12 +344,17 @@ struct Loader {
 // left to its own heuristic, ptxas capped it at 128 registers and spilled 16
 // bytes, and its product ran 0.1 ms slower over the n=20 forward's four
 // (PERF.md); the other instantiations keep the target they had (0: none).
-template <bool AK, bool BKC, bool CA, bool CB, bool SCATTER>
-__global__ void __launch_bounds__(THREADS, SCATTER ? 1 : 0)
+// P (precision): kHighest, the FMA block; else bf16 mma tiles, 4 x 2 warps
+// of 32 x 32 outputs (2 x 4 tiles of 16 x 8) each. The bf16 instantiations
+// name one block per SM too: left to the heuristic, the row pull-back's
+// `default` instantiation spilled 24 bytes.
+template <bool AK, bool BKC, bool CA, bool CB, bool SCATTER, int P = kHighest>
+__global__ void __launch_bounds__(THREADS, SCATTER || P != kHighest ? 1 : 0)
     cgemm_large_kernel(GemmArgs p, PermSpec spec) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int wm = (threadIdx.x / 32) % 4, wn = threadIdx.x / 128;  // mma warp tile
   const long long a_off = b * p.a_sb + (long long)m0 * p.a_sm;
   const long long b_off = b * p.b_sb + (long long)n0 * p.b_sn;
   const float* const a_base[2] = {p.a_re + a_off, p.a_im + a_off};
@@ -293,7 +362,7 @@ __global__ void __launch_bounds__(THREADS, SCATTER ? 1 : 0)
   Loader<BM, AK> la;
   Loader<BN, BKC> lb;
 
-  float acc_re[8][4], acc_im[8][4];
+  float acc_re[8][4], acc_im[8][4];  // mma: tile (i / 4, i % 4) of 2 x 4, its 4 elements
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -326,30 +395,49 @@ __global__ void __launch_bounds__(THREADS, SCATTER ? 1 : 0)
 
     const float* As = smem + (kt % STAGES) * STAGE;
     const float* Bs = As + 2 * A_PLANE;
+    if constexpr (P != kHighest) {
+      mma::FragB br[4], bi[4];
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float* ar_k = As + kk * BM;
-      const float* ai_k = As + A_PLANE + kk * BM;
-      const float4 a0r = *reinterpret_cast<const float4*>(ar_k + 4 * ty);
-      const float4 a1r = *reinterpret_cast<const float4*>(ar_k + 64 + 4 * ty);
-      const float4 a0i = *reinterpret_cast<const float4*>(ai_k + 4 * ty);
-      const float4 a1i = *reinterpret_cast<const float4*>(ai_k + 64 + 4 * ty);
-      const float4 b4r = *reinterpret_cast<const float4*>(Bs + kk * BN + 4 * tx);
-      const float4 b4i = *reinterpret_cast<const float4*>(Bs + B_PLANE + kk * BN + 4 * tx);
-      const float ar[8] = {a0r.x, a0r.y, a0r.z, a0r.w, a1r.x, a1r.y, a1r.z, a1r.w};
-      const float ai[8] = {a0i.x, a0i.y, a0i.z, a0i.w, a1i.x, a1i.y, a1i.z, a1i.w};
-      const float br[4] = {b4r.x, b4r.y, b4r.z, b4r.w};
-      const float bi[4] = {b4i.x, b4i.y, b4i.z, b4i.w};
+      for (int j = 0; j < 4; ++j) {
+        mma::load_b<P>(Bs, BN, 32 * wn + 8 * j, br[j]);
+        mma::load_b<P>(Bs + B_PLANE, BN, 32 * wn + 8 * j, bi[j]);
+      }
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < 2; ++i) {
+        mma::FragA ar, ai;
+        mma::load_a<P>(As, BM, 32 * wm + 16 * i, ar);
+        mma::load_a<P>(As + A_PLANE, BM, 32 * wm + 16 * i, ai);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          // re += ar br - (ca cb) ai bi;  im += cb ar bi + ca ai br
-          acc_re[i][j] = fmaf(ar[i], br[j], acc_re[i][j]);
-          acc_re[i][j] = fmaf(CA != CB ? ai[i] : -ai[i], bi[j], acc_re[i][j]);
-          acc_im[i][j] = fmaf(CB ? -ar[i] : ar[i], bi[j], acc_im[i][j]);
-          acc_im[i][j] = fmaf(CA ? -ai[i] : ai[i], br[j], acc_im[i][j]);
-        }
+        for (int j = 0; j < 4; ++j)
+          mma::complex_product<P, CA, CB>(acc_re[4 * i + j], acc_im[4 * i + j], ar, ai, br[j],
+                                          bi[j]);
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) {
+        const float* ar_k = As + kk * BM;
+        const float* ai_k = As + A_PLANE + kk * BM;
+        const float4 a0r = *reinterpret_cast<const float4*>(ar_k + 4 * ty);
+        const float4 a1r = *reinterpret_cast<const float4*>(ar_k + 64 + 4 * ty);
+        const float4 a0i = *reinterpret_cast<const float4*>(ai_k + 4 * ty);
+        const float4 a1i = *reinterpret_cast<const float4*>(ai_k + 64 + 4 * ty);
+        const float4 b4r = *reinterpret_cast<const float4*>(Bs + kk * BN + 4 * tx);
+        const float4 b4i = *reinterpret_cast<const float4*>(Bs + B_PLANE + kk * BN + 4 * tx);
+        const float ar[8] = {a0r.x, a0r.y, a0r.z, a0r.w, a1r.x, a1r.y, a1r.z, a1r.w};
+        const float ai[8] = {a0i.x, a0i.y, a0i.z, a0i.w, a1i.x, a1i.y, a1i.z, a1i.w};
+        const float br[4] = {b4r.x, b4r.y, b4r.z, b4r.w};
+        const float bi[4] = {b4i.x, b4i.y, b4i.z, b4i.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            // re += ar br - (ca cb) ai bi;  im += cb ar bi + ca ai br
+            acc_re[i][j] = fmaf(ar[i], br[j], acc_re[i][j]);
+            acc_re[i][j] = fmaf(CA != CB ? ai[i] : -ai[i], bi[j], acc_re[i][j]);
+            acc_im[i][j] = fmaf(CB ? -ar[i] : ar[i], bi[j], acc_im[i][j]);
+            acc_im[i][j] = fmaf(CA ? -ai[i] : ai[i], br[j], acc_im[i][j]);
+          }
+      }
     }
     if (more) {  // the transposing loaders' stores, after the FMAs they overlapped
       la.store(next);
@@ -357,7 +445,44 @@ __global__ void __launch_bounds__(THREADS, SCATTER ? 1 : 0)
     }
   }
 
-  if constexpr (SCATTER) {
+  if constexpr (P != kHighest) {
+    // Tile (i, j) element e sits at row 32 wm + 16 i + g + 8 (e / 2), column
+    // 32 wn + 8 j + 2 t + e % 2.
+    const int g = mma::lane_g(), t = mma::lane_t();
+    if constexpr (SCATTER) {
+      unsigned dn[8];  // dst of the column part of the flat index: (j, e % 2)
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        dn[c] = perm_dst(spec, (unsigned)(n0 + 32 * wn + 8 * (c / 2) + 2 * t + c % 2));
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {  // (i, e / 2)
+        const int m = m0 + 32 * wm + 16 * (r / 2) + g + 8 * (r % 2);
+        const unsigned dm = perm_dst(spec, (unsigned)m * (unsigned)p.N);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int i = 4 * (r / 2) + c / 2, e = 2 * (r % 2) + c % 2;
+          const unsigned d = dm ^ dn[c];
+          const float s = perm_sign(spec, d), vr = acc_re[i][e], vi = acc_im[i][e];
+          p.c_re[d] = s * vr;
+          p.c_im[d] = s * vi;
+          if (p.probs) p.probs[d] = vr * vr + vi * vi;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + 32 * wm + 16 * (i / 4) + g + 8 * h;
+          const long long off = b * p.c_sb + (long long)m * p.c_sm + n0 + 32 * wn + 8 * (i % 4)
+                                + 2 * t;
+          *reinterpret_cast<float2*>(p.c_re + off) =
+              make_float2(acc_re[i][2 * h], acc_re[i][2 * h + 1]);
+          *reinterpret_cast<float2*>(p.c_im + off) =
+              make_float2(acc_im[i][2 * h], acc_im[i][2 * h + 1]);
+        }
+    }
+  } else if constexpr (SCATTER) {
     unsigned dn[4];  // dst of the column part of the flat index
 #pragma unroll
     for (int j = 0; j < 4; ++j) dn[j] = perm_dst(spec, (unsigned)(n0 + 4 * tx + j));
@@ -388,17 +513,17 @@ __global__ void __launch_bounds__(THREADS, SCATTER ? 1 : 0)
   }
 }
 
-template <bool AK, bool BKC, bool CA, bool CB, bool SCATTER = false>
+template <bool AK, bool BKC, bool CA, bool CB, bool SCATTER, int P>
 inline cudaError_t launch(const GemmArgs& p, const PermSpec& s, cudaStream_t st) {
   static PerDevice<cudaError_t> attrs;
   const cudaError_t* attr = attrs.get([] {
-    return cudaFuncSetAttribute(cgemm_large_kernel<AK, BKC, CA, CB, SCATTER>,
+    return cudaFuncSetAttribute(cgemm_large_kernel<AK, BKC, CA, CB, SCATTER, P>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
   });
   if (!attr) return cudaErrorInvalidDevice;
   if (*attr != cudaSuccess) return *attr;
   dim3 grid(p.N / BN, p.M / BM, p.batch);
-  cgemm_large_kernel<AK, BKC, CA, CB, SCATTER><<<grid, THREADS, SMEM, st>>>(p, s);
+  cgemm_large_kernel<AK, BKC, CA, CB, SCATTER, P><<<grid, THREADS, SMEM, st>>>(p, s);
   return cudaGetLastError();
 }
 
@@ -438,19 +563,33 @@ inline Pattern pattern(const GemmArgs& p) {
 // Otherwise: 64x64 tiles when they alone give at least one block per SM (132
 // on an H100), else 32x32 tiles so that a single 256x256 product still
 // spreads over 64 SMs.
-inline cudaError_t launch_gemm(const GemmArgs& p, const PermSpec& s, cudaStream_t st) {
+template <int P>
+inline cudaError_t launch_gemm_at(const GemmArgs& p, const PermSpec& s, cudaStream_t st) {
   switch (large::pattern(p)) {
-    case large::kColPullback: return large::launch<true, false, false, true>(p, s, st);
-    case large::kDMc: return large::launch<false, false, false, true>(p, s, st);
-    case large::kRowPullback: return large::launch<false, false, true, false>(p, s, st);
-    case large::kDMr: return large::launch<true, true, false, true>(p, s, st);
-    case large::kForwardLeft: return large::launch<true, false, false, false>(p, s, st);
-    case large::kForwardScatter: return large::launch<true, false, false, false, true>(p, s, st);
+    case large::kColPullback: return large::launch<true, false, false, true, false, P>(p, s, st);
+    case large::kDMc: return large::launch<false, false, false, true, false, P>(p, s, st);
+    case large::kRowPullback: return large::launch<false, false, true, false, false, P>(p, s, st);
+    case large::kDMr: return large::launch<true, true, false, true, false, P>(p, s, st);
+    case large::kForwardLeft: return large::launch<true, false, false, false, false, P>(p, s, st);
+    case large::kForwardScatter:
+      return large::launch<true, false, false, false, true, P>(p, s, st);
     case large::kNone: break;
   }
   const long long big = (long long)((p.N + 63) / 64) * ((p.M + 63) / 64) * p.batch;
-  if (big >= 132) return launch_gemm_cfg<64, 64, 16, 4, 4>(p, s, st);
-  return launch_gemm_cfg<32, 32, 16, 2, 2>(p, s, st);
+  if (big >= 132) return launch_gemm_cfg<64, 64, 16, 4, 4, P>(p, s, st);
+  return launch_gemm_cfg<32, 32, 16, 2, 2, P>(p, s, st);
+}
+
+// The instantiation of `precision` (a Precision code); an unknown code is
+// refused, nothing launched.
+inline cudaError_t launch_gemm(const GemmArgs& p, const PermSpec& s, cudaStream_t st,
+                               int precision) {
+  switch (precision) {
+    case kHighest: return launch_gemm_at<kHighest>(p, s, st);
+    case kHigh: return launch_gemm_at<kHigh>(p, s, st);
+    case kDefault: return launch_gemm_at<kDefault>(p, s, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 inline GemmArgs gemm_args() {

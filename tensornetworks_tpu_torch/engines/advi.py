@@ -49,7 +49,7 @@ from ..core.bits import generate_all_binary_outcomes, torch_index_to_bits
 from ..models.born_classical import ClassicalBornMachine
 from ..models.classifier import BinaryClassifierMLP
 from ..train import profile_trace, save_checkpoint, training_bundle
-from .common import global_norm, guarded_update, make_optimizer
+from .common import global_norm, guarded_update, highest_matmul_precision, make_optimizer
 from .ksd import (_load_chunk_state, _posterior_vec_from, _resume_fingerprint,
                   _save_chunk_state, steady_epochs_per_sec)
 
@@ -120,6 +120,7 @@ class AdversarialVariationalInference:
         out[low_prior & (joint <= 1e-9)] = -np.inf
         return out
 
+    @highest_matmul_precision()
     def train(self, x_observation_dict: Dict[str, int], num_epochs: int, batch_size: int,
               lr_born_machine: float, lr_classifier: float, k_classifier_steps: int = 1,
               k_born_steps: int = 1, verbose: bool = True, true_posterior_for_tvd=None,

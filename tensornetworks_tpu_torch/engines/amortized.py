@@ -33,7 +33,7 @@ from ..models.born_classical import ClassicalBornMachine
 from ..models.born_quantum import QuantumBornMachine
 from ..ops.hamming import resolve_length_scale
 from ..ops.stein import SteinOperator, score_table
-from .common import global_norm, guarded_update, make_optimizer
+from .common import global_norm, guarded_update, highest_matmul_precision, make_optimizer
 from .distill import batch_probs
 from .ksd import steady_epochs_per_sec
 
@@ -103,6 +103,7 @@ class AmortizedKSD:
             posts.append(t / s if s > 0 else np.zeros_like(t))
         return torch.as_tensor(np.stack(posts), dtype=self.dtype, device=self.device)
 
+    @highest_matmul_precision()
     def train(self, observations: List[Dict[str, int]], num_epochs: int = 0, lr: float = 3e-3,
               gradient_clip_norm: float = 5.0, entropy_weight: float = 1e-3,
               verbose: bool = True, seed: int = 0, mesh=None,
@@ -260,6 +261,7 @@ class AmortizedKSD:
                   f"{self.best_mean_tvd_:.6f} (final {history['mean_tvd'][-1]:.6f})")
         return history
 
+    @highest_matmul_precision()
     def posterior_for(self, observation: Dict[str, int]) -> torch.Tensor:
         """q(· | x) at the current parameters, dropout off."""
         x = torch.tensor(self._x(observation), dtype=self.dtype, device=self.device)
@@ -267,6 +269,7 @@ class AmortizedKSD:
             return self.born_machine.probs(self.params, x)
 
 
+@highest_matmul_precision()
 def train_multi_seed(bayesian_network: BayesianNetwork, latent_vars_names, observed_dict,
                      num_seeds: int = 4, ansatz_layers: int = 2,
                      ansatz_type: str = "hardware_efficient", num_epochs: int = 200,

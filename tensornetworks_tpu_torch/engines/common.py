@@ -13,14 +13,22 @@ of the flat vector, so the steps are the same. The optimizer is functional:
 the old ones on a step whose loss is not finite, so a skipped step moves
 neither the moments nor the step count (hence not the schedule either).
 Everything stays on the device: no host sync per step.
+
+``highest_matmul_precision`` is the training context of the JAX package's
+matmul precision (``TNTPU_MATMUL_PRECISION``); every engine's ``train``
+runs inside it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import os
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+
+from ..ops.kernels.precision import precision_name
 
 
 def cosine_lr_schedule(lr: float, num_epochs: int, steps_per_epoch: int = 1) -> Callable:
@@ -104,3 +112,32 @@ def guarded_update(opt: Optimizer, grads: torch.Tensor, state: Dict[str, torch.T
     new_params, new_state = opt.update(grads, state, params)
     return (torch.where(apply, new_params, params),
             {k: torch.where(apply, new_state[k], state[k]) for k in state})
+
+
+# The cuBLAS/cuDNN mode of each matmul precision name: ``allow_tf32``. TF32
+# keeps 10 mantissa bits and three bf16 passes about 16, so no cuBLAS mode
+# reachable from torch is as precise as ``high`` and cheaper than FP32:
+# ``high`` and ``highest`` run FP32, ``default`` (one bf16 pass, 8 bits) TF32,
+# the cheapest mode at least as precise.
+MATMUL_TF32 = {"highest": False, "high": False, "default": True}
+
+
+@contextlib.contextmanager
+def highest_matmul_precision():
+    """Training context: the precision of torch's float32 matmuls outside
+    the kernels (the θ fold, the MLPs, the blocked executor, the dense
+    Gram), from ``TNTPU_MATMUL_PRECISION`` read on entry (``default``,
+    ``high`` or ``highest``, case-insensitive; default ``high``; an unknown
+    name raises ``KeyError``). Sets ``torch.backends.cuda.matmul.allow_tf32``
+    and cuDNN's by ``MATMUL_TF32``, restores both on exit. Usable as a
+    decorator. The JAX package measured one bf16 pass (its ``default``) to
+    cost 16-24x in final TVD and three (``high``) to match ``highest``; the
+    name is the JAX function's. The circuit kernels' precision is the other
+    knob, ``ops.kernels.precision``."""
+    tf32 = MATMUL_TF32[precision_name(os.environ.get("TNTPU_MATMUL_PRECISION", "high"))]
+    old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..models.born_classical import ClassicalBornMachine
-from .common import guarded_update, make_optimizer
+from .common import guarded_update, highest_matmul_precision, make_optimizer
 
 
 def marginals_product(probs, num_vars: int) -> np.ndarray:
@@ -103,6 +103,7 @@ def _fit(born_machine, probs_fn, target, *, num_epochs, lr, loss, optimizer_type
     return best_params, hist[0], hist[1], float(best_tvd), int(best_epoch)
 
 
+@highest_matmul_precision()
 def fit_born_machine(born_machine, target_probs, *, num_epochs: int = 1000, lr: float = 0.05,
                      loss: str = "tvd", optimizer_type: str = "adam",
                      use_lr_scheduler: bool = True, gradient_clip_norm: float = 10.0,
@@ -133,6 +134,7 @@ def fit_born_machine(born_machine, target_probs, *, num_epochs: int = 1000, lr: 
                          "best_epoch": best_epoch, "train_seconds": time.perf_counter() - t0}
 
 
+@highest_matmul_precision()
 def fit_conditioned_born_machine(born_machine, targets, x_conditions, *,
                                  num_epochs: int = 1000, lr: float = 0.05, loss: str = "tvd",
                                  optimizer_type: str = "adam", use_lr_scheduler: bool = True,

@@ -38,7 +38,7 @@ from ..parallel.launch import local_device
 from ..parallel.mesh import STATE_AXIS, axis_size, gather_full, make_mesh, replicate, state_shard
 from ..sim.ansatz import num_ansatz_params
 from ..sim.structured import latent_edges
-from .common import make_optimizer
+from .common import highest_matmul_precision, make_optimizer
 from .ksd import _posterior_vec_from, run_ksd_scan, steady_epochs_per_sec
 
 
@@ -123,6 +123,7 @@ class DistributedQuantumKSDVariationalInference:
                                         self.base_kernel_length_scale, dtype=self.dtype,
                                         device=self.device)
 
+    @highest_matmul_precision()
     def train(self, x_observation_dict: Dict[str, int], num_epochs: int,
               lr_born_machine: float, verbose: bool = True, true_posterior_for_tvd=None,
               use_lr_scheduler: bool = True, gradient_clip_norm: float = 10.0,

@@ -47,7 +47,7 @@ from ..parallel.mesh import STATE_AXIS, axis_size, make_mesh, replicate, state_s
 from ..sim.ansatz import num_ansatz_params
 from ..sim.sampling import draw_uniforms
 from ..sim.structured import latent_edges
-from .common import global_norm, guarded_update, make_optimizer
+from .common import global_norm, guarded_update, highest_matmul_precision, make_optimizer
 from .ksd import _posterior_vec_from, steady_epochs_per_sec
 
 
@@ -94,6 +94,7 @@ class DistributedSampledKSDVariationalInference:
         self.params = replicate(theta.to(device=self.device, dtype=dtype), mesh)
         self.history_: Optional[dict] = None
 
+    @highest_matmul_precision()
     def train(self, x_observation_dict: Dict[str, int], num_epochs: int,
               lr_born_machine: float, verbose: bool = True, true_posterior_for_tvd=None,
               use_lr_scheduler: bool = True, gradient_clip_norm: float = 10.0,

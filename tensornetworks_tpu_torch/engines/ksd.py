@@ -33,7 +33,7 @@ from ..ops.hamming import resolve_length_scale
 from ..ops.stein import SteinOperator, score_table
 from ..sim.structured import latent_edges
 from ..train import profile_trace, save_checkpoint, training_bundle
-from .common import global_norm, guarded_update, make_optimizer
+from .common import global_norm, guarded_update, highest_matmul_precision, make_optimizer
 
 
 def _posterior_vec_from(true_posterior, num_latent_vars, dtype, device):
@@ -351,6 +351,7 @@ class KSDVariationalInference:
                              self.base_kernel_length_scale, dtype=self.dtype,
                              dense=self.dense, device=self.device)
 
+    @highest_matmul_precision()
     def train(self, x_observation_dict: Dict[str, int], num_epochs: int,
               lr_born_machine: float, verbose: bool = True, true_posterior_for_tvd=None,
               use_lr_scheduler: bool = True, gradient_clip_norm: float = 10.0,
@@ -495,6 +496,7 @@ class QuantumKSDVariationalInference:
         return SteinOperator(S, self.num_latent_vars, self.base_kernel_length_scale,
                              dtype=self.dtype, device=self.device)
 
+    @highest_matmul_precision()
     def train(self, x_observation_dict: Dict[str, int], num_epochs: int,
               lr_born_machine: float, verbose: bool = True, true_posterior_for_tvd=None,
               use_lr_scheduler: bool = True, gradient_clip_norm: float = 10.0,

@@ -45,7 +45,7 @@ from ..ops.stein_sampled import (ksd_ustat, reinforce_surrogate, reinforce_surro
                                  score_at_samples, stein_gram_samples)
 from ..sim.sampling import gather_2d, inverse_cdf_sampler
 from ..sim.structured import latent_edges
-from .common import global_norm, guarded_update, make_optimizer
+from .common import global_norm, guarded_update, highest_matmul_precision, make_optimizer
 from .ksd import _posterior_vec_from, steady_epochs_per_sec
 
 # From this many qubits ``qbm_grad_method="auto"`` takes the adjoint
@@ -112,6 +112,7 @@ class SampledKSDVariationalInference:
         self.grad_baseline = grad_baseline
         self.history_: Optional[dict] = None
 
+    @highest_matmul_precision()
     def train(self, x_observation_dict: Dict[str, int], num_epochs: int,
               lr_born_machine: float, verbose: bool = True, true_posterior_for_tvd=None,
               use_lr_scheduler: bool = True, gradient_clip_norm: float = 10.0,

@@ -26,6 +26,10 @@ Backends (all give the same distribution):
 - ``structured2d`` (``bn_structured`` only): the plain torch flip-select
   oracle ``sim.structured.make_structured_probs_fn``, named as the JAX
   backend it mirrors.
+The circuit backends build their kernel plan with the machine, so a
+machine keeps the kernel precision (``ops/kernels/precision.py``) current
+when it was built; the other backends run torch's matmuls, which the
+engines' matmul precision governs.
 ``auto`` picks ``circuit2d`` for 2 ≤ n ≤ 17 and ``circuit2d_grid`` for
 18 ≤ n ≤ 24, for every ansatz; from 25 qubits (and for
 ``grad_method="adjoint"``) ``blocked`` for the reference ansätze, and below

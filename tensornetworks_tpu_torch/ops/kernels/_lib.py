@@ -11,7 +11,9 @@ whether the library was built now or found built. ``build_all`` starts one
 
 Every C entry point returns ``cudaGetLastError()``; ``check`` raises on a
 non-zero code. Launch counts are plain integers kept here, one per kernel
-wrapper, so that a run can show which kernels its path went through.
+wrapper, so that a run can show which kernels its path went through; the
+bf16 variants of the circuit kernels (kernel precision ``high`` and
+``default``) count under their own keys, ``<kernel>.<precision>``.
 """
 
 from __future__ import annotations
@@ -32,9 +34,15 @@ SOURCES = ("circuit2d", "circuit2d_grid", "stein2d", "stein_gcorr")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# The circuit kernels with bf16 variants, and the variants' precisions.
+PRECISION_KERNELS = ("circuit2d_fwd", "circuit2d_bwd", "circuit2d_grid_fwd",
+                     "circuit2d_grid_bwd")
+VARIANT_PRECISIONS = ("high", "default")
+
 LAUNCHES: Dict[str, int] = {"circuit2d_fwd": 0, "circuit2d_bwd": 0, "stein2d": 0,
                             "circuit2d_grid_fwd": 0, "circuit2d_grid_bwd": 0, "stein2d_grid": 0,
                             "stein_gcorr": 0}
+LAUNCHES.update({f"{k}.{p}": 0 for k in PRECISION_KERNELS for p in VARIANT_PRECISIONS})
 
 # The C interface of each library: pointers and the stream as c_void_p (a
 # bare Python int would be passed as a 32-bit int), sizes as c_int; every
@@ -43,19 +51,19 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "circuit2d": {
         # mr_re, mr_im, mc_re, mc_im, probs, xr, xi, tmp, masks (device), n, layers,
-        # has_wall, stream
-        "tn_circuit2d_forward": [_P] * 9 + [_I] * 3 + [_P],
+        # has_wall, precision, stream
+        "tn_circuit2d_forward": [_P] * 9 + [_I] * 4 + [_P],
         # mr_re, mr_im, mc_re, mc_im, xr, xi, g, dmr_re, dmr_im, dmc_re, dmc_im,
-        # scratch, masks (device), n, layers, stream
-        "tn_circuit2d_backward": [_P] * 13 + [_I] * 2 + [_P],
+        # scratch, masks (device), n, layers, precision, stream
+        "tn_circuit2d_backward": [_P] * 13 + [_I] * 3 + [_P],
     },
     "circuit2d_grid": {  # rows and cz are (layers, n) host tables
-        # mr_re, mr_im, mc_re, mc_im, probs, xr, xi, tmp, mct, n, layers, has_wall, rows, cz,
-        # stream
-        "tn_circuit2d_grid_forward": [_P] * 9 + [_I] * 3 + [_P] * 3,
+        # mr_re, mr_im, mc_re, mc_im, probs, xr, xi, tmp, mct, n, layers, has_wall,
+        # precision, rows, cz, stream
+        "tn_circuit2d_grid_forward": [_P] * 9 + [_I] * 4 + [_P] * 3,
         # mr_re, mr_im, mc_re, mc_im, xr, xi, g, dmr_re, dmr_im, dmc_re, dmc_im,
-        # buf_a, buf_b, n, layers, rows, cz, stream
-        "tn_circuit2d_grid_backward": [_P] * 13 + [_I] * 2 + [_P] * 3,
+        # buf_a, buf_b, n, layers, precision, rows, cz, stream
+        "tn_circuit2d_grid_backward": [_P] * 13 + [_I] * 3 + [_P] * 3,
     },
     "stein2d": {
         # v, y, a, n, cols, stream (a as c_float: a bare Python float would
@@ -77,6 +85,12 @@ BUILD_LOGS: Dict[str, str] = {}
 
 def count_launch(name: str) -> None:
     LAUNCHES[name] += 1
+
+
+def launch_key(kernel: str, precision: str) -> str:
+    """The ``LAUNCHES`` key of ``kernel`` at a kernel precision: the
+    kernel's own name for ``highest``, ``<kernel>.<precision>`` else."""
+    return kernel if precision == "highest" else f"{kernel}.{precision}"
 
 
 def reset_launches() -> None:

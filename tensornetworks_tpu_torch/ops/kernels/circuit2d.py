@@ -29,6 +29,15 @@ raises. ``Circuit2dFunction`` ties the two directions together for autograd;
 ``circuit_operators`` folds θ into the per-layer operators ``Mr``/``Mc`` in
 plain torch, so autograd carries ``dMr``/``dMc`` back to θ.
 
+Precision (``precision.py``): a plan carries the kernel precision current
+when it was built. ``highest`` runs the kernels' FP32 loops; ``high`` and
+``default`` their bf16 tensor-core passes (``csrc/mma_bf16.cuh``), each
+variant launched and counted under its own key (``circuit2d_fwd.high``).
+The plain versions emulate a pass exactly: ``_pcmm`` rounds (or splits)
+the real and imaginary planes of both operands of every complex product
+and sums in the planes' dtype, with TF32 off on the card. The index maps
+and CZ signs stay exact at every precision.
+
 A conditioned circuit runs the same kernels on other operator planes: its
 RY(angles) wall is folded into them before the launch (``sim.gates.
 fold_wall``: ``Mr[0]·Er`` and ``Mc[0]·Ec`` for one wall, as the JAX package
@@ -46,6 +55,8 @@ from ...sim.blocked import _chain_gates, _cnot_map, _cz_pairs
 from ...sim.gates import fold_wall, rotation_operators
 from ...sim.structured import check_edges
 from . import _lib
+from .precision import (CODES, _kernel_precision, fp32_matmul, precision_name, round_bf16,
+                        split_bf16)
 
 MIN_QUBITS, MAX_QUBITS = 2, 17
 # The ansätze that start from the Hadamard wall and take 3 angles a qubit.
@@ -155,11 +166,14 @@ class CircuitPlan:
     ones (``layer_masks``, which needs ``edges``). ``cz`` (L, n) encode
     each layer's CZ pairs, see ``cz_masks``. The CUDA kernels receive exactly
     these masks; the plain path expands them into index tables.
+    ``precision``: the kernel precision of its products (``precision.py``),
+    by default the one current when the plan is built.
     """
 
     name = "circuit2d"
 
-    def __init__(self, num_wires: int, layers: int, ansatz_type: str, edges=None):
+    def __init__(self, num_wires: int, layers: int, ansatz_type: str, edges=None,
+                 precision=None):
         n = num_wires
         if not MIN_QUBITS <= n <= MAX_QUBITS:
             raise ValueError(f"circuit2d supports {MIN_QUBITS} <= n <= {MAX_QUBITS}, got {n}")
@@ -172,6 +186,7 @@ class CircuitPlan:
         self.per_qubit = 3 if ansatz_type in WALL_ANSATZE else 2
         self.has_wall = ansatz_type in WALL_ANSATZE
         self.rows, self.cz = layer_masks(n, layers, ansatz_type, edges)
+        self.precision = precision_name(precision or _kernel_precision())
         self._tables = {}
 
     def device_masks(self, device) -> torch.Tensor:
@@ -201,57 +216,92 @@ def _cmm(a_re, a_im, b_re, b_im):
     return a_re @ b_re - a_im @ b_im, a_re @ b_im + a_im @ b_re
 
 
-def circuit2d_forward_plain(mr_re, mr_im, mc_re, mc_im, plan: CircuitPlan):
-    """probs, xr, xi, each (R, C): the forward kernel's algorithm in torch."""
-    R, C, dt, dev = plan.R, plan.C, mr_re.dtype, mr_re.device
-    dst, sign = plan.tables(dev)
+def _pcmm(a_re, a_im, b_re, b_im, precision: str = "highest", product=_cmm):
+    """Complex product on planes at a kernel precision, as the kernels'
+    passes make it: ``highest``, ``product`` itself; ``default``, ``product``
+    of both operands' planes rounded to bf16; ``high``, the sum of the
+    three passes lo·hi + hi·lo + hi·hi of their split planes. A product of
+    two bf16 values is exact in FP32, so only the order of the sums differs
+    from a kernel's. ``product`` is the complex product that sums (``_cmm``,
+    or the units' K-split sum)."""
+    if precision == "highest":
+        return product(a_re, a_im, b_re, b_im)
+    if precision == "default":
+        return product(*map(round_bf16, (a_re, a_im, b_re, b_im)))
+    (arh, arl), (aih, ail), (brh, brl), (bih, bil) = map(split_bf16, (a_re, a_im, b_re, b_im))
+    out = [product(arl, ail, brh, bih), product(arh, aih, brl, bil),
+           product(arh, aih, brh, bih)]
+    return out[0][0] + out[1][0] + out[2][0], out[0][1] + out[1][1] + out[2][1]
+
+
+def _initial_state(plan, dt, dev) -> tuple:
+    """(xr, xi) of the circuit's input: the Hadamard wall's uniform
+    amplitude 2^(-n/2), or |0...0⟩ without it."""
+    R, C = plan.R, plan.C
     if plan.has_wall:
         xr = torch.full((R, C), 2.0 ** (-0.5 * plan.n), dtype=dt, device=dev)
     else:
         xr = torch.zeros((R, C), dtype=dt, device=dev)
         xr[0, 0] = 1.0
-    xi = torch.zeros((R, C), dtype=dt, device=dev)
-    for layer in range(plan.layers):
-        tr, ti = _cmm(mr_re[layer], mr_im[layer], xr, xi)
-        zr, zi = _cmm(tr, ti, mc_re[layer].T, mc_im[layer].T)
-        d, s = layer_map(dst, sign, layer)
-        s = s.to(dt)
-        xr = torch.empty_like(zr).reshape(-1).index_put_((d,), s * zr.reshape(-1)).reshape(R, C)
-        xi = torch.empty_like(zi).reshape(-1).index_put_((d,), s * zi.reshape(-1)).reshape(R, C)
+    return xr, torch.zeros((R, C), dtype=dt, device=dev)
+
+
+def circuit2d_forward_plain(mr_re, mr_im, mc_re, mc_im, plan: CircuitPlan):
+    """probs, xr, xi, each (R, C): the forward kernel's algorithm in torch,
+    at the plan's precision."""
+    R, C, dt, dev, p = plan.R, plan.C, mr_re.dtype, mr_re.device, plan.precision
+    dst, sign = plan.tables(dev)
+    xr, xi = _initial_state(plan, dt, dev)
+    with fp32_matmul():
+        for layer in range(plan.layers):
+            tr, ti = _pcmm(mr_re[layer], mr_im[layer], xr, xi, p)
+            zr, zi = _pcmm(tr, ti, mc_re[layer].T, mc_im[layer].T, p)
+            d, s = layer_map(dst, sign, layer)
+            s = s.to(dt)
+            xr = torch.empty_like(zr).reshape(-1).index_put_((d,), s * zr.reshape(-1))
+            xi = torch.empty_like(zi).reshape(-1).index_put_((d,), s * zi.reshape(-1))
+            xr, xi = xr.reshape(R, C), xi.reshape(R, C)
     return xr * xr + xi * xi, xr, xi
 
 
-def rotation_pullback(planes, mr_re, mr_im, mc_re, mc_im):
+def rotation_pullback(planes, mr_re, mr_im, mc_re, mc_im, precision: str = "highest"):
     """One layer's rotations X ← Mr X Mcᵀ, pulled back: ``planes`` (4, R, C)
     hold the state x and the cotangent λ after the rotations; returns both
     before them, with dMr = λ·xᴴ and dMc = λᵀ·conj(x) (each cotangent taken
-    after its rotation, each state before it)."""
+    after its rotation, each state before it). Every product at ``precision``."""
     ar, ai, lr_, li = planes
+
+    def cmm(*args):
+        return _pcmm(*args, precision)
+
     # Right rotation X Mcᵀ: pull back with conj(Mc); grad λᵀ·conj(x_before).
-    xb_r, xb_i = _cmm(ar, ai, mc_re, -mc_im)
-    lb_r, lb_i = _cmm(lr_, li, mc_re, -mc_im)
-    dmc = _cmm(lr_.T, li.T, xb_r, -xb_i)
+    xb_r, xb_i = cmm(ar, ai, mc_re, -mc_im)
+    lb_r, lb_i = cmm(lr_, li, mc_re, -mc_im)
+    dmc = cmm(lr_.T, li.T, xb_r, -xb_i)
     # Left rotation Mr X: pull back with Mr†; grad λ·x_beforeᴴ.
-    xa_r, xa_i = _cmm(mr_re.T, -mr_im.T, xb_r, xb_i)
-    la_r, la_i = _cmm(mr_re.T, -mr_im.T, lb_r, lb_i)
-    dmr = _cmm(lb_r, lb_i, xa_r.T, -xa_i.T)
+    xa_r, xa_i = cmm(mr_re.T, -mr_im.T, xb_r, xb_i)
+    la_r, la_i = cmm(mr_re.T, -mr_im.T, lb_r, lb_i)
+    dmr = cmm(lb_r, lb_i, xa_r.T, -xa_i.T)
     return torch.stack([xa_r, xa_i, la_r, la_i]), dmr, dmc
 
 
 def circuit2d_backward_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan: CircuitPlan):
     """dMr_re, dMr_im (L,R,R), dMc_re, dMc_im (L,C,C): the backward kernel's
-    adjoint sweep in torch. The state is uncomputed through the inverse ops;
-    it and the cotangent λ = 2·g·ψ pull back under the same operators."""
+    adjoint sweep in torch, at the plan's precision. The state is uncomputed
+    through the inverse ops; it and the cotangent λ = 2·g·ψ pull back under
+    the same operators."""
     R, C = plan.R, plan.C
     dst, sign = plan.tables(mr_re.device)
     dmr_re, dmr_im = torch.empty_like(mr_re), torch.empty_like(mr_im)
     dmc_re, dmc_im = torch.empty_like(mc_re), torch.empty_like(mc_im)
     planes = torch.stack([xr, xi, 2.0 * g * xr, 2.0 * g * xi])  # x_re, x_im, l_re, l_im
-    for layer in range(plan.layers - 1, -1, -1):
-        d, s = layer_map(dst, sign, layer)
-        planes = (s.to(planes.dtype) * planes.reshape(4, -1)[:, d]).reshape(4, R, C)
-        planes, (dmr_re[layer], dmr_im[layer]), (dmc_re[layer], dmc_im[layer]) = \
-            rotation_pullback(planes, mr_re[layer], mr_im[layer], mc_re[layer], mc_im[layer])
+    with fp32_matmul():
+        for layer in range(plan.layers - 1, -1, -1):
+            d, s = layer_map(dst, sign, layer)
+            planes = (s.to(planes.dtype) * planes.reshape(4, -1)[:, d]).reshape(4, R, C)
+            planes, (dmr_re[layer], dmr_im[layer]), (dmc_re[layer], dmc_im[layer]) = \
+                rotation_pullback(planes, mr_re[layer], mr_im[layer], mc_re[layer],
+                                  mc_im[layer], plan.precision)
     return dmr_re, dmr_im, dmc_re, dmc_im
 
 
@@ -298,6 +348,21 @@ def _unit_cmm(a_re, a_im, b_re, b_im):
     return out_re, out_im
 
 
+def _wall_product(m, plan):
+    """(R,) Mr[0]·X0 of one plane ``m`` of Mr[0] against the wall's uniform
+    amplitude a = 2^(-n/2), as the forward kernel's first phase forms it at
+    the plan's precision: a·Σ_k m_k (FP32); bf16(a)·Σ_k bf16(m_k)
+    (``default``); a_hi·Σ_k (m_hi + m_lo) + a_lo·Σ_k m_hi (``high``, the
+    three passes regrouped)."""
+    if plan.precision == "highest":
+        return 2.0 ** (-0.5 * plan.n) * m.sum(dim=1)
+    amp = torch.tensor(2.0 ** (-0.5 * plan.n), dtype=torch.float32)
+    if plan.precision == "default":
+        return float(round_bf16(amp)) * round_bf16(m).sum(dim=1)
+    (a_hi, a_lo), (m_hi, m_lo) = split_bf16(amp), split_bf16(m)
+    return float(a_hi) * (m_hi + m_lo).sum(dim=1) + float(a_lo) * m_hi.sum(dim=1)
+
+
 def circuit2d_forward_phased_plain(mr_re, mr_im, mc_re, mc_im, plan: CircuitPlan):
     """The persistent forward kernel's phase plan in torch: the buffers X
     (returned as xr, xi) and tmp (2, R, C), the closed-form first phase, and
@@ -305,8 +370,9 @@ def circuit2d_forward_phased_plain(mr_re, mr_im, mc_re, mc_im, plan: CircuitPlan
     scatter product's store sends element (m, n) to ``dst[m·C + n]`` times
     the sign there. Each phase fills what it writes with NaN before it reads
     anything, so a phase that read what it writes — a race in the kernel —
-    shows as NaN here. Returns what ``circuit2d_forward_plain`` returns."""
-    R, C, L, dt, dev = plan.R, plan.C, plan.layers, mr_re.dtype, mr_re.device
+    shows as NaN here. The products at the plan's precision (``_pcmm``).
+    Returns what ``circuit2d_forward_plain`` returns."""
+    R, C, L, dt, dev, p = plan.R, plan.C, plan.layers, mr_re.dtype, mr_re.device, plan.precision
     dst, sign = plan.tables(dev)
     tmp = torch.empty((2, R, C), dtype=dt, device=dev)
     xr, xi, probs = (torch.empty((R, C), dtype=dt, device=dev) for _ in range(3))
@@ -314,16 +380,21 @@ def circuit2d_forward_phased_plain(mr_re, mr_im, mc_re, mc_im, plan: CircuitPlan
     tmp.fill_(float("nan"))
     if plan.has_wall:  # X0 = 2^(-n/2)·𝟙: the row sums of Mr[0]
         for h, m in enumerate((mr_re[0], mr_im[0])):
-            tmp[h] = (2.0 ** (-0.5 * plan.n) * m.sum(dim=1))[:, None].expand(R, C)
-    else:  # X0 = e00: column 0 of Mr[0]
+            tmp[h] = _wall_product(m, plan)[:, None].expand(R, C)
+    else:  # X0 = e00: column 0 of Mr[0] (1 is exact in bf16)
         tmp.zero_()
-        tmp[0, :, 0], tmp[1, :, 0] = mr_re[0][:, 0], mr_im[0][:, 0]
+        col = [mr_re[0][:, 0], mr_im[0][:, 0]]
+        if p == "default":
+            col = [round_bf16(c) for c in col]
+        elif p == "high":
+            col = [sum(split_bf16(c)) for c in col]
+        tmp[0, :, 0], tmp[1, :, 0] = col
     for layer in range(L):
         # φR(l): X = scatter(tmp·Mc[l]ᵀ), |z|² on the last layer
         last = layer == L - 1
         for t in (xr, xi, probs) if last else (xr, xi):
             t.fill_(float("nan"))
-        zr, zi = _unit_cmm(tmp[0], tmp[1], mc_re[layer].T, mc_im[layer].T)
+        zr, zi = _pcmm(tmp[0], tmp[1], mc_re[layer].T, mc_im[layer].T, p, _unit_cmm)
         d, s = layer_map(dst, sign, layer)
         s = s.to(dt)
         xr.reshape(-1)[d] = s * zr.reshape(-1)
@@ -333,7 +404,7 @@ def circuit2d_forward_phased_plain(mr_re, mr_im, mc_re, mc_im, plan: CircuitPlan
             break
         # φL(l+1): tmp = Mr[l+1]·X
         tmp.fill_(float("nan"))
-        tmp[0], tmp[1] = _unit_cmm(mr_re[layer + 1], mr_im[layer + 1], xr, xi)
+        tmp[0], tmp[1] = _pcmm(mr_re[layer + 1], mr_im[layer + 1], xr, xi, p, _unit_cmm)
     return probs, xr, xi
 
 
@@ -342,9 +413,14 @@ def circuit2d_backward_phased_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan:
     (4, R, C) buffers U[0], U[1], V, W of one scratch, the same phases and
     K-split sums (``csrc/circuit2d_bwd.cuh``). Each phase fills the buffers
     it writes with NaN before it reads anything, so a phase that read what
-    it writes — a race in the kernel — shows as NaN here. Returns what
+    it writes — a race in the kernel — shows as NaN here. The products at
+    the plan's precision (``_pcmm``). Returns what
     ``circuit2d_backward_plain`` returns."""
     R, C, L, dt, dev = plan.R, plan.C, plan.layers, mr_re.dtype, mr_re.device
+
+    def cmm(*args):
+        return _pcmm(*args, plan.precision, _ksplit_cmm)
+
     dst, sign = plan.tables(dev)
     scratch = torch.empty((4, 4, R, C), dtype=dt, device=dev)
     U, V, W = (scratch[0], scratch[1]), scratch[2], scratch[3]
@@ -353,8 +429,8 @@ def circuit2d_backward_phased_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan:
 
     def grads(layer):  # dMr = λ_V·x_Wᴴ, dMc = λ_Uᵀ·conj(x_V)
         u = U[layer % 2]
-        dmr_re[layer], dmr_im[layer] = _ksplit_cmm(V[2], V[3], W[0].T, -W[1].T)
-        dmc_re[layer], dmc_im[layer] = _ksplit_cmm(u[2].T, u[3].T, V[0], -V[1])
+        dmr_re[layer], dmr_im[layer] = cmm(V[2], V[3], W[0].T, -W[1].T)
+        dmc_re[layer], dmc_im[layer] = cmm(u[2].T, u[3].T, V[0], -V[1])
 
     scratch.fill_(float("nan"))
     src = torch.stack([xr, xi, 2.0 * g * xr, 2.0 * g * xi])
@@ -369,11 +445,11 @@ def circuit2d_backward_phased_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan:
         # φ2: V = U·conj(Mc[l]), state (planes 0-1) and cotangent (2-3)
         V.fill_(float("nan"))
         for h in (0, 2):
-            V[h], V[h + 1] = _ksplit_cmm(u[h], u[h + 1], mc_re[layer], -mc_im[layer])
+            V[h], V[h + 1] = cmm(u[h], u[h + 1], mc_re[layer], -mc_im[layer])
         # φ3: W = Mr[l]ᴴ·V
         W.fill_(float("nan"))
         for h in (0, 2):
-            W[h], W[h + 1] = _ksplit_cmm(mr_re[layer].T, -mr_im[layer].T, V[h], V[h + 1])
+            W[h], W[h + 1] = cmm(mr_re[layer].T, -mr_im[layer].T, V[h], V[h + 1])
         src = W
     grads(0)
     return dmr_re, dmr_im, dmc_re, dmc_im
@@ -434,10 +510,11 @@ def launch_forward_persistent(plan: CircuitPlan, mr_re, mr_im, mc_re, mc_im):
     xr, xi = torch.empty_like(probs), torch.empty_like(probs)
     tmp = torch.empty((2, plan.R, plan.C), dtype=torch.float32, device=mr_re.device)
     masks = plan.device_masks(mr_re.device)
-    _lib.count_launch("circuit2d_fwd")
+    _lib.count_launch(_lib.launch_key("circuit2d_fwd", plan.precision))
     err = fn(_lib.ptr(mr_re), _lib.ptr(mr_im), _lib.ptr(mc_re), _lib.ptr(mc_im),
              _lib.ptr(probs), _lib.ptr(xr), _lib.ptr(xi), _lib.ptr(tmp), _lib.ptr(masks),
-             plan.n, plan.layers, int(plan.has_wall), _lib.stream_ptr(mr_re.device))
+             plan.n, plan.layers, int(plan.has_wall), CODES[plan.precision],
+             _lib.stream_ptr(mr_re.device))
     _lib.check(err, "tn_circuit2d_forward (cooperative launch)")
     return probs, xr, xi
 
@@ -451,11 +528,11 @@ def launch_backward_persistent(plan: CircuitPlan, mr_re, mr_im, mc_re, mc_im, xr
     dmc_re, dmc_im = torch.empty_like(mc_re), torch.empty_like(mc_im)
     scratch = torch.empty((4, 4, plan.R, plan.C), dtype=torch.float32, device=mr_re.device)
     masks = plan.device_masks(mr_re.device)
-    _lib.count_launch("circuit2d_bwd")
+    _lib.count_launch(_lib.launch_key("circuit2d_bwd", plan.precision))
     err = fn(_lib.ptr(mr_re), _lib.ptr(mr_im), _lib.ptr(mc_re), _lib.ptr(mc_im),
              _lib.ptr(xr), _lib.ptr(xi), _lib.ptr(g),
              _lib.ptr(dmr_re), _lib.ptr(dmr_im), _lib.ptr(dmc_re), _lib.ptr(dmc_im),
-             _lib.ptr(scratch), _lib.ptr(masks), plan.n, plan.layers,
+             _lib.ptr(scratch), _lib.ptr(masks), plan.n, plan.layers, CODES[plan.precision],
              _lib.stream_ptr(mr_re.device))
     _lib.check(err, "tn_circuit2d_backward (cooperative launch)")
     return dmr_re, dmr_im, dmc_re, dmc_im

@@ -33,6 +33,11 @@ of ``circuit2d.py``, and the independent check is the oracle
 ``sim/structured.make_structured_probs_fn``. Each wrapper takes the plain
 version only for CPU tensors; a CUDA tensor launches the kernel or raises.
 
+Precision: as ``circuit2d.py``'s plans, a ``GridPlan`` carries the kernel
+precision current when it was built; the plain versions run the rotation
+products at it (``circuit2d._pcmm``) and the W forms, the column chain and
+the CZ masks, which are exact maps, in FP32.
+
 Valid range: any 2 ≤ n ≤ ``MAX_QUBITS`` when the backend is named (the CPU
 tests run it small); the ``auto`` backend takes it from ``AUTO_MIN_QUBITS``
 = 18. ``MAX_QUBITS`` = 24 is set by memory: the (L, R, R) and (L, C, C)
@@ -53,9 +58,10 @@ import torch
 from ...sim.blocked import _chain_gates, _cnot_map, _cz_pairs
 from ...sim.blocked2d import _cz_sign_mask, _kron_h, _perm_matrix
 from . import _lib
-from .circuit2d import (WALL_ANSATZE, _check, _cmm, circuit2d_backward_plain,
+from .circuit2d import (WALL_ANSATZE, _check, _initial_state, _pcmm, circuit2d_backward_plain,
                         circuit2d_forward_plain, circuit_operators, layer_masks,
                         layer_tables, make_probs_fn, rotation_pullback)
+from .precision import CODES, _kernel_precision, fp32_matmul, precision_name
 
 MIN_QUBITS, AUTO_MIN_QUBITS, MAX_QUBITS = 2, 18, 24
 
@@ -79,11 +85,14 @@ class GridPlan:
       layers, the identity on odd ones, and nothing is folded.
     - ``index_form``: the plain version runs the index maps (bn_structured,
       whose DAG edges have no W form) rather than the TPU kernel's banks.
+    - ``precision``: the kernel precision of its products, by default the
+      one current when the plan is built.
     """
 
     name = "circuit2d_grid"
 
-    def __init__(self, num_wires: int, layers: int, ansatz_type: str, edges=None):
+    def __init__(self, num_wires: int, layers: int, ansatz_type: str, edges=None,
+                 precision=None):
         n = num_wires
         if not MIN_QUBITS <= n <= MAX_QUBITS:
             raise ValueError(f"circuit2d_grid supports {MIN_QUBITS} <= n <= {MAX_QUBITS}, "
@@ -99,6 +108,7 @@ class GridPlan:
         self.index_form = ansatz_type == "bn_structured"
         self.has_chain = ansatz_type in ("hardware_efficient", "basic")
         self.row_src = None
+        self.precision = precision_name(precision or _kernel_precision())
         self._cache = {}
         if self.index_form:
             self.rows, self.cz = layer_masks(n, layers, ansatz_type, edges)
@@ -186,27 +196,23 @@ def circuit2d_grid_forward_plain(mr_re, mr_im, mc_re, mc_im, plan: GridPlan):
     index maps of ``circuit2d.circuit2d_forward_plain``."""
     if plan.index_form:
         return circuit2d_forward_plain(mr_re, mr_im, mc_re, mc_im, plan)
-    R, C, dt, dev = plan.R, plan.C, mr_re.dtype, mr_re.device
+    dt, dev, p = mr_re.dtype, mr_re.device, plan.precision
     b = plan.banks(dev, dt)
-    if plan.has_wall:  # wall ∘ |0..0⟩ is the uniform amplitude
-        xr = torch.full((R, C), 2.0 ** (-0.5 * plan.n), dtype=dt, device=dev)
-    else:
-        xr = torch.zeros((R, C), dtype=dt, device=dev)
-        xr[0, 0] = 1.0
-    xi = torch.zeros((R, C), dtype=dt, device=dev)
-    for layer in range(plan.layers):
-        tr, ti = _cmm(mr_re[layer], mr_im[layer], xr, xi)
-        xr, xi = _cmm(tr, ti, mc_re[layer].T, mc_im[layer].T)
-        planes = [xr, xi]
-        if plan.has_chain:
-            if plan.boundary:
-                planes = [_boundary(x, b) for x in planes]
-            if b["p_col"] is not None:
-                planes = [x @ b["p_col"].T for x in planes]
-            if plan.ring:
-                planes = [_ring(x, b) for x in planes]
-        s = b["cz"][layer]
-        xr, xi = planes if s is None else [x * s for x in planes]
+    xr, xi = _initial_state(plan, dt, dev)  # wall ∘ |0..0⟩ is the uniform amplitude
+    with fp32_matmul():
+        for layer in range(plan.layers):
+            tr, ti = _pcmm(mr_re[layer], mr_im[layer], xr, xi, p)
+            xr, xi = _pcmm(tr, ti, mc_re[layer].T, mc_im[layer].T, p)
+            planes = [xr, xi]
+            if plan.has_chain:
+                if plan.boundary:
+                    planes = [_boundary(x, b) for x in planes]
+                if b["p_col"] is not None:
+                    planes = [x @ b["p_col"].T for x in planes]
+                if plan.ring:
+                    planes = [_ring(x, b) for x in planes]
+            s = b["cz"][layer]
+            xr, xi = planes if s is None else [x * s for x in planes]
     return xr * xr + xi * xi, xr, xi
 
 
@@ -221,19 +227,21 @@ def circuit2d_grid_backward_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan: G
     dmr_re, dmr_im = torch.empty_like(mr_re), torch.empty_like(mr_im)
     dmc_re, dmc_im = torch.empty_like(mc_re), torch.empty_like(mc_im)
     planes = torch.stack([xr, xi, 2.0 * g * xr, 2.0 * g * xi])  # x_re, x_im, l_re, l_im
-    for layer in range(plan.layers - 1, -1, -1):
-        s = b["cz"][layer]
-        if s is not None:
-            planes = planes * s
-        if plan.has_chain:
-            if plan.ring:
-                planes = _ring(planes, b)
-            if b["p_col"] is not None:  # forward X Pᵀ, inverse X P
-                planes = planes @ b["p_col"]
-            if plan.boundary:
-                planes = _boundary(planes, b)
-        planes, (dmr_re[layer], dmr_im[layer]), (dmc_re[layer], dmc_im[layer]) = \
-            rotation_pullback(planes, mr_re[layer], mr_im[layer], mc_re[layer], mc_im[layer])
+    with fp32_matmul():
+        for layer in range(plan.layers - 1, -1, -1):
+            s = b["cz"][layer]
+            if s is not None:
+                planes = planes * s
+            if plan.has_chain:
+                if plan.ring:
+                    planes = _ring(planes, b)
+                if b["p_col"] is not None:  # forward X Pᵀ, inverse X P
+                    planes = planes @ b["p_col"]
+                if plan.boundary:
+                    planes = _boundary(planes, b)
+            planes, (dmr_re[layer], dmr_im[layer]), (dmc_re[layer], dmc_im[layer]) = \
+                rotation_pullback(planes, mr_re[layer], mr_im[layer], mc_re[layer],
+                                  mc_im[layer], plan.precision)
     return dmr_re, dmr_im, dmc_re, dmc_im
 
 
@@ -261,10 +269,10 @@ def circuit2d_grid_forward(mr_re, mr_im, mc_re, mc_im, plan: GridPlan):
     tmp = torch.empty((2, plan.R, plan.C), dtype=torch.float32, device=mr_re.device)
     mct = torch.empty((2, plan.layers, plan.C, plan.C), dtype=torch.float32,
                       device=mr_re.device)
-    _lib.count_launch("circuit2d_grid_fwd")
+    _lib.count_launch(_lib.launch_key("circuit2d_grid_fwd", plan.precision))
     err = fn(_lib.ptr(mr_re), _lib.ptr(mr_im), _lib.ptr(mc_re), _lib.ptr(mc_im),
              _lib.ptr(probs), _lib.ptr(xr), _lib.ptr(xi), _lib.ptr(tmp), _lib.ptr(mct),
-             plan.n, plan.layers, int(plan.has_wall), *_masks(plan),
+             plan.n, plan.layers, int(plan.has_wall), CODES[plan.precision], *_masks(plan),
              _lib.stream_ptr(mr_re.device))
     _lib.check(err, "tn_circuit2d_grid_forward")
     return probs, xr, xi
@@ -282,12 +290,12 @@ def circuit2d_grid_backward(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan: GridPla
     dmc_re, dmc_im = torch.empty_like(mc_re), torch.empty_like(mc_im)
     buf_a = torch.empty((4, plan.R, plan.C), dtype=torch.float32, device=mr_re.device)
     buf_b = torch.empty_like(buf_a)
-    _lib.count_launch("circuit2d_grid_bwd")
+    _lib.count_launch(_lib.launch_key("circuit2d_grid_bwd", plan.precision))
     err = fn(_lib.ptr(mr_re), _lib.ptr(mr_im), _lib.ptr(mc_re), _lib.ptr(mc_im),
              _lib.ptr(xr), _lib.ptr(xi), _lib.ptr(g),
              _lib.ptr(dmr_re), _lib.ptr(dmr_im), _lib.ptr(dmc_re), _lib.ptr(dmc_im),
-             _lib.ptr(buf_a), _lib.ptr(buf_b), plan.n, plan.layers, *_masks(plan),
-             _lib.stream_ptr(mr_re.device))
+             _lib.ptr(buf_a), _lib.ptr(buf_b), plan.n, plan.layers, CODES[plan.precision],
+             *_masks(plan), _lib.stream_ptr(mr_re.device))
     _lib.check(err, "tn_circuit2d_grid_backward")
     return dmr_re, dmr_im, dmc_re, dmc_im
 

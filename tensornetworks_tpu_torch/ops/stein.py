@@ -169,7 +169,8 @@ def _kron_apply(V: torch.Tensor, a: float, n: int, kron: str = "2d", group: int 
 
 
 def stein_matvec(q: torch.Tensor, S: torch.Tensor, B: torch.Tensor, num_vars: int,
-                 length_scale: float = 1.0, group: int = 7) -> torch.Tensor:
+                 length_scale: float = 1.0, group: int = 7, compute_dtype=None,
+                 kron_apply=None) -> torch.Tensor:
     """y = K_p @ q without materializing K_p: the 3n+1-column oracle.
 
     From n = 13 each column, viewed as an (R, C) matrix, is multiplied as
@@ -177,6 +178,13 @@ def stein_matvec(q: torch.Tensor, S: torch.Tensor, B: torch.Tensor, num_vars: in
     here in plain torch); below, the columns go through the grouped
     Kronecker matvec. The JAX package switches its n ≥ 18 branch to a
     grouped row layout, which computes the same product.
+
+    ``compute_dtype`` (``torch.bfloat16``) takes the JAX function's routes:
+    below 13 the grouped matvec with that ``compute_dtype``, from 18 the
+    grouped row layout on the columns cast down (``kron_matvec_rows``); the
+    13-17 two-sided split ignores it, as in JAX. ``kron_apply`` (V (3n+1,
+    2^n) -> K V, when ``compute_dtype`` is None) replaces the product: the
+    operator's stein2d kernels.
     """
     n = num_vars
     if n == 0:
@@ -185,11 +193,15 @@ def stein_matvec(q: torch.Tensor, S: torch.Tensor, B: torch.Tensor, num_vars: in
     St, Bt = S.T, B.T
     SBt = St * Bt
     V = _stein_columns(q, St, Bt, SBt)
-    if n >= 13:
+    A = np.array([[1.0, a], [a, 1.0]])
+    if compute_dtype is not None and n >= 18:
+        Y = kron_matvec_rows(V.to(compute_dtype), A, n, group=group).to(V.dtype)
+    elif kron_apply is not None and compute_dtype is None:
+        Y = kron_apply(V)
+    elif n >= 13:
         Y = _kron_apply(V, a, n)
     else:
-        A = np.array([[1.0, a], [a, 1.0]])
-        Y = kron_matvec(V.T.contiguous(), A, n, group=group).T
+        Y = kron_matvec(V.T.contiguous(), A, n, group=group, compute_dtype=compute_dtype).T
     return _recombine(Y, St, Bt, SBt, n, a)
 
 
@@ -296,10 +308,10 @@ class _QuadForm(torch.autograd.Function):
 
 
 def ksd_quadform(q: torch.Tensor, S: torch.Tensor, B: torch.Tensor, num_vars: int,
-                 length_scale: float = 1.0, group: int = 7) -> torch.Tensor:
+                 length_scale: float = 1.0, group: int = 7, compute_dtype=None) -> torch.Tensor:
     """qᵀ K_p q via ``stein_matvec``; differentiable in q only."""
     return _QuadForm.apply(
-        q, lambda v: stein_matvec(v, S, B, num_vars, length_scale, group))
+        q, lambda v: stein_matvec(v, S, B, num_vars, length_scale, group, compute_dtype))
 
 
 def ksd_quadform_gcorr(q: torch.Tensor, tables: GcorrTables, num_vars: int,
@@ -323,18 +335,27 @@ class SteinOperator:
     ``GcorrTables`` on the device, (n+1)·2^n floats; the score stays on the
     host as the numpy array it was given, and ``S`` and ``B`` are built on
     the device only when touched (the dense Gram, the 3n+1 oracle).
+
+    The JAX operator's other keywords: ``use_pallas`` (not dense) turns the
+    gcorr tables off and runs the 3n+1 form (``stein_matvec``), its
+    columns through the same stein2d kernel; ``compute_dtype`` reaches that
+    form only (its plain torch routes, see ``stein_matvec``), neither the
+    gcorr tables nor the dense Gram, as in JAX; ``group`` sizes its grouped
+    passes.
     """
 
     DENSE_MAX_VARS = 12
     GRID_MIN_VARS = 18
 
     def __init__(self, score: np.ndarray, num_vars: int, length_scale: float = 1.0,
-                 dtype=torch.float32, dense: bool | None = None, device="cuda"):
+                 dtype=torch.float32, dense: bool | None = None, device="cuda",
+                 group: int = 7, compute_dtype=None, use_pallas: bool = False):
         n = num_vars
         self.num_vars = n
         self.length_scale = float(length_scale)
         self.dtype = dtype
         self.device = torch.device(device)
+        self.group, self.compute_dtype = group, compute_dtype
         self._score_np = np.asarray(score)
         self._S = self._B = None
         self.dense = dense if dense is not None else n <= self.DENSE_MAX_VARS
@@ -345,7 +366,8 @@ class SteinOperator:
         self._a = decay_factor(n, self.length_scale)
         _, _, self._R, self._C = _split(n)
         self._grid = n >= self.GRID_MIN_VARS
-        self.gcorr = make_gcorr_tables(self._score_np, n, dtype=dtype, device=self.device)
+        if not use_pallas:
+            self.gcorr = make_gcorr_tables(self._score_np, n, dtype=dtype, device=self.device)
 
     @property
     def S(self) -> torch.Tensor:
@@ -373,6 +395,13 @@ class SteinOperator:
     def matvec(self, q: torch.Tensor) -> torch.Tensor:
         if self.dense:
             return self.gram @ q
+        if self.gcorr is None:  # use_pallas: the 3n+1 form
+
+            def rows(V):
+                return self.kron_apply(V.reshape(-1, self._R, self._C)).reshape(V.shape)
+
+            return stein_matvec(q, self.S, self.B, self.num_vars, self.length_scale, self.group,
+                                self.compute_dtype, kron_apply=rows)
         Y = self.kron_apply(self.columns(q)).reshape(self.num_vars + 1, -1)
         return gcorr_combine(Y[0], Y[1:], self.gcorr.St, self.gcorr.Rv, self._a, self.num_vars)
 

@@ -31,6 +31,7 @@ import torch
 from ..ops.kernels import _lib
 from ..ops.kernels import circuit2d as kc
 from ..ops.kernels import circuit2d_grid as kg
+from ..ops.kernels.precision import CODES
 from ..sim.gates import rotation_operators
 
 PROBE_DIR = _lib.BUILD_DIR.parent / "probe"
@@ -146,7 +147,7 @@ def probe_circuit(layers: int = 4, reps: int = 10) -> dict:
     version first: {"backward": ..., "forward": ...}."""
     lib = _build_probe()
     dev, n = torch.device("cuda"), 16
-    plan = kc.CircuitPlan(n, layers, "hardware_efficient")
+    plan = kc.CircuitPlan(n, layers, "hardware_efficient", precision="highest")
     gen = torch.Generator().manual_seed(n)
     theta = (0.1 * torch.randn(3 * layers * n, generator=gen)).to(dev)
     Mr, Mc = rotation_operators(theta, n, layers, plan.per_qubit)
@@ -158,12 +159,13 @@ def probe_circuit(layers: int = 4, reps: int = 10) -> dict:
 
     grads = [torch.empty_like(t) for t in planes]
     scratch = torch.empty((4, 4, plan.R, plan.C), device=dev)
+    highest = CODES["highest"]
     bwd_args = [*map(P, planes), P(xr), P(xi), P(g), *map(P, grads), P(scratch), P(masks),
-                n, layers, stream]
+                n, layers, highest, stream]
     out = [torch.empty((plan.R, plan.C), device=dev) for _ in range(3)]
     tmp = torch.empty((2, plan.R, plan.C), device=dev)
     fwd_args = [*map(P, planes), *map(P, out), P(tmp), P(masks), n, layers,
-                int(plan.has_wall), stream]
+                int(plan.has_wall), highest, stream]
     result = {}
     for name, call, want, barriers in (
             ("backward", lambda: lib.tn_circuit2d_backward(*bwd_args), grads, 3 * layers),

@@ -5,6 +5,7 @@ so that two commits are compared by one timer.
     python3 time_tree.py [--tree DIR]                  # the timed kernels, three timers
     python3 time_tree.py [--tree DIR] --path main16    # a path's epochs/s (PATHS; a,b: several)
     python3 time_tree.py [--tree DIR] --stein-memory 20  # the Stein operator's device bytes
+    python3 time_tree.py [--tree DIR] --digest         # SHA-256 of the circuit kernels' outputs
 
 DIR is the root of a checkout (by default this one), for example an earlier
 commit unpacked with ``git archive`` into a git-ignored directory. The script
@@ -28,11 +29,15 @@ its ``run_scale_path`` (60 epochs at 20 qubits), with ``--path bn20`` its
 ``run_bn20_path`` (30 epochs, bn_structured L=8), and prints
 ``{"path": ..., "epochs_per_s": x}``; ``sprinkler_classical``,
 ``classical20``, ``warm16``, ``multiseed16``, ``cli16``, ``cli20`` and
-``profile16`` run those phases of DIR's ``chip_smoke.py``, and a
-comma-separated list runs several paths in one process, in turn. With ``--stein-memory N`` it builds
+``profile16`` run those phases of DIR's ``chip_smoke.py`` (``sampled16``
+also prints its best TVD), and a comma-separated list runs several paths in
+one process, in turn. With ``--stein-memory N`` it builds
 DIR's ``SteinOperator`` for the N-qubit workload at the ``auto`` length
 scale and prints the device bytes the operator holds and the peak device
-bytes of one matvec above them. Run each tree in its own process, in
+bytes of one matvec above them. With ``--digest`` it runs DIR's circuit
+kernels (forward and backward, at DIR's default precision) on seeded inputs
+at ``DIGEST_SHAPES`` and prints a SHA-256 of their outputs per shape: two
+trees with equal digests compute those kernels bit for bit alike. Run each tree in its own process, in
 alternating order, since the host's speed drifts within one machine.
 Needs a CUDA device; imports nothing of JAX.
 """
@@ -50,7 +55,15 @@ REPS = 20
 PATHS = {"main16": "run_main_path", "scale20": "run_scale_path", "bn20": "run_bn20_path",
          "sprinkler_classical": "run_sprinkler_classical", "classical20": "run_classical20_path",
          "warm16": "run_warm16_path", "multiseed16": "run_multiseed16_path",
-         "cli16": "run_cli16_path", "cli20": "run_cli20_path", "profile16": "run_profile16_path"}
+         "cli16": "run_cli16_path", "cli20": "run_cli20_path", "profile16": "run_profile16_path",
+         "sampled16": "run_sampled16_path"}
+# (n, grid, ansatz, layers) of --digest: both persistent kernels at 16 and 17
+# qubits, both GEMM loops of the grid kernels at 18-21, bn_structured at 16
+# and 20.
+DIGEST_SHAPES = ((16, False, "hardware_efficient", 4), (17, False, "hardware_efficient", 4),
+                 (16, False, "bn_structured", 8), (18, True, "hardware_efficient", 4),
+                 (20, True, "hardware_efficient", 4), (21, True, "hardware_efficient", 4),
+                 (20, True, "bn_structured", 8))
 
 
 def _load(path: Path, name: str):
@@ -102,6 +115,43 @@ def stein_memory(smoke, n, device) -> dict:
     return {"stein_memory_qubits": n, "operator_bytes": held, "matvec_peak_bytes": peak}
 
 
+def digest(device) -> dict:
+    """SHA-256 of the tree's circuit kernels' outputs (probs, state planes,
+    the four operator gradients) at each of DIGEST_SHAPES, on inputs drawn
+    from seeded generators."""
+    import hashlib
+
+    import torch
+    from tensornetworks_tpu_torch.ops.kernels import circuit2d as kc
+    from tensornetworks_tpu_torch.ops.kernels import circuit2d_grid as kg
+    from tensornetworks_tpu_torch.runners import make_scale_problem
+    from tensornetworks_tpu_torch.sim import latent_edges
+    from tensornetworks_tpu_torch.sim.ansatz import num_ansatz_params
+    from tensornetworks_tpu_torch.sim.gates import rotation_operators
+
+    out = {}
+    for n, grid, ansatz, layers in DIGEST_SHAPES:
+        edges = None
+        if ansatz == "bn_structured":
+            edges = latent_edges(*make_scale_problem(n, seed=0)[:2])
+        plan = (kg.GridPlan if grid else kc.CircuitPlan)(n, layers, ansatz, edges)
+        gen = torch.Generator().manual_seed(n)
+        theta = (0.1 * torch.randn(num_ansatz_params(n, layers, ansatz), generator=gen)).to(device)
+        Mr, Mc = rotation_operators(theta, n, layers, plan.per_qubit)
+        planes = (kg.grid_planes(Mr, Mc, plan) if grid
+                  else [t.contiguous() for t in (Mr.real, Mr.imag, Mc.real, Mc.imag)])
+        fwd, bwd = ((kg.circuit2d_grid_forward, kg.circuit2d_grid_backward) if grid
+                    else (kc.circuit2d_forward, kc.circuit2d_backward))
+        probs, xr, xi = fwd(*planes, plan)
+        g = torch.randn((plan.R, plan.C), generator=gen).to(device)
+        h = hashlib.sha256()
+        for t in (probs, xr, xi, *bwd(*planes, xr, xi, g, plan)):
+            h.update(t.cpu().numpy().tobytes())
+        out[f"{'circuit2d_grid' if grid else 'circuit2d'} n={n} {ansatz} L={layers}"] = \
+            h.hexdigest()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(HERE), help="root of the checkout to time")
@@ -110,6 +160,8 @@ def main(argv=None) -> int:
                          f"{', '.join(PATHS)})")
     ap.add_argument("--stein-memory", type=int, metavar="N",
                     help="measure the N-qubit Stein operator's device memory")
+    ap.add_argument("--digest", action="store_true",
+                    help="print a SHA-256 of the circuit kernels' outputs per shape")
     args = ap.parse_args(argv)
     for name in args.path or ():
         if name not in PATHS:
@@ -131,6 +183,9 @@ def main(argv=None) -> int:
 
     device = torch.device("cuda")
     kernels.build_all()
+    if args.digest:
+        print(json.dumps({"tree": str(tree), "digest": digest(device)}), flush=True)
+        return 0
     if args.stein_memory:
         print(json.dumps({"tree": str(tree), **stein_memory(smoke, args.stein_memory, device)}),
               flush=True)
@@ -139,7 +194,8 @@ def main(argv=None) -> int:
         for name in args.path:
             rate = getattr(smoke, PATHS[name])(device)[1]
             eps = rate["epochs_per_sec"] if isinstance(rate, dict) else rate
-            print(json.dumps({"tree": str(tree), "path": name, "epochs_per_s": eps}),
+            extra = {"best_tvd": rate["best_tvd"]} if name == "sampled16" else {}
+            print(json.dumps({"tree": str(tree), "path": name, "epochs_per_s": eps, **extra}),
                   flush=True)
         return 0
     timers = {"unqueued": functools.partial(timer_smoke.time_ms, queued=False),
