@@ -99,7 +99,10 @@ Phases (any failure exits non-zero):
    sampled16 (``scripts/quality_sampled.py``'s defaults: bn_structured
    L=8, ℓ = 1/16, 1024 shots, loo, one phase of 2000 epochs at lr 0.05,
    eval on the loss forward), circuit kernels 1-2 only, every loss finite,
-   best TVD within 0.1 of the JAX package's on the same configuration;
+   best TVD within 0.1 of the JAX package's on the same configuration, then
+   run again with the same seed: its loss, TVD and gradient-norm histories,
+   best TVD and best epoch equal the first run's bit for bit (the shots'
+   CDF scan and the log-q gather's backward are deterministic);
    sampled24 (``examples/sampled_ksd_large_n.py``, HE L=4, two-stage shots,
    TVD against the exact 2^24 posterior, cut to 20 epochs in chunks of
    10), kernels 5-6 only, epoch 0's U-statistic against float64 on the
@@ -201,15 +204,28 @@ Phases (any failure exits non-zero):
    variants, counted under ``<kernel>.<precision>``), held against the plain
    emulation of the same passes on the card and against float64 without
    rounding; printed beside the FP32 kernel's time and a bound at the bf16
-   tensor-core peak. precision16: ``runners/bench_precision.py``'s two
+   tensor-core peak; untimed at n = 2, 3, 17 against the emulation, and
+   at n = 18, 19, 21 and 22 also against float64. wgmma_products: each of
+   the six product patterns of kernels 5-6 (``PRODUCT_PATTERNS``: the
+   pull-backs at batch 2, dMc, dMr, the forward's left product and its
+   scatter epilogue with |C|^2) alone on the Hopper loop of
+   ``csrc/wgmma_bf16.cuh`` at n = 20 and 24 under ``high`` and
+   ``default``, against its plain extended-K emulation and float64, timed
+   against its bound and against ``torch.matmul`` on bf16 planes of the
+   same shapes (4 real GEMMs a pass); the wrapper's choice of loop and
+   scratch against the library's (``tn_circuit2d_grid_split_elems``).
+   precision16: ``runners/bench_precision.py``'s two
    configurations (the 3-qubit Sprinkler oracle; the 16-qubit chain,
    bn_structured L=8, 800 epochs) under ``highest``, ``high`` and
    ``default`` with both knobs, and ``high`` and ``default`` with the kernel
    knob alone: Sprinkler's best TVD ≤ 0.01 under ``highest`` and ``high``;
    the rest printed. exact24_high: exact24 under the kernel precision
-   ``high``, its loss history's largest relative gap to exact24's printed;
+   ``high``, its loss history within 1e-3 (relative) of exact24's;
    grid20_default: scale20's configuration for 20 epochs under the kernel
    precision ``default`` (the path of kernels 5-6's ``default`` variants);
+   on both, every bf16 product of kernels 5-6 on the wgmma loop (the
+   library's host counts by loop, ``bf16_product_counts``), none on the
+   mma.sync passes;
    sampled28_tf32: sampled28 under ``TNTPU_MATMUL_PRECISION=default`` (its
    cuBLAS GEMMs in TF32), its U-statistics' gap to sampled28's printed.
 
@@ -439,6 +455,12 @@ VARIANT_PATH = {v: ("precision16", (N, BN)) if not v.startswith("circuit2d_grid"
                 else ("exact24_high", (N_EXACT24, BN)) if v.endswith("high")
                 else ("grid20_default", (N_GRID, ANSATZ)) for v in PRECISION_VARIANTS}
 GRID20_DEFAULT_EPOCHS, GRID20_DEFAULT_CHUNK = 20, 10
+# exact24_high's loss history against exact24's (FP32), relative: the
+# variant's products keep about 16 bits; the FP32 gap reads about 1e-5
+# (PERF.md).
+EXACT24_HIGH_GAP_MAX = 1e-3
+# wgmma_products: the shapes (n) of each product pattern alone.
+WGMMA_PRODUCT_NS = (N_GRID, N_EXACT24)
 # The FP32 runs that exact24_high and sampled28_tf32 are compared with.
 REFERENCE_RUNS = {}
 
@@ -925,11 +947,21 @@ NEW_KERNELS = {"circuit2d_fwd_kernelILi0E": "circuit2d_fwd_kernel",
                "cgemm_large_kernelILb1ELb0ELb0ELb0ELb1ELi1EE": "cgemm_large_kernel<scatter, high>",
                "cgemm_large_kernelILb1ELb0ELb0ELb0ELb1ELi2EE":
                    "cgemm_large_kernel<scatter, default>"}
+# The Hopper loop of the bf16 products of kernels 5-6 (csrc/wgmma_bf16.cuh,
+# cgemm_wgmma_kernel<AT, BT, CA, CB, SCATTER, P, BN>): each product pattern
+# at both bf16 precisions and both tile widths.
+WGMMA_PATTERNS = {"col": (0, 1, 0, 1, 0), "dmc": (1, 1, 0, 1, 0), "row": (1, 1, 1, 0, 0),
+                  "dmr": (0, 0, 0, 1, 0), "left": (0, 1, 0, 0, 0), "scatter": (0, 0, 0, 0, 1)}
+NEW_KERNELS.update({
+    "cgemm_wgmma_kernelI" + "".join(f"Lb{b}E" for b in bits) + f"Li{code}ELi{bn}EE":
+        f"cgemm_wgmma_kernel<{pattern}, {prec}, {bn}>"
+    for pattern, bits in WGMMA_PATTERNS.items() for code, prec in ((1, "high"), (2, "default"))
+    for bn in (64, 128)})
 
 
 def check_spills(logs, kernels=("cgemm_large_kernel", "butterfly_pass_kernel",
                                 "cluster_butterfly_kernel", "circuit2d_fwd_kernel",
-                                "circuit2d_bwd_kernel")):
+                                "circuit2d_bwd_kernel", "cgemm_wgmma_kernel")):
     """Print registers and spills of every compiled function from the ptxas
     reports; the named kernels must spill nothing. Returns the registers of
     each compiled function, by library."""
@@ -1701,12 +1733,50 @@ def run_sampled16_path(device):
     require(eng.best_tvd_ <= SAMPLED16_TVD_MAX,
             f"sampled16 best TVD {eng.best_tvd_} > {SAMPLED16_TVD_MAX}")
     row = sampled_row("sampled16", hist, launches, peak, eng.best_tvd_)
+    REFERENCE_RUNS["sampled16"] = (hist, eng.best_tvd_, eng.best_epoch_)
     print(f"sampled16 path: {SAMPLED16_EPOCHS} epochs, U-statistic {loss[0]:.4f} -> "
           f"{loss[-1]:.4f}, best TVD {eng.best_tvd_:.5f} (limit {SAMPLED16_TVD_MAX:.5f}) at "
           f"epoch {eng.best_epoch_}, {hist['num_skipped_updates']} skipped, "
           f"{row['epochs_per_sec']:.1f} epochs/s steady, peak device memory {peak:.2f} GiB, "
           f"launches {launches}", flush=True)
     return launches, row
+
+
+def run_sampled16_replay(device, first):
+    """sampled16 again with the same seed: its histories, best TVD and best
+    epoch equal the first run's (``first``: its history, best TVD, best
+    epoch) bit for bit. Returns the launches."""
+    import torch
+    from tensornetworks_tpu_torch.engines import SampledKSDVariationalInference
+    from tensornetworks_tpu_torch.ops import kernels
+
+    bn, latent, obs = path_inputs(N)
+    post = bn.posterior_vector(latent, obs)
+    eng = SampledKSDVariationalInference(bn, latent, list(obs), qbm_ansatz_layers=BN_LAYERS,
+                                         qbm_ansatz_type=BN, num_samples=SHOTS, seed=0,
+                                         base_kernel_length_scale="auto", grad_baseline="loo",
+                                         device=device)
+    kernels.reset_launches()
+    hist = eng.train(obs, num_epochs=SAMPLED16_EPOCHS, lr_born_machine=BN_LR, verbose=False,
+                     true_posterior_for_tvd=post, chunk_epochs=SAMPLED16_CHUNK,
+                     reuse_loss_forward_for_eval=True, seed=0)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check_launches("sampled16", launches)
+    ref, ref_best, ref_epoch = first
+    for key in ("loss_ksd", "tvd", "grad_norm"):
+        diff = [e for e, (a, b) in enumerate(zip(hist[key], ref[key]))
+                if not (a == b or (math.isnan(a) and math.isnan(b)))]
+        require(not diff and len(hist[key]) == len(ref[key]),
+                f"sampled16 replay: {key} differs from the first run from epoch "
+                f"{diff[0] if diff else len(ref[key])}")
+    require(eng.best_tvd_ == ref_best and eng.best_epoch_ == ref_epoch,
+            f"sampled16 replay: best TVD {eng.best_tvd_} at {eng.best_epoch_}, first run "
+            f"{ref_best} at {ref_epoch}")
+    print(f"sampled16 replay: {SAMPLED16_EPOCHS} epochs with the same seed, loss, TVD and "
+          f"gradient-norm histories equal bit for bit, best TVD {eng.best_tvd_:.5f} at epoch "
+          f"{eng.best_epoch_} as the first run", flush=True)
+    return launches
 
 
 def run_sampled24_path(device):
@@ -2886,7 +2956,7 @@ def check_precision_kernels(device):
     for case in PRECISION_CASES:
         records += check_precision_case(device, *case, timed=True)
         torch.cuda.empty_cache()
-    for n in (N_MIN, N_RAGGED, N_MAX, N_GRID_MIN, N_GRID_ODD, N_GRID_WIDE):
+    for n in (N_MIN, N_RAGGED, N_MAX, N_GRID_MIN, N_GRID_ODD, N_GRID_WIDE, N_EXACT22):
         check_precision_case(device, n, n > N_MAX, ANSATZ, LAYERS, timed=False)
     return records
 
@@ -2920,11 +2990,12 @@ def check_precision_case(device, n, grid, ansatz, layers, timed):
     del Mr, Mc
     R, C = plan32.R, plan32.C
     g = torch.randn((R, C), generator=gen).to(device) * R * C
-    if timed:
+    if timed or grid:
         p64 = [t.double() for t in planes]
         f64 = fwd_p(*p64, plan32)
         ref = {"fwd": f64, "bwd": bwd_p(*p64, f64[1], f64[2], g.double(), plan32)}
         del p64, f64
+    if timed:
         t = time_ms if n < N_EXACT22 else functools.partial(time_ms, reps=1, rounds=1)
         out32 = fwd(*planes, plan32)
         ms32 = {"fwd": t(lambda: fwd(*planes, plan32)),
@@ -2953,14 +3024,17 @@ def check_precision_case(device, n, grid, ansatz, layers, timed):
             abs_err = max(float((a - b).abs().max()) for a, b in zip(got[kind], plain[kind]))
             tol = PRECISION_TOL[prec]
             require(err <= tol, f"{what}: rel err vs its plain emulation {err:.3e}")
+            if timed or grid:
+                err64 = max(rel_err(a.double(), b) for a, b in zip(got[kind], ref[kind]))
+                plain64 = max(rel_err(a.double(), b) for a, b in zip(plain[kind], ref[kind]))
+                if prec == "high":
+                    require(err64 <= tol, f"{what}: rel err vs float64 {err64:.3e}")
             if not timed:
+                vs64 = (f", vs float64 {err64:.2e} (the emulation's {plain64:.2e})" if grid
+                        else "")
                 print(f"{what}: rel vs plain emulation {err:.2e} (abs {abs_err:.2e}, limit "
-                      f"{tol:g})", flush=True)
+                      f"{tol:g}){vs64}", flush=True)
                 continue
-            err64 = max(rel_err(a.double(), b) for a, b in zip(got[kind], ref[kind]))
-            plain64 = max(rel_err(a.double(), b) for a, b in zip(plain[kind], ref[kind]))
-            if prec == "high":
-                require(err64 <= tol, f"{what}: rel err vs float64 {err64:.3e}")
             flops = (8 if kind == "fwd" else 24) * layers * dense * PASSES[prec]
             bound_ms, bound_by = bound_bf16(flops, moved[kind])
             ms = t(calls[kind][0])
@@ -2980,6 +3054,76 @@ def check_precision_case(device, n, grid, ansatz, layers, timed):
     if timed:
         print(f"  (precision_kernels n={n} {ansatz}: {time.perf_counter() - t0:.1f}s)",
               flush=True)
+    return records
+
+
+def check_wgmma_products(device):
+    """wgmma_products: each product pattern of kernels 5-6 alone on the
+    Hopper loop (``circuit2d_grid.grid_product``) at WGMMA_PRODUCT_NS under
+    ``high`` and ``default``: against its plain extended-K emulation (the
+    variants' limits) and float64 (``high``'s limit), timed on pre-split
+    planes against its bound and against ``torch.matmul`` on bf16 planes of
+    the same shapes (4 real GEMMs a pass, the per-product yardstick). First
+    the wrapper's mirror of the loop's choice and scratch against the
+    library's. Returns one record a product."""
+    import torch
+    from tensornetworks_tpu_torch.ops.kernels import _lib
+    from tensornetworks_tpu_torch.ops.kernels import circuit2d_grid as kg
+    from tensornetworks_tpu_torch.ops.kernels.precision import CODES
+
+    lib = _lib.load(kg.GridPlan.name)
+    for n in range(N_GRID_MIN, N_EXACT24 + 1):
+        for prec in ("high", "default", "highest"):
+            for backward in (False, True):
+                want = lib.tn_circuit2d_grid_split_elems(n, int(backward), CODES[prec])
+                require(kg.split_elems(n, backward, prec) == want,
+                        f"split_elems({n}, {backward}, {prec}) != the library's {want}")
+    records = []
+    for n in WGMMA_PRODUCT_NS:
+        t = time_ms if n < N_EXACT22 else functools.partial(time_ms, reps=5, rounds=3)
+        for pattern in kg.PRODUCT_PATTERNS:
+            case = kg.product_case(pattern, n, device, seed=n)
+            ref, ref_probs = kg.grid_product_plain(case, "highest", dtype=torch.float64)
+            for prec in ("high", "default"):
+                got, probs = (x if x is None else x.clone() for x in kg.grid_product(case, prec))
+                emu, emu_probs = kg.grid_product_plain(case, prec)
+                torch.cuda.synchronize()
+                what = f"wgmma product {pattern} n={n} {prec}"
+                err, err64 = rel_err(got, emu), rel_err(got.double(), ref)
+                if probs is not None:
+                    err = max(err, rel_err(probs, emu_probs))
+                    err64 = max(err64, rel_err(probs.double(), ref_probs))
+                tol = PRECISION_TOL[prec]
+                require(all(bool(torch.isfinite(x).all()) for x in (got, emu)),
+                        f"{what}: not finite")
+                require(err <= tol, f"{what}: rel err vs its emulation {err:.3e}")
+                if prec == "high":
+                    require(err64 <= tol, f"{what}: rel err vs float64 {err64:.3e}")
+                split = case.get("split")  # the kernel's bf16 planes, split once
+                ms = t(lambda: kg.grid_product(case, prec, split=split))
+                M, N_, K, batch = case["M"], case["N"], case["K"], case["batch"]
+                parts = 2 if prec == "high" else 1
+                flops = 8 * M * N_ * K * batch * PASSES[prec]
+                moved = 2 * 2 * parts * batch * (M * K + K * N_) + 4 * 2 * batch * M * N_
+                bound_ms, bound_by = bound_bf16(flops, moved)
+                a16 = torch.randn((batch, M, K), device=device).to(torch.bfloat16)
+                b16 = torch.randn((batch, K, N_), device=device).to(torch.bfloat16)
+
+                def matmuls():
+                    for _ in range(4 * PASSES[prec]):
+                        torch.matmul(a16, b16)
+                library_ms = t(matmuls)
+                del a16, b16
+                rec = dict(name=f"wgmma_{pattern}.{prec}", n=n, M=M, N=N_, K=K, batch=batch,
+                           rel_err=err, rel_err_f64=err64, tol=tol, ms=ms, bound_ms=bound_ms,
+                           bound_by=bound_by, share=bound_ms / ms, library_ms=library_ms)
+                records.append(rec)
+                print(f"{what} ({M}x{N_}x{K}, batch {batch}): rel vs emulation {err:.2e}, vs "
+                      f"float64 {err64:.2e} (limit {tol:g}); {ms:.5f} ms queued, bound "
+                      f"{bound_ms:.5f} ms ({bound_by}), share {rec['share']:.1%}, torch.matmul "
+                      f"on bf16 planes {library_ms:.5f} ms", flush=True)
+            del case, ref, ref_probs, got, emu
+            torch.cuda.empty_cache()
     return records
 
 
@@ -3025,6 +3169,19 @@ def run_precision16(device):
     return total, rows
 
 
+def check_bf16_loops(path, before):
+    """The bf16 products of kernels 5-6 that ``path`` launched since the
+    counts ``before`` (``circuit2d_grid.bf16_product_counts``): every one on
+    the wgmma loop, none on the mma.sync passes. Returns the counts."""
+    from tensornetworks_tpu_torch.ops.kernels import circuit2d_grid as kg
+
+    after = kg.bf16_product_counts()
+    got = {k: after[k] - before[k] for k in after}
+    require(got["wgmma"] > 0 and got["mma_sync"] == 0,
+            f"{path}: bf16 products by loop {got}, want all on the wgmma loop")
+    return got
+
+
 @contextlib.contextmanager
 def kernel_precision(name):
     """The kernel precision ``name`` for the plans built inside."""
@@ -3046,8 +3203,12 @@ def run_exact24_high(device, precision_records):
     from tensornetworks_tpu_torch.ops import kernels
     from tensornetworks_tpu_torch.runners import run_scale_experiment
 
+    from tensornetworks_tpu_torch.ops.kernels import circuit2d_grid as kg
+
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
+    before = kg.bf16_product_counts()
     with kernel_precision("high"):
         out = run_scale_experiment(num_qubits=N_EXACT24, layers=BN_LAYERS, ansatz=BN, lr=BN_LR,
                                    num_epochs=EXACT24_EPOCHS, chunk_epochs=EXACT24_CHUNK,
@@ -3055,21 +3216,27 @@ def run_exact24_high(device, precision_records):
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     check_launches("exact24_high", launches)
+    loops = check_bf16_loops("exact24_high", before)
+    peak = torch.cuda.max_memory_allocated() / 2**30
     hist, ref = out["history"], REFERENCE_RUNS["exact24"]
     loss = hist["loss_ksd"]
     require(all(math.isfinite(x) for x in loss), "exact24_high loss not finite")
     require(hist["num_skipped_updates"] == 0, "exact24_high skipped updates")
     gap = max(abs(a - b) / abs(b) for a, b in zip(loss, ref["loss_ksd"]))
+    require(gap <= EXACT24_HIGH_GAP_MAX,
+            f"exact24_high loss history {gap:.3e} from exact24's (limit {EXACT24_HIGH_GAP_MAX})")
     steady = hist.get("epochs_per_sec_steady", hist["epochs_per_sec"])
     k56 = {r["name"]: r["ms"] for r in precision_records
            if r["n"] == N_EXACT24 and r["name"].endswith(".high")}
     row = {"path": "exact24_high", "epochs_per_sec": steady,
            "fp32_epochs_per_sec": ref.get("epochs_per_sec_steady"), "loss_gap": gap,
-           "best_tvd": out["model"].best_tvd_, "launches": launches, "kernel_ms": k56}
+           "best_tvd": out["model"].best_tvd_, "launches": launches, "kernel_ms": k56,
+           "bf16_products": loops, "peak_gib": peak}
     print(f"exact24_high path: {EXACT24_EPOCHS} epochs, loss {loss[0]:.5f} -> {loss[-1]:.5f}, "
           f"largest relative gap to exact24's history {gap:.2e}, {steady:.3f} epochs/s steady "
           f"(exact24 {row['fp32_epochs_per_sec']:.3f}), best TVD {row['best_tvd']:.5f}, "
-          f"kernel 5-6 ms {k56}, launches {launches}", flush=True)
+          f"kernel 5-6 ms {k56}, bf16 products by loop {loops}, peak device memory "
+          f"{peak:.2f} GiB, launches {launches}", flush=True)
     return launches, row
 
 
@@ -3080,7 +3247,10 @@ def run_grid20_default(device):
     from tensornetworks_tpu_torch.ops import kernels
     from tensornetworks_tpu_torch.runners import run_scale_experiment
 
+    from tensornetworks_tpu_torch.ops.kernels import circuit2d_grid as kg
+
     kernels.reset_launches()
+    before = kg.bf16_product_counts()
     with kernel_precision("default"):
         out = run_scale_experiment(num_qubits=N_GRID, layers=LAYERS,
                                    num_epochs=GRID20_DEFAULT_EPOCHS,
@@ -3089,13 +3259,15 @@ def run_grid20_default(device):
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     check_launches("grid20_default", launches)
+    loops = check_bf16_loops("grid20_default", before)
     hist = out["history"]
     require(all(math.isfinite(x) for x in hist["loss_ksd"]), "grid20_default loss not finite")
     steady = hist.get("epochs_per_sec_steady", hist["epochs_per_sec"])
     print(f"grid20_default path: {GRID20_DEFAULT_EPOCHS} epochs, loss {hist['loss_ksd'][0]:.5f} "
-          f"-> {hist['loss_ksd'][-1]:.5f}, {steady:.2f} epochs/s steady, launches {launches}",
-          flush=True)
-    return launches, {"path": "grid20_default", "epochs_per_sec": steady, "launches": launches}
+          f"-> {hist['loss_ksd'][-1]:.5f}, {steady:.2f} epochs/s steady, bf16 products by loop "
+          f"{loops}, launches {launches}", flush=True)
+    return launches, {"path": "grid20_default", "epochs_per_sec": steady, "launches": launches,
+                      "bf16_products": loops}
 
 
 def run_sampled28_tf32(device):
@@ -3226,6 +3398,9 @@ def main() -> int:
         path_launches[path], row = run(device)
         sampled_line.append(row)
         t0 = phase(f"{path} path", t0)
+        if path == "sampled16":
+            run_sampled16_replay(device, REFERENCE_RUNS["sampled16"])
+            t0 = phase("sampled16 replay", t0)
     amortized_line = check_conditioned_kernels(device)
     t0 = phase("conditioned kernel checks", t0)
     for path, run in (("amortized16", run_amortized16_path),
@@ -3259,12 +3434,14 @@ def main() -> int:
 
     precision_records = check_precision_kernels(device)
     t0 = phase("precision_kernels", t0)
+    product_records = check_wgmma_products(device)
+    t0 = phase("wgmma_products", t0)
     path_launches["precision16"], precision16_rows = run_precision16(device)
     t0 = phase("precision16", t0)
     precision_line = [{k: r[k] for k in ("name", "n", "ansatz", "layers", "rel_err", "rel_err_f64",
                                          "plain_rel_err_f64", "tol", "ms", "fp32_ms", "plain_ms",
                                          "bound_ms", "bound_by", "share")}
-                      for r in precision_records] + precision16_rows
+                      for r in precision_records] + product_records + precision16_rows
     for path, run in (("exact24_high", functools.partial(run_exact24_high,
                                                          precision_records=precision_records)),
                       ("grid20_default", run_grid20_default),

@@ -22,7 +22,8 @@
 // fragment is negated (exact). The FP32 reads walk k with a stride of the
 // tile's row length, so in the 128- and 64-row tiles of the large loop four
 // lanes share a bank; the units' 36-float rows spread the lanes over all 32
-// banks. wgmma and TMA are later work.
+// banks. Kernels 5-6 run their products of at least 128 tiles on the TMA +
+// wgmma loop of wgmma_bf16.cuh instead, on bf16 planes split once.
 
 #pragma once
 

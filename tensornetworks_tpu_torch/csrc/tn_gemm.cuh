@@ -18,7 +18,11 @@
 // kernel precision `default` (one bf16 pass) and `high` (three), each loop's
 // FMA block is replaced by bf16 mma.sync products on the tensor cores
 // (mma_bf16.cuh; 989 TFLOP/s dense), on the same shared-memory ring and with
-// the same epilogues; the template parameter P picks the instantiation.
+// the same epilogues; the template parameter P picks the instantiation. The
+// circuit launchers (circuit_layers.cuh) send the bf16 products that the
+// large loop would take (large::pattern) to the TMA + wgmma loop of
+// wgmma_bf16.cuh instead; only the smaller ones (n = 18, and at n = 19 the
+// forward and dMc) run this file's bf16 instantiations.
 //
 // Two main loops, chosen by shape in launch_gemm:
 //

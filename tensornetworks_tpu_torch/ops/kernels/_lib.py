@@ -46,8 +46,8 @@ LAUNCHES.update({f"{k}.{p}": 0 for k in PRECISION_KERNELS for p in VARIANT_PRECI
 
 # The C interface of each library: pointers and the stream as c_void_p (a
 # bare Python int would be passed as a 32-bit int), sizes as c_int; every
-# entry point returns its cudaError_t.
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# entry point returns its cudaError_t, but those in RESTYPES.
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "circuit2d": {
         # mr_re, mr_im, mc_re, mc_im, probs, xr, xi, tmp, masks (device), n, layers,
@@ -58,12 +58,19 @@ SIGNATURES = {
         "tn_circuit2d_backward": [_P] * 13 + [_I] * 3 + [_P],
     },
     "circuit2d_grid": {  # rows and cz are (layers, n) host tables
-        # mr_re, mr_im, mc_re, mc_im, probs, xr, xi, tmp, mct, n, layers, has_wall,
-        # precision, rows, cz, stream
-        "tn_circuit2d_grid_forward": [_P] * 9 + [_I] * 4 + [_P] * 3,
+        # mr_re, mr_im, mc_re, mc_im, probs, xr, xi, tmp, mct, split, n, layers,
+        # has_wall, precision, rows, cz, stream
+        "tn_circuit2d_grid_forward": [_P] * 10 + [_I] * 4 + [_P] * 3,
         # mr_re, mr_im, mc_re, mc_im, xr, xi, g, dmr_re, dmr_im, dmc_re, dmc_im,
-        # buf_a, buf_b, n, layers, precision, rows, cz, stream
-        "tn_circuit2d_grid_backward": [_P] * 13 + [_I] * 3 + [_P] * 3,
+        # buf_a, buf_b, split, n, layers, precision, rows, cz, stream
+        "tn_circuit2d_grid_backward": [_P] * 14 + [_I] * 3 + [_P] * 3,
+        # n, backward, precision -> bf16 elements of the wgmma scratch
+        "tn_circuit2d_grid_split_elems": [_I] * 3,
+        # a, a_elems, b, b_elems, c, probs, split, offs, strides, M, N, K, batch,
+        # conj, do_split, precision, nbits, rows, cz, stream
+        "tn_grid_bf16_product": [_P, _LL, _P, _LL] + [_P] * 5 + [_I] * 8 + [_P] * 3,
+        # out: 2 long long, the bf16 products launched by loop (mma.sync, wgmma)
+        "tn_circuit2d_grid_bf16_products": [_P],
     },
     "stein2d": {
         # v, y, a, n, cols, stream (a as c_float: a bare Python float would
@@ -77,6 +84,9 @@ SIGNATURES = {
         "tn_stein_gcorr_combine": [_P] * 5 + [ctypes.c_float] * 4 + [_I, _P],
     },
 }
+
+RESTYPES = {"tn_circuit2d_grid_split_elems": ctypes.c_longlong,
+            "tn_circuit2d_grid_bf16_products": None}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -164,7 +174,7 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(out))
             for fn, argtypes in SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).restype = RESTYPES.get(fn, ctypes.c_int)
             _libs[name] = lib
         return lib
 

@@ -36,7 +36,16 @@ version only for CPU tensors; a CUDA tensor launches the kernel or raises.
 Precision: as ``circuit2d.py``'s plans, a ``GridPlan`` carries the kernel
 precision current when it was built; the plain versions run the rotation
 products at it (``circuit2d._pcmm``) and the W forms, the column chain and
-the CZ masks, which are exact maps, in FP32.
+the CZ masks, which are exact maps, in FP32. Under ``high`` and ``default``
+the products that the FP32 kernels' large GEMM loop takes (every product
+from n = 20; at n = 19 the backward's but dMc) run on the Hopper loop of
+``csrc/wgmma_bf16.cuh`` (TMA copies of bf16 planes split once, wgmma from
+shared memory), the others on ``mma.sync`` passes (``csrc/mma_bf16.cuh``).
+``forward_takes_wgmma``/``backward_takes_wgmma`` mirror that choice, and the
+wrappers allocate the loop's bf16 scratch (``split_elems``) where it runs.
+``split_planes_plain`` and ``extended_k_product_plain`` are its arithmetic
+in torch; ``product_case``, ``grid_product`` and ``grid_product_plain`` run
+one product of the six patterns alone (the card's checks and timings).
 
 Valid range: any 2 ≤ n ≤ ``MAX_QUBITS`` when the backend is named (the CPU
 tests run it small); the ``auto`` backend takes it from ``AUTO_MIN_QUBITS``
@@ -59,11 +68,17 @@ from ...sim.blocked import _chain_gates, _cnot_map, _cz_pairs
 from ...sim.blocked2d import _cz_sign_mask, _kron_h, _perm_matrix
 from . import _lib
 from .circuit2d import (WALL_ANSATZE, _check, _initial_state, _pcmm, circuit2d_backward_plain,
-                        circuit2d_forward_plain, circuit_operators, layer_masks,
+                        circuit2d_forward_plain, circuit_operators, expand_maps, layer_masks,
                         layer_tables, make_probs_fn, rotation_pullback)
-from .precision import CODES, _kernel_precision, fp32_matmul, precision_name
+from .precision import CODES, _kernel_precision, fp32_matmul, precision_name, split_bf16
 
 MIN_QUBITS, AUTO_MIN_QUBITS, MAX_QUBITS = 2, 18, 24
+
+# The wgmma loop's tiles (csrc/wgmma_bf16.cuh): it takes a product whose
+# M is a multiple of 128, N of 64 and K of 64 (its stages' depths divide
+# it), with at least 128 output tiles of 128 x 64 (large::pattern's shapes,
+# tn_gemm.cuh).
+WG_BM, WG_BN, WG_K_STEP, WG_MIN_TILES = 128, 64, 64, 128
 
 
 def _w_matrix(nbits: int, bits: np.ndarray) -> np.ndarray:
@@ -245,6 +260,219 @@ def circuit2d_grid_backward_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan: G
     return dmr_re, dmr_im, dmc_re, dmc_im
 
 
+# ------------------------------------------------------- the bf16 wgmma loop
+
+
+def wgmma_takes_shape(M: int, N: int, K: int, batch: int = 1) -> bool:
+    """Whether a product of this shape runs on the wgmma loop under a bf16
+    precision (``wg::takes_shape``)."""
+    if M % WG_BM or N % WG_BN or K % WG_K_STEP or M < WG_BM or N < WG_BN:
+        return False
+    return (M // WG_BM) * (N // WG_BN) * batch >= WG_MIN_TILES
+
+
+def forward_takes_wgmma(n: int) -> bool:
+    """The grid forward's products (left R×C×R, scatter R×C×C) on the
+    wgmma loop (``circuit_layers.cuh`` ``forward_takes_wgmma``)."""
+    R, C = 1 << (n + 1) // 2, 1 << n // 2
+    return wgmma_takes_shape(R, C, R) and wgmma_takes_shape(R, C, C)
+
+
+def backward_takes_wgmma(n: int) -> bool:
+    """The grid backward's pull-backs (R×C, batch 2) on the wgmma loop; its
+    dMc (C×C×R) and dMr (R×R×C) then each by its own shape."""
+    R, C = 1 << (n + 1) // 2, 1 << n // 2
+    return wgmma_takes_shape(R, C, C, 2) and wgmma_takes_shape(R, C, R, 2)
+
+
+def split_elems(n: int, backward: bool, precision: str) -> int:
+    """bf16 elements of the wgmma loop's scratch for the forward or the
+    backward (0 where it does not run): one layer's Mr and Mc planes and the
+    state's (the forward's X and tmp, the backward's two (4, R, C) buffers),
+    each hi and, under ``high``, lo."""
+    if precision not in ("high", "default"):
+        return 0
+    if not (backward_takes_wgmma(n) if backward else forward_takes_wgmma(n)):
+        return 0
+    R, C = 1 << (n + 1) // 2, 1 << n // 2
+    parts = 2 if precision == "high" else 1
+    return parts * (2 * R * R + 2 * C * C + (8 if backward else 4) * R * C)
+
+
+def bf16_product_counts() -> dict:
+    """The bf16 products the grid kernels have launched in this process, by
+    loop (``mma_sync``: ``tn_gemm.cuh``'s passes; ``wgmma``), from the
+    library's host counters (the card only)."""
+    out = (ctypes.c_longlong * 2)()
+    _lib.load(GridPlan.name).tn_circuit2d_grid_bf16_products(out)
+    return {"mma_sync": out[0], "wgmma": out[1]}
+
+
+def split_planes_plain(x: torch.Tensor, precision: str) -> tuple:
+    """The split kernel's planes of x, in FP32: (hi,) under ``default``,
+    (hi, lo) under ``high`` (``precision.split_bf16``). A sign goes through
+    exactly: the split of -x is (-hi, -lo)."""
+    hi, lo = split_bf16(x.to(torch.float32))
+    return (hi,) if precision == "default" else (hi, lo)
+
+
+def extended_k_product_plain(a_re, a_im, b_re, b_im, conj_a: bool, conj_b: bool,
+                             precision: str) -> tuple:
+    """(re, im) of opA(A)·opB(B), conjugating A or B where asked, as the
+    wgmma loop forms it: each part one real product over an extended K,
+        re = [Ar | s·Ai]·[Br ; Bi],  s = -ca·cb,
+        im = [cb·Ar | ca·Ai]·[Bi ; Br],
+    the signs ca, cb = -1 for a conjugated operand; under ``high`` that
+    real product X·Y is [lo X | hi X | hi X]·[hi Y ; lo Y ; hi Y] (6K),
+    under ``default`` hi X·hi Y (2K). Operands (..., M, K) and (..., K, N)."""
+    ca, cb = (-1.0 if conj_a else 1.0), (-1.0 if conj_b else 1.0)
+
+    def real(X, Y):
+        sx, sy = split_planes_plain(X, precision), split_planes_plain(Y, precision)
+        if precision == "default":
+            return sx[0] @ sy[0]
+        return (torch.cat([sx[1], sx[0], sx[0]], dim=-1)
+                @ torch.cat([sy[0], sy[1], sy[0]], dim=-2))
+
+    with fp32_matmul():
+        re = real(torch.cat([a_re, -ca * cb * a_im], dim=-1), torch.cat([b_re, b_im], dim=-2))
+        im = real(torch.cat([cb * a_re, ca * a_im], dim=-1), torch.cat([b_im, b_re], dim=-2))
+    return re, im
+
+
+# The six product patterns of the grid launchers (csrc/circuit_layers.cuh,
+# tn_gemm.cuh's table): the buffers each reads and writes, as (planes,
+# rows, cols) of the state (R, C) and operators (R, R) / (C, C); A's, B's
+# and C's plane offsets and strides in those buffers, in units of
+# S = R·C, RR = R², CC = C² (a batch stride of 2 S: two products at once);
+# conj (bit 0 A, bit 1 B); M, N, K in R and C.
+PRODUCT_PATTERNS = {
+    # A = B conj(Mc): the state and cotangent pulled back through the columns
+    "col": dict(a=("state4", (0, "S"), ("2S", "C", 1)), b=("mc", (0, "CC"), (0, "C", 1)),
+                c=("state4", (0, "S"), ("2S", "C")), conj=2, mnk=("R", "C", "C"), batch=2),
+    # dMc = lambda^T conj(x)
+    "dmc": dict(a=("state4", ("2S", "3S"), (0, 1, "C")), b=("state4", (0, "S"), (0, "C", 1)),
+                c=("mc", (0, "CC"), (0, "C")), conj=2, mnk=("C", "C", "R"), batch=1),
+    # B = Mr^H A: through the rows
+    "row": dict(a=("mr", (0, "RR"), (0, 1, "R")), b=("state4", (0, "S"), ("2S", "C", 1)),
+                c=("state4", (0, "S"), ("2S", "C")), conj=1, mnk=("R", "C", "R"), batch=2),
+    # dMr = lambda x^H
+    "dmr": dict(a=("state4", ("2S", "3S"), (0, "C", 1)), b=("state4", (0, "S"), (0, 1, "C")),
+                c=("mr", (0, "RR"), (0, "R")), conj=2, mnk=("R", "R", "C"), batch=1),
+    # tmp = Mr X
+    "left": dict(a=("mr", (0, "RR"), (0, "R", 1)), b=("state2", (0, "S"), (0, "C", 1)),
+                 c=("state2", (0, "S"), (0, "C")), conj=0, mnk=("R", "C", "R"), batch=1),
+    # X = perm/sign(tmp Mc^T), B[k, n] = Mc[n, k]; with |X|^2
+    "scatter": dict(a=("state2", (0, "S"), (0, "C", 1)), b=("mc", (0, "CC"), (0, 1, "C")),
+                    c=("state2", (0, "S"), (0, "C")), conj=0, mnk=("R", "C", "C"), batch=1),
+}
+
+
+def product_case(pattern: str, n: int, device, seed: int = 0) -> dict:
+    """One product of ``PRODUCT_PATTERNS`` at n qubits: random FP32 buffers
+    (operators scaled as unitaries' entries, 1/√dim) on ``device``, the
+    offsets, strides and shape; the scatter pattern takes a hardware-
+    efficient layer's index map and CZ masks (``GridPlan(n, 1, ...)``)."""
+    spec = PRODUCT_PATTERNS[pattern]
+    R, C = 1 << (n + 1) // 2, 1 << n // 2
+    units = {"S": R * C, "2S": 2 * R * C, "3S": 3 * R * C, "RR": R * R, "CC": C * C, "R": R,
+             "C": C}
+    shapes = {"state4": (4, R, C), "state2": (2, R, C), "mr": (2, R, R), "mc": (2, C, C)}
+    gen = torch.Generator().manual_seed(seed)
+
+    def buf(kind, scale):
+        return (scale * torch.randn(shapes[kind], generator=gen)).to(device)
+
+    val = lambda v: units[v] if isinstance(v, str) else v  # noqa: E731
+    a, b = buf(spec["a"][0], R ** -0.5), buf(spec["b"][0], C ** -0.5)
+    M, N, K = (units[v] for v in spec["mnk"])
+    case = dict(pattern=pattern, n=n, a=a, b=b, c=torch.zeros(shapes[spec["c"][0]], device=device),
+                offs=[val(v) for v in (*spec["a"][1], *spec["b"][1], *spec["c"][1])],
+                strides=[val(v) for v in (*spec["a"][2], *spec["b"][2], *spec["c"][2])],
+                M=M, N=N, K=K, batch=spec["batch"], conj=spec["conj"], rows=None, cz=None)
+    if pattern == "scatter":
+        plan = GridPlan(n, 1, "hardware_efficient")
+        case["rows"] = np.ascontiguousarray(plan.rows[0], dtype=np.uint32)
+        case["cz"] = np.ascontiguousarray(plan.cz[0], dtype=np.uint32)
+    return case
+
+
+def _case_operands(case, dtype=None):
+    """(A re, A im, B re, B im) of a case as (batch, M, K) and (batch, K, N)
+    views through its offsets and strides."""
+    o, st, bt = case["offs"], case["strides"], case["batch"]
+    M, N, K = case["M"], case["N"], case["K"]
+    a, b = case["a"].reshape(-1), case["b"].reshape(-1)
+    if dtype is not None:
+        a, b = a.to(dtype), b.to(dtype)
+    A = [torch.as_strided(a, (bt, M, K), (st[0], st[1], st[2]), o[i]) for i in (0, 1)]
+    B = [torch.as_strided(b, (bt, K, N), (st[3], st[4], st[5]), o[i]) for i in (2, 3)]
+    return A[0], A[1], B[0], B[1]
+
+
+def _case_epilogue(case, re, im):
+    """The case's output buffer (and probs for the scatter) from the
+    product's (batch, M, N) planes."""
+    c = torch.zeros(case["c"].shape, dtype=re.dtype, device=re.device)
+    flat = c.reshape(-1)
+    o, st = case["offs"], case["strides"]
+    if case["rows"] is None:
+        for part, x in ((o[4], re), (o[5], im)):
+            torch.as_strided(flat, x.shape, (st[6], st[7], 1), part).copy_(x)
+        return c, None
+    dst, sign = expand_maps(case["rows"], case["cz"][None], re.device)
+    s = sign[0].to(re.dtype)
+    flat[o[4] + dst] = s * re.reshape(-1)
+    flat[o[5] + dst] = s * im.reshape(-1)
+    probs = torch.zeros(re.numel(), dtype=re.dtype, device=re.device)
+    probs[dst] = (re * re + im * im).reshape(-1)
+    return c, probs
+
+
+def grid_product_plain(case: dict, precision: str, dtype=torch.float32) -> tuple:
+    """(c, probs or None): the case's product in torch, by
+    ``extended_k_product_plain`` at ``precision`` (``highest``: the exact
+    complex product in ``dtype``, the float64 yardstick)."""
+    ar, ai, br, bi = _case_operands(case, dtype)
+    conj_a, conj_b = bool(case["conj"] & 1), bool(case["conj"] & 2)
+    if precision == "highest":
+        ai, bi = (-ai if conj_a else ai), (-bi if conj_b else bi)
+        with fp32_matmul():
+            re, im = ar @ br - ai @ bi, ar @ bi + ai @ br
+    else:
+        re, im = extended_k_product_plain(ar, ai, br, bi, conj_a, conj_b, precision)
+    return _case_epilogue(case, re, im)
+
+
+def grid_product(case: dict, precision: str, split=None) -> tuple:
+    """(c, probs or None): the case's product on the wgmma loop
+    (``tn_grid_bf16_product``). ``split``: a bf16 scratch from a first call
+    (``case["split"]``) to reuse without splitting again, so that a timing
+    reads the product alone; by default the call splits A and B first. CPU
+    tensors take ``grid_product_plain``."""
+    if case["a"].device.type == "cpu":
+        return grid_product_plain(case, precision)
+    parts = 2 if precision == "high" else 1
+    a, b, c = case["a"], case["b"], case["c"]
+    do_split = split is None
+    if do_split:
+        split = torch.empty(parts * (a.numel() + b.numel()), dtype=torch.bfloat16,
+                            device=a.device)
+        case["split"] = split
+    scatter = case["rows"] is not None
+    probs = torch.zeros(c[0].numel(), device=a.device) if scatter else None
+    offs = (ctypes.c_longlong * 6)(*case["offs"])
+    strides = (ctypes.c_longlong * 8)(*case["strides"])
+    fn = _lib.load(GridPlan.name).tn_grid_bf16_product
+    host = [case[k].ctypes.data_as(ctypes.c_void_p) if scatter else None for k in ("rows", "cz")]
+    err = fn(_lib.ptr(a), a.numel(), _lib.ptr(b), b.numel(), _lib.ptr(c),
+             _lib.ptr(probs) if scatter else None, _lib.ptr(split), offs, strides, case["M"],
+             case["N"], case["K"], case["batch"], case["conj"], int(do_split), CODES[precision],
+             case["n"], *host, _lib.stream_ptr(a.device))
+    _lib.check(err, "tn_grid_bf16_product")
+    return c, probs
+
+
 # --------------------------------------------------------------------- wrappers
 
 
@@ -254,12 +482,21 @@ def _masks(plan: GridPlan):
             plan.cz.ctypes.data_as(ctypes.c_void_p))
 
 
+def _split_scratch(plan: GridPlan, backward: bool, device):
+    """The wgmma loop's bf16 scratch for the plan's forward or backward, or
+    None where its products do not run there."""
+    elems = split_elems(plan.n, backward, plan.precision)
+    return torch.empty(elems, dtype=torch.bfloat16, device=device) if elems else None
+
+
 def circuit2d_grid_forward(mr_re, mr_im, mc_re, mc_im, plan: GridPlan):
     """probs, xr, xi (R, C) of the circuit with P_row-folded operators. On
     the card: ``csrc/circuit2d_grid.cu``'s host launcher, with a (2, R, C)
     scratch and a (2, L, C, C) scratch for Mcᵀ (the launcher transposes Mc
     there first, so that from n = 20 the right product's B streams by
-    cp.async in the large GEMM loop)."""
+    cp.async in the large GEMM loop), or, where the forward runs on the
+    wgmma loop (``forward_takes_wgmma`` under a bf16 precision), the loop's
+    bf16 scratch and no Mcᵀ."""
     if mr_re.device.type == "cpu":
         return circuit2d_grid_forward_plain(mr_re, mr_im, mc_re, mc_im, plan)
     _check(plan, mr_re=mr_re, mr_im=mr_im, mc_re=mc_re, mc_im=mc_im)
@@ -267,11 +504,13 @@ def circuit2d_grid_forward(mr_re, mr_im, mc_re, mc_im, plan: GridPlan):
     probs = torch.empty((plan.R, plan.C), dtype=torch.float32, device=mr_re.device)
     xr, xi = torch.empty_like(probs), torch.empty_like(probs)
     tmp = torch.empty((2, plan.R, plan.C), dtype=torch.float32, device=mr_re.device)
-    mct = torch.empty((2, plan.layers, plan.C, plan.C), dtype=torch.float32,
-                      device=mr_re.device)
+    split = _split_scratch(plan, False, mr_re.device)
+    mct = None if split is not None else torch.empty(
+        (2, plan.layers, plan.C, plan.C), dtype=torch.float32, device=mr_re.device)
     _lib.count_launch(_lib.launch_key("circuit2d_grid_fwd", plan.precision))
     err = fn(_lib.ptr(mr_re), _lib.ptr(mr_im), _lib.ptr(mc_re), _lib.ptr(mc_im),
-             _lib.ptr(probs), _lib.ptr(xr), _lib.ptr(xi), _lib.ptr(tmp), _lib.ptr(mct),
+             _lib.ptr(probs), _lib.ptr(xr), _lib.ptr(xi), _lib.ptr(tmp),
+             None if mct is None else _lib.ptr(mct), None if split is None else _lib.ptr(split),
              plan.n, plan.layers, int(plan.has_wall), CODES[plan.precision], *_masks(plan),
              _lib.stream_ptr(mr_re.device))
     _lib.check(err, "tn_circuit2d_grid_forward")
@@ -281,7 +520,9 @@ def circuit2d_grid_forward(mr_re, mr_im, mc_re, mc_im, plan: GridPlan):
 def circuit2d_grid_backward(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan: GridPlan):
     """Gradients of the P_row-folded operators for the cotangent g of the
     probs. On the card: ``csrc/circuit2d_grid.cu``'s host launcher, with two
-    (4, R, C) scratch buffers."""
+    (4, R, C) scratch buffers, and the wgmma loop's bf16 scratch where its
+    pull-backs run there (``backward_takes_wgmma`` under a bf16
+    precision)."""
     if mr_re.device.type == "cpu":
         return circuit2d_grid_backward_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan)
     _check(plan, mr_re=mr_re, mr_im=mr_im, mc_re=mc_re, mc_im=mc_im, x_r=xr, x_i=xi, x_g=g)
@@ -290,11 +531,13 @@ def circuit2d_grid_backward(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan: GridPla
     dmc_re, dmc_im = torch.empty_like(mc_re), torch.empty_like(mc_im)
     buf_a = torch.empty((4, plan.R, plan.C), dtype=torch.float32, device=mr_re.device)
     buf_b = torch.empty_like(buf_a)
+    split = _split_scratch(plan, True, mr_re.device)
     _lib.count_launch(_lib.launch_key("circuit2d_grid_bwd", plan.precision))
     err = fn(_lib.ptr(mr_re), _lib.ptr(mr_im), _lib.ptr(mc_re), _lib.ptr(mc_im),
              _lib.ptr(xr), _lib.ptr(xi), _lib.ptr(g),
              _lib.ptr(dmr_re), _lib.ptr(dmr_im), _lib.ptr(dmc_re), _lib.ptr(dmc_im),
-             _lib.ptr(buf_a), _lib.ptr(buf_b), plan.n, plan.layers, CODES[plan.precision],
+             _lib.ptr(buf_a), _lib.ptr(buf_b), None if split is None else _lib.ptr(split),
+             plan.n, plan.layers, CODES[plan.precision],
              *_masks(plan), _lib.stream_ptr(mr_re.device))
     _lib.check(err, "tn_circuit2d_grid_backward")
     return dmr_re, dmr_im, dmc_re, dmc_im

@@ -13,7 +13,9 @@ port imports nothing of the JAX package). The names are JAX's
   accumulation.
 
 Circuit kernels 1, 2, 5 and 6 run ``high`` and ``default`` on the tensor
-cores (``mma.sync`` m16n8k16 bf16); the Stein kernels 3-4 stay FP32 at every
+cores: ``mma.sync`` m16n8k16 bf16 (``csrc/mma_bf16.cuh``), and in kernels 5-6
+the products of at least 128 tiles ``wgmma`` fed by TMA from bf16 planes split
+once (``csrc/wgmma_bf16.cuh``); the Stein kernels 3-4 stay FP32 at every
 setting (their time is set by bytes, and the JAX package keeps bf16 passes
 off KSD gradients). The permutations and CZ signs stay exact: only the
 products with the rotation operators and the adjoint's operands take the

@@ -11,6 +11,14 @@ clipped to the last outcome.
 The JAX ``sample_indices`` takes ``jax.random.categorical`` (Gumbel-max)
 below ``CDF_SAMPLING_MIN_SIZE`` outcomes and for batched rows; the port
 takes the inverse CDF at every size, which draws the same distribution.
+
+Replay: on CUDA the same inputs give the same shots and gradients on every
+run. A CDF whose scan holds all of a tensor's elements goes through the
+row-wise scan kernel (``_cumsum``), not the device-wide one, whose float
+sums depend on how its blocks meet; ``gather_2d``'s backward sorts the
+shots' flat indices and sums each index's cotangents in that order
+(``GatherFlat``), where ``index_select``/``gather`` would add them by
+atomics in whatever order the threads run.
 """
 
 from __future__ import annotations
@@ -39,13 +47,25 @@ def draw_uniforms(generator: torch.Generator, shape: Union[int, Sequence[int]],
                       device=generator.device if device is None else device)
 
 
+def _cumsum(x: torch.Tensor) -> torch.Tensor:
+    """``torch.cumsum(x, -1)``, the same bits on every run. On CUDA a tensor
+    whose last dimension holds all of its elements goes to a device-wide
+    scan whose float sums depend on the order its blocks finish in; two
+    rows of x take the row-wise scan kernel, which sums each row in one
+    block in a fixed order. On the CPU, torch.cumsum itself."""
+    if x.is_cuda and x.numel() == x.shape[-1]:
+        flat = x.reshape(1, -1)
+        return torch.cat([flat, flat]).cumsum(dim=-1)[0].reshape(x.shape)
+    return torch.cumsum(x, dim=-1)
+
+
 def sample_indices(probs: torch.Tensor, u: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
     """Outcome indices ~ ``probs`` by the inverse CDF. ``probs`` (K,) with
     ``u`` (M,) gives (M,); ``probs`` (B, K), one distribution per row, with
     ``u`` (M, B) gives (M, B), as the JAX package's categorical shape."""
     p = probs + eps
     p = p / p.sum(dim=-1, keepdim=True)
-    cdf = torch.cumsum(p, dim=-1)
+    cdf = _cumsum(p)
     K = probs.shape[-1]
     if probs.ndim == 1:
         idx = torch.searchsorted(cdf, u.contiguous(), right=True)
@@ -73,19 +93,42 @@ def sample_indices_2d(P: torch.Tensor, u_r: torch.Tensor, u_c: torch.Tensor,
     """
     R, C = P.shape
     Ps = P + eps
-    cdf_r = torch.cumsum(Ps.sum(dim=1), dim=0)
+    cdf_r = _cumsum(Ps.sum(dim=1))
     cdf_r = cdf_r / cdf_r[-1]
     r = torch.searchsorted(cdf_r, u_r.contiguous(), right=True).clamp(0, R - 1)
-    cdf_c = torch.cumsum(Ps[r], dim=1)                  # (M, C)
+    cdf_c = _cumsum(Ps[r])                              # (M, C)
     cdf_c = cdf_c / cdf_c[:, -1:]
     c = torch.searchsorted(cdf_c, u_c[:, None].contiguous(), right=True)[:, 0].clamp(0, C - 1)
     return r * C + c, r, c
 
 
+class GatherFlat(torch.autograd.Function):
+    """``P.reshape(-1)[idx]`` whose backward is the same on every run: it
+    sorts the flat indices (stably, so a repeated index keeps the shots'
+    order), and ``index_put_`` with accumulation sums each index's run of
+    cotangents in that order and writes each distinct index once (on CUDA
+    a sort-based kernel, one sequential sum per index; no atomics)."""
+
+    @staticmethod
+    def forward(ctx, P, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = P.shape
+        return P.reshape(-1)[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        order = torch.argsort(idx, stable=True)
+        grad = torch.zeros(math.prod(ctx.shape), dtype=g.dtype, device=g.device)
+        grad.index_put_((idx[order],), g[order], accumulate=True)
+        return grad.reshape(ctx.shape), None
+
+
 def gather_2d(P: torch.Tensor, r: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``P[r_i, c_i]`` by a row gather and a per-row column pick;
-    differentiable, its backward scatters into (M, C), then (R, C)."""
-    return P.index_select(0, r).gather(1, c[:, None])[:, 0]
+    """``P[r_i, c_i]`` of an (R, C) ``P``, differentiable, with the
+    deterministic backward of ``GatherFlat`` on the flat indices
+    ``r·C + c``."""
+    return GatherFlat.apply(P, r * P.shape[1] + c)
 
 
 def inverse_cdf_sampler(P: torch.Tensor, num_samples: int,

@@ -28,9 +28,11 @@ Prints one JSON line per timer: ``{"timer": ..., "kernels": {name: {"ms",
 its ``run_scale_path`` (60 epochs at 20 qubits), with ``--path bn20`` its
 ``run_bn20_path`` (30 epochs, bn_structured L=8), and prints
 ``{"path": ..., "epochs_per_s": x}``; ``sprinkler_classical``,
-``classical20``, ``warm16``, ``multiseed16``, ``cli16``, ``cli20`` and
-``profile16`` run those phases of DIR's ``chip_smoke.py`` (``sampled16``
-also prints its best TVD), and a comma-separated list runs several paths in
+``classical20``, ``warm16``, ``multiseed16``, ``cli16``, ``cli20``,
+``profile16``, ``sampled16``, ``sampled24`` and ``grid20_default`` run
+those phases of DIR's ``chip_smoke.py`` (``sampled16`` also prints its best
+TVD), and a
+comma-separated list runs several paths in
 one process, in turn. With ``--stein-memory N`` it builds
 DIR's ``SteinOperator`` for the N-qubit workload at the ``auto`` length
 scale and prints the device bytes the operator holds and the peak device
@@ -56,7 +58,8 @@ PATHS = {"main16": "run_main_path", "scale20": "run_scale_path", "bn20": "run_bn
          "sprinkler_classical": "run_sprinkler_classical", "classical20": "run_classical20_path",
          "warm16": "run_warm16_path", "multiseed16": "run_multiseed16_path",
          "cli16": "run_cli16_path", "cli20": "run_cli20_path", "profile16": "run_profile16_path",
-         "sampled16": "run_sampled16_path"}
+         "sampled16": "run_sampled16_path", "sampled24": "run_sampled24_path",
+         "grid20_default": "run_grid20_default"}
 # (n, grid, ansatz, layers) of --digest: both persistent kernels at 16 and 17
 # qubits, both GEMM loops of the grid kernels at 18-21, bn_structured at 16
 # and 20.
