@@ -91,7 +91,9 @@ Phases (any failure exits non-zero):
    ``sample_indices_2d`` at n=20 and 28 on the Born machines' initial q
    (1024 shots) against their float64 evaluation on the CPU on the same
    uniforms, where an index may differ only at a rounding tie (its uniform
-   within 1e-6 of the CDF step it crossed; the count is printed);
+   within 1e-6 of the CDF step it crossed; the count is printed); the
+   blocked CDF scan of a 2^24 q and the log-q gather's backward, each
+   three times bit-equal and against float64 (``sampler replay``);
    ``stein_gram_samples`` at n=24, M=1024, against float64 on the same
    samples and scores; the blocked adjoint's probabilities and θ-gradient
    against the circuit2d_grid kernels' at n = 20 and 24 (same θ, same
@@ -212,8 +214,7 @@ Phases (any failure exits non-zero):
    ``csrc/wgmma_bf16.cuh`` at n = 20 and 24 under ``high`` and
    ``default``, against its plain extended-K emulation and float64, timed
    against its bound and against ``torch.matmul`` on bf16 planes of the
-   same shapes (4 real GEMMs a pass); the wrapper's choice of loop and
-   scratch against the library's (``tn_circuit2d_grid_split_elems``).
+   same shapes (4 real GEMMs a pass).
    precision16: ``runners/bench_precision.py``'s two
    configurations (the 3-qubit Sprinkler oracle; the 16-qubit chain,
    bn_structured L=8, 800 epochs) under ``highest``, ``high`` and
@@ -401,6 +402,12 @@ GRAM_TOL = 1e-5
 # kernels' own margins against their plain version (2e-5 and 2e-4) from
 # n=20 on, and twice the forward's at n=24.
 BLOCKED_TOL = {"fwd": 4e-5, "bwd": 2e-4}
+# The blocked CDF scan (sim.sampling.blocked_cumsum) of a normalised 2^24 q
+# in FP32 against float64's cumsum of the same values: three levels of
+# 1024-long rows, each partial sum ≤ 1, bound about 4e-6 in all (absolute);
+# and the log-q gather's gradient (SHOTS shots on 16 states, about 64 FP32
+# terms a state) against float64's index_add_, relative to its largest.
+CDF_TOL, GATHER_TOL = 1e-5, 1e-5
 
 # The distributed engines (ROADMAP A12) on torch.distributed, one process a
 # rank (tensornetworks_tpu_torch.parallel.launch.spawn). NCCL runs one rank a
@@ -932,21 +939,17 @@ def check_large_n(device):
 
 # Mangled-name parts of the kernels whose registers are printed on a line of
 # their own: the persistent n <= 17 forward and backward, the n <= 17
-# cluster butterfly, and the large GEMM loop's scatter instantiation
-# (<AK, BKC, CA, CB, SCATTER, P> = <1, 0, 0, 0, 1, P>), each at the
-# precisions P (0 FP32, 1 high, 2 default) of the persistent kernels' and
-# the scatter's template parameter.
+# cluster butterfly, and the large GEMM loop's (FP32) scatter instantiation
+# (<AK, BKC, CA, CB, SCATTER> = <1, 0, 0, 0, 1>); the persistent kernels at
+# each precision P of their template parameter (0 FP32, 1 high, 2 default).
 NEW_KERNELS = {"circuit2d_fwd_kernelILi0E": "circuit2d_fwd_kernel",
                "circuit2d_bwd_kernelILi0E": "circuit2d_bwd_kernel",
                "cluster_butterfly_kernel": "cluster_butterfly_kernel",
-               "cgemm_large_kernelILb1ELb0ELb0ELb0ELb1ELi0EE": "cgemm_large_kernel<scatter>",
+               "cgemm_large_kernelILb1ELb0ELb0ELb0ELb1EE": "cgemm_large_kernel<scatter>",
                "circuit2d_fwd_kernelILi1E": "circuit2d_fwd_kernel<high>",
                "circuit2d_fwd_kernelILi2E": "circuit2d_fwd_kernel<default>",
                "circuit2d_bwd_kernelILi1E": "circuit2d_bwd_kernel<high>",
-               "circuit2d_bwd_kernelILi2E": "circuit2d_bwd_kernel<default>",
-               "cgemm_large_kernelILb1ELb0ELb0ELb0ELb1ELi1EE": "cgemm_large_kernel<scatter, high>",
-               "cgemm_large_kernelILb1ELb0ELb0ELb0ELb1ELi2EE":
-                   "cgemm_large_kernel<scatter, default>"}
+               "circuit2d_bwd_kernelILi2E": "circuit2d_bwd_kernel<default>"}
 # The Hopper loop of the bf16 products of kernels 5-6 (csrc/wgmma_bf16.cuh,
 # cgemm_wgmma_kernel<AT, BT, CA, CB, SCATTER, P, BN>): each product pattern
 # at both bf16 precisions and both tile widths.
@@ -1642,9 +1645,45 @@ def check_blocked_adjoint(n, device):
     return fwd, bwd
 
 
+def check_sampler_replay(device):
+    """The sampler's two summing steps give the same bits on every run: the
+    CDF scan of a flat normalised q at n=24 (``sampling._cumsum``, the
+    blocked scan on the card) and the backward of the two-stage log-q gather
+    (``gather_2d``, SHOTS shots on 16 states), each three times, and each
+    against float64. Returns (scan abs err, gather-gradient rel err)."""
+    import numpy as np
+    import torch
+    from tensornetworks_tpu_torch.sim.sampling import _cumsum, gather_2d
+
+    n = N_SAMPLED24
+    q = initial_q(n, LAYERS, device)
+    p = q / q.sum()
+    cdfs = [_cumsum(p) for _ in range(3)]
+    cdf_err = float(np.abs(cdfs[0].double().cpu().numpy()
+                           - np.cumsum(p.double().cpu().numpy())).max())
+    require(all(torch.equal(c, cdfs[0]) for c in cdfs), f"CDF scan n={n}: runs differ")
+    require(cdf_err <= CDF_TOL, f"CDF scan n={n}: abs err {cdf_err:.3e} against float64")
+    P = grid_view(q, n).clone().requires_grad_(True)
+    gen = torch.Generator(device=device).manual_seed(5)
+    r = torch.randint(0, 4, (SHOTS,), generator=gen, device=device)
+    c = torch.randint(0, 4, (SHOTS,), generator=gen, device=device)
+    g = torch.randn(SHOTS, generator=gen, device=device)
+    grads = [torch.autograd.grad(gather_2d(P, r, c), P, g)[0] for _ in range(3)]
+    want = torch.zeros(P.numel(), dtype=torch.float64, device=device).index_add_(
+        0, r * P.shape[1] + c, g.double()).reshape(P.shape)
+    gather_err = rel_err(grads[0].double(), want)
+    require(all(torch.equal(x, grads[0]) for x in grads), "gather_2d backward: runs differ")
+    require(gather_err <= GATHER_TOL, f"gather_2d backward: rel err {gather_err:.3e}")
+    print(f"sampler replay n={n}: CDF scan three times bit-equal, abs {cdf_err:.1e} against "
+          f"float64 (limit {CDF_TOL}); gather_2d backward ({SHOTS} shots on 16 states) three "
+          f"times bit-equal, rel {gather_err:.1e} (limit {GATHER_TOL})", flush=True)
+    return cdf_err, gather_err
+
+
 def check_sampling_ops(device):
-    """Step 12's op checks: the samplers at n = 16, 20 and 28, the sample
-    Gram at n=24, the blocked adjoint at n = 20 and 24."""
+    """Step 12's op checks: the samplers at n = 16, 20 and 28, their replay
+    (``check_sampler_replay``), the sample Gram at n=24, the blocked adjoint
+    at n = 20 and 24."""
     import torch
     from tensornetworks_tpu_torch.core.bits import torch_index_to_bits
     from tensornetworks_tpu_torch.core.factors import make_latent_log_joint_fn
@@ -1666,6 +1705,7 @@ def check_sampling_ops(device):
     ties[N_SAMPLED28] = check_draws(f"sample_indices_2d n={N_SAMPLED28}",
                                     grid_view(q28, N_SAMPLED28), device, 3)
     del q28, eng
+    cdf_err, gather_err = check_sampler_replay(device)
     n = N_SAMPLED24
     bn, latent, obs = sampled_problem(n)
     P = grid_view(initial_q(n, LAYERS, device), n)
@@ -1681,7 +1721,8 @@ def check_sampling_ops(device):
     print(f"stein_gram_samples n={n}, M={SHOTS}: rel {err:.2e} against float64 "
           f"(limit {GRAM_TOL})", flush=True)
     blocked = {m: check_blocked_adjoint(m, device) for m in (N_GRID, N_EXACT24)}
-    return {"ties": ties, "gram_rel_err": err,
+    return {"ties": ties, "gram_rel_err": err, "cdf_abs_err": cdf_err,
+            "gather_rel_err": gather_err,
             "blocked_rel_err": {m: {"fwd": f, "bwd": b} for m, (f, b) in blocked.items()}}
 
 
@@ -3063,21 +3104,11 @@ def check_wgmma_products(device):
     ``high`` and ``default``: against its plain extended-K emulation (the
     variants' limits) and float64 (``high``'s limit), timed on pre-split
     planes against its bound and against ``torch.matmul`` on bf16 planes of
-    the same shapes (4 real GEMMs a pass, the per-product yardstick). First
-    the wrapper's mirror of the loop's choice and scratch against the
-    library's. Returns one record a product."""
+    the same shapes (4 real GEMMs a pass, the per-product yardstick).
+    Returns one record a product."""
     import torch
-    from tensornetworks_tpu_torch.ops.kernels import _lib
     from tensornetworks_tpu_torch.ops.kernels import circuit2d_grid as kg
-    from tensornetworks_tpu_torch.ops.kernels.precision import CODES
 
-    lib = _lib.load(kg.GridPlan.name)
-    for n in range(N_GRID_MIN, N_EXACT24 + 1):
-        for prec in ("high", "default", "highest"):
-            for backward in (False, True):
-                want = lib.tn_circuit2d_grid_split_elems(n, int(backward), CODES[prec])
-                require(kg.split_elems(n, backward, prec) == want,
-                        f"split_elems({n}, {backward}, {prec}) != the library's {want}")
     records = []
     for n in WGMMA_PRODUCT_NS:
         t = time_ms if n < N_EXACT22 else functools.partial(time_ms, reps=5, rounds=3)

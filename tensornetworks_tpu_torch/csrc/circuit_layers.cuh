@@ -182,6 +182,12 @@ inline std::atomic<long long>* bf16_products() {
   return counts;
 }
 
+// One product launched by launch_gemm at `precision`: a bf16 one counts on
+// the mma.sync side, an FP32 one nowhere.
+inline void count_mma_sync(int precision) {
+  if (precision != kHighest) ++bf16_products()[0];
+}
+
 // One layer's operator planes and their shadows in the scratch `ops`.
 struct LayerOps {
   const float *mr_re, *mr_im, *mc_re, *mc_im;
@@ -370,7 +376,6 @@ inline cudaError_t circuit_forward(const float* mr_re, const float* mr_im, const
     return cudaErrorInvalidValue;
   }
   if (!mct) return cudaErrorInvalidValue;
-  if (precision != kHighest) bf16_products()[0] += 2LL * layers;
   const int n = maps.n, rb = (n + 1) / 2, cb = n - rb;
   const int R = 1 << rb, C = 1 << cb, S = R * C;
   const float amp = (float)std::pow(2.0, -0.5 * n);
@@ -392,6 +397,7 @@ inline cudaError_t circuit_forward(const float* mr_re, const float* mr_im, const
     left.c_re = tmp; left.c_im = tmp + S; left.c_sm = C; left.c_sn = 1;
     left.M = R; left.N = C; left.K = R;
     if ((err = launch_gemm(left, none, st, precision)) != cudaSuccess) return err;
+    count_mma_sync(precision);
     // X = perm/sign(tmp Mc[l]^T)
     GemmArgs right = gemm_args();
     right.a_re = tmp; right.a_im = tmp + S; right.a_sm = C; right.a_sk = 1;
@@ -403,6 +409,7 @@ inline cudaError_t circuit_forward(const float* mr_re, const float* mr_im, const
     right.probs = (l == layers - 1) ? probs : nullptr;
     err = launch_gemm(right, layer_spec(maps, l), st, precision);
     if (err != cudaSuccess) return err;
+    count_mma_sync(precision);
   }
   return cudaSuccess;
 }
@@ -425,7 +432,6 @@ inline cudaError_t circuit_backward(const float* mr_re, const float* mr_im, cons
                                            dmc_re, dmc_im, buf_a, buf_b, split, layers, maps, st);
     return cudaErrorInvalidValue;
   }
-  if (precision != kHighest) bf16_products()[0] += 4LL * layers;
   const int n = maps.n, rb = (n + 1) / 2, cb = n - rb;
   const int R = 1 << rb, C = 1 << cb, S = R * C;
   const PermSpec none = {};
@@ -449,6 +455,7 @@ inline cudaError_t circuit_backward(const float* mr_re, const float* mr_im, cons
     col.c_re = A; col.c_im = A + S; col.c_sb = 2LL * S; col.c_sm = C; col.c_sn = 1;
     col.M = R; col.N = C; col.K = C; col.batch = 2;
     if ((err = launch_gemm(col, none, st, precision)) != cudaSuccess) return err;
+    count_mma_sync(precision);
     // dMc[l] = lambda_after^T conj(x_before)
     GemmArgs dmc = gemm_args();
     dmc.a_re = B + 2LL * S; dmc.a_im = B + 3LL * S; dmc.a_sm = 1; dmc.a_sk = C;
@@ -457,6 +464,7 @@ inline cudaError_t circuit_backward(const float* mr_re, const float* mr_im, cons
     dmc.c_sm = C; dmc.c_sn = 1;
     dmc.M = C; dmc.N = C; dmc.K = R;
     if ((err = launch_gemm(dmc, none, st, precision)) != cudaSuccess) return err;
+    count_mma_sync(precision);
     // B = Mr^dagger A: state and cotangent before the layer.
     GemmArgs row = gemm_args();
     row.a_re = mr_r; row.a_im = mr_i; row.a_sm = 1; row.a_sk = R; row.a_conj = -1.f;
@@ -464,6 +472,7 @@ inline cudaError_t circuit_backward(const float* mr_re, const float* mr_im, cons
     row.c_re = B; row.c_im = B + S; row.c_sb = 2LL * S; row.c_sm = C; row.c_sn = 1;
     row.M = R; row.N = C; row.K = R; row.batch = 2;
     if ((err = launch_gemm(row, none, st, precision)) != cudaSuccess) return err;
+    count_mma_sync(precision);
     // dMr[l] = lambda_after x_before^H
     GemmArgs dmr = gemm_args();
     dmr.a_re = A + 2LL * S; dmr.a_im = A + 3LL * S; dmr.a_sm = C; dmr.a_sk = 1;
@@ -472,6 +481,7 @@ inline cudaError_t circuit_backward(const float* mr_re, const float* mr_im, cons
     dmr.c_sm = R; dmr.c_sn = 1;
     dmr.M = R; dmr.N = R; dmr.K = C;
     if ((err = launch_gemm(dmr, none, st, precision)) != cudaSuccess) return err;
+    count_mma_sync(precision);
     float* t = A; A = B; B = t;
   }
   return cudaSuccess;

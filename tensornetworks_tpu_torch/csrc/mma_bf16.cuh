@@ -1,7 +1,7 @@
 // The bf16 tensor-core products of the circuit kernels' `default` and `high`
-// precisions (ops/kernels/precision.py), shared by the GEMM loops of
-// tn_gemm.cuh (kernels 5-6) and the work units of circuit_units.cuh (kernels
-// 1-2).
+// precisions (ops/kernels/precision.py), shared by tn_gemm.cuh's gemm_kernel
+// (kernels 5-6 at n = 18-19) and the work units of circuit_units.cuh
+// (kernels 1-2).
 //
 // Replaces the dot precision of the TPU kernels' `_dot` (circuit2d.py,
 // circuit2d_grid.py), which Mosaic lowers as one bf16 pass (DEFAULT) or six
@@ -20,10 +20,10 @@
 // cvt.rn.bf16x2.f32 (and forms lo for kHigh), and issues four real products
 // per complex one. Conjugation stays a sign: the imaginary plane's bf16
 // fragment is negated (exact). The FP32 reads walk k with a stride of the
-// tile's row length, so in the 128- and 64-row tiles of the large loop four
-// lanes share a bank; the units' 36-float rows spread the lanes over all 32
-// banks. Kernels 5-6 run their products of at least 128 tiles on the TMA +
-// wgmma loop of wgmma_bf16.cuh instead, on bf16 planes split once.
+// tile's row length; gemm_kernel's padded rows (BM + 1, BN + 1) and the
+// units' 36-float rows spread the lanes over the banks. Kernels 5-6 run their
+// products of at least 128 tiles on the TMA + wgmma loop of wgmma_bf16.cuh
+// instead, on bf16 planes split once.
 
 #pragma once
 

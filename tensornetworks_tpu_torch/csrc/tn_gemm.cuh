@@ -15,14 +15,14 @@
 // is FP32 FMA throughput, 67 TFLOP/s: at n=20 a complex 1024^3 product is
 // 8.6 GFLOP (128 us) against 24 MB of operands (7 us at 3.35 TB/s). That is
 // the default precision, `highest`, and its FMA loops below. Under the
-// kernel precision `default` (one bf16 pass) and `high` (three), each loop's
-// FMA block is replaced by bf16 mma.sync products on the tensor cores
-// (mma_bf16.cuh; 989 TFLOP/s dense), on the same shared-memory ring and with
-// the same epilogues; the template parameter P picks the instantiation. The
-// circuit launchers (circuit_layers.cuh) send the bf16 products that the
-// large loop would take (large::pattern) to the TMA + wgmma loop of
-// wgmma_bf16.cuh instead; only the smaller ones (n = 18, and at n = 19 the
-// forward and dMc) run this file's bf16 instantiations.
+// kernel precision `default` (one bf16 pass) and `high` (three), the circuit
+// launchers (circuit_layers.cuh) send every product of the large loop's
+// shapes (large::pattern) to the TMA + wgmma loop of wgmma_bf16.cuh; the
+// smaller ones (n = 18, and at n = 19 the forward and dMc) run gemm_kernel
+// with its FMA block replaced by bf16 mma.sync products on the tensor cores
+// (mma_bf16.cuh; 989 TFLOP/s dense), on the same shared-memory stage and
+// with the same epilogues; its template parameter P picks the instantiation.
+// The large loop has the FP32 instantiations only.
 //
 // Two main loops, chosen by shape in launch_gemm:
 //
@@ -32,9 +32,11 @@
 // reached 24 TFLOP/s (36% of peak) on the grid backward: no copy overlaps the
 // FMAs, and a 4x4 complex tile makes 4 FMAs per shared-memory load.
 //
-// cgemm_large_kernel (complex, M % 128 == 0, N % 64 == 0, K % 16 == 0, at
-// least 128 tiles: the n >= 19 circuit backward and forward-left products,
-// and from n = 20 the forward's scatter product): tiles of 128x64x16, 256
+// cgemm_large_kernel (FP32 only; complex, M % 128 == 0, N % 64 == 0, K % 16
+// == 0, at least 128 tiles: the n >= 19 circuit backward and forward-left
+// products, and from n = 20 the forward's scatter product; a bf16 product of
+// these shapes takes gemm_kernel should it reach launch_gemm, which the
+// circuit launchers do not let happen): tiles of 128x64x16, 256
 // threads with an 8x4 complex register tile each (rows ty*4..+3 and
 // 64+ty*4..+3, columns tx*4..+3), which makes 128 FMAs per six float4
 // shared-memory reads (5.3 FMAs per loaded float). A three-stage ring in
@@ -348,17 +350,12 @@ struct Loader {
 // left to its own heuristic, ptxas capped it at 128 registers and spilled 16
 // bytes, and its product ran 0.1 ms slower over the n=20 forward's four
 // (PERF.md); the other instantiations keep the target they had (0: none).
-// P (precision): kHighest, the FMA block; else bf16 mma tiles, 4 x 2 warps
-// of 32 x 32 outputs (2 x 4 tiles of 16 x 8) each. The bf16 instantiations
-// name one block per SM too: left to the heuristic, the row pull-back's
-// `default` instantiation spilled 24 bytes.
-template <bool AK, bool BKC, bool CA, bool CB, bool SCATTER, int P = kHighest>
-__global__ void __launch_bounds__(THREADS, SCATTER || P != kHighest ? 1 : 0)
+template <bool AK, bool BKC, bool CA, bool CB, bool SCATTER>
+__global__ void __launch_bounds__(THREADS, SCATTER ? 1 : 0)
     cgemm_large_kernel(GemmArgs p, PermSpec spec) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int wm = (threadIdx.x / 32) % 4, wn = threadIdx.x / 128;  // mma warp tile
   const long long a_off = b * p.a_sb + (long long)m0 * p.a_sm;
   const long long b_off = b * p.b_sb + (long long)n0 * p.b_sn;
   const float* const a_base[2] = {p.a_re + a_off, p.a_im + a_off};
@@ -366,7 +363,7 @@ __global__ void __launch_bounds__(THREADS, SCATTER || P != kHighest ? 1 : 0)
   Loader<BM, AK> la;
   Loader<BN, BKC> lb;
 
-  float acc_re[8][4], acc_im[8][4];  // mma: tile (i / 4, i % 4) of 2 x 4, its 4 elements
+  float acc_re[8][4], acc_im[8][4];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -399,49 +396,30 @@ __global__ void __launch_bounds__(THREADS, SCATTER || P != kHighest ? 1 : 0)
 
     const float* As = smem + (kt % STAGES) * STAGE;
     const float* Bs = As + 2 * A_PLANE;
-    if constexpr (P != kHighest) {
-      mma::FragB br[4], bi[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        mma::load_b<P>(Bs, BN, 32 * wn + 8 * j, br[j]);
-        mma::load_b<P>(Bs + B_PLANE, BN, 32 * wn + 8 * j, bi[j]);
-      }
+    for (int kk = 0; kk < BK; ++kk) {
+      const float* ar_k = As + kk * BM;
+      const float* ai_k = As + A_PLANE + kk * BM;
+      const float4 a0r = *reinterpret_cast<const float4*>(ar_k + 4 * ty);
+      const float4 a1r = *reinterpret_cast<const float4*>(ar_k + 64 + 4 * ty);
+      const float4 a0i = *reinterpret_cast<const float4*>(ai_k + 4 * ty);
+      const float4 a1i = *reinterpret_cast<const float4*>(ai_k + 64 + 4 * ty);
+      const float4 b4r = *reinterpret_cast<const float4*>(Bs + kk * BN + 4 * tx);
+      const float4 b4i = *reinterpret_cast<const float4*>(Bs + B_PLANE + kk * BN + 4 * tx);
+      const float ar[8] = {a0r.x, a0r.y, a0r.z, a0r.w, a1r.x, a1r.y, a1r.z, a1r.w};
+      const float ai[8] = {a0i.x, a0i.y, a0i.z, a0i.w, a1i.x, a1i.y, a1i.z, a1i.w};
+      const float br[4] = {b4r.x, b4r.y, b4r.z, b4r.w};
+      const float bi[4] = {b4i.x, b4i.y, b4i.z, b4i.w};
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mma::FragA ar, ai;
-        mma::load_a<P>(As, BM, 32 * wm + 16 * i, ar);
-        mma::load_a<P>(As + A_PLANE, BM, 32 * wm + 16 * i, ai);
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mma::complex_product<P, CA, CB>(acc_re[4 * i + j], acc_im[4 * i + j], ar, ai, br[j],
-                                          bi[j]);
-      }
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const float* ar_k = As + kk * BM;
-        const float* ai_k = As + A_PLANE + kk * BM;
-        const float4 a0r = *reinterpret_cast<const float4*>(ar_k + 4 * ty);
-        const float4 a1r = *reinterpret_cast<const float4*>(ar_k + 64 + 4 * ty);
-        const float4 a0i = *reinterpret_cast<const float4*>(ai_k + 4 * ty);
-        const float4 a1i = *reinterpret_cast<const float4*>(ai_k + 64 + 4 * ty);
-        const float4 b4r = *reinterpret_cast<const float4*>(Bs + kk * BN + 4 * tx);
-        const float4 b4i = *reinterpret_cast<const float4*>(Bs + B_PLANE + kk * BN + 4 * tx);
-        const float ar[8] = {a0r.x, a0r.y, a0r.z, a0r.w, a1r.x, a1r.y, a1r.z, a1r.w};
-        const float ai[8] = {a0i.x, a0i.y, a0i.z, a0i.w, a1i.x, a1i.y, a1i.z, a1i.w};
-        const float br[4] = {b4r.x, b4r.y, b4r.z, b4r.w};
-        const float bi[4] = {b4i.x, b4i.y, b4i.z, b4i.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            // re += ar br - (ca cb) ai bi;  im += cb ar bi + ca ai br
-            acc_re[i][j] = fmaf(ar[i], br[j], acc_re[i][j]);
-            acc_re[i][j] = fmaf(CA != CB ? ai[i] : -ai[i], bi[j], acc_re[i][j]);
-            acc_im[i][j] = fmaf(CB ? -ar[i] : ar[i], bi[j], acc_im[i][j]);
-            acc_im[i][j] = fmaf(CA ? -ai[i] : ai[i], br[j], acc_im[i][j]);
-          }
-      }
+        for (int j = 0; j < 4; ++j) {
+          // re += ar br - (ca cb) ai bi;  im += cb ar bi + ca ai br
+          acc_re[i][j] = fmaf(ar[i], br[j], acc_re[i][j]);
+          acc_re[i][j] = fmaf(CA != CB ? ai[i] : -ai[i], bi[j], acc_re[i][j]);
+          acc_im[i][j] = fmaf(CB ? -ar[i] : ar[i], bi[j], acc_im[i][j]);
+          acc_im[i][j] = fmaf(CA ? -ai[i] : ai[i], br[j], acc_im[i][j]);
+        }
     }
     if (more) {  // the transposing loaders' stores, after the FMAs they overlapped
       la.store(next);
@@ -449,44 +427,7 @@ __global__ void __launch_bounds__(THREADS, SCATTER || P != kHighest ? 1 : 0)
     }
   }
 
-  if constexpr (P != kHighest) {
-    // Tile (i, j) element e sits at row 32 wm + 16 i + g + 8 (e / 2), column
-    // 32 wn + 8 j + 2 t + e % 2.
-    const int g = mma::lane_g(), t = mma::lane_t();
-    if constexpr (SCATTER) {
-      unsigned dn[8];  // dst of the column part of the flat index: (j, e % 2)
-#pragma unroll
-      for (int c = 0; c < 8; ++c)
-        dn[c] = perm_dst(spec, (unsigned)(n0 + 32 * wn + 8 * (c / 2) + 2 * t + c % 2));
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {  // (i, e / 2)
-        const int m = m0 + 32 * wm + 16 * (r / 2) + g + 8 * (r % 2);
-        const unsigned dm = perm_dst(spec, (unsigned)m * (unsigned)p.N);
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const int i = 4 * (r / 2) + c / 2, e = 2 * (r % 2) + c % 2;
-          const unsigned d = dm ^ dn[c];
-          const float s = perm_sign(spec, d), vr = acc_re[i][e], vi = acc_im[i][e];
-          p.c_re[d] = s * vr;
-          p.c_im[d] = s * vi;
-          if (p.probs) p.probs[d] = vr * vr + vi * vi;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = m0 + 32 * wm + 16 * (i / 4) + g + 8 * h;
-          const long long off = b * p.c_sb + (long long)m * p.c_sm + n0 + 32 * wn + 8 * (i % 4)
-                                + 2 * t;
-          *reinterpret_cast<float2*>(p.c_re + off) =
-              make_float2(acc_re[i][2 * h], acc_re[i][2 * h + 1]);
-          *reinterpret_cast<float2*>(p.c_im + off) =
-              make_float2(acc_im[i][2 * h], acc_im[i][2 * h + 1]);
-        }
-    }
-  } else if constexpr (SCATTER) {
+  if constexpr (SCATTER) {
     unsigned dn[4];  // dst of the column part of the flat index
 #pragma unroll
     for (int j = 0; j < 4; ++j) dn[j] = perm_dst(spec, (unsigned)(n0 + 4 * tx + j));
@@ -517,17 +458,17 @@ __global__ void __launch_bounds__(THREADS, SCATTER || P != kHighest ? 1 : 0)
   }
 }
 
-template <bool AK, bool BKC, bool CA, bool CB, bool SCATTER, int P>
+template <bool AK, bool BKC, bool CA, bool CB, bool SCATTER>
 inline cudaError_t launch(const GemmArgs& p, const PermSpec& s, cudaStream_t st) {
   static PerDevice<cudaError_t> attrs;
   const cudaError_t* attr = attrs.get([] {
-    return cudaFuncSetAttribute(cgemm_large_kernel<AK, BKC, CA, CB, SCATTER, P>,
+    return cudaFuncSetAttribute(cgemm_large_kernel<AK, BKC, CA, CB, SCATTER>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
   });
   if (!attr) return cudaErrorInvalidDevice;
   if (*attr != cudaSuccess) return *attr;
   dim3 grid(p.N / BN, p.M / BM, p.batch);
-  cgemm_large_kernel<AK, BKC, CA, CB, SCATTER, P><<<grid, THREADS, SMEM, st>>>(p, s);
+  cgemm_large_kernel<AK, BKC, CA, CB, SCATTER><<<grid, THREADS, SMEM, st>>>(p, s);
   return cudaGetLastError();
 }
 
@@ -563,21 +504,22 @@ inline Pattern pattern(const GemmArgs& p) {
 
 }  // namespace large
 
-// Products with at least 128 tiles of 128x64 take the large loop.
-// Otherwise: 64x64 tiles when they alone give at least one block per SM (132
-// on an H100), else 32x32 tiles so that a single 256x256 product still
-// spreads over 64 SMs.
+// FP32 products with at least 128 tiles of 128x64 take the large loop.
+// Otherwise, and at the bf16 precisions: 64x64 tiles when they alone give at
+// least one block per SM (132 on an H100), else 32x32 tiles so that a single
+// 256x256 product still spreads over 64 SMs.
 template <int P>
 inline cudaError_t launch_gemm_at(const GemmArgs& p, const PermSpec& s, cudaStream_t st) {
-  switch (large::pattern(p)) {
-    case large::kColPullback: return large::launch<true, false, false, true, false, P>(p, s, st);
-    case large::kDMc: return large::launch<false, false, false, true, false, P>(p, s, st);
-    case large::kRowPullback: return large::launch<false, false, true, false, false, P>(p, s, st);
-    case large::kDMr: return large::launch<true, true, false, true, false, P>(p, s, st);
-    case large::kForwardLeft: return large::launch<true, false, false, false, false, P>(p, s, st);
-    case large::kForwardScatter:
-      return large::launch<true, false, false, false, true, P>(p, s, st);
-    case large::kNone: break;
+  if constexpr (P == kHighest) {
+    switch (large::pattern(p)) {
+      case large::kColPullback: return large::launch<true, false, false, true, false>(p, s, st);
+      case large::kDMc: return large::launch<false, false, false, true, false>(p, s, st);
+      case large::kRowPullback: return large::launch<false, false, true, false, false>(p, s, st);
+      case large::kDMr: return large::launch<true, true, false, true, false>(p, s, st);
+      case large::kForwardLeft: return large::launch<true, false, false, false, false>(p, s, st);
+      case large::kForwardScatter: return large::launch<true, false, false, false, true>(p, s, st);
+      case large::kNone: break;
+    }
   }
   const long long big = (long long)((p.N + 63) / 64) * ((p.M + 63) / 64) * p.batch;
   if (big >= 132) return launch_gemm_cfg<64, 64, 16, 4, 4, P>(p, s, st);

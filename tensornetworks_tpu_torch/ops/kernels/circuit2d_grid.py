@@ -41,8 +41,8 @@ the products that the FP32 kernels' large GEMM loop takes (every product
 from n = 20; at n = 19 the backward's but dMc) run on the Hopper loop of
 ``csrc/wgmma_bf16.cuh`` (TMA copies of bf16 planes split once, wgmma from
 shared memory), the others on ``mma.sync`` passes (``csrc/mma_bf16.cuh``).
-``forward_takes_wgmma``/``backward_takes_wgmma`` mirror that choice, and the
-wrappers allocate the loop's bf16 scratch (``split_elems``) where it runs.
+The wrappers allocate the loop's bf16 scratch where it runs, as large as
+the library's ``tn_circuit2d_grid_split_elems`` says (0: it does not run).
 ``split_planes_plain`` and ``extended_k_product_plain`` are its arithmetic
 in torch; ``product_case``, ``grid_product`` and ``grid_product_plain`` run
 one product of the six patterns alone (the card's checks and timings).
@@ -73,13 +73,6 @@ from .circuit2d import (WALL_ANSATZE, _check, _initial_state, _pcmm, circuit2d_b
 from .precision import CODES, _kernel_precision, fp32_matmul, precision_name, split_bf16
 
 MIN_QUBITS, AUTO_MIN_QUBITS, MAX_QUBITS = 2, 18, 24
-
-# The wgmma loop's tiles (csrc/wgmma_bf16.cuh): it takes a product whose
-# M is a multiple of 128, N of 64 and K of 64 (its stages' depths divide
-# it), with at least 128 output tiles of 128 x 64 (large::pattern's shapes,
-# tn_gemm.cuh).
-WG_BM, WG_BN, WG_K_STEP, WG_MIN_TILES = 128, 64, 64, 128
-
 
 def _w_matrix(nbits: int, bits: np.ndarray) -> np.ndarray:
     """W = H₀ diag(bits) H₀ over ``nbits`` wires (H on the first wire): a
@@ -261,42 +254,6 @@ def circuit2d_grid_backward_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan: G
 
 
 # ------------------------------------------------------- the bf16 wgmma loop
-
-
-def wgmma_takes_shape(M: int, N: int, K: int, batch: int = 1) -> bool:
-    """Whether a product of this shape runs on the wgmma loop under a bf16
-    precision (``wg::takes_shape``)."""
-    if M % WG_BM or N % WG_BN or K % WG_K_STEP or M < WG_BM or N < WG_BN:
-        return False
-    return (M // WG_BM) * (N // WG_BN) * batch >= WG_MIN_TILES
-
-
-def forward_takes_wgmma(n: int) -> bool:
-    """The grid forward's products (left R×C×R, scatter R×C×C) on the
-    wgmma loop (``circuit_layers.cuh`` ``forward_takes_wgmma``)."""
-    R, C = 1 << (n + 1) // 2, 1 << n // 2
-    return wgmma_takes_shape(R, C, R) and wgmma_takes_shape(R, C, C)
-
-
-def backward_takes_wgmma(n: int) -> bool:
-    """The grid backward's pull-backs (R×C, batch 2) on the wgmma loop; its
-    dMc (C×C×R) and dMr (R×R×C) then each by its own shape."""
-    R, C = 1 << (n + 1) // 2, 1 << n // 2
-    return wgmma_takes_shape(R, C, C, 2) and wgmma_takes_shape(R, C, R, 2)
-
-
-def split_elems(n: int, backward: bool, precision: str) -> int:
-    """bf16 elements of the wgmma loop's scratch for the forward or the
-    backward (0 where it does not run): one layer's Mr and Mc planes and the
-    state's (the forward's X and tmp, the backward's two (4, R, C) buffers),
-    each hi and, under ``high``, lo."""
-    if precision not in ("high", "default"):
-        return 0
-    if not (backward_takes_wgmma(n) if backward else forward_takes_wgmma(n)):
-        return 0
-    R, C = 1 << (n + 1) // 2, 1 << n // 2
-    parts = 2 if precision == "high" else 1
-    return parts * (2 * R * R + 2 * C * C + (8 if backward else 4) * R * C)
 
 
 def bf16_product_counts() -> dict:
@@ -485,7 +442,8 @@ def _masks(plan: GridPlan):
 def _split_scratch(plan: GridPlan, backward: bool, device):
     """The wgmma loop's bf16 scratch for the plan's forward or backward, or
     None where its products do not run there."""
-    elems = split_elems(plan.n, backward, plan.precision)
+    elems = _lib.load(GridPlan.name).tn_circuit2d_grid_split_elems(plan.n, int(backward),
+                                                                   CODES[plan.precision])
     return torch.empty(elems, dtype=torch.bfloat16, device=device) if elems else None
 
 
@@ -495,8 +453,8 @@ def circuit2d_grid_forward(mr_re, mr_im, mc_re, mc_im, plan: GridPlan):
     scratch and a (2, L, C, C) scratch for Mcᵀ (the launcher transposes Mc
     there first, so that from n = 20 the right product's B streams by
     cp.async in the large GEMM loop), or, where the forward runs on the
-    wgmma loop (``forward_takes_wgmma`` under a bf16 precision), the loop's
-    bf16 scratch and no Mcᵀ."""
+    wgmma loop (from n = 20 under a bf16 precision), the loop's bf16 scratch
+    and no Mcᵀ."""
     if mr_re.device.type == "cpu":
         return circuit2d_grid_forward_plain(mr_re, mr_im, mc_re, mc_im, plan)
     _check(plan, mr_re=mr_re, mr_im=mr_im, mc_re=mc_re, mc_im=mc_im)
@@ -521,8 +479,7 @@ def circuit2d_grid_backward(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan: GridPla
     """Gradients of the P_row-folded operators for the cotangent g of the
     probs. On the card: ``csrc/circuit2d_grid.cu``'s host launcher, with two
     (4, R, C) scratch buffers, and the wgmma loop's bf16 scratch where its
-    pull-backs run there (``backward_takes_wgmma`` under a bf16
-    precision)."""
+    pull-backs run there (from n = 19 under a bf16 precision)."""
     if mr_re.device.type == "cpu":
         return circuit2d_grid_backward_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan)
     _check(plan, mr_re=mr_re, mr_im=mr_im, mc_re=mc_re, mc_im=mc_im, x_r=xr, x_i=xi, x_g=g)

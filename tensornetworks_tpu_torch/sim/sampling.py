@@ -13,12 +13,13 @@ below ``CDF_SAMPLING_MIN_SIZE`` outcomes and for batched rows; the port
 takes the inverse CDF at every size, which draws the same distribution.
 
 Replay: on CUDA the same inputs give the same shots and gradients on every
-run. A CDF whose scan holds all of a tensor's elements goes through the
-row-wise scan kernel (``_cumsum``), not the device-wide one, whose float
-sums depend on how its blocks meet; ``gather_2d``'s backward sorts the
-shots' flat indices and sums each index's cotangents in that order
-(``GatherFlat``), where ``index_select``/``gather`` would add them by
-atomics in whatever order the threads run.
+run. A CDF whose scan holds all of a tensor's elements is scanned in rows
+of ``SCAN_BLOCK`` (``blocked_cumsum``), not by the device-wide scan, whose
+float sums depend on how its blocks meet; ``gather_2d`` indexes the flat
+view, whose backward (``index_put_`` with accumulation) sorts the indices
+and sums each one's cotangents in a fixed order, where
+``index_select``/``gather`` would add them by atomics in whatever order the
+threads run.
 """
 
 from __future__ import annotations
@@ -47,15 +48,39 @@ def draw_uniforms(generator: torch.Generator, shape: Union[int, Sequence[int]],
                       device=generator.device if device is None else device)
 
 
+# The row length of ``blocked_cumsum``: the row-wise scan takes each row in
+# one block, so rows this short keep the scan parallel.
+SCAN_BLOCK = 1024
+
+
+def blocked_cumsum(x: torch.Tensor, block: int = SCAN_BLOCK) -> torch.Tensor:
+    """The inclusive prefix sum of a 1-D ``x`` in an order fixed by its
+    length: rows of ``block`` elements each scanned by the row-wise scan,
+    then the rows' totals scanned the same way (recursively), and each
+    row's offset, the sum of the rows before it, added to it. Up to
+    ``block`` elements, two copies of x make the rows, so that a single row
+    never goes to the device-wide scan."""
+    K = x.shape[0]
+    if K <= block:
+        return torch.stack([x, x]).cumsum(dim=-1)[0]
+    rows = -(-K // block)
+    if rows * block != K:
+        x = torch.cat([x, x.new_zeros(rows * block - K)])
+    scan = x.reshape(rows, block).cumsum(dim=-1)
+    totals = blocked_cumsum(scan[:, -1].contiguous(), block)
+    scan[1:] += totals[:-1, None]
+    return scan.reshape(-1)[:K]
+
+
 def _cumsum(x: torch.Tensor) -> torch.Tensor:
     """``torch.cumsum(x, -1)``, the same bits on every run. On CUDA a tensor
-    whose last dimension holds all of its elements goes to a device-wide
-    scan whose float sums depend on the order its blocks finish in; two
-    rows of x take the row-wise scan kernel, which sums each row in one
-    block in a fixed order. On the CPU, torch.cumsum itself."""
+    whose last dimension holds all of its elements would go to a
+    device-wide scan whose float sums depend on the order its blocks finish
+    in; it takes ``blocked_cumsum`` instead. Several rows take the row-wise
+    scan kernel, which sums each row in one block in a fixed order. On the
+    CPU, torch.cumsum itself."""
     if x.is_cuda and x.numel() == x.shape[-1]:
-        flat = x.reshape(1, -1)
-        return torch.cat([flat, flat]).cumsum(dim=-1)[0].reshape(x.shape)
+        return blocked_cumsum(x.reshape(-1)).reshape(x.shape)
     return torch.cumsum(x, dim=-1)
 
 
@@ -102,33 +127,11 @@ def sample_indices_2d(P: torch.Tensor, u_r: torch.Tensor, u_c: torch.Tensor,
     return r * C + c, r, c
 
 
-class GatherFlat(torch.autograd.Function):
-    """``P.reshape(-1)[idx]`` whose backward is the same on every run: it
-    sorts the flat indices (stably, so a repeated index keeps the shots'
-    order), and ``index_put_`` with accumulation sums each index's run of
-    cotangents in that order and writes each distinct index once (on CUDA
-    a sort-based kernel, one sequential sum per index; no atomics)."""
-
-    @staticmethod
-    def forward(ctx, P, idx):
-        ctx.save_for_backward(idx)
-        ctx.shape = P.shape
-        return P.reshape(-1)[idx]
-
-    @staticmethod
-    def backward(ctx, g):
-        (idx,) = ctx.saved_tensors
-        order = torch.argsort(idx, stable=True)
-        grad = torch.zeros(math.prod(ctx.shape), dtype=g.dtype, device=g.device)
-        grad.index_put_((idx[order],), g[order], accumulate=True)
-        return grad.reshape(ctx.shape), None
-
-
 def gather_2d(P: torch.Tensor, r: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``P[r_i, c_i]`` of an (R, C) ``P``, differentiable, with the
-    deterministic backward of ``GatherFlat`` on the flat indices
-    ``r·C + c``."""
-    return GatherFlat.apply(P, r * P.shape[1] + c)
+    """``P[r_i, c_i]`` of an (R, C) ``P``, differentiable: the flat view at
+    ``r·C + c``, whose backward sums a repeated index's cotangents in a
+    fixed order (see the module's note)."""
+    return P.reshape(-1)[r * P.shape[1] + c]
 
 
 def inverse_cdf_sampler(P: torch.Tensor, num_samples: int,

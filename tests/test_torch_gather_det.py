@@ -1,11 +1,13 @@
-"""The sampled engines' log-q gather with a backward that is the same on
-every run (``sim.sampling.GatherFlat``, under ``gather_2d``): it sorts the
-shots' flat indices and sums each index's cotangents in that order. Held
-here against ``index_add_`` in float64 (exact sums of a few terms agree to
-round-off: 1e-12 relative), with repeated indices, every shot on one state
-and a single shot; and the CDF scan ``_cumsum`` on the CPU, which is
-torch.cumsum itself. The CUDA path's replay is checked on the card
-(chip_smoke.py, sampled16 run twice)."""
+"""The sampled engines' log-q gather and CDF scan, which give the same bits
+on every run on the card. ``gather_2d`` indexes the flat view at ``r·C + c``:
+its backward is held here against ``index_add_`` in float64 (exact sums of a
+few terms agree to round-off: 1e-12 relative), with repeated indices, every
+shot on one state and a single shot. ``blocked_cumsum`` (the scan the card
+takes for a flat CDF) is held against float64's cumsum, with blocks small
+enough to reach two and three levels of row totals and lengths that are no
+multiple of the block; ``_cumsum`` on the CPU is torch.cumsum itself. The
+replay on the card is checked there (chip_smoke.py: the scan and the gather
+backward repeated bit for bit, sampled16 run twice)."""
 
 import numpy as np
 import pytest
@@ -42,18 +44,30 @@ def test_gather_2d_backward_is_index_add(kind, M):
 
 
 def test_gather_flat_sums_in_shot_order():
-    """A repeated index's cotangents are summed in the shots' order: with
-    values whose float sum depends on the order, the result is the
-    sequential sum over the shots that hit it."""
-    P = torch.zeros(4, dtype=torch.float32, requires_grad=True)
-    idx = torch.tensor([2, 0, 2, 2, 0])
+    """On the CPU a repeated index's cotangents are summed in the shots'
+    order: with values whose float sum depends on the order, the result is
+    the sequential sum over the shots that hit it."""
+    P = torch.zeros((2, 2), dtype=torch.float32, requires_grad=True)
+    r, c = torch.tensor([1, 0, 1, 1, 0]), torch.tensor([0, 0, 0, 0, 0])
     g = torch.tensor([1e8, 1.0, 1.0, -1e8, 3.0], dtype=torch.float32)
-    (grad,) = torch.autograd.grad(sampling.GatherFlat.apply(P, idx), P, g)
+    (grad,) = torch.autograd.grad(sampling.gather_2d(P, r, c), P, g)
     seq = torch.zeros((), dtype=torch.float32)
     for v in (1e8, 1.0, -1e8):
         seq = seq + torch.tensor(v, dtype=torch.float32)
-    assert float(grad[2]) == float(seq)
-    assert float(grad[0]) == 4.0 and float(grad[1]) == 0.0 and float(grad[3]) == 0.0
+    assert float(grad[1, 0]) == float(seq)
+    assert float(grad[0, 0]) == 4.0 and float(grad[0, 1]) == 0.0 and float(grad[1, 1]) == 0.0
+
+
+@pytest.mark.parametrize("K, block", [(1, 4), (4, 4), (5, 4), (17, 4), (64, 4), (100, 4),
+                                      (1000, 8), (4096, 16), (1 << 12, 1024), (1 << 16, 1024)])
+def test_blocked_cumsum_is_the_prefix_sum(K, block):
+    x = torch.as_tensor(np.random.default_rng(K).random(K), dtype=torch.float32)
+    got = sampling.blocked_cumsum(x, block)
+    assert got.shape == (K,) and got.dtype == torch.float32
+    want = np.cumsum(x.double().numpy())
+    np.testing.assert_allclose(got.double().numpy(), want, rtol=1e-6, atol=0)
+    assert bool((got[1:] >= got[:-1]).all())  # non-negative terms: monotone, as searchsorted needs
+    assert torch.equal(got, sampling.blocked_cumsum(x.clone(), block))
 
 
 @pytest.mark.parametrize("shape", [(1,), (17,), (1, 33), (5, 33)])

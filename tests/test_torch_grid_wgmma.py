@@ -1,8 +1,7 @@
 """The plain versions of the grid kernels' Hopper bf16 loop
 (``csrc/wgmma_bf16.cuh``): the split of an operand plane into bf16 planes,
 the extended-K form of a complex product at ``high`` and ``default``, the
-six product patterns of the grid launchers, and the Python mirror of which
-products run on the loop and how much scratch it takes.
+six product patterns of the grid launchers.
 
 The split must be JAX's bf16 cast and the cast of the exact remainder, bit
 for bit, signs included. The extended-K product sums the same bf16
@@ -124,20 +123,3 @@ def test_grid_product_on_cpu_is_the_plain_version(precision):
     got, _ = kg.grid_product(case, precision)
     want, _ = kg.grid_product_plain(case, precision)
     assert torch.equal(got, want)
-
-
-@pytest.mark.parametrize("n, fwd, bwd", [(18, False, False), (19, False, True), (20, True, True),
-                                         (21, True, True), (22, True, True), (24, True, True)])
-def test_which_products_take_the_wgmma_loop(n, fwd, bwd):
-    """The loop takes large::pattern's shapes: from n = 19 the pull-backs
-    (and dMr), from n = 20 every product; at n = 18 none."""
-    R, C = 1 << (n + 1) // 2, 1 << n // 2
-    assert kg.forward_takes_wgmma(n) == fwd
-    assert kg.backward_takes_wgmma(n) == bwd
-    assert kg.wgmma_takes_shape(R, R, C) == (n >= 19)  # dMr
-    assert kg.wgmma_takes_shape(C, C, R) == (n >= 20)  # dMc
-    for precision, parts in (("high", 2), ("default", 1), ("highest", 0)):
-        f, b = kg.split_elems(n, False, precision), kg.split_elems(n, True, precision)
-        ops = 2 * R * R + 2 * C * C
-        assert f == (parts * (ops + 4 * R * C) if fwd else 0)
-        assert b == (parts * (ops + 8 * R * C) if bwd else 0)

@@ -31,7 +31,8 @@ its ``run_scale_path`` (60 epochs at 20 qubits), with ``--path bn20`` its
 ``classical20``, ``warm16``, ``multiseed16``, ``cli16``, ``cli20``,
 ``profile16``, ``sampled16``, ``sampled24`` and ``grid20_default`` run
 those phases of DIR's ``chip_smoke.py`` (``sampled16`` also prints its best
-TVD), and a
+TVD), ``sampling20`` its sampling throughput phase (printing
+``samples_per_s`` in place of ``epochs_per_s``), and a
 comma-separated list runs several paths in
 one process, in turn. With ``--stein-memory N`` it builds
 DIR's ``SteinOperator`` for the N-qubit workload at the ``auto`` length
@@ -59,7 +60,7 @@ PATHS = {"main16": "run_main_path", "scale20": "run_scale_path", "bn20": "run_bn
          "warm16": "run_warm16_path", "multiseed16": "run_multiseed16_path",
          "cli16": "run_cli16_path", "cli20": "run_cli20_path", "profile16": "run_profile16_path",
          "sampled16": "run_sampled16_path", "sampled24": "run_sampled24_path",
-         "grid20_default": "run_grid20_default"}
+         "grid20_default": "run_grid20_default", "sampling20": "run_sampling20"}
 # (n, grid, ansatz, layers) of --digest: both persistent kernels at 16 and 17
 # qubits, both GEMM loops of the grid kernels at 18-21, bn_structured at 16
 # and 20.
@@ -196,10 +197,13 @@ def main(argv=None) -> int:
     if args.path:
         for name in args.path:
             rate = getattr(smoke, PATHS[name])(device)[1]
-            eps = rate["epochs_per_sec"] if isinstance(rate, dict) else rate
-            extra = {"best_tvd": rate["best_tvd"]} if name == "sampled16" else {}
-            print(json.dumps({"tree": str(tree), "path": name, "epochs_per_s": eps, **extra}),
-                  flush=True)
+            if name == "sampling20":
+                got = {"samples_per_s": rate["samples_per_sec"]}
+            else:
+                got = {"epochs_per_s": rate["epochs_per_sec"] if isinstance(rate, dict) else rate}
+            if name == "sampled16":
+                got["best_tvd"] = rate["best_tvd"]
+            print(json.dumps({"tree": str(tree), "path": name, **got}), flush=True)
         return 0
     timers = {"unqueued": functools.partial(timer_smoke.time_ms, queued=False),
               "queued": timer_smoke.time_ms,
