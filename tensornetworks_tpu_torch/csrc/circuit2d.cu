@@ -34,8 +34,9 @@
 //   backward: 24 L (R^2 C + R C^2) = 3.22 GFLOP FP32, ~8.9 MB moved
 // Both are bound by FP32 FMA throughput (67 TFLOP/s on the H100 SXM: 16 us
 // and 48 us) at the default precision; under the kernel precision `high`
-// and `default` the products run on the bf16 tensor cores (mma_bf16.cuh:
-// three and one passes at 989 TFLOP/s). At these sizes a single product is 2-3 us of work, so a
+// and `default` the products run on the bf16 tensor cores (three and one
+// passes at 989 TFLOP/s), in the cluster kernels of circuit_bf16.cuh on
+// operands split once. At these sizes a single product is 2-3 us of work, so a
 // sequence of launches is bound by launch latency and occupancy, not by the
 // FMA units (see PERF.md): the reason each direction is one launch.
 
@@ -43,10 +44,12 @@
 
 #include "circuit2d_bwd.cuh"
 #include "circuit2d_fwd.cuh"
+#include "circuit_bf16.cuh"
 
 extern "C" {
 
-// probs, xr, xi: (R, C) outputs; tmp: (2, R, C) scratch; masks: (2 layers,
+// probs, xr, xi: (R, C) outputs; tmp: scratch of tn_circuit2d_scratch_bytes
+// (FP32 (2, R, C) under kHighest, the bf16 split scratch else); masks: (2 layers,
 // n) on the device, layer l's row masks at row 2l and its CZ masks at row
 // 2l + 1; precision: a tn::Precision code. Returns the launch's error: a
 // device that cannot run the cooperative launch refuses it, and an unknown
@@ -59,16 +62,20 @@ int tn_circuit2d_forward(const float* mr_re, const float* mr_im, const float* mc
   const tn::fwd::Args a = {mr_re, mr_im, mc_re, mc_im, probs, xr, xi, tmp, masks,
                            n, layers, has_wall, (float)std::pow(2.0, -0.5 * n)};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  tn::b16::FwdArgs b = {mr_re, mr_im, mc_re, mc_im, probs, xr, xi,
+                        reinterpret_cast<tn::b16::u16*>(tmp), masks, n, layers, has_wall,
+                        a.amp};
   switch (precision) {
-    case tn::kHighest: return tn::fwd::circuit_forward_persistent<tn::kHighest>(a, st);
-    case tn::kHigh: return tn::fwd::circuit_forward_persistent<tn::kHigh>(a, st);
-    case tn::kDefault: return tn::fwd::circuit_forward_persistent<tn::kDefault>(a, st);
+    case tn::kHighest: return tn::fwd::circuit_forward_persistent(a, st);
+    case tn::kHigh: return tn::b16::forward<tn::kHigh>(b, st);
+    case tn::kDefault: return tn::b16::forward<tn::kDefault>(b, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // xr, xi, g: (R, C) inputs; dmr_*: (layers, R, R) and dmc_*: (layers, C, C)
-// outputs; scratch: (4, 4, R, C); masks, precision: as the forward's.
+// outputs; scratch: of tn_circuit2d_scratch_bytes (FP32 (4, 4, R, C) under
+// kHighest); masks, precision: as the forward's.
 // Returns the launch's error: a device that cannot run the cooperative
 // launch refuses it, and an unknown precision is refused.
 int tn_circuit2d_backward(const float* mr_re, const float* mr_im, const float* mc_re,
@@ -76,15 +83,32 @@ int tn_circuit2d_backward(const float* mr_re, const float* mr_im, const float* m
                           const float* g, float* dmr_re, float* dmr_im, float* dmc_re,
                           float* dmc_im, float* scratch, const unsigned* masks, int n,
                           int layers, int precision, void* stream) {
+  if (n < 2 || n > 17 || layers < 1) return (int)cudaErrorInvalidValue;
   const tn::bwd::Args a = {mr_re, mr_im, mc_re, mc_im, xr, xi, g, dmr_re, dmr_im,
                            dmc_re, dmc_im, scratch, masks, n, layers};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  tn::b16::BwdArgs b = {mr_re, mr_im, mc_re, mc_im, xr, xi, g, dmr_re, dmr_im, dmc_re, dmc_im,
+                        reinterpret_cast<tn::b16::u16*>(scratch), masks, n, layers};
   switch (precision) {
-    case tn::kHighest: return tn::bwd::circuit_backward_persistent<tn::kHighest>(a, st);
-    case tn::kHigh: return tn::bwd::circuit_backward_persistent<tn::kHigh>(a, st);
-    case tn::kDefault: return tn::bwd::circuit_backward_persistent<tn::kDefault>(a, st);
+    case tn::kHighest: return tn::bwd::circuit_backward_persistent(a, st);
+    case tn::kHigh: return tn::b16::backward<tn::kHigh>(b, st);
+    case tn::kDefault: return tn::b16::backward<tn::kDefault>(b, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// Bytes of the scratch a call takes (`tmp` of the forward, `scratch` of the
+// backward): FP32 planes under kHighest, (2, R, C) and (4, 4, R, C); the
+// bf16 split scratch of circuit_bf16.cuh under kHigh and kDefault; -1 for
+// an unknown precision.
+long long tn_circuit2d_scratch_bytes(int n, int layers, int backward, int precision) {
+  const long long S = 1LL << n;
+  switch (precision) {
+    case tn::kHighest: return 4 * (backward ? 16 : 2) * S;
+    case tn::kHigh: return 2 * tn::b16::split_elems<tn::kHigh>(n, layers, backward);
+    case tn::kDefault: return 2 * tn::b16::split_elems<tn::kDefault>(n, layers, backward);
+  }
+  return -1;
 }
 
 }  // extern "C"

@@ -56,6 +56,8 @@ SIGNATURES = {
         # mr_re, mr_im, mc_re, mc_im, xr, xi, g, dmr_re, dmr_im, dmc_re, dmc_im,
         # scratch, masks (device), n, layers, precision, stream
         "tn_circuit2d_backward": [_P] * 13 + [_I] * 3 + [_P],
+        # n, layers, backward, precision -> bytes of the tmp / scratch argument
+        "tn_circuit2d_scratch_bytes": [_I] * 4,
     },
     "circuit2d_grid": {  # rows and cz are (layers, n) host tables
         # mr_re, mr_im, mc_re, mc_im, probs, xr, xi, tmp, mct, split, n, layers,
@@ -86,6 +88,7 @@ SIGNATURES = {
 }
 
 RESTYPES = {"tn_circuit2d_grid_split_elems": ctypes.c_longlong,
+            "tn_circuit2d_scratch_bytes": ctypes.c_longlong,
             "tn_circuit2d_grid_bf16_products": None}
 
 _lock = threading.Lock()

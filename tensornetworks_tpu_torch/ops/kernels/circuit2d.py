@@ -31,8 +31,12 @@ plain torch, so autograd carries ``dMr``/``dMc`` back to θ.
 
 Precision (``precision.py``): a plan carries the kernel precision current
 when it was built. ``highest`` runs the kernels' FP32 loops; ``high`` and
-``default`` their bf16 tensor-core passes (``csrc/mma_bf16.cuh``), each
-variant launched and counted under its own key (``circuit2d_fwd.high``).
+``default`` the bf16 kernels of ``csrc/circuit_bf16.cuh`` (operands split
+once into a bf16 scratch the wrapper allocates, ``tn_circuit2d_scratch_
+bytes``; TMA copies, ``mma.sync`` passes), each variant launched and counted
+under its own key (``circuit2d_fwd.high``); their phase mirrors are
+``circuit2d_forward_bf16_phased_plain`` and
+``circuit2d_backward_bf16_phased_plain``, their launch plans ``bf16_plan``.
 The plain versions emulate a pass exactly: ``_pcmm`` rounds (or splits)
 the real and imaginary planes of both operands of every complex product
 and sums in the planes' dtype, with TF32 off on the card. The index maps
@@ -371,7 +375,11 @@ def circuit2d_forward_phased_plain(mr_re, mr_im, mc_re, mc_im, plan: CircuitPlan
     the sign there. Each phase fills what it writes with NaN before it reads
     anything, so a phase that read what it writes — a race in the kernel —
     shows as NaN here. The products at the plan's precision (``_pcmm``).
-    Returns what ``circuit2d_forward_plain`` returns."""
+    Returns what ``circuit2d_forward_plain`` returns. Under ``high`` and
+    ``default`` the kernel is the bf16 kernel of ``csrc/circuit_bf16.cuh``,
+    and so is the mirror (``circuit2d_forward_bf16_phased_plain``)."""
+    if plan.precision != "highest":
+        return circuit2d_forward_bf16_phased_plain(mr_re, mr_im, mc_re, mc_im, plan)
     R, C, L, dt, dev, p = plan.R, plan.C, plan.layers, mr_re.dtype, mr_re.device, plan.precision
     dst, sign = plan.tables(dev)
     tmp = torch.empty((2, R, C), dtype=dt, device=dev)
@@ -415,7 +423,10 @@ def circuit2d_backward_phased_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan:
     it writes with NaN before it reads anything, so a phase that read what
     it writes — a race in the kernel — shows as NaN here. The products at
     the plan's precision (``_pcmm``). Returns what
-    ``circuit2d_backward_plain`` returns."""
+    ``circuit2d_backward_plain`` returns. Under ``high`` and ``default``
+    the mirror is ``circuit2d_backward_bf16_phased_plain``'s."""
+    if plan.precision != "highest":
+        return circuit2d_backward_bf16_phased_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan)
     R, C, L, dt, dev = plan.R, plan.C, plan.layers, mr_re.dtype, mr_re.device
 
     def cmm(*args):
@@ -453,6 +464,364 @@ def circuit2d_backward_phased_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan:
         src = W
     grads(0)
     return dmr_re, dmr_im, dmc_re, dmc_im
+
+
+# csrc/circuit_bf16.cuh: the bf16 variants' kernels. A block's dynamic
+# shared memory (227 KB less 8 KB for the static tables), the share sums'
+# bytes, the H100's SMs (the kernels as built share a phase's units out in
+# groups of cs over SMs / cs "clusters", one block an SM), and the clusters
+# of 8 blocks it holds at once at that shared memory in the cluster form
+# (kClusterPairs; read on the card: cudaOccupancyMaxActiveClusters).
+BF16_SMEM_MAX = 232448 - 8192
+BF16_RED_BYTES = 8 * 32 * 16 * 4
+BF16_SMS = 132
+BF16_CLUSTERS = 15
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round16(x: int) -> int:
+    return _cdiv(x, 16) * 16
+
+
+def _pow2_at_least(x: int) -> int:
+    p = 1
+    while p < x:
+        p *= 2
+    return p
+
+
+def bf16_warp_tiles(tm: int, tn: int, nb: int) -> int:
+    """16 x 16 warp tiles of a unit's (tm, tn) output tile of nb batches."""
+    return nb * (tm // 16) * (tn // 16)
+
+
+def bf16_k_shares(tiles: int) -> int:
+    """Warps that share one warp tile's k16 steps (8 warps a block)."""
+    return 8 // tiles
+
+
+def bf16_plan(n: int, precision: str, clusters: int = None, backward: bool = False) -> dict:
+    """The launch plan of the bf16 kernels (``fwd_plan``/``bwd_plan``): the
+    cluster size ``cs``, the ``items`` the clusters share out, the tile
+    sizes ``t0, t1, t2`` and the shared memory a block takes. Forward: t0
+    the tile rows (16, or 32 where R is cut evenly over fewer clusters than
+    16-row blocks), t1 a block's columns C / cs (at least 16). Backward: t0
+    an item's columns (a power of two, at least 16), t1 the tile rows, t2
+    dMc's tile rows. ``clusters``: the groups of cs blocks the items are
+    shared out over, by default the kernels' as built (SMs / cs); the
+    cluster form's is ``BF16_CLUSTERS``."""
+    np_ = 2 if precision == "high" else 1
+    rb = (n + 1) // 2
+    cb = n - rb
+    R, C = 1 << rb, 1 << cb
+    kpr, kpc = _round16(R), _round16(C)
+    if not backward:
+        cs = min(8, max(1, C // 16))
+        tn = max(16, C // cs)
+        clusters = clusters or BF16_SMS // cs
+        if _cdiv(R, 16) <= clusters or R > 256:
+            items, tm = _cdiv(R, 16), 16
+        else:
+            items, tm = clusters, _round16(_cdiv(R, clusters))
+        smem = 2 * np_ * 2 * max(kpr, kpc) * (tm + tn) + BF16_RED_BYTES
+        return dict(cs=cs, items=items, t0=tm, t1=tn, t2=0, smem=smem)
+    cs = min(8, max(1, R // 32))  # every block of a cluster has row tiles
+    clusters = clusters or BF16_SMS // cs
+    tmc = 16 if R > 256 else 32
+    groups = C // 8 if C >= 8 else 1
+    spread = min(groups, clusters)
+    e = 2 * np_ * 2
+    for items, tnb in ((spread, max(16, 8 * _pow2_at_least(_cdiv(groups, spread)))),
+                       (max(1, groups // 2), 16)):
+        for tmb in (32, 16):
+            ra = max(2 * e * tmb * kpc, e * kpr * tmb, e * 32 * kpc, e * kpr * tmc)
+            rbb = max(e * kpc * tnb, 2 * e * kpr * tnb, e * 32 * kpc, e * kpr * 32)
+            smem = ra + rbb + BF16_RED_BYTES
+            if smem <= BF16_SMEM_MAX and tmb <= max(R, 16):
+                return dict(cs=cs, items=items, t0=tnb, t1=tmb, t2=tmc, smem=smem)
+    raise ValueError(f"no bf16 backward plan fits n={n}")
+
+
+def _span(c: int, items: int, groups: int, q: int) -> int:
+    return q * (groups * c // items)
+
+
+def bf16_forward_units(n: int, precision: str, clusters: int = None) -> list:
+    """(item, rank, m0, m1, n0, n1) of each unit of the bf16 forward's two
+    products (both take the same units): item c's rows m0..m1 (the
+    cluster's), rank's columns n0..n1."""
+    p = bf16_plan(n, precision, clusters)
+    R, C = 1 << ((n + 1) // 2), 1 << (n // 2)
+    return [(c, r, _span(c, p["items"], R, 1), _span(c + 1, p["items"], R, 1),
+             r * p["t1"], min(C, (r + 1) * p["t1"]))
+            for c in range(p["items"]) for r in range(p["cs"])]
+
+
+def bf16_backward_units(n: int, precision: str, clusters: int = None) -> dict:
+    """The bf16 backward's units: ``pairs``, (item, rank, m0, m1, n0, n1) of
+    the column and row pull-backs (item c's columns, rank's row tiles);
+    ``dmr`` and ``dmc``, (m0, m1, n0, n1) of the gradient products."""
+    p = bf16_plan(n, precision, clusters, backward=True)
+    R, C = 1 << ((n + 1) // 2), 1 << (n // 2)
+    groups, q = (C // 8, 8) if C >= 8 else (1, C)
+    tmb, tmc = p["t1"], p["t2"]
+    pairs = [(c, r, t * tmb, min(R, (t + 1) * tmb), _span(c, p["items"], groups, q),
+              _span(c + 1, p["items"], groups, q))
+             for c in range(p["items"]) for r in range(p["cs"])
+             for t in range(r, _cdiv(R, tmb), p["cs"])]
+    dmr = [(m, min(R, m + 32), c, min(R, c + 32)) for m in range(0, R, 32) for c in range(0, R, 32)]
+    dmc = [(m, min(C, m + tmc), c, min(C, c + 32)) for m in range(0, C, tmc)
+           for c in range(0, C, 32)]
+    return dict(pairs=pairs, dmr=dmr, dmc=dmc)
+
+
+def _split_planes(x, precision: str):
+    """(hi, lo) of x as the kernels store it: split (``high``) or rounded
+    with a zero lo (``default``)."""
+    if precision == "high":
+        return split_bf16(x)
+    return round_bf16(x), torch.zeros_like(x)
+
+
+def _bf16_cmm(a, b, precision: str, shares: int, ca: bool = False, cb: bool = False):
+    """(re, im) of a complex product of split operands a, b (each (re_hi,
+    re_lo, im_hi, im_lo), (M, K) and (K, N)) as a bf16 unit sums it: K
+    padded to k16 steps; each step's passes (lo·hi + hi·lo + hi·hi under
+    ``high``, hi·hi under ``default``) summed from zero; step s added to
+    share s % shares; the shares added in share order. ca / cb conjugate."""
+    K = a[0].shape[-1]
+    pad = _round16(K) - K
+    if pad:
+        a = [torch.nn.functional.pad(t, (0, pad)) for t in a]
+        b = [torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in b]
+
+    def rp(x_hi, x_lo, y_hi, y_lo):
+        if precision == "high":
+            return x_lo @ y_hi + x_hi @ y_lo + x_hi @ y_hi
+        return x_hi @ y_hi
+
+    sre = -1.0 if ca == cb else 1.0
+    sib, sia = (-1.0 if cb else 1.0), (-1.0 if ca else 1.0)
+    acc = [None] * shares
+    for s in range((K + pad) // 16):
+        k = slice(16 * s, 16 * s + 16)
+        ar_h, ar_l, ai_h, ai_l = (t[..., k] for t in a)
+        br_h, br_l, bi_h, bi_l = (t[..., k, :] for t in b)
+        re = rp(ar_h, ar_l, br_h, br_l) + sre * rp(ai_h, ai_l, bi_h, bi_l)
+        im = sib * rp(ar_h, ar_l, bi_h, bi_l) + sia * rp(ai_h, ai_l, br_h, br_l)
+        j = s % shares
+        acc[j] = (re, im) if acc[j] is None else (acc[j][0] + re, acc[j][1] + im)
+    out_re, out_im = acc[0]
+    for j in range(1, shares):
+        if acc[j] is not None:
+            out_re, out_im = out_re + acc[j][0], out_im + acc[j][1]
+    return out_re, out_im
+
+
+class _PhaseLog:
+    """The buffers of a phased mirror: each phase names the buffers it
+    writes, which are filled with NaN before it reads anything, and the
+    reads are recorded by phase (``reads``, ``writes``: phase name -> set of
+    buffer names)."""
+
+    def __init__(self):
+        self.bufs, self.reads, self.writes, self.phase = {}, {}, {}, None
+
+    def begin(self, name, writes):
+        self.phase = name
+        self.reads[name], self.writes[name] = set(), set(writes)
+        for w in writes:
+            self.bufs[w].fill_(float("nan"))
+
+    def r(self, name):
+        self.reads[self.phase].add(name)
+        return self.bufs[name]
+
+    def w(self, name):
+        assert name in self.writes[self.phase], (self.phase, name)
+        return self.bufs[name]
+
+
+def circuit2d_forward_bf16_phased_plain(mr_re, mr_im, mc_re, mc_im, plan: CircuitPlan,
+                                        clusters: int = None, log=None, pairs: bool = False):
+    """The bf16 forward kernel (``csrc/circuit_bf16.cuh``, precision
+    ``high`` or ``default``) in torch: φ0 splits every layer's Mr and Mc
+    into bf16 planes (hi, lo) and writes tmp = Mr[0]·X0 in closed form as
+    its split; then per layer l ≥ 1 a phase in which every item
+    (``bf16_forward_units``: row blocks) computes its rows of tmp = Mr[l]·X
+    (from the X split of the previous layer), and a phase that scatters
+    each item's tmp rows · Mc[l]ᵀ into the other X split (the FP32 X and
+    |z|² on the last layer). With ``pairs`` (the kernels' cluster form,
+    ``kClusterPairs``) the two products of a layer are one phase, each item
+    reading only its own rows of tmp (items run one after another, so that
+    another item's rows are still NaN). Products read split planes and sum
+    in the units' share order (``_bf16_cmm``). Each phase's outputs are NaN
+    before it runs; ``log`` (a ``_PhaseLog``) records its reads. Returns
+    what ``circuit2d_forward_plain`` returns."""
+    n, R, C, L, p = plan.n, plan.R, plan.C, plan.layers, plan.precision
+    dt, dev = mr_re.dtype, mr_re.device
+    fp = bf16_plan(n, p, clusters)
+    shares = bf16_k_shares(bf16_warp_tiles(fp["t0"], fp["t1"], 1))
+    dst, sign = plan.tables(dev)
+    log = log if log is not None else _PhaseLog()
+    log.bufs = {"mr": torch.empty((4, L, R, R), dtype=dt, device=dev),
+                "mc": torch.empty((4, L, C, C), dtype=dt, device=dev),
+                "tmp": torch.empty((4, R, C), dtype=dt, device=dev),
+                "x0": torch.empty((4, R, C), dtype=dt, device=dev),
+                "x1": torch.empty((4, R, C), dtype=dt, device=dev),
+                "out": torch.empty((3, R, C), dtype=dt, device=dev)}  # probs, xr, xi
+
+    def put(t, re, im):  # the split of (re, im) into planes (re_hi, re_lo, im_hi, im_lo)
+        t[0], t[1] = _split_planes(re, p)
+        t[2], t[3] = _split_planes(im, p)
+
+    log.begin("phi0", ("mr", "mc", "tmp"))
+    put(log.w("mr"), mr_re, mr_im)
+    put(log.w("mc"), mc_re, mc_im)
+    if plan.has_wall:  # X0 = 2^(-n/2)·𝟙: the row sums of Mr[0]
+        tr, ti = (_wall_product(m, plan)[:, None].expand(R, C) for m in (mr_re[0], mr_im[0]))
+    else:  # X0 = e00: column 0 of Mr[0] (1 is exact in bf16)
+        tr, ti = torch.zeros((R, C), dtype=dt, device=dev), torch.zeros((R, C), dtype=dt,
+                                                                        device=dev)
+        col = [mr_re[0][:, 0], mr_im[0][:, 0]]
+        col = [round_bf16(c) if p == "default" else sum(split_bf16(c)) for c in col]
+        tr[:, 0], ti[:, 0] = col
+    put(log.w("tmp"), tr, ti)
+    items = sorted({(u[0], u[2], u[3]) for u in bf16_forward_units(n, p, clusters)})
+    def left(layer, m0, m1):  # tmp[m0:m1] = Mr[l][m0:m1]·X, X the previous layer's split
+        mr, x = log.r("mr"), log.r(f"x{(layer - 1) % 2}")
+        put(log.w("tmp")[:, m0:m1], *_bf16_cmm(mr[:, layer, m0:m1], x, p, shares))
+
+    for layer in range(L):
+        last = layer == L - 1
+        target = "out" if last else f"x{layer % 2}"
+        if layer and not pairs:
+            log.begin(f"left{layer}", ("tmp",))
+            for _, m0, m1 in items:
+                left(layer, m0, m1)
+        log.begin(f"layer{layer}", (("tmp",) if layer and pairs else ()) + (target,))
+        d, s = layer_map(dst, sign, layer)
+        s = s.to(dt)
+        for _, m0, m1 in items:
+            if layer and pairs:
+                left(layer, m0, m1)
+            tmp, mc = log.r("tmp"), log.r("mc")
+            zr, zi = _bf16_cmm(tmp[:, m0:m1], mc[:, layer].transpose(-1, -2), p, shares)
+            idx = torch.arange(m0 * C, m1 * C, device=dev)
+            dd, ss = d[idx], s[idx]
+            out = log.w(target)
+            if last:
+                out[1].reshape(-1)[dd] = ss * zr.reshape(-1)
+                out[2].reshape(-1)[dd] = ss * zi.reshape(-1)
+                out[0].reshape(-1)[dd] = (zr * zr + zi * zi).reshape(-1)
+            else:
+                for q, v in ((0, ss * zr.reshape(-1)), (2, ss * zi.reshape(-1))):
+                    hi, lo = _split_planes(v, p)
+                    out[q].reshape(-1)[dd], out[q + 1].reshape(-1)[dd] = hi, lo
+    probs, xr, xi = log.bufs["out"]
+    return probs, xr, xi
+
+
+def circuit2d_backward_bf16_phased_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g,
+                                         plan: CircuitPlan, clusters: int = None, log=None,
+                                         pairs: bool = False):
+    """The bf16 backward kernel (``csrc/circuit_bf16.cuh``) in torch: split
+    state buffers U[0], U[1], V, W (planes x and λ, each (hi, lo) of re and
+    im) and the split Mr, Mc; for l = L-1 .. 0 a phase φ1 (the split of Mr
+    and Mc and the unpermute of x and 2·g·x on the first layer; else the
+    previous layer's dMr, dMc and the unpermute of W's split planes, a sign
+    flipping hi and lo), a phase of V = U·conj(Mc[l]) and one of W =
+    Mr[l]ᴴ·V, each over the items (``bf16_backward_units``: column
+    blocks); then dMr[0], dMc[0]. With ``pairs`` (the cluster form) the two
+    pull-backs are one phase, each item reading only its own columns of V
+    (items one after another). Products in the units' share order; each
+    phase's outputs NaN before it runs, its reads recorded in ``log``.
+    Returns what ``circuit2d_backward_plain`` returns."""
+    n, R, C, L, p = plan.n, plan.R, plan.C, plan.layers, plan.precision
+    dt, dev = mr_re.dtype, mr_re.device
+    bp = bf16_plan(n, p, clusters, backward=True)
+    units = bf16_backward_units(n, p, clusters)
+    pair_shares = bf16_k_shares(bf16_warp_tiles(bp["t1"], bp["t0"], 2))
+    dmc_shares = bf16_k_shares(bf16_warp_tiles(bp["t2"], 32, 1))
+    dst, sign = plan.tables(dev)
+    log = log if log is not None else _PhaseLog()
+    state = (8, R, C)  # (x_re, x_im, l_re, l_im) x (hi, lo)
+    log.bufs = {"mr": torch.empty((4, L, R, R), dtype=dt, device=dev),
+                "mc": torch.empty((4, L, C, C), dtype=dt, device=dev),
+                "u0": torch.empty(state, dtype=dt, device=dev),
+                "u1": torch.empty(state, dtype=dt, device=dev),
+                "v": torch.empty(state, dtype=dt, device=dev),
+                "w": torch.empty(state, dtype=dt, device=dev),
+                **{f"dmr{i}": torch.empty((2, R, R), dtype=dt, device=dev) for i in range(L)},
+                **{f"dmc{i}": torch.empty((2, C, C), dtype=dt, device=dev) for i in range(L)}}
+
+    def put(t, re, im):
+        t[0], t[1] = _split_planes(re, p)
+        t[2], t[3] = _split_planes(im, p)
+
+    def grads(layer):  # dMr = λ_V·x_Wᴴ, dMc = λ_Uᵀ·conj(x_V)
+        v, w, u = log.r("v"), log.r("w"), log.r(f"u{layer % 2}")
+        dmr, dmc = log.w(f"dmr{layer}"), log.w(f"dmc{layer}")
+        dmr[0], dmr[1] = _bf16_cmm(v[4:], w[:4].transpose(-1, -2), p, 1, cb=True)
+        dmc[0], dmc[1] = _bf16_cmm(u[4:].transpose(-1, -2), v[:4], p, dmc_shares, cb=True)
+
+    items = sorted({(u[0], u[4], u[5]) for u in units["pairs"]})
+    for layer in range(L - 1, -1, -1):
+        first = layer == L - 1
+        writes = (f"u{layer % 2}",) + (("mr", "mc") if first
+                                        else (f"dmr{layer + 1}", f"dmc{layer + 1}"))
+        log.begin(f"phi1_{layer}", writes)
+        if first:
+            put(log.w("mr"), mr_re, mr_im)
+            put(log.w("mc"), mc_re, mc_im)
+        else:
+            grads(layer + 1)
+        d, s = layer_map(dst, sign, layer)
+        s = s.to(dt)
+        u = log.w(f"u{layer % 2}")
+        if first:  # the forward's output: x and λ = 2·g·x
+            two_g = 2.0 * g.reshape(-1)[d]
+            x_r, x_i = xr.reshape(-1)[d], xi.reshape(-1)[d]
+            for q, v in enumerate((s * x_r, s * x_i, s * (two_g * x_r), s * (two_g * x_i))):
+                hi, lo = _split_planes(v.reshape(R, C), p)
+                u[2 * q], u[2 * q + 1] = hi, lo
+        else:
+            u.copy_((s * log.r("w").reshape(8, -1)[:, d]).reshape(state))
+        def col_pull(n0, n1):  # V[:, n0:n1] = U·conj(Mc[l][:, n0:n1])
+            uu, mc = log.r(f"u{layer % 2}"), log.r("mc")
+            v = log.w("v")
+            for b in (0, 4):  # state, cotangent
+                vr, vi = _bf16_cmm(uu[b:b + 4], mc[:, layer, :, n0:n1], p, pair_shares, cb=True)
+                put(v[b:b + 4, :, n0:n1], vr, vi)
+
+        def row_pull(n0, n1):  # W[:, n0:n1] = Mr[l]ᴴ·V[:, n0:n1]
+            vv, mr = log.r("v"), log.r("mr")
+            w = log.w("w")
+            for b in (0, 4):
+                wr, wi = _bf16_cmm(mr[:, layer].transpose(-1, -2), vv[b:b + 4, :, n0:n1], p,
+                                   pair_shares, ca=True)
+                put(w[b:b + 4, :, n0:n1], wr, wi)
+
+        if pairs:
+            log.begin(f"pair{layer}", ("v", "w"))
+            for _, n0, n1 in items:
+                col_pull(n0, n1)
+                row_pull(n0, n1)
+        else:
+            log.begin(f"col{layer}", ("v",))
+            for _, n0, n1 in items:
+                col_pull(n0, n1)
+            log.begin(f"row{layer}", ("w",))
+            for _, n0, n1 in items:
+                row_pull(n0, n1)
+    log.begin("grads0", ("dmr0", "dmc0"))
+    grads(0)
+    dmr = torch.stack([log.bufs[f"dmr{i}"] for i in range(L)], dim=1)
+    dmc = torch.stack([log.bufs[f"dmc{i}"] for i in range(L)], dim=1)
+    return dmr[0], dmr[1], dmc[0], dmc[1]
 
 
 def scatter_targets(rows, cz, m, n, N):
@@ -501,6 +870,22 @@ def _check(plan, **tensors) -> None:
         dev = t.device
 
 
+def _scratch(plan: CircuitPlan, backward: bool, device) -> torch.Tensor:
+    """The scratch of one launch, as large as the library says
+    (``tn_circuit2d_scratch_bytes``, asked once a plan and direction): FP32
+    planes under ``highest``, the bf16 split scratch of
+    ``csrc/circuit_bf16.cuh`` (every layer's Mr and Mc split, and the
+    state's splits) under ``high`` and ``default``."""
+    key = ("scratch_bytes", backward)
+    if key not in plan._tables:
+        nbytes = _lib.load(plan.name).tn_circuit2d_scratch_bytes(
+            plan.n, plan.layers, int(backward), CODES[plan.precision])
+        if nbytes < 0:
+            raise ValueError(f"{plan.name} kernel: no scratch size for {plan.precision!r}")
+        plan._tables[key] = nbytes
+    return torch.empty(-(-plan._tables[key] // 4), dtype=torch.float32, device=device)
+
+
 def launch_forward_persistent(plan: CircuitPlan, mr_re, mr_im, mc_re, mc_im):
     """probs, xr, xi from ``csrc/circuit2d.cu``'s forward: one cooperative
     launch, which raises if the device refuses it."""
@@ -508,7 +893,7 @@ def launch_forward_persistent(plan: CircuitPlan, mr_re, mr_im, mc_re, mc_im):
     fn = _lib.load(plan.name).tn_circuit2d_forward
     probs = torch.empty((plan.R, plan.C), dtype=torch.float32, device=mr_re.device)
     xr, xi = torch.empty_like(probs), torch.empty_like(probs)
-    tmp = torch.empty((2, plan.R, plan.C), dtype=torch.float32, device=mr_re.device)
+    tmp = _scratch(plan, backward=False, device=mr_re.device)
     masks = plan.device_masks(mr_re.device)
     _lib.count_launch(_lib.launch_key("circuit2d_fwd", plan.precision))
     err = fn(_lib.ptr(mr_re), _lib.ptr(mr_im), _lib.ptr(mc_re), _lib.ptr(mc_im),
@@ -526,7 +911,7 @@ def launch_backward_persistent(plan: CircuitPlan, mr_re, mr_im, mc_re, mc_im, xr
     fn = _lib.load(plan.name).tn_circuit2d_backward
     dmr_re, dmr_im = torch.empty_like(mr_re), torch.empty_like(mr_im)
     dmc_re, dmc_im = torch.empty_like(mc_re), torch.empty_like(mc_im)
-    scratch = torch.empty((4, 4, plan.R, plan.C), dtype=torch.float32, device=mr_re.device)
+    scratch = _scratch(plan, backward=True, device=mr_re.device)
     masks = plan.device_masks(mr_re.device)
     _lib.count_launch(_lib.launch_key("circuit2d_bwd", plan.precision))
     err = fn(_lib.ptr(mr_re), _lib.ptr(mr_im), _lib.ptr(mc_re), _lib.ptr(mc_im),

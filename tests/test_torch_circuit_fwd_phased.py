@@ -120,10 +120,11 @@ def test_phased_forward_reads_no_buffer_it_writes():
 
 
 def test_probe_finds_its_stamp_sites():
-    """``runners/probe_kernels`` stamps copies of both persistent kernels by
-    text: every site it edits is still in the sources, the per-phase marks
-    once per kernel and the grid barriers at each of their 3 sites."""
+    """``runners/probe_kernels`` stamps copies of the persistent kernels (the
+    FP32 ones and the bf16 cluster kernels) by text: every site it edits is
+    still in the sources, the per-phase marks once per kernel and the grid
+    barriers at each of their sites (``probe_kernels.sites``)."""
     for name, edits in probe_kernels.EDITS:
         text = (_lib.CSRC / name).read_text()
         for old, _ in edits:
-            assert text.count(old) == (3 if old == "grid.sync();" else 1), (name, old[:40])
+            assert text.count(old) == probe_kernels.sites(name, old), (name, old[:40])

@@ -6,6 +6,7 @@ so that two commits are compared by one timer.
     python3 time_tree.py [--tree DIR] --path main16    # a path's epochs/s (PATHS; a,b: several)
     python3 time_tree.py [--tree DIR] --stein-memory 20  # the Stein operator's device bytes
     python3 time_tree.py [--tree DIR] --digest         # SHA-256 of the circuit kernels' outputs
+    python3 time_tree.py [--tree DIR] --precision16    # kernels 1-2's bf16 variants at n=16
 
 DIR is the root of a checkout (by default this one), for example an earlier
 commit unpacked with ``git archive`` into a git-ignored directory. The script
@@ -40,7 +41,11 @@ scale and prints the device bytes the operator holds and the peak device
 bytes of one matvec above them. With ``--digest`` it runs DIR's circuit
 kernels (forward and backward, at DIR's default precision) on seeded inputs
 at ``DIGEST_SHAPES`` and prints a SHA-256 of their outputs per shape: two
-trees with equal digests compute those kernels bit for bit alike. Run each tree in its own process, in
+trees with equal digests compute those kernels bit for bit alike. With
+``--precision16`` it runs DIR's ``check_precision_case`` (step 16 of its
+``chip_smoke.py``) at main16's and bn16's shapes (HE L=4, bn_structured
+L=8) under this checkout's queued timer, and prints the bf16 variants of
+kernels 1-2 with their errors and queued ms, one JSON line. Run each tree in its own process, in
 alternating order, since the host's speed drifts within one machine.
 Needs a CUDA device; imports nothing of JAX.
 """
@@ -166,6 +171,8 @@ def main(argv=None) -> int:
                     help="measure the N-qubit Stein operator's device memory")
     ap.add_argument("--digest", action="store_true",
                     help="print a SHA-256 of the circuit kernels' outputs per shape")
+    ap.add_argument("--precision16", action="store_true",
+                    help="time kernels 1-2's bf16 variants at main16's and bn16's shapes")
     args = ap.parse_args(argv)
     for name in args.path or ():
         if name not in PATHS:
@@ -189,6 +196,16 @@ def main(argv=None) -> int:
     kernels.build_all()
     if args.digest:
         print(json.dumps({"tree": str(tree), "digest": digest(device)}), flush=True)
+        return 0
+    if args.precision16:
+        smoke.time_ms = timer_smoke.time_ms
+        rows = []
+        for layers, ansatz in ((smoke.LAYERS, smoke.ANSATZ), (smoke.BN_LAYERS, smoke.BN)):
+            rows += [{k: r[k] for k in ("name", "ansatz", "layers", "ms", "fp32_ms", "rel_err",
+                                        "rel_err_f64", "bound_ms")}
+                     for r in smoke.check_precision_case(device, smoke.N, False, ansatz, layers,
+                                                         timed=True)]
+        print(json.dumps({"tree": str(tree), "precision16": rows}), flush=True)
         return 0
     if args.stein_memory:
         print(json.dumps({"tree": str(tree), **stein_memory(smoke, args.stein_memory, device)}),
