@@ -35,8 +35,9 @@
 // Both are bound by FP32 FMA throughput (67 TFLOP/s on the H100 SXM: 16 us
 // and 48 us) at the default precision; under the kernel precision `high`
 // and `default` the products run on the bf16 tensor cores (three and one
-// passes at 989 TFLOP/s), in the cluster kernels of circuit_bf16.cuh on
-// operands split once. At these sizes a single product is 2-3 us of work, so a
+// passes at 989 TFLOP/s): the forward in the units' mma_bf16.cuh passes,
+// the backward in the kernel of circuit_bf16.cuh on operands split once.
+// At these sizes a single product is 2-3 us of work, so a
 // sequence of launches is bound by launch latency and occupancy, not by the
 // FMA units (see PERF.md): the reason each direction is one launch.
 
@@ -48,8 +49,7 @@
 
 extern "C" {
 
-// probs, xr, xi: (R, C) outputs; tmp: scratch of tn_circuit2d_scratch_bytes
-// (FP32 (2, R, C) under kHighest, the bf16 split scratch else); masks: (2 layers,
+// probs, xr, xi: (R, C) outputs; tmp: (2, R, C) scratch; masks: (2 layers,
 // n) on the device, layer l's row masks at row 2l and its CZ masks at row
 // 2l + 1; precision: a tn::Precision code. Returns the launch's error: a
 // device that cannot run the cooperative launch refuses it, and an unknown
@@ -62,13 +62,10 @@ int tn_circuit2d_forward(const float* mr_re, const float* mr_im, const float* mc
   const tn::fwd::Args a = {mr_re, mr_im, mc_re, mc_im, probs, xr, xi, tmp, masks,
                            n, layers, has_wall, (float)std::pow(2.0, -0.5 * n)};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  tn::b16::FwdArgs b = {mr_re, mr_im, mc_re, mc_im, probs, xr, xi,
-                        reinterpret_cast<tn::b16::u16*>(tmp), masks, n, layers, has_wall,
-                        a.amp};
   switch (precision) {
-    case tn::kHighest: return tn::fwd::circuit_forward_persistent(a, st);
-    case tn::kHigh: return tn::b16::forward<tn::kHigh>(b, st);
-    case tn::kDefault: return tn::b16::forward<tn::kDefault>(b, st);
+    case tn::kHighest: return tn::fwd::circuit_forward_persistent<tn::kHighest>(a, st);
+    case tn::kHigh: return tn::fwd::circuit_forward_persistent<tn::kHigh>(a, st);
+    case tn::kDefault: return tn::fwd::circuit_forward_persistent<tn::kDefault>(a, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -98,17 +95,33 @@ int tn_circuit2d_backward(const float* mr_re, const float* mr_im, const float* m
 }
 
 // Bytes of the scratch a call takes (`tmp` of the forward, `scratch` of the
-// backward): FP32 planes under kHighest, (2, R, C) and (4, 4, R, C); the
-// bf16 split scratch of circuit_bf16.cuh under kHigh and kDefault; -1 for
-// an unknown precision.
+// backward): FP32 planes, (2, R, C) and, under kHighest, (4, 4, R, C); the
+// bf16 split scratch of circuit_bf16.cuh for the backward under kHigh and
+// kDefault; -1 for an unknown precision.
 long long tn_circuit2d_scratch_bytes(int n, int layers, int backward, int precision) {
   const long long S = 1LL << n;
+  if (!backward) return precision >= tn::kHighest && precision <= tn::kDefault ? 8 * S : -1;
   switch (precision) {
-    case tn::kHighest: return 4 * (backward ? 16 : 2) * S;
-    case tn::kHigh: return 2 * tn::b16::split_elems<tn::kHigh>(n, layers, backward);
-    case tn::kDefault: return 2 * tn::b16::split_elems<tn::kDefault>(n, layers, backward);
+    case tn::kHighest: return 4 * 16 * S;
+    case tn::kHigh: return 2 * tn::b16::split_elems<tn::kHigh>(n, layers);
+    case tn::kDefault: return 2 * tn::b16::split_elems<tn::kDefault>(n, layers);
   }
   return -1;
+}
+
+// The launch plan of the backward's bf16 kernel (circuit_bf16.cuh bwd_plan)
+// on a card of `sms` SMs, as out[0..5] = cs, items, t0, t1, t2, smem bytes
+// (items 0: no plan fits). Returns 0, or -1 for an unknown precision.
+int tn_circuit2d_bwd_bf16_plan(int n, int precision, int sms, long long* out) {
+  tn::b16::Plan p;
+  switch (precision) {
+    case tn::kHigh: p = tn::b16::bwd_plan<tn::kHigh>(n, sms); break;
+    case tn::kDefault: p = tn::b16::bwd_plan<tn::kDefault>(n, sms); break;
+    default: return -1;
+  }
+  const long long v[6] = {p.cs, p.items, p.t0, p.t1, p.t2, (long long)p.smem};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 0;
 }
 
 }  // extern "C"

@@ -37,7 +37,7 @@
 // unit on each of 128 SMs.
 //
 // Precision: this kernel runs `highest` (FP32). The bf16 variants (`high`,
-// `default`) are the cluster kernels of circuit_bf16.cuh.
+// `default`) are the kernel of circuit_bf16.cuh.
 //
 // Flat state indices are 32-bit, as in circuit_layers.cuh.
 

@@ -39,8 +39,14 @@
 // kept): 128 units a phase at n=16 (256 at n=17, 64 at n=15), each 32 x 16
 // outputs x 256 complex MACs, about 2 us at one SM's share of the FMA peak.
 //
-// Precision: this kernel runs `highest` (FP32). The bf16 variants (`high`,
-// `default`) are the cluster kernels of circuit_bf16.cuh.
+// Precision P (mma_bf16.cuh): the products run the units' FP32 FMA loops
+// (kHighest) or their bf16 tensor-core passes (kHigh, kDefault). phi0 is
+// the product Mr[0] X0 at the same precision: both operands rounded
+// (kDefault) or split (kHigh), the wall's amplitude a as any entry of X0
+// (exact in bf16 for even n, not for odd n). With the wall it is
+//   kDefault: bf16(a) sum_k bf16(m_k);
+//   kHigh:    a_hi sum_k (m_hi + m_lo) + a_lo sum_k m_hi,
+// the three passes' terms regrouped; without it X0 = e00 and 1 is exact.
 //
 // Flat state indices are 32-bit, as in circuit_layers.cuh.
 
@@ -64,6 +70,7 @@ struct Args {
   float amp;               // 2^(-n/2), the wall's amplitude
 };
 
+template <int P>
 __global__ void __launch_bounds__(THREADS, 1) circuit2d_fwd_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
   __shared__ PermSpec spec;
@@ -84,20 +91,49 @@ __global__ void __launch_bounds__(THREADS, 1) circuit2d_fwd_kernel(Args a) {
     if (a.has_wall) {
       sr = 0.f;
       si = 0.f;
+      float hr = 0.f, hi = 0.f;  // kHigh: the sums of the hi parts alone
       for (int k = lane; k < R; k += 32) {
-        sr += mr[k];
-        si += mi[k];
+        if constexpr (P == kHighest) {
+          sr += mr[k];
+          si += mi[k];
+        } else {
+          sr += mma::operand<P>(mr[k]);
+          si += mma::operand<P>(mi[k]);
+          if constexpr (P == kHigh) {
+            hr += mma::operand<kDefault>(mr[k]);
+            hi += mma::operand<kDefault>(mi[k]);
+          }
+        }
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) {
         sr += __shfl_xor_sync(0xffffffffu, sr, off);
         si += __shfl_xor_sync(0xffffffffu, si, off);
+        if constexpr (P == kHigh) {
+          hr += __shfl_xor_sync(0xffffffffu, hr, off);
+          hi += __shfl_xor_sync(0xffffffffu, hi, off);
+        }
       }
-      sr *= a.amp;
-      si *= a.amp;
-    } else {
+      if constexpr (P == kHighest) {
+        sr *= a.amp;
+        si *= a.amp;
+      } else {
+        const float a_hi = mma::operand<kDefault>(a.amp);
+        if constexpr (P == kHigh) {
+          const float a_lo = mma::operand<kDefault>(a.amp - a_hi);
+          sr = a_hi * sr + a_lo * hr;
+          si = a_hi * si + a_lo * hi;
+        } else {
+          sr *= a_hi;
+          si *= a_hi;
+        }
+      }
+    } else if constexpr (P == kHighest) {
       sr = mr[0];
       si = mi[0];
+    } else {
+      sr = mma::operand<P>(mr[0]);
+      si = mma::operand<P>(mi[0]);
     }
     for (int j = lane; j < C; j += 32) {
       const bool on = a.has_wall || j == 0;
@@ -118,7 +154,7 @@ __global__ void __launch_bounds__(THREADS, 1) circuit2d_fwd_kernel(Args a) {
     right.M = R; right.N = C; right.K = C; right.batch = 1;
     set_vec(right);
     const bool last = l == a.layers - 1;
-    run<false, false, TN, true>(right, nullptr, smem, &spec, last ? a.probs : nullptr);
+    run<false, false, TN, true, P>(right, nullptr, smem, &spec, last ? a.probs : nullptr);
     if (last) break;
     grid.sync();
 
@@ -131,16 +167,17 @@ __global__ void __launch_bounds__(THREADS, 1) circuit2d_fwd_kernel(Args a) {
     left.c_re = tr; left.c_im = ti; left.c_sm = C;
     left.M = R; left.N = C; left.K = R; left.batch = 1;
     set_vec(left);
-    run<false, false, TN, false>(left, nullptr, smem);
+    run<false, false, TN, false, P>(left, nullptr, smem);
     grid.sync();
   }
 }
 
 // One cooperative launch of one block per SM, or the error that refused it
 // (nothing launched).
+template <int P>
 inline cudaError_t circuit_forward_persistent(const Args& a, cudaStream_t st) {
   static PerDevice<LaunchPlan> plans;
-  return launch_persistent(circuit2d_fwd_kernel, plans, a, st);
+  return launch_persistent(circuit2d_fwd_kernel<P>, plans, a, st);
 }
 
 }  // namespace fwd

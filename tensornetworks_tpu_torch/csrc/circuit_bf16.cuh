@@ -1,35 +1,33 @@
 // The bf16 variants (kernel precision `high` and `default`, mma_bf16.cuh) of
-// the two persistent n <= 17 circuit kernels, redesigned for Hopper: one
-// cooperative launch each, operands split once into bf16 planes, TMA
-// copies of whole-K tiles, tensor-core products from bf16 shared-memory
-// tiles, one wave per phase.
+// the persistent n <= 17 circuit backward, redesigned for Hopper: one
+// cooperative launch, operands split once into bf16 planes, TMA copies of
+// whole-K tiles, tensor-core products from bf16 shared-memory tiles, one
+// wave per phase.
 //
-// Replaces, at those precisions, the TPU kernels of
-// tensornetworks_tpu/ops/pallas/circuit2d.py: fwd_kernel (:185, with
-// kernel :164; the forward, tn_circuit2d_forward) and bwd_kernel (:227;
-// the adjoint sweep, tn_circuit2d_backward). The FP32 kernels
-// (circuit2d_fwd.cuh, circuit2d_bwd.cuh) keep `highest`.
+// Replaces, at those precisions, the TPU kernel bwd_kernel of
+// tensornetworks_tpu/ops/pallas/circuit2d.py:227 (the adjoint sweep,
+// tn_circuit2d_backward). The FP32 kernel (circuit2d_bwd.cuh) keeps
+// `highest`; the forward's bf16 variants stay the units of circuit_units.cuh
+// (the forward redesigned this way was slower than those: PERF.md).
 //
-// Bound at n=16, bn L=8 (R = C = 256): the forward's 2L complex products
-// of 256^3, 8 L (R^2 C + R C^2) real FLOPs a pass, are 6.5 us under `high`
-// (three passes) at 989 TFLOP/s and 2.2 us under `default`, where the
-// bytes (operators and state in FP32, 2.7 us at 3.35 TB/s) bound it; the
-// backward's 6L products 19.5 us and 6.5 us. What held the earlier bf16
-// units (mma.sync inside the FP32 units) at 2.6-7% of that, and
-// what this design does about it:
+// Bound at n=16, bn L=8 (R = C = 256): the backward's 6L complex products
+// of 256^3, 24 L (R^2 C + R C^2) real FLOPs a pass, are 19.5 us under
+// `high` (three passes) at 989 TFLOP/s and 6.5 us under `default`; the
+// bytes (operators, state and gradients in FP32, 2.7 us at 3.35 TB/s) are
+// less. The 3L grid barriers (about 1.3 us each on the H100) add a floor of
+// about 32 us. What held the earlier bf16 units (mma.sync inside the FP32
+// units) at 2.6-7% of the bound, and what this design does about it:
 //
 // 1. The split. Each FP32 plane was rounded (and split) to bf16 in the K
 //    loop, by every unit that read it. Here every layer's Mr and Mc are
 //    split once per call into a bf16 scratch the wrapper allocates (hi =
 //    bf16_rn(x) and, under `high`, lo = bf16_rn(x - hi):
-//    precision.split_bf16's values), in the phase that opens the kernel
-//    (the forward's phi0, the backward's first unpermute), which a grid
-//    barrier ends. Every epilogue that writes a state plane a later
-//    product reads writes that plane's split instead: the forward's tmp and
-//    its scatter store (into one of two X splits, by layer parity), the
-//    backward's unpermute (it moves split planes: a sign flips hi and lo
-//    exactly), V and W. FP32 planes are written only where something reads
-//    them: xr/xi/probs (last layer) and dMr/dMc. No K loop converts.
+//    precision.split_bf16's values), in the first unpermute phase, which a
+//    grid barrier ends. Every epilogue that writes a state plane a later
+//    product reads writes that plane's split instead: the unpermute (it
+//    moves split planes: a sign flips hi and lo exactly), V and W. FP32
+//    planes are written only where something reads them: dMr/dMc. No K loop
+//    converts.
 // 2. Tiles. A unit's operand tiles come whole (all of K) into shared memory
 //    by TMA (cp.async.bulk.tensor; tensor maps encoded once per call: the
 //    operands do not move during it), one box holding all of a tile's
@@ -41,11 +39,10 @@
 //    keep their global orientation under TMA's 128-,
 //    64- or 32-byte swizzle, and ldmatrix reads them (.trans for an
 //    m/n-contiguous operand) free of bank conflicts. A static operator's
-//    tile (Mr or Mc rows) is requested before the barrier that opens its
-//    phase: the forward's Mc[l] and Mr[l+1], the backward's Mc[l] and
-//    Mr[l]^H. Below n = 10 (R or C < 32: a box wider than the tensor) the
-//    tiles are filled element by element: the shape decides, the same
-//    units run.
+//    tile is requested before the barrier that opens its phase: Mc[l]'s
+//    columns and Mr[l]^H's rows. Below n = 10 (R or C < 32: a box wider
+//    than the tensor) the tiles are filled element by element: the shape
+//    decides, the same units run.
 // 3. Products. mma.sync.m16n8k16 bf16 (a 64-row wgmma tile would leave
 //    under 32 units a phase at n=16), one 16 x 16 warp tile (one batch
 //    element) a warp, all of K or a fixed share of its k16 steps; the
@@ -55,24 +52,16 @@
 //    and the step's sums are added to the FP32 accumulators by FADD (the
 //    promotion rule of mma_bf16.cuh). No float atomics: a call repeats bit
 //    for bit.
-// 4. Waves. A phase's units are the tiles of an "item" (the forward's row
-//    blocks of 16 rows, the backward's column blocks of 16) times its cs
-//    column (forward) or row (backward) slices: 128 units a phase at
-//    n=16 on 132 SMs, one wave (the FP32 backward's bf16 units took two).
-//    The index maps and CZ signs come from byte tables per layer (ByteMap),
-//    built while the preceding barrier waits.
-// 5. Barriers. Each layer's two rotations are a pair of products whose
-//    second reads one block of the first's result (tmp's row block; V's
-//    column block), so a cluster of thread blocks owning an item can meet
-//    at a cluster barrier in place of a grid barrier (kClusterPairs: L grid
-//    barriers in the forward, 2L in the backward), sharing its items' common
-//    tiles by TMA multicast. On the H100 the card holds only 15 clusters of
-//    8 blocks at this shared memory, so the items are cut 15 ways (tiles
-//    of 32 rows for 17-18, 32 columns for 16-24) and the padding cost more
-//    than the barriers saved: PERF.md has both forms' times and phases. The
-//    kernels as built keep the grid barriers between the pair's products
-//    (2L - 1 and 3L); runners/probe_kernels.py times both forms. n=17: the
-//    groups loop over their items (32 row blocks, 16 column blocks).
+// 4. Waves. A phase's units are the column blocks ("items", runs of 8
+//    columns) times cs row slices: 128 units a phase at n=16 on 132 SMs,
+//    one wave (the FP32 kernel's bf16 units took two). The index maps and
+//    CZ signs come from byte tables per layer (ByteMap), built while the
+//    preceding barrier waits. n=17: the units loop over 16 column blocks.
+// 5. Barriers. The kernel keeps three grid barriers a layer (3L). A form
+//    with a cluster barrier between each layer's two pull-backs (2L) was
+//    measured slower on the H100, which holds only 15 clusters of 8 blocks
+//    at this shared memory, so that the items had to be padded: PERF.md has
+//    both forms' times.
 //
 // Flat state indices are 32-bit, as in circuit_layers.cuh.
 
@@ -99,11 +88,6 @@ typedef unsigned short u16;  // bf16 bits
 constexpr int WARPS = 8, THREADS = 32 * (WARPS + 1), PRODUCER = 32 * WARPS;
 constexpr int SMEM_MAX = 232448;  // a block's shared memory on the H100 (227 KB)
 constexpr int SMEM_DYN = SMEM_MAX - 8192;  // less the static tables (PermSpec, ByteMap)
-// The forward's and backward's products as cluster pairs (true: L and 2L
-// grid barriers) or as the same units behind grid barriers (false: 2L - 1
-// and 3L). The grid-barrier form is the faster on the H100 (PERF.md) and is
-// the one built; runners/probe_kernels.py times both.
-constexpr bool kClusterPairs = false;
 
 template <int P>
 struct Parts {
@@ -344,18 +328,6 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// The same box for every block of the cluster whose bit is set in `mask`,
-// completing on each one's mbarrier at the same offset.
-__device__ __forceinline__ void tma_multicast(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
-                                              int c0, int c1, int c2, uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "h"(mask)
-      : "memory");
-}
-
 // A unit's operand tile and where it comes from: the tensor map (TMA path)
 // with the map coordinates of the operand's row (m/n) 0 and k 0 (c_row) and
 // of its batch 0's first plane (c_plane); a box holds all of the tile's
@@ -371,13 +343,9 @@ struct Load {
 // The copies of one operand tile into shared memory, one mbarrier a K piece
 // (bars[p]); started by the producer thread (the TMA path) or by every thread (the
 // element path, which needs the block barrier product() passes at its
-// first piece). A tile every block of a cluster of `share` blocks needs
-// (share > 1) is multicast: each block expects all of it and issues the
-// boxes q with q % share == its rank, to every block of the cluster; the
-// caller makes sure that every block's copy of the region is free (a
-// cluster or grid barrier since its last read).
+// first piece).
 template <int P>
-__device__ void load_tile(const Load& l, int kp, bool tma, uint64_t* bars, int share = 1) {
+__device__ void load_tile(const Load& l, int kp, bool tma, uint64_t* bars) {
   if (!tma) {
     copy_elements<P>(l.s, l.r0, l.tr, l.rlim, kp, l.nb, l.t);
     return;
@@ -385,18 +353,12 @@ __device__ void load_tile(const Load& l, int kp, bool tma, uint64_t* bars, int s
   if (threadIdx.x != PRODUCER) return;
   const int np = pieces(kp), kw = kp / np;
   const int per = l.s.mn ? 1 : kw / (kp < 64 ? kp : 64);  // boxes a piece
-  const int rank = share > 1 ? (int)cg::this_cluster().block_rank() : 0;
   for (int p = 0; p < np; ++p) mbar_expect_tx(&bars[p], (uint32_t)(per * l.t.block));
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // after ldmatrix reads
   for (int blk = 0; blk < np * per; ++blk) {
-    if (blk % share != rank) continue;
     const int p = blk / per;
-    const uint32_t dst = l.t.base + blk * l.t.block;
     const int c0 = l.s.mn ? l.r0 : blk * 64, c1 = l.s.mn ? l.c_row + p * kw : l.c_row + l.r0;
-    if (share > 1)
-      tma_multicast(dst, l.map, &bars[p], c0, c1, l.c_plane, (uint16_t)((1u << share) - 1));
-    else
-      tma_load(dst, l.map, &bars[p], c0, c1, l.c_plane);
+    tma_load(l.t.base + blk * l.t.block, l.map, &bars[p], c0, c1, l.c_plane);
   }
 }
 
@@ -650,19 +612,13 @@ __host__ __device__ __forceinline__ int span_lo(int c, int items, int groups, in
 
 // ------------------------------------------------------------ plans
 
-// A launch's shape, chosen on the host by the plan functions below (and
-// mirrored by circuit2d.py's bf16_plan for the CPU tests), for `clusters`
-// groups of cs blocks (as built SMs / cs, one block an SM; the cluster form
-// the card's active clusters):
-//   forward:  cs blocks a group, each a column slice of tn = C / cs (at
-//             least 16); items = row blocks (16 rows each where there is a
-//             group for each, else R cut evenly over the groups, t0 = tile
-//             rows 16 or 32; at n=17 16-row items, looped);
-//   backward: cs blocks a group, each a share of the rows in tiles of t1 =
-//             32 or 16; items = column blocks of runs of 8 columns cut
-//             evenly over the groups, t0 = tile columns (a power of two, at
-//             least 16); at n=17 16-column items, looped; t2: dMc's tile
-//             rows.
+// A launch's shape, chosen on the host by bwd_plan below (the library
+// exports it as tn_circuit2d_bwd_bf16_plan; circuit2d.py's bf16_plan mirrors
+// it for the CPU tests, and chip_smoke.py holds the two equal): cs blocks a
+// set, each a share of the rows in tiles of t1 = 32 or 16, and sms / cs sets
+// (one block an SM); items = column blocks of runs of 8 columns cut evenly
+// over the sets, t0 = tile columns (a power of two, at least 16); at n=17
+// 16-column items, looped; t2: dMc's tile rows.
 struct Plan {
   int cs, items, t0, t1, t2;
   size_t smem;
@@ -673,33 +629,6 @@ constexpr size_t RED_BYTES = WARPS * 32 * 16 * 4;  // the share sums
 __host__ __device__ __forceinline__ int pow2_at_least(int x) {
   int p = 1;
   while (p < x) p *= 2;
-  return p;
-}
-
-// Bytes of the forward's shared memory: A tiles (tm x K), B tiles (K x tn).
-template <int P>
-inline size_t fwd_smem(int n, int tm, int tn) {
-  constexpr int NP = Parts<P>::NP;
-  const int rb = (n + 1) / 2, cb = n - rb, kp = round16(1 << (rb > cb ? rb : cb));
-  return (size_t)2 * NP * 2 * kp * (tm + tn) + RED_BYTES;
-}
-
-// `clusters`: clusters of the plan's cs the card holds at once.
-template <int P>
-inline Plan fwd_plan(int n, int clusters) {
-  const int rb = (n + 1) / 2, cb = n - rb, R = 1 << rb, C = 1 << cb;
-  Plan p = {};
-  p.cs = C / 16 < 1 ? 1 : (C / 16 > 8 ? 8 : C / 16);
-  p.t1 = C / p.cs > 16 ? C / p.cs : 16;
-  const int blocks16 = cdiv(R, 16);
-  if (blocks16 <= clusters || R > 256) {
-    p.items = blocks16;
-    p.t0 = 16;
-  } else {
-    p.items = clusters;
-    p.t0 = round16(cdiv(R, clusters));
-  }
-  p.smem = fwd_smem<P>(n, p.t0, p.t1);
   return p;
 }
 
@@ -727,14 +656,15 @@ __host__ __device__ inline size_t bwd_region_b(int n, int tnb) {
   return r;
 }
 
+// sms: the card's SMs.
 template <int P>
-inline Plan bwd_plan(int n, int clusters) {
+inline Plan bwd_plan(int n, int sms) {
   const int rb = (n + 1) / 2, cb = n - rb, R = 1 << rb, C = 1 << cb;
   const int groups = C >= 8 ? C / 8 : 1;
   Plan p = {};
   p.cs = R / 32 < 1 ? 1 : (R / 32 > 8 ? 8 : R / 32);  // every block has row tiles
   p.t2 = R > 256 ? 16 : 32;
-  const int spread = groups < clusters ? groups : clusters;
+  const int sets = sms / p.cs, spread = groups < sets ? groups : sets;
   const int wide = 8 * pow2_at_least(cdiv(groups, spread));
   const int options[2][2] = {{spread, wide > 16 ? wide : 16}, {groups / 2 > 1 ? groups / 2 : 1, 16}};
   const int tmbs[2] = {32, 16};
@@ -753,34 +683,15 @@ inline Plan bwd_plan(int n, int clusters) {
 }
 
 // u16 elements of the split scratch: Mr and Mc of every layer, then the
-// state: tmp, X[0], X[1] (forward) or U[0], U[1], V, W with the cotangent's
-// planes (backward).
+// state: U[0], U[1], V, W with the cotangent's planes.
 template <int P>
-inline long long split_elems(int n, int layers, bool backward) {
+inline long long split_elems(int n, int layers) {
   const int rb = (n + 1) / 2, cb = n - rb;
   const long long R = 1LL << rb, C = 1LL << cb;
-  return 2LL * Parts<P>::NP * (layers * (R * R + C * C) + (backward ? 8 : 3) * R * C);
+  return 2LL * Parts<P>::NP * (layers * (R * R + C * C) + 8 * R * C);
 }
 
-// ------------------------------------------------------------ the forward
-
-// The forward's tensor maps (TMA path): Mr and tmp k-contiguous (boxes of a
-// tile's rows), Mc k-contiguous (boxes of a block's tn rows), both X splits
-// n-contiguous; a box spans an operand's planes.
-struct FwdMaps {
-  CUtensorMap mr, tmp, mc, x;
-};
-
-struct FwdArgs {
-  const float* mr_re; const float* mr_im; const float* mc_re; const float* mc_im;
-  float* probs; float* xr; float* xi;
-  u16* split;              // the scratch (split_elems): Mr, Mc, tmp, X[0], X[1]
-  const unsigned* masks;   // (2 layers, n): layer l's row masks, then its CZ masks
-  int n, layers, has_wall;
-  float amp;               // 2^(-n/2), the wall's amplitude
-  Plan plan;
-  int cluster;             // kClusterPairs
-};
+// ------------------------------------------------------------ the backward
 
 // Dynamic shared memory is aligned here to 1024 bytes (the 128-byte
 // swizzle's period); the launch asks 1 KB more than the regions take.
@@ -802,201 +713,6 @@ __device__ __forceinline__ void fence_async() {
   asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
-template <int P>
-__global__ void __launch_bounds__(THREADS, 1)
-    circuit2d_fwd_bf16_kernel(const __grid_constant__ FwdMaps maps, FwdArgs a) {
-  constexpr int NP = Parts<P>::NP;
-  extern __shared__ uint8_t smem_raw[];
-  __shared__ PermSpec spec;
-  __shared__ ByteMap bmap;
-  __shared__ uint64_t bars[8];
-  cg::grid_group grid = cg::this_grid();
-
-  const int n = a.n, rb = (n + 1) / 2, cb = n - rb, L = a.layers;
-  const int R = 1 << rb, C = 1 << cb, S = R * C;
-  const int kpr = round16(R), kpc = round16(C), kmax = kpr > kpc ? kpr : kpc;
-  const long long LRR = (long long)L * R * R, LCC = (long long)L * C * C;
-  u16* const mr = a.split;
-  u16* const mc = mr + 2LL * NP * LRR;
-  u16* const tmp = mc + 2LL * NP * LCC;
-  u16* const xs[2] = {tmp + 2LL * NP * S, tmp + 4LL * NP * S};
-  const bool tma = uses_tma(n);
-  const int cs = a.plan.cs, tm = a.plan.t0, tn = a.plan.t1, units = a.plan.items * cs;
-  uint8_t* const smem = aligned(smem_raw);
-  const uint32_t sa = smem_u32(smem), sb = sa + 2 * NP * 2 * kmax * tm;
-  float* const red = reinterpret_cast<float*>(smem + 2 * NP * 2 * kmax * (tm + tn));
-  init_bars(bars);
-  if (tma) prefetch_maps(maps);
-  uint32_t ph = 0;
-  auto waits = [&](bool wa, bool wb) { return Waits{tma, wa, wb, bars, &ph}; };
-
-  // phi0: the split of every layer's Mr and Mc, and tmp = Mr[0] X0 in
-  // closed form (circuit2d_fwd.cuh's phi0), stored as its split
-  split_range<P>(a.mr_re, mr, LRR, LRR);
-  split_range<P>(a.mr_im, mr + NP * LRR, LRR, LRR);
-  split_range<P>(a.mc_re, mc, LCC, LCC);
-  split_range<P>(a.mc_im, mc + NP * LCC, LCC, LCC);
-  const int lane = threadIdx.x % 32, warps = gridDim.x * (THREADS / 32);
-  for (int i = blockIdx.x * (THREADS / 32) + threadIdx.x / 32; i < R; i += warps) {
-    const float* mre = a.mr_re + (long long)i * R;
-    const float* mim = a.mr_im + (long long)i * R;
-    float sr, si;
-    if (a.has_wall) {
-      sr = 0.f;
-      si = 0.f;
-      float hr = 0.f, hi = 0.f;  // kHigh: the sums of the hi parts alone
-      for (int k = lane; k < R; k += 32) {
-        sr += mma::operand<P>(mre[k]);
-        si += mma::operand<P>(mim[k]);
-        if constexpr (P == kHigh) {
-          hr += mma::operand<kDefault>(mre[k]);
-          hi += mma::operand<kDefault>(mim[k]);
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        sr += __shfl_xor_sync(0xffffffffu, sr, off);
-        si += __shfl_xor_sync(0xffffffffu, si, off);
-        if constexpr (P == kHigh) {
-          hr += __shfl_xor_sync(0xffffffffu, hr, off);
-          hi += __shfl_xor_sync(0xffffffffu, hi, off);
-        }
-      }
-      const float a_hi = mma::operand<kDefault>(a.amp);
-      if constexpr (P == kHigh) {
-        const float a_lo = mma::operand<kDefault>(a.amp - a_hi);
-        sr = a_hi * sr + a_lo * hr;
-        si = a_hi * si + a_lo * hi;
-      } else {
-        sr *= a_hi;
-        si *= a_hi;
-      }
-    } else {
-      sr = mma::operand<P>(mre[0]);
-      si = mma::operand<P>(mim[0]);
-    }
-    for (int j = 2 * lane; j < C; j += 64) {  // the wall: every column; else column 0
-      const long long e = (long long)i * C + j;
-      const bool first = a.has_wall || j == 0;
-      put2<P>(tmp + e, S, first ? sr : 0.f, a.has_wall ? sr : 0.f);
-      put2<P>(tmp + NP * S + e, S, first ? si : 0.f, a.has_wall ? si : 0.f);
-    }
-  }
-  fence_async();
-  unit::load_spec(spec, a.masks, n, 0);  // layer 0's map, while the barrier waits
-  build_map(bmap, spec);
-  grid.sync();
-
-  // Unit u: item u / cs (rows m0 .. m1), column slice u % cs (n0 .. n0 + tn).
-  // Left: tmp[m0:m1, slice] = Mr[l] rows (A, k-contiguous) X (B,
-  // n-contiguous, the previous layer's scatter target). Right: X' =
-  // scatter(tmp rows (A) Mc[l]^T (B[k][n] = Mc[n][k], k-contiguous)).
-  auto rows_of = [&](int u, int& m0, int& m1) {
-    m0 = span_lo(u / cs, a.plan.items, R, 1);
-    m1 = span_lo(u / cs + 1, a.plan.items, R, 1);
-  };
-  auto mr_load = [&](int l, int u) {
-    int m0, m1;
-    rows_of(u, m0, m1);
-    return Load{{mr + l * (long long)R * R, 0, NP * LRR, LRR, R, 1, R, R, false},
-                make_tile(sa, false, tm, kpr, 2 * NP), m0, tm, m1, 1, &maps.mr, l * R, 0};
-  };
-  auto x_load = [&](int l, int u) {
-    const int buf = (l - 1) & 1;
-    return Load{{xs[buf], 0, (long long)NP * S, S, 1, C, C, R, true},
-                make_tile(sb, true, tn, kpr, 2 * NP), (u % cs) * tn, tn, C, 1, &maps.x, 0,
-                buf * 2 * NP};
-  };
-  auto mc_load = [&](int l, int u) {
-    return Load{{mc + l * (long long)C * C, 0, NP * LCC, LCC, C, 1, C, C, false},
-                make_tile(sb, false, tn, kpc, 2 * NP), (u % cs) * tn, tn, C, 1, &maps.mc, l * C, 0};
-  };
-  auto tmp_load = [&](int u) {
-    int m0, m1;
-    rows_of(u, m0, m1);
-    return Load{{tmp, 0, (long long)NP * S, S, C, 1, R, C, false},
-                make_tile(sa, false, tm, kpc, 2 * NP), m0, tm, m1, 1, &maps.tmp, 0, 0};
-  };
-  bool mr_in = false;  // the first left product's Mr rows are in flight
-
-  // cluster pairs share the A tiles (Mr rows, tmp rows) of an item by multicast
-  const int share = a.cluster ? cs : 1;
-  auto left = [&](int l, int u) {
-    const Load A = mr_load(l, u), B = x_load(l, u);
-    if (!mr_in) load_tile<P>(A, kpr, tma, bars, share);
-    mr_in = false;
-    load_tile<P>(B, kpr, tma, bars + 4);
-    product<P, false, false>(A, false, B, false, Out{A.r0, B.r0, tm, tn, 1, A.rlim, C}, kpr, red,
-                             waits(true, true),
-                             [&](int, int m, int nn, float r0, float i0, float r1, float i1) {
-                               const long long e = (long long)m * C + nn;
-                               put2<P>(tmp + e, S, r0, r1);
-                               put2<P>(tmp + NP * S + e, S, i0, i1);
-                             });
-    fence_async();
-  };
-  auto right = [&](int l, int u) {
-    const Load A = tmp_load(u), B = mc_load(l, u);
-    const bool last = l == L - 1;
-    u16* const xo = xs[l & 1];
-    load_tile<P>(A, kpc, tma, bars, share);
-    product<P, false, false>(
-        A, false, B, false, Out{A.r0, B.r0, tm, tn, 1, A.rlim, C}, kpc, red, waits(true, true),
-        [&](int, int m, int nn, float r0, float i0, float r1, float i1) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float vr = e ? r1 : r0, vi = e ? i1 : i0;
-            const unsigned d = map_dst(bmap, (unsigned)(m * C + nn + e));
-            const float sg = map_sign(bmap, d);
-            if (last) {
-              a.xr[d] = sg * vr;
-              a.xi[d] = sg * vi;
-              a.probs[d] = vr * vr + vi * vi;
-            } else {
-              put<P>(xo + d, S, sg * vr);
-              put<P>(xo + NP * S + d, S, sg * vi);
-            }
-          }
-        });
-    fence_async();
-  };
-
-  for (int l = 0; l < L; ++l) {
-    if (a.cluster) {
-      for (int u = blockIdx.x; u < units; u += gridDim.x) {
-        if (u != blockIdx.x) cg::this_cluster().sync();  // every copy of region A read
-        if (l > 0) left(l, u);
-        load_tile<P>(mc_load(l, u), kpc, tma, bars + 4);  // before the cluster barrier
-        if (l > 0) cg::this_cluster().sync();
-        right(l, u);
-      }
-    } else {
-      if (l > 0)
-        for (int u = blockIdx.x; u < units; u += gridDim.x) left(l, u);
-      for (int u = blockIdx.x; u < units; u += gridDim.x) {
-        load_tile<P>(mc_load(l, u), kpc, tma, bars + 4);  // the first before the barrier
-        if (l > 0 && u == blockIdx.x) {
-          grid.sync();
-        }
-        right(l, u);
-      }
-      if (l > 0 && blockIdx.x >= units) {
-        grid.sync();
-      }
-    }
-    if (l == L - 1) break;
-    if (!a.cluster && blockIdx.x < units) {  // the next layer's first Mr rows, before the
-      load_tile<P>(mr_load(l + 1, blockIdx.x), kpr, tma, bars);  // barrier (multicast ones
-      mr_in = true;                                               // wait for it)
-    }
-    unit::load_spec(spec, a.masks, n, l + 1);  // the next layer's map, while the barrier waits
-    build_map(bmap, spec);
-    grid.sync();
-  }
-}
-
-// ------------------------------------------------------------ the backward
-
 // The backward's tensor maps (TMA path) over every state plane (U[0], U[1],
 // V, W: planes x_re, x_im, l_re, l_im, each its parts): k-contiguous in
 // boxes of tmb rows (phi2's U rows) and of 32 rows (the gradients' V and W
@@ -1015,7 +731,6 @@ struct BwdArgs {
   const unsigned* masks;   // (2 layers, n): layer l's row masks, then its CZ masks
   int n, layers;
   Plan plan;
-  int cluster;             // kClusterPairs
 };
 
 template <int P>
@@ -1077,12 +792,10 @@ __global__ void __launch_bounds__(THREADS, 1)
                 make_tile(sa, true, tmb, kpr, 2 * NP), rt * tmb, tmb, R, 1, &maps.mr, l * R, 0};
   };
 
-  // cluster pairs share the B tiles (Mc columns, V columns) of an item by multicast
-  const int share = a.cluster ? cs : 1;
   // V[rows, n0:n1] = U rows conj(Mc[l][:, n0:n1]), each row tile of unit u
   auto col_pull = [&](int l, int u, bool mc_in) {
     const Load B = mc_load(l, u);
-    if (!mc_in) load_tile<P>(B, kpc, tma, bars + 4, share);
+    if (!mc_in) load_tile<P>(B, kpc, tma, bars + 4);
     bool wait_b = true;
     for (int rt = u % cs; rt < row_tiles; rt += cs) {
       const Load A = {{U[l & 1], 2 * PS, PS, S, C, 1, R, C, false},
@@ -1106,7 +819,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const Load A = mr_load(l, rt);
       if (!mr_in) load_tile<P>(A, kpr, tma, bars);
       mr_in = false;
-      if (first) load_tile<P>(B, kpr, tma, bars + 4, share);
+      if (first) load_tile<P>(B, kpr, tma, bars + 4);
       product<P, true, false>(A, false, B, true, Out{A.r0, n0, tmb, tnb, 2, R, n1}, kpr, red,
                               waits(true, first), store_split(W));
       first = false;
@@ -1184,37 +897,24 @@ __global__ void __launch_bounds__(THREADS, 1)
     fence_async();
     if (l < L - 1) {
       grads(l + 1);
-      if (!a.cluster && blockIdx.x < units) {  // phi2's Mc columns, before the barrier
-        load_tile<P>(mc_load(l, blockIdx.x), kpc, tma, bars + 4);  // (multicast ones wait
-        mc_in = true;                                                // for it)
+      if (blockIdx.x < units) {  // phi2's Mc columns, before the barrier
+        load_tile<P>(mc_load(l, blockIdx.x), kpc, tma, bars + 4);
+        mc_in = true;
       }
     }
     grid.sync();
 
     // phi2: V = U conj(Mc[l]); phi3: W = Mr[l]^H V (state and cotangent)
-    if (a.cluster) {
-      for (int u2 = blockIdx.x; u2 < units; u2 += gridDim.x) {
-        if (u2 != blockIdx.x) cg::this_cluster().sync();  // every copy of region B read
-        col_pull(l, u2, mc_in);
-        mc_in = false;
-        const bool pre = u2 % cs < row_tiles;
-        if (pre)  // phi3's first Mr^H rows, before the barrier
-          load_tile<P>(mr_load(l, u2 % cs), kpr, tma, bars);
-        cg::this_cluster().sync();
-        row_pull(l, u2, pre);
-      }
-    } else {
-      for (int u2 = blockIdx.x; u2 < units; u2 += gridDim.x) {
-        col_pull(l, u2, mc_in);
-        mc_in = false;
-      }
-      const bool pre = blockIdx.x < units && blockIdx.x % cs < row_tiles;
-      if (pre)  // phi3's first Mr^H rows, before the barrier
-        load_tile<P>(mr_load(l, blockIdx.x % cs), kpr, tma, bars);
-      grid.sync();
-      for (int u2 = blockIdx.x; u2 < units; u2 += gridDim.x) {
-        row_pull(l, u2, pre && u2 == blockIdx.x);
-      }
+    for (int u2 = blockIdx.x; u2 < units; u2 += gridDim.x) {
+      col_pull(l, u2, mc_in);
+      mc_in = false;
+    }
+    const bool pre = blockIdx.x < units && blockIdx.x % cs < row_tiles;
+    if (pre)  // phi3's first Mr^H rows, before the barrier
+      load_tile<P>(mr_load(l, blockIdx.x % cs), kpr, tma, bars);
+    grid.sync();
+    for (int u2 = blockIdx.x; u2 < units; u2 += gridDim.x) {
+      row_pull(l, u2, pre && u2 == blockIdx.x);
     }
     if (l > 0) {  // the next layer's map, while the barrier waits
       unit::load_spec(spec, a.masks, n, l - 1);
@@ -1280,21 +980,6 @@ inline int slab_k(int kp) { return kp < 64 ? kp : 64; }
 inline int piece_k(int kp) { return kp / pieces(kp); }
 
 template <int P>
-inline bool fwd_maps(FwdMaps* m, const FwdArgs& a, const Plan& p) {
-  constexpr int NP = Parts<P>::NP;
-  const int rb = (a.n + 1) / 2, cb = a.n - rb;
-  const long long R = 1LL << rb, C = 1LL << cb, S = R * C, L = a.layers;
-  const int kpr = round16((int)R), kpc = round16((int)C);
-  const u16* mr = a.split;
-  const u16* mc = mr + 2 * NP * L * R * R;
-  const u16* tmp = mc + 2 * NP * L * C * C;
-  return encode(&m->mr, mr, R, L * R, R, 2 * NP, L * R * R, slab_k(kpr), p.t0, 2 * NP) &&
-         encode(&m->tmp, tmp, C, R, C, 2 * NP, S, slab_k(kpc), p.t0, 2 * NP) &&
-         encode(&m->mc, mc, C, L * C, C, 2 * NP, L * C * C, slab_k(kpc), p.t1, 2 * NP) &&
-         encode(&m->x, tmp + 2 * NP * S, C, R, C, 4 * NP, S, p.t1, piece_k(kpr), 2 * NP);
-}
-
-template <int P>
 inline bool bwd_maps(BwdMaps* m, const BwdArgs& a, const Plan& p) {
   constexpr int NP = Parts<P>::NP;
   const int rb = (a.n + 1) / 2, cb = a.n - rb;
@@ -1320,11 +1005,8 @@ struct Launch {
   int grid;
 };
 
-// The launch of `kernel` at n, asked once per device (per_device.cuh):
-// clusters of the plan's cs blocks, as many as the card holds at once at
-// the shared memory every launch takes (SMEM_DYN, so one block an SM) but
-// at most the plan's items; without kClusterPairs one block an SM, at most
-// the plan's units.
+// The launch of `kernel` at n, asked once per device (per_device.cuh): one
+// block an SM, at most the plan's units.
 template <class Maps, class Args>
 inline Launch plan_launch(void (*kernel)(Maps, Args), Plan (*plan_of)(int, int), int n) {
   Launch r = {};
@@ -1336,70 +1018,30 @@ inline Launch plan_launch(void (*kernel)(Maps, Args), Plan (*plan_of)(int, int),
     r.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, THREADS, SMEM_DYN);
   if (r.err == cudaSuccess && occ < 1) r.err = cudaErrorCooperativeLaunchTooLarge;
   if (r.err != cudaSuccess) return r;
-  const int cs = plan_of(n, 1 << 20).cs;  // cs does not depend on the clusters
-  int clusters = 0;
-  if (kClusterPairs) {
-    cudaLaunchConfig_t cfg = {};
-    cfg.blockDim = dim3(THREADS);
-    cfg.gridDim = dim3(cs);
-    cfg.dynamicSmemBytes = SMEM_DYN;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cs;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    r.err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-  } else {
-    clusters = sms / cs;
-  }
-  if (r.err == cudaSuccess && clusters < 1) r.err = cudaErrorCooperativeLaunchTooLarge;
-  if (r.err != cudaSuccess) return r;
-  r.plan = plan_of(n, clusters);
+  r.plan = plan_of(n, sms);
   if (r.plan.items < 1 || r.plan.smem + 1024 > (size_t)SMEM_DYN) r.err = cudaErrorInvalidValue;
-  const int used = r.plan.items < clusters ? r.plan.items : clusters;
-  const int units = r.plan.items * cs;
-  r.grid = kClusterPairs ? used * cs : (units < sms ? units : sms);
+  const int units = r.plan.items * r.plan.cs;
+  r.grid = units < sms ? units : sms;
   return r;
 }
 
-// One cooperative launch (with the cluster dimension under kClusterPairs).
+// One cooperative launch.
 template <class Maps, class Args>
 inline cudaError_t launch(void (*kernel)(Maps, Args), const Launch& l, const Maps& maps, Args a,
                           cudaStream_t st) {
   a.plan = l.plan;
-  a.cluster = kClusterPairs;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(l.grid);
   cfg.blockDim = dim3(THREADS);
-  // cluster pairs: the shared memory the active clusters were counted at;
-  // grid barriers: the plan's (with 1 KB to align it)
-  cfg.dynamicSmemBytes = kClusterPairs ? SMEM_DYN : l.plan.smem + 1024;
+  cfg.dynamicSmemBytes = l.plan.smem + 1024;  // 1 KB to align it
   cfg.stream = st;
-  cudaLaunchAttribute attr[2];
+  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;
   attr[0].val.cooperative = 1;
-  attr[1].id = cudaLaunchAttributeClusterDimension;
-  attr[1].val.clusterDim.x = l.plan.cs;
-  attr[1].val.clusterDim.y = 1;
-  attr[1].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = kClusterPairs ? 2 : 1;
+  cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, maps, a);
   return err != cudaSuccess ? err : cudaGetLastError();
-}
-
-template <int P>
-inline cudaError_t forward(FwdArgs a, cudaStream_t st) {
-  static PerDevice<Launch> launches[18];
-  const Launch* l = launches[a.n].get(
-      [&] { return plan_launch(circuit2d_fwd_bf16_kernel<P>, fwd_plan<P>, a.n); });
-  if (!l) return cudaErrorInvalidDevice;
-  if (l->err != cudaSuccess) return l->err;
-  FwdMaps maps = {};
-  if (uses_tma(a.n) && !fwd_maps<P>(&maps, a, l->plan)) return cudaErrorInvalidValue;
-  return launch(circuit2d_fwd_bf16_kernel<P>, *l, maps, a, st);
 }
 
 template <int P>

@@ -1,8 +1,8 @@
 // The bf16 tensor-core products of the circuit kernels' `default` and `high`
-// precisions (ops/kernels/precision.py): the passes of tn_gemm.cuh's
-// gemm_kernel (kernels 5-6 at n = 18-19), and the split, the real products
-// and the first phase's operand rounding that circuit_bf16.cuh (kernels
-// 1-2) builds on.
+// precisions (ops/kernels/precision.py), shared by tn_gemm.cuh's gemm_kernel
+// (kernels 5-6 at n = 18-19) and the work units of circuit_units.cuh
+// (kernel 1); circuit_bf16.cuh (kernel 2) builds on the split and the real
+// products.
 //
 // Replaces the dot precision of the TPU kernels' `_dot` (circuit2d.py,
 // circuit2d_grid.py), which Mosaic lowers as one bf16 pass (DEFAULT) or six

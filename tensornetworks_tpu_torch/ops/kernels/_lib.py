@@ -58,6 +58,8 @@ SIGNATURES = {
         "tn_circuit2d_backward": [_P] * 13 + [_I] * 3 + [_P],
         # n, layers, backward, precision -> bytes of the tmp / scratch argument
         "tn_circuit2d_scratch_bytes": [_I] * 4,
+        # n, precision, sms, out (6 long long on the host) -> 0, or -1
+        "tn_circuit2d_bwd_bf16_plan": [_I] * 3 + [_P],
     },
     "circuit2d_grid": {  # rows and cz are (layers, n) host tables
         # mr_re, mr_im, mc_re, mc_im, probs, xr, xi, tmp, mct, split, n, layers,

@@ -31,12 +31,14 @@ plain torch, so autograd carries ``dMr``/``dMc`` back to θ.
 
 Precision (``precision.py``): a plan carries the kernel precision current
 when it was built. ``highest`` runs the kernels' FP32 loops; ``high`` and
-``default`` the bf16 kernels of ``csrc/circuit_bf16.cuh`` (operands split
-once into a bf16 scratch the wrapper allocates, ``tn_circuit2d_scratch_
-bytes``; TMA copies, ``mma.sync`` passes), each variant launched and counted
-under its own key (``circuit2d_fwd.high``); their phase mirrors are
-``circuit2d_forward_bf16_phased_plain`` and
-``circuit2d_backward_bf16_phased_plain``, their launch plans ``bf16_plan``.
+``default`` the forward's bf16 tensor-core passes inside its units
+(``csrc/mma_bf16.cuh``) and the backward's bf16 kernel of
+``csrc/circuit_bf16.cuh`` (operands split once into a bf16 scratch the
+wrapper allocates, ``tn_circuit2d_scratch_bytes``; TMA copies, ``mma.sync``
+passes), each variant launched and counted under its own key
+(``circuit2d_fwd.high``). The backward's phase mirror is
+``circuit2d_backward_bf16_phased_plain``, its launch plan ``bf16_plan``
+(the library's ``tn_circuit2d_bwd_bf16_plan``, ``library_bf16_plan``).
 The plain versions emulate a pass exactly: ``_pcmm`` rounds (or splits)
 the real and imaginary planes of both operands of every complex product
 and sums in the planes' dtype, with TF32 off on the card. The index maps
@@ -51,6 +53,8 @@ phase still holds.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -375,11 +379,7 @@ def circuit2d_forward_phased_plain(mr_re, mr_im, mc_re, mc_im, plan: CircuitPlan
     the sign there. Each phase fills what it writes with NaN before it reads
     anything, so a phase that read what it writes — a race in the kernel —
     shows as NaN here. The products at the plan's precision (``_pcmm``).
-    Returns what ``circuit2d_forward_plain`` returns. Under ``high`` and
-    ``default`` the kernel is the bf16 kernel of ``csrc/circuit_bf16.cuh``,
-    and so is the mirror (``circuit2d_forward_bf16_phased_plain``)."""
-    if plan.precision != "highest":
-        return circuit2d_forward_bf16_phased_plain(mr_re, mr_im, mc_re, mc_im, plan)
+    Returns what ``circuit2d_forward_plain`` returns."""
     R, C, L, dt, dev, p = plan.R, plan.C, plan.layers, mr_re.dtype, mr_re.device, plan.precision
     dst, sign = plan.tables(dev)
     tmp = torch.empty((2, R, C), dtype=dt, device=dev)
@@ -466,16 +466,13 @@ def circuit2d_backward_phased_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g, plan:
     return dmr_re, dmr_im, dmc_re, dmc_im
 
 
-# csrc/circuit_bf16.cuh: the bf16 variants' kernels. A block's dynamic
-# shared memory (227 KB less 8 KB for the static tables), the share sums'
-# bytes, the H100's SMs (the kernels as built share a phase's units out in
-# groups of cs over SMs / cs "clusters", one block an SM), and the clusters
-# of 8 blocks it holds at once at that shared memory in the cluster form
-# (kClusterPairs; read on the card: cudaOccupancyMaxActiveClusters).
+# csrc/circuit_bf16.cuh: the bf16 variants' backward kernel. A block's
+# dynamic shared memory (227 KB less 8 KB for the static tables), the share
+# sums' bytes, and the H100's SMs (the plan's default card: the kernel shares
+# a phase's units out in sets of cs blocks, one block an SM).
 BF16_SMEM_MAX = 232448 - 8192
 BF16_RED_BYTES = 8 * 32 * 16 * 4
 BF16_SMS = 132
-BF16_CLUSTERS = 15
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -503,36 +500,22 @@ def bf16_k_shares(tiles: int) -> int:
     return 8 // tiles
 
 
-def bf16_plan(n: int, precision: str, clusters: int = None, backward: bool = False) -> dict:
-    """The launch plan of the bf16 kernels (``fwd_plan``/``bwd_plan``): the
-    cluster size ``cs``, the ``items`` the clusters share out, the tile
-    sizes ``t0, t1, t2`` and the shared memory a block takes. Forward: t0
-    the tile rows (16, or 32 where R is cut evenly over fewer clusters than
-    16-row blocks), t1 a block's columns C / cs (at least 16). Backward: t0
-    an item's columns (a power of two, at least 16), t1 the tile rows, t2
-    dMc's tile rows. ``clusters``: the groups of cs blocks the items are
-    shared out over, by default the kernels' as built (SMs / cs); the
-    cluster form's is ``BF16_CLUSTERS``."""
+def bf16_plan(n: int, precision: str, sms: int = BF16_SMS) -> dict:
+    """The launch plan of the bf16 backward kernel (``bwd_plan``) on a card
+    of ``sms`` SMs: ``cs`` blocks a set (each a share of the rows in tiles
+    of ``t1`` = 32 or 16 rows) and sms // cs sets; the ``items`` (column
+    blocks of runs of 8 columns, ``t0`` columns wide: a power of two, at
+    least 16) the sets share out; ``t2`` dMc's tile rows; the shared memory
+    a block takes. ``library_bf16_plan`` reads the library's."""
     np_ = 2 if precision == "high" else 1
     rb = (n + 1) // 2
     cb = n - rb
     R, C = 1 << rb, 1 << cb
     kpr, kpc = _round16(R), _round16(C)
-    if not backward:
-        cs = min(8, max(1, C // 16))
-        tn = max(16, C // cs)
-        clusters = clusters or BF16_SMS // cs
-        if _cdiv(R, 16) <= clusters or R > 256:
-            items, tm = _cdiv(R, 16), 16
-        else:
-            items, tm = clusters, _round16(_cdiv(R, clusters))
-        smem = 2 * np_ * 2 * max(kpr, kpc) * (tm + tn) + BF16_RED_BYTES
-        return dict(cs=cs, items=items, t0=tm, t1=tn, t2=0, smem=smem)
-    cs = min(8, max(1, R // 32))  # every block of a cluster has row tiles
-    clusters = clusters or BF16_SMS // cs
+    cs = min(8, max(1, R // 32))  # every block of a set has row tiles
     tmc = 16 if R > 256 else 32
     groups = C // 8 if C >= 8 else 1
-    spread = min(groups, clusters)
+    spread = min(groups, sms // cs)
     e = 2 * np_ * 2
     for items, tnb in ((spread, max(16, 8 * _pow2_at_least(_cdiv(groups, spread)))),
                        (max(1, groups // 2), 16)):
@@ -545,37 +528,37 @@ def bf16_plan(n: int, precision: str, clusters: int = None, backward: bool = Fal
     raise ValueError(f"no bf16 backward plan fits n={n}")
 
 
+def library_bf16_plan(n: int, precision: str, sms: int) -> dict:
+    """The plan the library launches the bf16 backward with on a card of
+    ``sms`` SMs (``tn_circuit2d_bwd_bf16_plan``), in ``bf16_plan``'s keys;
+    needs the built library (a card)."""
+    out = (ctypes.c_longlong * 6)()
+    err = _lib.load("circuit2d").tn_circuit2d_bwd_bf16_plan(n, CODES[precision], sms, out)
+    if err:
+        raise ValueError(f"circuit2d: no bf16 plan for {precision!r}")
+    return dict(zip(("cs", "items", "t0", "t1", "t2", "smem"), out))
+
+
 def _span(c: int, items: int, groups: int, q: int) -> int:
     return q * (groups * c // items)
 
 
-def bf16_forward_units(n: int, precision: str, clusters: int = None) -> list:
-    """(item, rank, m0, m1, n0, n1) of each unit of the bf16 forward's two
-    products (both take the same units): item c's rows m0..m1 (the
-    cluster's), rank's columns n0..n1."""
-    p = bf16_plan(n, precision, clusters)
-    R, C = 1 << ((n + 1) // 2), 1 << (n // 2)
-    return [(c, r, _span(c, p["items"], R, 1), _span(c + 1, p["items"], R, 1),
-             r * p["t1"], min(C, (r + 1) * p["t1"]))
-            for c in range(p["items"]) for r in range(p["cs"])]
-
-
-def bf16_backward_units(n: int, precision: str, clusters: int = None) -> dict:
-    """The bf16 backward's units: ``pairs``, (item, rank, m0, m1, n0, n1) of
+def bf16_backward_units(n: int, precision: str, sms: int = BF16_SMS) -> dict:
+    """The bf16 backward's units: ``pulls``, (item, rank, m0, m1, n0, n1) of
     the column and row pull-backs (item c's columns, rank's row tiles);
     ``dmr`` and ``dmc``, (m0, m1, n0, n1) of the gradient products."""
-    p = bf16_plan(n, precision, clusters, backward=True)
+    p = bf16_plan(n, precision, sms)
     R, C = 1 << ((n + 1) // 2), 1 << (n // 2)
     groups, q = (C // 8, 8) if C >= 8 else (1, C)
     tmb, tmc = p["t1"], p["t2"]
-    pairs = [(c, r, t * tmb, min(R, (t + 1) * tmb), _span(c, p["items"], groups, q),
+    pulls = [(c, r, t * tmb, min(R, (t + 1) * tmb), _span(c, p["items"], groups, q),
               _span(c + 1, p["items"], groups, q))
              for c in range(p["items"]) for r in range(p["cs"])
              for t in range(r, _cdiv(R, tmb), p["cs"])]
     dmr = [(m, min(R, m + 32), c, min(R, c + 32)) for m in range(0, R, 32) for c in range(0, R, 32)]
     dmc = [(m, min(C, m + tmc), c, min(C, c + 32)) for m in range(0, C, tmc)
            for c in range(0, C, 32)]
-    return dict(pairs=pairs, dmr=dmr, dmc=dmc)
+    return dict(pulls=pulls, dmr=dmr, dmc=dmc)
 
 
 def _split_planes(x, precision: str):
@@ -645,89 +628,8 @@ class _PhaseLog:
         return self.bufs[name]
 
 
-def circuit2d_forward_bf16_phased_plain(mr_re, mr_im, mc_re, mc_im, plan: CircuitPlan,
-                                        clusters: int = None, log=None, pairs: bool = False):
-    """The bf16 forward kernel (``csrc/circuit_bf16.cuh``, precision
-    ``high`` or ``default``) in torch: φ0 splits every layer's Mr and Mc
-    into bf16 planes (hi, lo) and writes tmp = Mr[0]·X0 in closed form as
-    its split; then per layer l ≥ 1 a phase in which every item
-    (``bf16_forward_units``: row blocks) computes its rows of tmp = Mr[l]·X
-    (from the X split of the previous layer), and a phase that scatters
-    each item's tmp rows · Mc[l]ᵀ into the other X split (the FP32 X and
-    |z|² on the last layer). With ``pairs`` (the kernels' cluster form,
-    ``kClusterPairs``) the two products of a layer are one phase, each item
-    reading only its own rows of tmp (items run one after another, so that
-    another item's rows are still NaN). Products read split planes and sum
-    in the units' share order (``_bf16_cmm``). Each phase's outputs are NaN
-    before it runs; ``log`` (a ``_PhaseLog``) records its reads. Returns
-    what ``circuit2d_forward_plain`` returns."""
-    n, R, C, L, p = plan.n, plan.R, plan.C, plan.layers, plan.precision
-    dt, dev = mr_re.dtype, mr_re.device
-    fp = bf16_plan(n, p, clusters)
-    shares = bf16_k_shares(bf16_warp_tiles(fp["t0"], fp["t1"], 1))
-    dst, sign = plan.tables(dev)
-    log = log if log is not None else _PhaseLog()
-    log.bufs = {"mr": torch.empty((4, L, R, R), dtype=dt, device=dev),
-                "mc": torch.empty((4, L, C, C), dtype=dt, device=dev),
-                "tmp": torch.empty((4, R, C), dtype=dt, device=dev),
-                "x0": torch.empty((4, R, C), dtype=dt, device=dev),
-                "x1": torch.empty((4, R, C), dtype=dt, device=dev),
-                "out": torch.empty((3, R, C), dtype=dt, device=dev)}  # probs, xr, xi
-
-    def put(t, re, im):  # the split of (re, im) into planes (re_hi, re_lo, im_hi, im_lo)
-        t[0], t[1] = _split_planes(re, p)
-        t[2], t[3] = _split_planes(im, p)
-
-    log.begin("phi0", ("mr", "mc", "tmp"))
-    put(log.w("mr"), mr_re, mr_im)
-    put(log.w("mc"), mc_re, mc_im)
-    if plan.has_wall:  # X0 = 2^(-n/2)·𝟙: the row sums of Mr[0]
-        tr, ti = (_wall_product(m, plan)[:, None].expand(R, C) for m in (mr_re[0], mr_im[0]))
-    else:  # X0 = e00: column 0 of Mr[0] (1 is exact in bf16)
-        tr, ti = torch.zeros((R, C), dtype=dt, device=dev), torch.zeros((R, C), dtype=dt,
-                                                                        device=dev)
-        col = [mr_re[0][:, 0], mr_im[0][:, 0]]
-        col = [round_bf16(c) if p == "default" else sum(split_bf16(c)) for c in col]
-        tr[:, 0], ti[:, 0] = col
-    put(log.w("tmp"), tr, ti)
-    items = sorted({(u[0], u[2], u[3]) for u in bf16_forward_units(n, p, clusters)})
-    def left(layer, m0, m1):  # tmp[m0:m1] = Mr[l][m0:m1]·X, X the previous layer's split
-        mr, x = log.r("mr"), log.r(f"x{(layer - 1) % 2}")
-        put(log.w("tmp")[:, m0:m1], *_bf16_cmm(mr[:, layer, m0:m1], x, p, shares))
-
-    for layer in range(L):
-        last = layer == L - 1
-        target = "out" if last else f"x{layer % 2}"
-        if layer and not pairs:
-            log.begin(f"left{layer}", ("tmp",))
-            for _, m0, m1 in items:
-                left(layer, m0, m1)
-        log.begin(f"layer{layer}", (("tmp",) if layer and pairs else ()) + (target,))
-        d, s = layer_map(dst, sign, layer)
-        s = s.to(dt)
-        for _, m0, m1 in items:
-            if layer and pairs:
-                left(layer, m0, m1)
-            tmp, mc = log.r("tmp"), log.r("mc")
-            zr, zi = _bf16_cmm(tmp[:, m0:m1], mc[:, layer].transpose(-1, -2), p, shares)
-            idx = torch.arange(m0 * C, m1 * C, device=dev)
-            dd, ss = d[idx], s[idx]
-            out = log.w(target)
-            if last:
-                out[1].reshape(-1)[dd] = ss * zr.reshape(-1)
-                out[2].reshape(-1)[dd] = ss * zi.reshape(-1)
-                out[0].reshape(-1)[dd] = (zr * zr + zi * zi).reshape(-1)
-            else:
-                for q, v in ((0, ss * zr.reshape(-1)), (2, ss * zi.reshape(-1))):
-                    hi, lo = _split_planes(v, p)
-                    out[q].reshape(-1)[dd], out[q + 1].reshape(-1)[dd] = hi, lo
-    probs, xr, xi = log.bufs["out"]
-    return probs, xr, xi
-
-
 def circuit2d_backward_bf16_phased_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g,
-                                         plan: CircuitPlan, clusters: int = None, log=None,
-                                         pairs: bool = False):
+                                         plan: CircuitPlan, sms: int = BF16_SMS, log=None):
     """The bf16 backward kernel (``csrc/circuit_bf16.cuh``) in torch: split
     state buffers U[0], U[1], V, W (planes x and λ, each (hi, lo) of re and
     im) and the split Mr, Mc; for l = L-1 .. 0 a phase φ1 (the split of Mr
@@ -735,15 +637,13 @@ def circuit2d_backward_bf16_phased_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g,
     previous layer's dMr, dMc and the unpermute of W's split planes, a sign
     flipping hi and lo), a phase of V = U·conj(Mc[l]) and one of W =
     Mr[l]ᴴ·V, each over the items (``bf16_backward_units``: column
-    blocks); then dMr[0], dMc[0]. With ``pairs`` (the cluster form) the two
-    pull-backs are one phase, each item reading only its own columns of V
-    (items one after another). Products in the units' share order; each
+    blocks); then dMr[0], dMc[0]. Products in the units' share order; each
     phase's outputs NaN before it runs, its reads recorded in ``log``.
     Returns what ``circuit2d_backward_plain`` returns."""
     n, R, C, L, p = plan.n, plan.R, plan.C, plan.layers, plan.precision
     dt, dev = mr_re.dtype, mr_re.device
-    bp = bf16_plan(n, p, clusters, backward=True)
-    units = bf16_backward_units(n, p, clusters)
+    bp = bf16_plan(n, p, sms)
+    units = bf16_backward_units(n, p, sms)
     pair_shares = bf16_k_shares(bf16_warp_tiles(bp["t1"], bp["t0"], 2))
     dmc_shares = bf16_k_shares(bf16_warp_tiles(bp["t2"], 32, 1))
     dst, sign = plan.tables(dev)
@@ -768,7 +668,7 @@ def circuit2d_backward_bf16_phased_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g,
         dmr[0], dmr[1] = _bf16_cmm(v[4:], w[:4].transpose(-1, -2), p, 1, cb=True)
         dmc[0], dmc[1] = _bf16_cmm(u[4:].transpose(-1, -2), v[:4], p, dmc_shares, cb=True)
 
-    items = sorted({(u[0], u[4], u[5]) for u in units["pairs"]})
+    items = sorted({(u[0], u[4], u[5]) for u in units["pulls"]})
     for layer in range(L - 1, -1, -1):
         first = layer == L - 1
         writes = (f"u{layer % 2}",) + (("mr", "mc") if first
@@ -805,18 +705,12 @@ def circuit2d_backward_bf16_phased_plain(mr_re, mr_im, mc_re, mc_im, xr, xi, g,
                                    pair_shares, ca=True)
                 put(w[b:b + 4, :, n0:n1], wr, wi)
 
-        if pairs:
-            log.begin(f"pair{layer}", ("v", "w"))
-            for _, n0, n1 in items:
-                col_pull(n0, n1)
-                row_pull(n0, n1)
-        else:
-            log.begin(f"col{layer}", ("v",))
-            for _, n0, n1 in items:
-                col_pull(n0, n1)
-            log.begin(f"row{layer}", ("w",))
-            for _, n0, n1 in items:
-                row_pull(n0, n1)
+        log.begin(f"col{layer}", ("v",))
+        for _, n0, n1 in items:
+            col_pull(n0, n1)
+        log.begin(f"row{layer}", ("w",))
+        for _, n0, n1 in items:
+            row_pull(n0, n1)
     log.begin("grads0", ("dmr0", "dmc0"))
     grads(0)
     dmr = torch.stack([log.bufs[f"dmr{i}"] for i in range(L)], dim=1)
@@ -873,9 +767,9 @@ def _check(plan, **tensors) -> None:
 def _scratch(plan: CircuitPlan, backward: bool, device) -> torch.Tensor:
     """The scratch of one launch, as large as the library says
     (``tn_circuit2d_scratch_bytes``, asked once a plan and direction): FP32
-    planes under ``highest``, the bf16 split scratch of
-    ``csrc/circuit_bf16.cuh`` (every layer's Mr and Mc split, and the
-    state's splits) under ``high`` and ``default``."""
+    planes, but for the backward under ``high`` and ``default``: the bf16
+    split scratch of ``csrc/circuit_bf16.cuh`` (every layer's Mr and Mc
+    split, and the state's splits)."""
     key = ("scratch_bytes", backward)
     if key not in plan._tables:
         nbytes = _lib.load(plan.name).tn_circuit2d_scratch_bytes(

@@ -3,19 +3,17 @@
     python -m tensornetworks_tpu_torch.runners.probe_kernels
         [--layers 8] [--ansatz bn_structured] [--precision highest,high,default]
 
-1. The n=16 persistent backward and forward at each precision: FP32
-   (``csrc/circuit2d_bwd.cuh``, ``csrc/circuit2d_fwd.cuh``, their units in
-   ``csrc/circuit_units.cuh``) and the bf16 cluster kernels
-   (``csrc/circuit_bf16.cuh``), rebuilt from a copy of the sources
-   (``build/probe/``) with ``%globaltimer`` stamps added to the copy only,
-   never to the package's kernels: per phase, the blocks' busy time and
-   the grid barrier's latency (last arrival to first release); per GEMM
-   unit, the wait for its first tile (K piece), the rest of its K loop, and
-   its K-split sum with the store, the wait at cluster barriers and the
-   lanes' time issuing TMA copies. The bf16 kernels are probed twice: as
-   built (grid barriers between the products) and with ``kClusterPairs``
-   true (cluster pairs), in processes of their own. Each copy is checked
-   against its plain version first.
+1. The n=16 persistent backward and forward at each precision: the FP32
+   kernels and the forward's bf16 variants (``csrc/circuit2d_bwd.cuh``,
+   ``csrc/circuit2d_fwd.cuh``, their units in ``csrc/circuit_units.cuh``)
+   and the backward's bf16 kernel (``csrc/circuit_bf16.cuh``), rebuilt from
+   a copy of the sources (``build/probe/``) with ``%globaltimer`` stamps
+   added to the copy only, never to the package's kernels: per phase, the
+   blocks' busy time and the grid barrier's latency (last arrival to first
+   release); per GEMM unit, the wait for its first tile (K piece), the rest
+   of its K loop, and its K-split sum with the store, and the producer
+   thread's time issuing TMA copies. Each copy is checked against its plain
+   version first.
 2. The n=20 grid forward (``csrc/circuit2d_grid.cu``) through the package:
    device time per kernel by ``torch.profiler`` (left products, scatter
    products, the Mc transpose, the state init).
@@ -30,7 +28,6 @@ import argparse
 import ctypes
 import shutil
 import subprocess
-import sys
 
 import numpy as np
 import torch
@@ -44,8 +41,8 @@ from ..sim.gates import rotation_operators
 PROBE_DIR = _lib.BUILD_DIR.parent / "probe"
 MAX_BLOCKS, SLOTS = 1024, 64
 # per block: first-tile wait, rest of the K loops, K-split sums and stores,
-# units, cluster-barrier wait (bf16 cluster pairs), copies' issue
-UNIT_SLOTS = 6
+# units, copies' issue (the bf16 backward's producer thread)
+UNIT_SLOTS = 5
 
 # Text edits that add the stamps to the copies of csrc/circuit_units.cuh
 # (the clock, the stamp tables and the per-unit stamps) and of the two
@@ -80,11 +77,10 @@ _BARRIER = ("grid.sync();", "mark(); grid.sync(); mark();")
 _BWD_STAMPS = [_MARK, _BARRIER, ("  grads(0);\n}", "  grads(0);\n  mark();\n}")]
 _FWD_STAMPS = [_MARK, _BARRIER,
                ("    if (last) break;\n", "    if (last) {\n      mark();\n      break;\n    }\n")]
-# The bf16 kernels: both kernels' marks and barriers, the forward's end, and
-# the stamps of their units (product()).
+# The bf16 backward: its marks and barriers, and the stamps of its units
+# (product()).
 _BF16_STAMPS = [
     _MARK, _BARRIER,
-    ("    if (l == L - 1) break;\n", "    if (l == L - 1) {\n      mark();\n      break;\n    }\n"),
     ("  grads(0);\n}", "  grads(0);\n  mark();\n}"),
     ("  const int steps = kp / 16, np = pieces(kp);\n",
      "  const int steps = kp / 16, np = pieces(kp);\n"
@@ -95,15 +91,11 @@ _BF16_STAMPS = [
     ("  const int g = lane >> 2, t2 = 2 * (lane & 3);\n",
      "  const unsigned long long t2s = unit::gtime();\n"
      "  const int g = lane >> 2, t2 = 2 * (lane & 3);\n"),
-    ("cg::this_cluster().sync();",
-     "{ const unsigned long long tc = unit::gtime(); cg::this_cluster().sync();"
-     " if (threadIdx.x == 0) atomicAdd(unit::g_unit + blockIdx.x * unit::UNIT_SLOTS + 4,"
-     " unit::gtime() - tc); }"),
     ("  if (threadIdx.x != PRODUCER) return;\n",
      "  if (threadIdx.x != PRODUCER) return;\n  const unsigned long long ti = unit::gtime();\n"),
-    ("      tma_load(dst, l.map, &bars[p], c0, c1, l.c_plane);\n  }\n}\n",
-     "      tma_load(dst, l.map, &bars[p], c0, c1, l.c_plane);\n  }\n"
-     "  atomicAdd(unit::g_unit + blockIdx.x * unit::UNIT_SLOTS + 5, unit::gtime() - ti);\n}\n"),
+    ("    tma_load(l.t.base + blk * l.t.block, l.map, &bars[p], c0, c1, l.c_plane);\n  }\n}\n",
+     "    tma_load(l.t.base + blk * l.t.block, l.map, &bars[p], c0, c1, l.c_plane);\n  }\n"
+     "  atomicAdd(unit::g_unit + blockIdx.x * unit::UNIT_SLOTS + 4, unit::gtime() - ti);\n}\n"),
     ("  __syncthreads();\n}\n\n// The first element of item c",
      "  __syncthreads();\n"
      "  if (threadIdx.x == 0) {\n"
@@ -129,34 +121,18 @@ EDITS = (("circuit_units.cuh", _UNIT_STAMPS), ("circuit2d_bwd.cuh", _BWD_STAMPS)
          ("circuit2d_fwd.cuh", _FWD_STAMPS), ("circuit_bf16.cuh", _BF16_STAMPS),
          ("circuit2d.cu", [_EXPORT]))
 
+
 def sites(name: str, old: str) -> int:
     """How often the text ``old`` an edit replaces stands in csrc/``name``:
-    every grid barrier (three in each FP32 kernel, four in the bf16 forward
-    and three in its backward), the per-phase marks once a kernel, the
-    cluster barriers twice a bf16 kernel, every other site once."""
-    if old == _BARRIER[0]:
-        return 7 if name == "circuit_bf16.cuh" else 3
-    if old == _MARK[0] and name == "circuit_bf16.cuh":
-        return 2
-    if old == "cg::this_cluster().sync();":
-        return 4
-    return 1
+    the grid barriers three times a kernel, every other site once."""
+    return 3 if old == _BARRIER[0] else 1
 
 
-# The bf16 kernels' cluster form (as built, the pair's two products behind
-# a grid barrier): each pair of products inside a cluster, a cluster barrier
-# between them.
-CLUSTER_FORM = ("circuit_bf16.cuh", ("constexpr bool kClusterPairs = false;",
-                                     "constexpr bool kClusterPairs = true;"))
-
-
-def _build_probe(cluster_form: bool = False) -> ctypes.CDLL:
-    name = "cluster" if cluster_form else "grid"
-    src = PROBE_DIR / name / "csrc"
+def _build_probe() -> ctypes.CDLL:
+    src = PROBE_DIR / "csrc"
     shutil.rmtree(src.parent, ignore_errors=True)
     shutil.copytree(_lib.CSRC, src)
-    edits = list(EDITS) + ([(CLUSTER_FORM[0], [CLUSTER_FORM[1]])] if cluster_form else [])
-    for fname, file_edits in edits:
+    for fname, file_edits in EDITS:
         text = (src / fname).read_text()
         for old, new in file_edits:
             if old not in text:
@@ -204,33 +180,28 @@ def _probe(lib, call, barriers: int, reps: int) -> dict:
     return {"total_us": float(t[:, 2 * barriers + 1].max()) / 1e3, "phases": phases,
             "units_per_block": float(np.median(u[:, 3])) / reps,
             "first_tile_wait_us": float(per_call[0]), "k_loop_us": float(per_call[1]),
-            "ksplit_sum_store_us": float(per_call[2]), "cluster_wait_us": float(per_call[4]),
-            "tma_issue_us": float(per_call[5])}
+            "ksplit_sum_store_us": float(per_call[2]), "tma_issue_us": float(per_call[4])}
 
 
 def _rel(got, want) -> float:
     return max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, want))
 
 
-def barriers(precision: str, layers: int, backward: bool, cluster: bool = False) -> int:
-    """Grid barriers a call of the n <= 17 kernel waits at: FP32 and the
-    bf16 kernels as built 2L - 1 (forward) and 3L (backward); the bf16
-    kernels' cluster form L and 2L."""
-    if precision == "highest" or not cluster:
-        return 3 * layers if backward else 2 * layers - 1
-    return 2 * layers if backward else layers
+def barriers(precision: str, layers: int, backward: bool) -> int:
+    """Grid barriers a call of the n <= 17 kernel waits at, at every
+    precision: 2L - 1 (forward) and 3L (backward)."""
+    return 3 * layers if backward else 2 * layers - 1
 
 
 def probe_circuit(layers: int = 8, reps: int = 10, precision: str = "highest",
-                  ansatz: str = "bn_structured", cluster_form: bool = False, lib=None) -> dict:
-    """The stamped n=16 backward and forward at a precision and ansatz (the
-    bf16 kernels as built, or in their cluster form), each checked
+                  ansatz: str = "bn_structured", lib=None) -> dict:
+    """The stamped n=16 backward and forward at a precision and ansatz, each checked
     against its plain version first (FP32 1e-4, ``high`` 1e-4, ``default``
     2e-2 of the largest value): {"backward": ..., "forward": ...}."""
     from ..runners import make_scale_problem
     from ..sim.structured import latent_edges
 
-    lib = lib or _build_probe(cluster_form)
+    lib = lib or _build_probe()
     dev, n = torch.device("cuda"), 16
     # bn_structured: the DAG of the 16-qubit scale problem (bench16's, seed 0)
     edges = (latent_edges(*make_scale_problem(n, seed=0)[:2]) if ansatz == "bn_structured"
@@ -268,7 +239,7 @@ def probe_circuit(layers: int = 8, reps: int = 10, precision: str = "highest",
         if rel > tol:
             raise RuntimeError(f"probe {name} {precision} disagrees with the plain version: "
                                f"rel {rel:.2e}")
-        nb = barriers(precision, layers, name == "backward", cluster_form)
+        nb = barriers(precision, layers, name == "backward")
         result[name] = {"rel_err": rel, "barriers": nb, **_probe(lib, call, nb, reps)}
     return result
 
@@ -290,8 +261,8 @@ def profile_grid_forward(layers: int = 4, calls: int = 5) -> dict:
             if e.device_time_total > 0}
 
 
-def _print(name, precision, form, ansatz, layers, b) -> None:
-    print(f"circuit2d {name} {precision}{form}, n=16, {ansatz} L={layers}: "
+def _print(name, precision, ansatz, layers, b) -> None:
+    print(f"circuit2d {name} {precision}, n=16, {ansatz} L={layers}: "
           f"{b['total_us']:.2f} us from the first block's start to the last block's "
           f"end, {b['barriers']} grid barriers (rel err {b['rel_err']:.1e})")
     for k, row in enumerate(b["phases"]):
@@ -301,8 +272,7 @@ def _print(name, precision, form, ansatz, layers, b) -> None:
     print(f"  per call and block ({b['units_per_block']:.0f} GEMM units): first-tile "
           f"wait {b['first_tile_wait_us']:.2f} us, rest of the K loops "
           f"{b['k_loop_us']:.2f} us, K-split sums and stores "
-          f"{b['ksplit_sum_store_us']:.2f} us, cluster barriers "
-          f"{b['cluster_wait_us']:.2f} us, TMA issue {b['tma_issue_us']:.2f} us (the producer "
+          f"{b['ksplit_sum_store_us']:.2f} us, TMA issue {b['tma_issue_us']:.2f} us (the producer "
           f"thread)", flush=True)
 
 
@@ -312,37 +282,16 @@ def main() -> None:
     ap.add_argument("--ansatz", default="bn_structured")
     ap.add_argument("--precision", default="highest,high,default",
                     help="comma-separated kernel precisions")
-    ap.add_argument("--form", choices=("both", "built", "cluster"), default="both",
-                    help="the bf16 kernels as built (grid barriers), in their cluster form, "
-                         "or both, each in a process of its own")
     ap.add_argument("--no-grid", action="store_true", help="skip the n=20 grid forward")
     args = ap.parse_args()
-    if args.form == "both":
-        # Two copies of the kernels in one process would share their inline
-        # launch caches (C++ inline statics are one object across shared
-        # libraries): one process a form.
-        base = [sys.executable, "-m", __spec__.name, "--layers", str(args.layers),
-                "--ansatz", args.ansatz]
-        subprocess.run(base + ["--precision", args.precision, "--form", "built"]
-                       + (["--no-grid"] if args.no_grid else []), check=True)
-        bf16 = ",".join(p for p in args.precision.split(",") if p != "highest")
-        if bf16:
-            subprocess.run(base + ["--precision", bf16, "--form", "cluster", "--no-grid"],
-                           check=True)
-        return
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card)
-    cluster_form = args.form == "cluster"
-    lib = _build_probe(cluster_form)
+    lib = _build_probe()
     for precision in args.precision.split(","):
-        if cluster_form and precision == "highest":
-            continue
-        form = " (cluster form)" if cluster_form else ""
-        res = probe_circuit(args.layers, precision=precision, ansatz=args.ansatz,
-                            cluster_form=cluster_form, lib=lib)
+        res = probe_circuit(args.layers, precision=precision, ansatz=args.ansatz, lib=lib)
         for name, b in res.items():
-            _print(name, precision, form, args.ansatz, args.layers, b)
+            _print(name, precision, args.ansatz, args.layers, b)
     if args.no_grid:
         return
     print(f"circuit2d_grid forward, n=20, L={args.layers}: device us per call by kernel")

@@ -1,10 +1,11 @@
-"""The bf16 variants (``high``, ``default``) of circuit kernels 1-2
-(``csrc/circuit_bf16.cuh``: operands split once into bf16 planes, cluster
-pairs of products, share-ordered K sums) through their torch mirrors
-``circuit2d_forward_bf16_phased_plain`` and
-``circuit2d_backward_bf16_phased_plain``, their launch plans
-(``bf16_plan``) and units. The kernels themselves run only on the card, in
-chip_smoke.py.
+"""The bf16 variants (``high``, ``default``) of circuit kernel 2
+(``csrc/circuit_bf16.cuh``: operands split once into bf16 planes,
+share-ordered K sums) through its torch mirror
+``circuit2d_backward_bf16_phased_plain``, its launch plan (``bf16_plan``)
+and units; the forward's bf16 variants (the units' passes) through
+``circuit2d_forward_phased_plain``. The kernels themselves run only on the
+card, in chip_smoke.py, which also holds ``bf16_plan`` equal to the
+library's.
 
 Tolerances, relative to the largest magnitude. The mirrors against the
 plain versions (``_pcmm``'s passes) in float64: 1e-12 (the products of bf16
@@ -59,37 +60,30 @@ MIRROR_CASES = [(3, 2, HE), (4, 3, HE), (5, 2, "basic"), (5, 3, BN), (6, 2, HE),
 def test_bf16_mirrors_match_the_plain_versions(n, L, ansatz, precision):
     plan, _, planes = _case(n, L, ansatz, precision, seed=n + L)
     before = dict(_lib.LAUNCHES)
-    got = kc.circuit2d_forward_bf16_phased_plain(*planes, plan)
-    want = kc.circuit2d_forward_plain(*planes, plan)
-    for a, b in zip(got, want):
-        assert bool(torch.isfinite(a).all())
-        assert _rel(a, b) <= 1e-12
+    _, xr, xi = kc.circuit2d_forward_plain(*planes, plan)
     g = torch.as_tensor(np.random.default_rng(n).normal(size=(plan.R, plan.C)))
-    got = kc.circuit2d_backward_bf16_phased_plain(*planes, got[1], got[2], g, plan)
-    want = kc.circuit2d_backward_plain(*planes, want[1], want[2], g, plan)
+    got = kc.circuit2d_backward_bf16_phased_plain(*planes, xr, xi, g, plan)
+    want = kc.circuit2d_backward_plain(*planes, xr, xi, g, plan)
     for a, b in zip(got, want):
         assert bool(torch.isfinite(a).all())
         assert _rel(a, b) <= 1e-12
     assert _lib.LAUNCHES == before
 
 
-@pytest.mark.parametrize("pairs", [False, True])
-@pytest.mark.parametrize("clusters", [1, 2, 3, 7, 64])
-def test_bf16_mirrors_at_any_cluster_count(clusters, pairs):
-    """Items of 16 rows (a group of blocks for each), rows cut evenly over
-    fewer groups (tiles of 32 rows), and columns cut in runs of 8, in both
-    forms of the kernels: the same products, FP32 sums in another order."""
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("sms", [1, 2, 3, 7, 64])
+def test_bf16_mirrors_at_any_cluster_count(sms, precision):
+    """Columns cut in runs of 8 over one to four clusters (sets of cs blocks
+    that share an item; n=10: one block a set, so as many sets as SMs),
+    items one or more runs wide: the same products, FP32 sums in another
+    order (1e-5)."""
     n, L = 10, 2
-    plan, _, planes = _case(n, L, HE, "high", seed=1, dtype=torch.float32)
-    want = kc.circuit2d_forward_plain(*planes, plan)
-    got = kc.circuit2d_forward_bf16_phased_plain(*planes, plan, clusters=clusters, pairs=pairs)
-    for a, b in zip(got, want):
-        assert _rel(a, b) <= 1e-5
+    plan, _, planes = _case(n, L, HE, precision, seed=1, dtype=torch.float32)
+    _, xr, xi = kc.circuit2d_forward_plain(*planes, plan)
     g = torch.as_tensor(np.random.default_rng(3).normal(size=(plan.R, plan.C)),
                         dtype=torch.float32)
-    want = kc.circuit2d_backward_plain(*planes, want[1], want[2], g, plan)
-    got = kc.circuit2d_backward_bf16_phased_plain(*planes, got[1], got[2], g, plan,
-                                                  clusters=clusters, pairs=pairs)
+    want = kc.circuit2d_backward_plain(*planes, xr, xi, g, plan)
+    got = kc.circuit2d_backward_bf16_phased_plain(*planes, xr, xi, g, plan, sms=sms)
     for a, b in zip(got, want):
         assert _rel(a, b) <= 1e-5
 
@@ -106,14 +100,15 @@ def _jax_reference(n, L, ansatz, th, v):
 
 
 def _mirror_probs_and_grad(n, L, ansatz, precision, th, v, dtype):
-    """probs and d(probs·v)/dθ through the bf16 mirrors, θ's fold by autograd."""
+    """probs and d(probs·v)/dθ through the phased mirrors (the forward's units,
+    the backward's bf16 kernel), θ's fold by autograd."""
     edges = EDGES[n] if ansatz == BN else None
     plan = kc.CircuitPlan(n, L, ansatz, edges, precision=precision)
     p = torch.as_tensor(th, dtype=dtype).requires_grad_(True)
     Mr, Mc = rotation_operators(p, n, L, plan.per_qubit)
     planes = [Mr.real, Mr.imag, Mc.real, Mc.imag]
     flat = [t.detach().contiguous() for t in planes]
-    probs, xr, xi = kc.circuit2d_forward_bf16_phased_plain(*flat, plan)
+    probs, xr, xi = kc.circuit2d_forward_phased_plain(*flat, plan)
     g = torch.as_tensor(v, dtype=dtype).reshape(plan.R, plan.C)
     grads = kc.circuit2d_backward_bf16_phased_plain(*flat, xr, xi, g, plan)
     torch.autograd.backward(planes, list(grads))
@@ -149,29 +144,23 @@ def test_bf16_high_mirror_matches_the_pallas_kernel_in_interpret_mode():
 
 
 UNIT_NS = [3, 5, 12, 15, 16, 17]
+# The H100 SXM's SMs (the kernel's card here) and the H100 PCIe's.
+SM_COUNTS = [kc.BF16_SMS, 114]
 
 
-@pytest.mark.parametrize("clusters", [None, kc.BF16_CLUSTERS])
+@pytest.mark.parametrize("sms", SM_COUNTS)
 @pytest.mark.parametrize("precision", ["high", "default"])
 @pytest.mark.parametrize("n", UNIT_NS)
-def test_bf16_units_cover_each_product_once(n, precision, clusters):
+def test_bf16_units_cover_each_product_once(n, precision, sms):
     """Each output of every product in exactly one unit, inside its tile,
-    as built (None: groups of cs blocks over the H100's 132 SMs) and in the
-    cluster form (15 clusters of 8); at n=16 one wave: at most one item a
-    group."""
+    with sets of cs blocks over the card's SMs; at n=16 one wave: at most
+    one item a set."""
     R, C = 1 << ((n + 1) // 2), 1 << (n // 2)
-    fp = kc.bf16_plan(n, precision, clusters)
-    bp = kc.bf16_plan(n, precision, clusters, backward=True)
-    for p in (fp, bp):
-        assert p["smem"] <= kc.BF16_SMEM_MAX
+    bp = kc.bf16_plan(n, precision, sms)
+    assert bp["smem"] <= kc.BF16_SMEM_MAX
+    units = kc.bf16_backward_units(n, precision, sms)
     cover = np.zeros((R, C), dtype=int)
-    for _, rank, m0, m1, n0, n1 in kc.bf16_forward_units(n, precision, clusters):
-        assert 0 < m1 - m0 <= fp["t0"] and 0 < n1 - n0 <= fp["t1"] and rank < fp["cs"]
-        cover[m0:m1, n0:n1] += 1
-    assert (cover == 1).all()
-    units = kc.bf16_backward_units(n, precision, clusters)
-    cover[:] = 0
-    for _, rank, m0, m1, n0, n1 in units["pairs"]:
+    for _, rank, m0, m1, n0, n1 in units["pulls"]:
         assert 0 < m1 - m0 <= bp["t1"] and 0 < n1 - n0 <= bp["t0"] and rank < bp["cs"]
         cover[m0:m1, n0:n1] += 1
     assert (cover == 1).all()
@@ -181,54 +170,36 @@ def test_bf16_units_cover_each_product_once(n, precision, clusters):
             assert 0 < m1 - m0 <= tm and 0 < n1 - n0 <= 32
             grad[m0:m1, n0:n1] += 1
         assert (grad == 1).all()
-    for tiles in (kc.bf16_warp_tiles(fp["t0"], fp["t1"], 1),
-                  kc.bf16_warp_tiles(bp["t1"], bp["t0"], 2)):
-        assert tiles in (1, 2, 4, 8)  # a 16 x 16 warp tile a warp
-        assert kc.bf16_k_shares(tiles) * tiles == 8
-    if n == 16:  # one wave: at most one item a group of blocks
-        assert fp["items"] * fp["cs"] <= kc.BF16_SMS and bp["items"] * bp["cs"] <= kc.BF16_SMS
-        assert fp["items"] <= (clusters or 16) and bp["items"] <= (clusters or 16)
+    tiles = kc.bf16_warp_tiles(bp["t1"], bp["t0"], 2)
+    assert tiles in (1, 2, 4, 8)  # a 16 x 16 warp tile a warp
+    assert kc.bf16_k_shares(tiles) * tiles == 8
+    if n == 16:  # one wave: at most one item a set of blocks
+        assert bp["items"] * bp["cs"] <= sms and bp["items"] <= sms // bp["cs"]
 
 
-@pytest.mark.parametrize("pairs", [False, True])
 @pytest.mark.parametrize("precision", ["high", "default"])
-@pytest.mark.parametrize("n,L", [(6, 1), (8, 3), (9, 4)])
-def test_bf16_phases_read_no_buffer_they_write(n, L, precision, pairs):
+@pytest.mark.parametrize("n,L,ansatz", [(3, 2, "basic"), (5, 2, BN), (6, 1, HE), (7, 3, BN),
+                                        (8, 3, HE), (9, 4, HE)])
+def test_bf16_phases_read_no_buffer_they_write(n, L, ansatz, precision):
     """Every phase (between grid barriers) fills what it writes with NaN
-    before it reads anything, and the results are finite. As built no
-    phase reads what it writes: the forward has 2L phases (2L - 1 grid
-    barriers), the backward 3L + 1 (3L). In the cluster form a phase reads
-    of its own outputs only the cluster exchange (the forward's tmp rows,
-    the backward's V columns of the item, after the cluster barrier): L + 1
-    phases (L barriers) and 2L + 1 (2L). The split buffers are among the
-    first phase's outputs."""
-    plan, _, planes = _case(n, L, HE, precision, seed=n)
-    log = kc._PhaseLog()
-    probs, xr, xi = kc.circuit2d_forward_bf16_phased_plain(*planes, plan, log=log, pairs=pairs)
-    assert len(log.reads) == (L + 1 if pairs else 2 * L)
-    assert {"mr", "mc", "tmp"} <= log.writes["phi0"]
-    for phase, reads in log.reads.items():
-        assert reads & log.writes[phase] <= ({"tmp"} if pairs else set()), phase
-    assert "tmp" not in log.reads["phi0"]
+    before it reads anything, no phase reads what it writes, and the
+    results are finite: 3L + 1 phases (3L grid barriers), the split
+    buffers among the first phase's outputs."""
+    plan, _, planes = _case(n, L, ansatz, precision, seed=n)
+    _, xr, xi = kc.circuit2d_forward_plain(*planes, plan)
     g = torch.as_tensor(np.random.default_rng(0).normal(size=(plan.R, plan.C)))
     log = kc._PhaseLog()
-    grads = kc.circuit2d_backward_bf16_phased_plain(*planes, xr, xi, g, plan, log=log,
-                                                    pairs=pairs)
-    assert len(log.reads) == (2 * L + 1 if pairs else 3 * L + 1)
+    grads = kc.circuit2d_backward_bf16_phased_plain(*planes, xr, xi, g, plan, log=log)
+    assert len(log.reads) == 3 * L + 1
     assert {"mr", "mc"} <= log.writes[f"phi1_{L - 1}"]
     for phase, reads in log.reads.items():
-        assert reads & log.writes[phase] <= ({"v"} if pairs else set()), phase
-    assert all(bool(torch.isfinite(t).all()) for t in (probs, xr, xi, *grads))
+        assert not reads & log.writes[phase], phase
+    assert all(bool(torch.isfinite(t).all()) for t in grads)
 
 
 def test_probe_stamps_every_kernel():
-    """The probe's barrier counts are the kernels' phase counts, and its
-    cluster form flips the one switch of the bf16 kernels."""
+    """The probe's barrier counts are the kernels' phase counts."""
     L = 8
-    assert probe_kernels.barriers("high", L, backward=False) == 2 * L - 1
-    assert probe_kernels.barriers("high", L, backward=True) == 3 * L
-    assert probe_kernels.barriers("default", L, backward=False, cluster=True) == L
-    assert probe_kernels.barriers("default", L, backward=True, cluster=True) == 2 * L
-    assert probe_kernels.barriers("highest", L, backward=True) == 3 * L
-    name, (old, _) = probe_kernels.CLUSTER_FORM
-    assert (_lib.CSRC / name).read_text().count(old) == 1
+    for precision in ("highest", "high", "default"):
+        assert probe_kernels.barriers(precision, L, backward=False) == 2 * L - 1
+        assert probe_kernels.barriers(precision, L, backward=True) == 3 * L
