@@ -29,6 +29,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from ..ops.kernels.precision import precision_name
+from ..train import span
 
 
 def cosine_lr_schedule(lr: float, num_epochs: int, steps_per_epoch: int = 1) -> Callable:
@@ -109,9 +110,10 @@ def guarded_update(opt: Optimizer, grads: torch.Tensor, state: Dict[str, torch.T
                    params: torch.Tensor, apply: torch.Tensor):
     """The optimizer step where ``apply`` (a bool tensor) is true; otherwise
     params and every state entry, the step count included, stay as they were."""
-    new_params, new_state = opt.update(grads, state, params)
-    return (torch.where(apply, new_params, params),
-            {k: torch.where(apply, new_state[k], state[k]) for k in state})
+    with span("engine.update"):
+        new_params, new_state = opt.update(grads, state, params)
+        return (torch.where(apply, new_params, params),
+                {k: torch.where(apply, new_state[k], state[k]) for k in state})
 
 
 # The cuBLAS/cuDNN mode of each matmul precision name: ``allow_tf32``. TF32

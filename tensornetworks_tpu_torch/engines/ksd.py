@@ -13,7 +13,10 @@ the classical engine), its gradient, clip → Adam/SGD with the per-epoch
 cosine schedule, a guarded update that skips a non-finite loss together
 with its schedule step, and the TVD to the exact posterior with a best-TVD
 snapshot that is restored at the end (the classical engine also stops
-early).
+early). Under a profiler each epoch and its phases are spans
+(``train.span``): ``engine.epoch`` around ``engine.loss``,
+``engine.backward``, ``engine.update`` and ``engine.eval``, and the
+chunk-end ``engine.sync``.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from ..models.born_quantum import QuantumBornMachine
 from ..ops.hamming import resolve_length_scale
 from ..ops.stein import SteinOperator, score_table
 from ..sim.structured import latent_edges
-from ..train import profile_trace, save_checkpoint, training_bundle
+from ..train import profile_trace, save_checkpoint, span, training_bundle
 from .common import global_norm, guarded_update, highest_matmul_precision, make_optimizer
 
 
@@ -40,12 +43,13 @@ def _posterior_vec_from(true_posterior, num_latent_vars, dtype, device):
     """Accept the dict format or a dense vector."""
     if true_posterior is None:
         return None
-    if isinstance(true_posterior, dict):
-        outcomes = generate_all_binary_outcomes(num_latent_vars)
-        vec = np.array([true_posterior.get(t, 0.0) for t in outcomes])
-    else:
-        vec = np.asarray(true_posterior)
-    return torch.as_tensor(vec, dtype=dtype, device=device)
+    with span("engine.posterior"):
+        if isinstance(true_posterior, dict):
+            outcomes = generate_all_binary_outcomes(num_latent_vars)
+            vec = np.array([true_posterior.get(t, 0.0) for t in outcomes])
+        else:
+            vec = np.asarray(true_posterior)
+        return torch.as_tensor(vec, dtype=dtype, device=device)
 
 
 def _resume_fingerprint(carry: dict, generators, num_epochs: int, chunk_epochs: int) -> str:
@@ -208,47 +212,53 @@ def run_ksd_scan(*, probs_fn, params0: torch.Tensor, op: SteinOperator, num_epoc
         t_chunk = time.perf_counter()
         chunk_op = op if op_schedule is None else op_schedule(start // chunk)
         for epoch in range(start, min(start + chunk, num_epochs)):
-            p = params.detach().requires_grad_(True)
-            q = probs_fn(p)
-            ksd = chunk_op.ksd_loss(q)
-            loss = ksd
-            if entropy_weight is not None:
-                ent = -(q * torch.log(q.clamp(min=1e-10))).sum()
-                loss = ksd - entropy_weight * ent
-            (grads,) = torch.autograd.grad(loss, p)
-            if reducer is not None:
-                grads = reducer.grads(grads)
-            do_update = torch.isfinite(loss)
-            if early_stopping:
-                do_update = do_update & ~stopped
-            tvd = torch.full_like(ksd, float("nan"))
-            if track and reuse:
-                # q at the current params is the previous epoch's post-update
-                # distribution; epoch 0's is the init, not a candidate.
-                tvd = tvd_of(q.detach())
-                if epoch > 0:
-                    take_best(tvd, epoch - 1, params, tvd < best_tvd)
-            params, opt_state = guarded_update(optimizer, grads, opt_state, params, do_update)
-            if track and not reuse:
-                with torch.no_grad():
-                    q_eval = (probs_fn if noisy_eval else eval_probs_fn)(params)
-                tvd = tvd_of(q_eval)
-                improved = (tvd < best_tvd) & ~stopped
-                take_best(tvd, epoch, params, improved)
+            with span("engine.epoch"):
+                p = params.detach().requires_grad_(True)
+                with span("engine.loss"):
+                    q = probs_fn(p)
+                    ksd = chunk_op.ksd_loss(q)
+                    loss = ksd
+                    if entropy_weight is not None:
+                        ent = -(q * torch.log(q.clamp(min=1e-10))).sum()
+                        loss = ksd - entropy_weight * ent
+                with span("engine.backward"):
+                    (grads,) = torch.autograd.grad(loss, p)
+                if reducer is not None:
+                    grads = reducer.grads(grads)
+                do_update = torch.isfinite(loss)
                 if early_stopping:
-                    since_best = torch.where(stopped, since_best,
-                                             torch.where(improved, 0, since_best + 1))
-                    if epoch > min_epochs_before_stop:
-                        newly = (since_best > patience) & ~stopped
-                        stop_at = torch.where(newly, epoch + 1, stop_at)
-                        stopped = stopped | newly
-            skipped = (~do_update & ~stopped) if early_stopping else ~do_update
-            row = [ksd.detach(), tvd, global_norm([grads]), skipped.to(hist.dtype)]
-            if entropy_weight is not None:
-                row.append(ent.detach())
-            hist[:, epoch] = torch.stack(row)
+                    do_update = do_update & ~stopped
+                tvd = torch.full_like(ksd, float("nan"))
+                if track and reuse:
+                    # q at the current params is the previous epoch's post-update
+                    # distribution; epoch 0's is the init, not a candidate.
+                    with span("engine.eval"):
+                        tvd = tvd_of(q.detach())
+                        if epoch > 0:
+                            take_best(tvd, epoch - 1, params, tvd < best_tvd)
+                params, opt_state = guarded_update(optimizer, grads, opt_state, params, do_update)
+                if track and not reuse:
+                    with span("engine.eval"):
+                        with torch.no_grad():
+                            q_eval = (probs_fn if noisy_eval else eval_probs_fn)(params)
+                        tvd = tvd_of(q_eval)
+                        improved = (tvd < best_tvd) & ~stopped
+                        take_best(tvd, epoch, params, improved)
+                    if early_stopping:
+                        since_best = torch.where(stopped, since_best,
+                                                 torch.where(improved, 0, since_best + 1))
+                        if epoch > min_epochs_before_stop:
+                            newly = (since_best > patience) & ~stopped
+                            stop_at = torch.where(newly, epoch + 1, stop_at)
+                            stopped = stopped | newly
+                skipped = (~do_update & ~stopped) if early_stopping else ~do_update
+                row = [ksd.detach(), tvd, global_norm([grads]), skipped.to(hist.dtype)]
+                if entropy_weight is not None:
+                    row.append(ent.detach())
+                hist[:, epoch] = torch.stack(row)
         end = min(start + chunk, num_epochs)
-        best_tvd.item()  # host sync closes the chunk
+        with span("engine.sync"):
+            best_tvd.item()  # host sync closes the chunk
         chunk_seconds.append((end - start, time.perf_counter() - t_chunk))
         if resume_state_path:
             if writer:
@@ -262,7 +272,7 @@ def run_ksd_scan(*, probs_fn, params0: torch.Tensor, op: SteinOperator, num_epoc
             and os.path.exists(resume_state_path)):
         os.remove(resume_state_path)
 
-    with torch.no_grad():
+    with span("engine.eval"), torch.no_grad():
         if track and reuse:
             # The last epoch's post-update evaluation; shift the history so
             # hist[t] is epoch t's post-update TVD.
@@ -346,10 +356,11 @@ class KSDVariationalInference:
                             dtype=self.dtype, device=self.device)
 
     def build_operator(self, x_observation_dict) -> SteinOperator:
-        t = self.bn.conditional_joint_table(self.latent_vars_names, x_observation_dict)
-        return SteinOperator(score_table(t), self.num_latent_vars,
-                             self.base_kernel_length_scale, dtype=self.dtype,
-                             dense=self.dense, device=self.device)
+        with span("engine.build_operator"):
+            t = self.bn.conditional_joint_table(self.latent_vars_names, x_observation_dict)
+            return SteinOperator(score_table(t), self.num_latent_vars,
+                                 self.base_kernel_length_scale, dtype=self.dtype,
+                                 dense=self.dense, device=self.device)
 
     @highest_matmul_precision()
     def train(self, x_observation_dict: Dict[str, int], num_epochs: int,
@@ -489,12 +500,13 @@ class QuantumKSDVariationalInference:
         tempered target p^β: the discrete score ``s = 1 - p(flip)/p`` becomes
         ``1 - (1 - s)^β``; the zero-probability guard rows (s = 0) are fixed
         points, so the guard is kept."""
-        t = self.bn.conditional_joint_table(self.latent_vars_names, x_observation_dict)
-        S = score_table(t)
-        if temper_beta != 1.0:
-            S = 1.0 - np.power(1.0 - S, temper_beta)
-        return SteinOperator(S, self.num_latent_vars, self.base_kernel_length_scale,
-                             dtype=self.dtype, device=self.device)
+        with span("engine.build_operator"):
+            t = self.bn.conditional_joint_table(self.latent_vars_names, x_observation_dict)
+            S = score_table(t)
+            if temper_beta != 1.0:
+                S = 1.0 - np.power(1.0 - S, temper_beta)
+            return SteinOperator(S, self.num_latent_vars, self.base_kernel_length_scale,
+                                 dtype=self.dtype, device=self.device)
 
     @highest_matmul_precision()
     def train(self, x_observation_dict: Dict[str, int], num_epochs: int,

@@ -22,7 +22,9 @@ for the reference ansätze). q is cast to float32, as in the JAX engine.
 
 As in the port's other engines the epochs are an eager loop whose state
 (parameters, Adam moments, best snapshot, history) stays on the device; the
-host waits for it only at chunk ends. Shots come from ``sampler(P,
+host waits for it only at chunk ends; under a profiler the epochs carry
+``run_ksd_scan``'s spans, with ``sampled.shots``, ``sampled.scores`` and
+``sampled.gram`` inside the loss. Shots come from ``sampler(P,
 num_samples, generator)``: ``sim.sampling.inverse_cdf_sampler`` by default,
 with one generator per run seeded by ``seed``, M uniforms per epoch (flat)
 or M for the rows and then M for the columns (two-stage).
@@ -45,6 +47,7 @@ from ..ops.stein_sampled import (ksd_ustat, reinforce_surrogate, reinforce_surro
                                  score_at_samples, stein_gram_samples)
 from ..sim.sampling import gather_2d, inverse_cdf_sampler
 from ..sim.structured import latent_edges
+from ..train import profile_trace, span
 from .common import global_norm, guarded_update, highest_matmul_precision, make_optimizer
 from .ksd import _posterior_vec_from, steady_epochs_per_sec
 
@@ -119,7 +122,8 @@ class SampledKSDVariationalInference:
               optimizer_type: str = "adam", adam_betas=(0.9, 0.999),
               seed: Optional[int] = None, chunk_epochs: Optional[int] = None,
               reuse_loss_forward_for_eval: bool = False,
-              sampler: Callable = inverse_cdf_sampler) -> dict:
+              sampler: Callable = inverse_cdf_sampler,
+              profile_dir: Optional[str] = None) -> dict:
         """Train for ``num_epochs``; returns the history (``loss_ksd`` is
         the per-epoch U-statistic, ``tvd``, ``grad_norm``, the rates and
         ``num_skipped_updates``).
@@ -132,7 +136,8 @@ class SampledKSDVariationalInference:
         the results are the same. ``seed`` overrides the engine's seed for
         the shot generator. ``sampler(P, num_samples, generator)`` returns
         the shots' flat indices for a (2^n,) ``P``, or ``(flat_idx, r, c)``
-        for its (R, C) view."""
+        for its (R, C) view. ``profile_dir``: a ``torch.profiler`` trace
+        of the epochs (``train.profile_trace``)."""
         n, M = self.num_latent_vars, self.num_samples
         dev = self.device
         log_joint_z = make_latent_log_joint_fn(self.bn, self.latent_vars_names,
@@ -157,22 +162,25 @@ class SampledKSDVariationalInference:
         def epoch_loss(p):
             q = bm.probs(p).to(torch.float32)
             P2 = q.reshape(R, C)
-            if two_stage:
-                idx, r, c = sampler(P2.detach(), M, gen)
-                q_at = gather_2d(P2, r, c)
-            else:
-                idx = sampler(q.detach(), M, gen)
-                q_at = q[idx]
+            with span("sampled.shots"):
+                if two_stage:
+                    idx, r, c = sampler(P2.detach(), M, gen)
+                    q_at = gather_2d(P2, r, c)
+                else:
+                    idx = sampler(q.detach(), M, gen)
+                    q_at = q[idx]
             log_q = torch.log(q_at.clamp(min=1e-12))
-            Z = torch_index_to_bits(idx, n, dtype=torch.float32)
-            S_x = score_at_samples(log_joint_z, Z)
-            gram = stein_gram_samples(S_x.to(torch.float32), Z, n, self.length_scale)
-            est = ksd_ustat(gram)
-            if use_cv:
-                marg = torch.cat([P2.sum(dim=1) @ Br, P2.sum(dim=0) @ Bc])
-                surrogate = reinforce_surrogate_cv(gram, log_q, Z, marg)
-            else:
-                surrogate = reinforce_surrogate(gram, log_q, self.grad_baseline)
+            with span("sampled.scores"):
+                Z = torch_index_to_bits(idx, n, dtype=torch.float32)
+                S_x = score_at_samples(log_joint_z, Z)
+            with span("sampled.gram"):
+                gram = stein_gram_samples(S_x.to(torch.float32), Z, n, self.length_scale)
+                est = ksd_ustat(gram)
+                if use_cv:
+                    marg = torch.cat([P2.sum(dim=1) @ Br, P2.sum(dim=0) @ Bc])
+                    surrogate = reinforce_surrogate_cv(gram, log_q, Z, marg)
+                else:
+                    surrogate = reinforce_surrogate(gram, log_q, self.grad_baseline)
             return (est - surrogate).detach() + surrogate, q.detach()
 
         def tvd_of(q):
@@ -195,43 +203,52 @@ class SampledKSDVariationalInference:
         chunk = chunk_epochs if chunk_epochs and chunk_epochs < num_epochs else num_epochs
         chunk_seconds = []
         t0 = time.perf_counter()
-        for start in range(0, num_epochs, chunk):
-            t_chunk = time.perf_counter()
-            for epoch in range(start, min(start + chunk, num_epochs)):
-                p = params.detach().requires_grad_(True)
-                loss, q = epoch_loss(p)
-                (grads,) = torch.autograd.grad(loss, p)
-                ok = torch.isfinite(loss)
-                tvd = torch.full_like(loss, float("nan"))
-                if reuse_eval:
-                    # q is the previous epoch's post-update distribution;
-                    # epoch 0's is the init, not a candidate.
-                    tvd = tvd_of(q)
-                    if epoch > 0:
-                        take_best(tvd, epoch - 1, params)
-                params, opt_state = guarded_update(optimizer, grads, opt_state, params, ok)
-                if track and not reuse_eval:
-                    with torch.no_grad():
-                        tvd = tvd_of(bm.probs(params).to(torch.float32))
-                    take_best(tvd, epoch, params)
-                hist[:, epoch] = torch.stack([loss.detach().float(), tvd.float(),
-                                              global_norm([grads]).float(), (~ok).float()])
-            best_tvd.item()  # host sync closes the chunk
-            chunk_seconds.append((min(chunk, num_epochs - start), time.perf_counter() - t_chunk))
-            if verbose and chunk < num_epochs and len(chunk_seconds) % 10 == 0:
-                done = sum(e for e, _ in chunk_seconds)
-                # The JAX engine prints best_tvd=inf when the TVD is not
-                # tracked (ADVICE.md); the suffix is guarded as in
-                # run_ksd_scan's progress line.
-                bt = float(best_tvd)
-                suffix = f" best_tvd={bt:.4f}" if np.isfinite(bt) else ""
-                print(f"  [chunk] {done}/{num_epochs} epochs "
-                      f"{time.perf_counter() - t0:.0f}s{suffix}", flush=True)
-        if reuse_eval:
-            # The loop's TVDs lag one epoch: evaluate the final parameters
-            # once (the only extra forward of the run).
-            with torch.no_grad():
-                take_best(tvd_of(bm.probs(params).to(torch.float32)), num_epochs - 1, params)
+        with profile_trace(profile_dir):
+            for start in range(0, num_epochs, chunk):
+                t_chunk = time.perf_counter()
+                for epoch in range(start, min(start + chunk, num_epochs)):
+                    with span("engine.epoch"):
+                        p = params.detach().requires_grad_(True)
+                        with span("engine.loss"):
+                            loss, q = epoch_loss(p)
+                        with span("engine.backward"):
+                            (grads,) = torch.autograd.grad(loss, p)
+                        ok = torch.isfinite(loss)
+                        tvd = torch.full_like(loss, float("nan"))
+                        if reuse_eval:
+                            # q is the previous epoch's post-update distribution;
+                            # epoch 0's is the init, not a candidate.
+                            with span("engine.eval"):
+                                tvd = tvd_of(q)
+                                if epoch > 0:
+                                    take_best(tvd, epoch - 1, params)
+                        params, opt_state = guarded_update(optimizer, grads, opt_state, params, ok)
+                        if track and not reuse_eval:
+                            with span("engine.eval"):
+                                with torch.no_grad():
+                                    tvd = tvd_of(bm.probs(params).to(torch.float32))
+                                take_best(tvd, epoch, params)
+                        hist[:, epoch] = torch.stack([loss.detach().float(), tvd.float(),
+                                                      global_norm([grads]).float(), (~ok).float()])
+                with span("engine.sync"):
+                    best_tvd.item()  # host sync closes the chunk
+                chunk_seconds.append((min(chunk, num_epochs - start),
+                                      time.perf_counter() - t_chunk))
+                if verbose and chunk < num_epochs and len(chunk_seconds) % 10 == 0:
+                    done = sum(e for e, _ in chunk_seconds)
+                    # The JAX engine prints best_tvd=inf when the TVD is not
+                    # tracked (ADVICE.md); the suffix is guarded as in
+                    # run_ksd_scan's progress line.
+                    bt = float(best_tvd)
+                    suffix = f" best_tvd={bt:.4f}" if np.isfinite(bt) else ""
+                    print(f"  [chunk] {done}/{num_epochs} epochs "
+                          f"{time.perf_counter() - t0:.0f}s{suffix}", flush=True)
+            if reuse_eval:
+                # The loop's TVDs lag one epoch: evaluate the final parameters
+                # once (the only extra forward of the run).
+                with span("engine.eval"), torch.no_grad():
+                    take_best(tvd_of(bm.probs(params).to(torch.float32)), num_epochs - 1,
+                              params)
         history_dev = hist.cpu().numpy()
         elapsed = time.perf_counter() - t0
 

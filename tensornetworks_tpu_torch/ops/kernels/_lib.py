@@ -7,7 +7,8 @@ first use, into ``build/tn_kernels/`` beside the package (listed in
 so an edited source is never served from a stale build; the compiler's
 report (``-Xptxas -v``) is kept beside it and read into ``BUILD_LOGS``
 whether the library was built now or found built. ``build_all`` starts one
-``nvcc`` per source at once and waits for all of them.
+``nvcc`` per source at once and waits for all of them. The wait for a
+build is a ``kernels.build`` span (``train.span``) in a profile.
 
 Every C entry point returns ``cudaGetLastError()``; ``check`` raises on a
 non-zero code. Launch counts are plain integers kept here, one per kernel
@@ -26,6 +27,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict
+
+from ...train import span
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -146,7 +149,8 @@ def _finish_build(name: str, out: Path, job) -> None:
     if job is None:
         return
     proc, tmp = job
-    log, _ = proc.communicate()
+    with span("kernels.build"):
+        log, _ = proc.communicate()
     BUILD_LOGS[name] = log
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")

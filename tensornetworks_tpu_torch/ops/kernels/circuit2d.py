@@ -62,6 +62,7 @@ import torch
 from ...sim.blocked import _chain_gates, _cnot_map, _cz_pairs
 from ...sim.gates import fold_wall, rotation_operators
 from ...sim.structured import check_edges
+from ...train import span
 from . import _lib
 from .precision import (CODES, _kernel_precision, fp32_matmul, precision_name, round_bf16,
                         split_bf16)
@@ -843,10 +844,11 @@ class Circuit2dFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        mr_re, mr_im, mc_re, mc_im, xr, xi = ctx.saved_tensors
-        grads = circuit2d_backward(mr_re, mr_im, mc_re, mc_im, xr, xi,
-                                   g.contiguous(), ctx.plan)
-        return (*grads, None)
+        with span("circuit.backward"):
+            mr_re, mr_im, mc_re, mc_im, xr, xi = ctx.saved_tensors
+            grads = circuit2d_backward(mr_re, mr_im, mc_re, mc_im, xr, xi,
+                                       g.contiguous(), ctx.plan)
+            return (*grads, None)
 
 
 def circuit_operators(params: torch.Tensor, plan, embed_angles=None,
@@ -871,7 +873,8 @@ def make_probs_fn(plan, planes, function, forward, conditioning: bool, reupload:
     probabilities — with no autograd graph."""
 
     def launch(Mr, Mc):
-        return function.apply(*planes(Mr, Mc), plan).reshape(-1)
+        with span("circuit.forward"):  # the planes' gather and copies too
+            return function.apply(*planes(Mr, Mc), plan).reshape(-1)
 
     def probs_fn(params: torch.Tensor, embed_angles=None) -> torch.Tensor:
         if conditioning and embed_angles is None:

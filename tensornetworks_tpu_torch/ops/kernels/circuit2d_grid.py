@@ -66,6 +66,7 @@ import torch
 
 from ...sim.blocked import _chain_gates, _cnot_map, _cz_pairs
 from ...sim.blocked2d import _cz_sign_mask, _kron_h, _perm_matrix
+from ...train import span
 from . import _lib
 from .circuit2d import (WALL_ANSATZE, _check, _initial_state, _pcmm, circuit2d_backward_plain,
                         circuit2d_forward_plain, circuit_operators, expand_maps, layer_masks,
@@ -512,10 +513,11 @@ class Circuit2dGridFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        mr_re, mr_im, mc_re, mc_im, xr, xi = ctx.saved_tensors
-        grads = circuit2d_grid_backward(mr_re, mr_im, mc_re, mc_im, xr, xi,
-                                        g.contiguous(), ctx.plan)
-        return (*grads, None)
+        with span("circuit.backward"):
+            mr_re, mr_im, mc_re, mc_im, xr, xi = ctx.saved_tensors
+            grads = circuit2d_grid_backward(mr_re, mr_im, mc_re, mc_im, xr, xi,
+                                            g.contiguous(), ctx.plan)
+            return (*grads, None)
 
 
 def grid_planes(Mr: torch.Tensor, Mc: torch.Tensor, plan: GridPlan) -> list:

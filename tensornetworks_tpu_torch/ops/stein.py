@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..core.bits import all_bitstrings
+from ..train import span
 from .hamming import decay_factor
 from .kernels.stein2d import kron_factors, stein2d_apply, stein2d_apply_grid, stein2d_apply_plain
 from .kernels.stein_gcorr import flip_bit, gcorr_combine
@@ -303,8 +304,9 @@ class _QuadForm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        (y,) = ctx.saved_tensors
-        return 2.0 * g * y, None
+        with span("stein.apply"):
+            (y,) = ctx.saved_tensors
+            return 2.0 * g * y, None
 
 
 def ksd_quadform(q: torch.Tensor, S: torch.Tensor, B: torch.Tensor, num_vars: int,
@@ -360,14 +362,16 @@ class SteinOperator:
         self._S = self._B = None
         self.dense = dense if dense is not None else n <= self.DENSE_MAX_VARS
         self.gram = self.gcorr = None
-        if self.dense:
-            self.gram = stein_gram_dense(self.S, n, self.length_scale)
-            return
-        self._a = decay_factor(n, self.length_scale)
-        _, _, self._R, self._C = _split(n)
-        self._grid = n >= self.GRID_MIN_VARS
-        if not use_pallas:
-            self.gcorr = make_gcorr_tables(self._score_np, n, dtype=dtype, device=self.device)
+        with span("stein.build"):
+            if self.dense:
+                self.gram = stein_gram_dense(self.S, n, self.length_scale)
+                return
+            self._a = decay_factor(n, self.length_scale)
+            _, _, self._R, self._C = _split(n)
+            self._grid = n >= self.GRID_MIN_VARS
+            if not use_pallas:
+                self.gcorr = make_gcorr_tables(self._score_np, n, dtype=dtype,
+                                               device=self.device)
 
     @property
     def S(self) -> torch.Tensor:
@@ -413,4 +417,5 @@ class SteinOperator:
 
     def ksd_loss(self, q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
         """sqrt(clamp(qᵀ K_p q, eps))."""
-        return torch.sqrt(torch.clamp(self.quadform(q), min=eps))
+        with span("stein.loss"):
+            return torch.sqrt(torch.clamp(self.quadform(q), min=eps))

@@ -17,45 +17,43 @@ engine is one of
   batch 256, 3 discriminator steps, lr 5e-3 and 5e-2, the log p floor);
 - ``sampled``: sampled KSD-VI of the quantum Born machine
   (``SampledKSDVariationalInference``, ``--shots`` per epoch, ℓ = 1, lr
-  0.05, the TVD on a second forward up to 24 qubits). It also times each
-  piece of an epoch at the run's shapes by CUDA events: the loss forward,
-  the shots, the scores, the Gram, the backward (forward and backward less
-  the forward) and the evaluation forward; and the circuit kernels alone
-  and their plain versions on the same planes;
+  0.05, the TVD on a second forward up to 24 qubits). It also times the
+  circuit kernels alone and their plain versions on the same planes by
+  CUDA events;
 - ``amortized``: amortized KSD-VI (``AmortizedKSD``) of one conditioned
   circuit over the 4 observations of a network of n+2 variables (seed 0,
   V{n} and V{n+1} observed), ``scripts/quality_amortized16.py``'s model:
   bn_structured L=8 re-uploading the wall (``--ansatz``/``--layers`` set
-  it), ℓ auto, lr 0.05, clip 10, entropy 0. It also times each piece of an
-  epoch, device and host ms: the θ fold, the X wall folds, the X circuit
-  forwards, the X Stein applies, and the X backwards (the epoch less the
-  rest).
+  it), ℓ auto, lr 0.05, clip 10, entropy 0.
 It prints: wall time per epoch, device busy time per epoch (the sum of
 kernel times; one stream, so kernels do not overlap), the device's idle
 share, the peak device memory of the profiled run (operator build
-included), the operators with the most device and host time, and, for the
-quantum engines, how many of the epoch's aten calls the θ → Mr/Mc
-Kronecker fold and its autograd make on their own. The last line is the
-same summary as JSON. Needs a CUDA device.
+included), the operators with the most device and host time, the pieces
+of the epoch as the program's own spans (``train.span``) in the profiled
+run: calls, host ms, device ms and kernel launches per epoch of each span,
+nested spans included, the backward's kernels (autograd's thread) in
+``engine.backward`` (``span_table``), and, for the quantum engines, how
+many of the epoch's aten calls the θ → Mr/Mc Kronecker fold and its
+autograd make on their own. The last line is the same summary as JSON.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
+import os
+import tempfile
 import time
 
 import torch
 
 from ..core import get_random_chain_network
-from ..core.bits import torch_index_to_bits
-from ..core.factors import make_latent_log_joint_fn
 from ..engines import (AdversarialVariationalInference, AmortizedKSD, KSDVariationalInference,
                        QuantumKSDVariationalInference, SampledKSDVariationalInference)
 from ..models import QuantumBornMachine
-from ..ops.stein_sampled import ksd_ustat, reinforce_surrogate, score_at_samples, stein_gram_samples
 from ..sim.gates import rotation_operators
-from ..sim.sampling import gather_2d, inverse_cdf_sampler
 from ..sim.structured import latent_edges
 
 ENGINES = ("quantum", "classical", "adversarial", "sampled", "amortized")
@@ -74,48 +72,6 @@ def _device_ms(fn, reps=5):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2], out
-
-
-def sampled_pieces(eng: SampledKSDVariationalInference, obs: dict) -> dict:
-    """Device ms of each piece of a sampled-KSD epoch at the engine's shapes
-    (two-stage shots from 20 qubits, as the engine samples)."""
-    bm, n, M = eng.born_machine, eng.num_latent_vars, eng.num_samples
-    log_joint = make_latent_log_joint_fn(eng.bn, eng.latent_vars_names, obs, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    p = eng.params.detach().requires_grad_(True)
-    rb = (n + 1) // 2
-    two_stage = eng.sampling == "two_stage"
-
-    def forward():
-        return bm.probs(p).to(torch.float32)
-
-    def shots(q):
-        P = q.detach().reshape(1 << rb, -1) if two_stage else q.detach()
-        out = inverse_cdf_sampler(P, M, gen)
-        return out if two_stage else (out, None, None)
-
-    def loss_and_grad():
-        q = forward()
-        idx, r, c = shots(q)
-        q_at = gather_2d(q.reshape(1 << rb, -1), r, c) if two_stage else q[idx]
-        Z = torch_index_to_bits(idx, n)
-        gram = stein_gram_samples(score_at_samples(log_joint, Z), Z, n, eng.length_scale)
-        loss = ksd_ustat(gram) + reinforce_surrogate(gram, torch.log(q_at.clamp(min=1e-12)))
-        return torch.autograd.grad(loss, p)
-
-    pieces = {}
-    pieces["loss forward"], q = _device_ms(forward)
-    pieces["shots"], (idx, _, _) = _device_ms(lambda: shots(q))
-    Z = torch_index_to_bits(idx, n)
-    pieces["scores"], S = _device_ms(lambda: score_at_samples(log_joint, Z))
-    pieces["gram"], _ = _device_ms(lambda: stein_gram_samples(S, Z, n, eng.length_scale))
-    whole, _ = _device_ms(loss_and_grad)
-    pieces["backward (epoch less the above)"] = whole - sum(pieces.values())
-    with torch.no_grad():
-        pieces["eval forward"], _ = _device_ms(forward)
-    if bm.backend in ("circuit2d", "circuit2d_grid"):
-        pieces.update(circuit_kernel_and_plain_ms(bm, p.detach()))
-    return pieces
 
 
 def circuit_kernel_and_plain_ms(bm, theta) -> dict:
@@ -147,85 +103,80 @@ def circuit_kernel_and_plain_ms(bm, theta) -> dict:
     return out
 
 
-def _host_and_device_ms(fn, reps=5):
-    """(median device ms by CUDA events, median host ms to issue the calls,
-    the last output) of ``fn`` after a warm-up call."""
-    out = fn()
-    dev, host = [], []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        out = fn()
-        end.record()
-        host.append(1e3 * (time.perf_counter() - t0))
-        torch.cuda.synchronize()
-        dev.append(start.elapsed_time(end))
-    return sorted(dev)[reps // 2], sorted(host)[reps // 2], out
+def span_table(trace: dict) -> dict:
+    """{span: calls, host ms, device ms, kernel launches} of the program's
+    spans (``train.span``) in a profile's chrome trace: host ms are the
+    spans' durations, waits for the device included; each span's device
+    time and launches include those of the spans nested in it. A device
+    operation counts in the innermost span open on the thread that
+    launched it; where that thread has none open, as for the backward's
+    operators on autograd's thread, in the main thread's innermost span at
+    the launch. A span on another thread nests in the main thread's
+    innermost span at its start, so ``engine.backward`` and ``engine.epoch``
+    hold the backward's kernels, ``circuit.backward``'s among them."""
+    spans, launch = {}, {}
+    for e in trace.get("traceEvents", ()):
+        if not isinstance(e, dict) or e.get("ph") != "X":
+            continue
+        thread, ts = (e.get("pid"), e.get("tid")), float(e["ts"])
+        if e.get("cat") == "user_annotation":
+            spans.setdefault(thread, []).append((ts, ts + float(e.get("dur", 0)), e["name"]))
+        elif e.get("cat") in ("cuda_runtime", "cuda_driver"):
+            launch[e.get("args", {}).get("correlation")] = (thread, ts)
+    if not spans:
+        return {}
+    main = min(spans, key=lambda k: min(ts for ts, _, _ in spans[k]))
+    parents = {}
+    for thread, items in spans.items():
+        items.sort(key=lambda x: (x[0], -x[1]))
+        parent, stack = [], []
+        for i, (ts, _, _) in enumerate(items):
+            while stack and items[stack[-1]][1] <= ts:
+                stack.pop()
+            parent.append(stack[-1] if stack else -1)
+            stack.append(i)
+        parents[thread] = parent
 
+    def innermost(thread, t):
+        items = spans.get(thread, ())
+        i = bisect.bisect_right(items, (t, float("inf"))) - 1
+        while i >= 0 and items[i][1] <= t:
+            i = parents[thread][i]
+        return (thread, i) if i >= 0 else None
 
-def amortized_pieces(eng: AmortizedKSD, observations) -> dict:
-    """Device and host ms of each piece of an amortized epoch at the
-    engine's shapes: the θ → Mr/Mc fold, the X wall folds, the X circuit
-    forwards, the X Stein applies (forward matvecs) and the X backwards
-    (the epoch's loss and gradient less the rest)."""
-    from ..ops.kernels import circuit2d as kc
-    from ..ops.kernels import circuit2d_grid as kg
-    from ..sim.gates import fold_wall
+    def around(thread, t):
+        """The names of the spans around a launch at t, innermost first."""
+        names, at = [], innermost(thread, t) or innermost(main, t)
+        while at is not None:
+            thread, i = at
+            ts, _, name = spans[thread][i]
+            if name not in names:
+                names.append(name)
+            p = parents[thread][i]
+            at = (thread, p) if p >= 0 else None if thread == main else innermost(main, ts)
+        return names
 
-    bm = eng.born_machine
-    grid = bm.backend == "circuit2d_grid"
-    plan = (kg.GridPlan if grid else kc.CircuitPlan)(bm.num_latent_vars, bm.ansatz_layers,
-                                                     bm.ansatz_type, bm.edges)
-    fn = kg.Circuit2dGridFunction if grid else kc.Circuit2dFunction
-    ops = eng.operators(observations)
-    X = torch.tensor([eng._x(o) for o in observations], dtype=eng.dtype, device=eng.device)
-    p = eng.params.detach().requires_grad_(True)
-    circ = p[:bm.num_circuit_params]
+    table = {}
 
-    def theta_fold():
-        return rotation_operators(circ, plan.n, plan.layers, plan.per_qubit)
+    def row(name):
+        return table.setdefault(name, {"calls": 0, "host_ms": 0.0, "device_ms": 0.0,
+                                       "launches": 0})
 
-    def wall_folds(M):
-        out = []
-        for x in X:
-            Mr, Mc = fold_wall(*M, bm._embed_angles(x, p), plan.n, bm.cond_reupload)
-            out.append(kg.grid_planes(Mr, Mc, plan) if grid else
-                       [t.contiguous() for t in (Mr.real, Mr.imag, Mc.real, Mc.imag)])
-        return out
-
-    def forwards(planes):
-        return [fn.apply(*pl, plan).reshape(-1) for pl in planes]
-
-    def stein(qs):
-        return [op.ksd_loss(q) for op, q in zip(ops, qs)]
-
-    def epoch():
-        q = bm.probs_batch(p, X)
-        loss = torch.stack([op.ksd_loss(qx) for op, qx in zip(ops, q)]).mean()
-        return torch.autograd.grad(loss, p)
-
-    pieces = {}
-    dev, host, M = _host_and_device_ms(theta_fold)
-    pieces["theta fold"] = (dev, host)
-    dev, host, planes = _host_and_device_ms(lambda: wall_folds(M))
-    pieces[f"wall folds (x{len(X)})"] = (dev, host)
-    with torch.no_grad():
-        dev, host, qs = _host_and_device_ms(lambda: forwards(planes))
-        pieces[f"circuit forwards (x{len(X)})"] = (dev, host)
-        dev, host, _ = _host_and_device_ms(lambda: stein(qs))
-        pieces[f"Stein applies (x{len(X)})"] = (dev, host)
-    dev, host, _ = _host_and_device_ms(epoch)
-    pieces[f"backwards (x{len(X)}, the epoch less the above)"] = (
-        dev - sum(d for d, _ in pieces.values()), host - sum(h for _, h in pieces.values()))
-    pieces["whole epoch (loss and gradient)"] = (dev, host)
-    return {k: {"device_ms": d, "host_ms": h} for k, (d, h) in pieces.items()}
+    for items in spans.values():
+        for ts, end, name in items:
+            row(name)["calls"] += 1
+            row(name)["host_ms"] += (end - ts) / 1e3
+    for e in trace["traceEvents"]:
+        if isinstance(e, dict) and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            at = launch.get(e.get("args", {}).get("correlation"))
+            for name in around(*at) if at else ():
+                row(name)["device_ms"] += float(e.get("dur", 0)) / 1e3
+                row(name)["launches"] += e["cat"] == "kernel"
+    return dict(sorted(table.items(), key=lambda kv: kv[1]["device_ms"], reverse=True))
 
 
 def _trainer(engine, n, layers, ansatz, epochs, shots=1024):
-    """(a function that trains once, the quantum Born machine or None, the
-    (engine, observation) of the per-piece timing or None)."""
+    """(a function that trains once, the quantum Born machine or None)."""
     if engine == "amortized":
         from itertools import product
 
@@ -238,8 +189,8 @@ def _trainer(engine, n, layers, ansatz, epochs, shots=1024):
         eng = AmortizedKSD(bn, latent, observed, born_machine=qbm, seed=0,
                            base_kernel_length_scale="auto")
         return (lambda: eng.train(observations, num_epochs=epochs, lr=0.05,
-                                  gradient_clip_norm=10.0, entropy_weight=0.0, verbose=False)), \
-            qbm, (eng, observations)
+                                  gradient_clip_norm=10.0, entropy_weight=0.0,
+                                  verbose=False)), qbm
     bn = get_random_chain_network(n + 1, seed=0)
     latent, obs = [f"V{i}" for i in range(n)], {f"V{n}": 1}
     post = bn.posterior_vector(latent, obs) if n <= 24 else None
@@ -248,7 +199,7 @@ def _trainer(engine, n, layers, ansatz, epochs, shots=1024):
         eng = KSDVariationalInference(bn, latent, list(obs), {"conditioning_dim": 0},
                                       base_kernel_length_scale=1.0, seed=0)
         return lambda: eng.train(obs, lr_born_machine=5e-3, gradient_clip_norm=5.0,
-                                 entropy_weight=1e-3, **kw), None, None
+                                 entropy_weight=1e-3, **kw), None
     if engine == "adversarial":
         edges = latent_edges(bn, latent) if ansatz == "bn_structured" else None
         qbm = QuantumBornMachine(n, layers, ansatz, edges=edges)
@@ -258,15 +209,15 @@ def _trainer(engine, n, layers, ansatz, epochs, shots=1024):
         return lambda: eng.train(obs, batch_size=256, lr_born_machine=5e-3,
                                  lr_classifier=5e-2, k_classifier_steps=3,
                                  gradient_clip_norm=5.0, baseline_decay=0.95,
-                                 adam_betas=(0.5, 0.999), log_p_floor=60.0, **kw), qbm, None
+                                 adam_betas=(0.5, 0.999), log_p_floor=60.0, **kw), qbm
     if engine == "sampled":
         eng = SampledKSDVariationalInference(bn, latent, list(obs), qbm_ansatz_layers=layers,
                                              qbm_ansatz_type=ansatz, num_samples=shots, seed=0)
-        return (lambda: eng.train(obs, lr_born_machine=0.05, **kw)), eng.born_machine, (eng, obs)
+        return (lambda: eng.train(obs, lr_born_machine=0.05, **kw)), eng.born_machine
     eng = QuantumKSDVariationalInference(bn, latent, list(obs), qbm_num_latent_vars=n,
                                          qbm_ansatz_layers=layers, qbm_ansatz_type=ansatz,
                                          seed=0)
-    return lambda: eng.train(obs, lr_born_machine=5e-3, **kw), eng.born_machine, None
+    return lambda: eng.train(obs, lr_born_machine=5e-3, **kw), eng.born_machine
 
 
 def profile_main_path(epochs: int = 50, n: int = 16, layers: int = 4, top: int = 12,
@@ -279,7 +230,7 @@ def profile_main_path(epochs: int = 50, n: int = 16, layers: int = 4, top: int =
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    train, qbm, pieces_of = _trainer(engine, n, layers, ansatz, epochs, shots)
+    train, qbm = _trainer(engine, n, layers, ansatz, epochs, shots)
     train()  # warm-up: kernel build, allocator, cuBLAS handles
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -288,8 +239,14 @@ def profile_main_path(epochs: int = 50, n: int = 16, layers: int = 4, top: int =
         train()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            spans = span_table(json.load(f))
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]  # the spans' device copies
 
     def dev_us(e):
         return e.self_device_time_total
@@ -325,15 +282,14 @@ def profile_main_path(epochs: int = 50, n: int = 16, layers: int = 4, top: int =
         "top_device_us_per_epoch": {e.key[:80]: dev_us(e) / epochs for e in by_device},
         "top_host_us_per_epoch": {e.key[:80]: e.self_cpu_time_total / epochs for e in by_host},
         "host_op_calls_per_epoch": aten_calls(prof) / epochs,
+        "spans_per_epoch": {name: {k: v / epochs for k, v in row.items()}
+                            for name, row in spans.items()},
         "fold_fwd_bwd_aten_calls": fold_calls,
         "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
-    if engine == "sampled":
-        summary["shots"] = shots
-        summary["sampled_pieces_ms"] = sampled_pieces(*pieces_of)
-    if engine == "amortized":
-        summary["observations"] = len(pieces_of[1])
-        summary["amortized_pieces_ms"] = amortized_pieces(*pieces_of)
+    if engine == "sampled" and qbm.backend in ("circuit2d", "circuit2d_grid"):
+        summary["circuit_kernel_and_plain_ms"] = circuit_kernel_and_plain_ms(
+            qbm, qbm.init(torch.Generator().manual_seed(0)))
     return summary
 
 
@@ -367,15 +323,14 @@ def main(argv=None):
         print(f"top {title} time, µs per epoch:")
         for name, us in s[key].items():
             print(f"  {us:10.1f}  {name}")
-    if "sampled_pieces_ms" in s:
-        print(f"pieces of a sampled epoch ({s['shots']} shots), device ms:")
-        for name, ms in s["sampled_pieces_ms"].items():
+    print("spans per epoch: calls, host ms, device ms, kernel launches (nested spans included):")
+    for name, row in s["spans_per_epoch"].items():
+        print(f"  {row['calls']:8.2f} {row['host_ms']:10.3f} {row['device_ms']:10.3f} "
+              f"{row['launches']:8.2f}  {name}")
+    if "circuit_kernel_and_plain_ms" in s:
+        print("circuit kernels alone and their plain versions, device ms:")
+        for name, ms in s["circuit_kernel_and_plain_ms"].items():
             print(f"  {ms:10.3f}  {name}")
-    if "amortized_pieces_ms" in s:
-        print(f"pieces of an amortized epoch ({s['observations']} observations), device ms, "
-              "host ms:")
-        for name, t in s["amortized_pieces_ms"].items():
-            print(f"  {t['device_ms']:10.3f} {t['host_ms']:10.3f}  {name}")
     print(json.dumps(s))
 
 

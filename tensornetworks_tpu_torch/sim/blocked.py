@@ -37,7 +37,8 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .gates import kron_fold, layer_rotations, ry_batched
+from ..train import span
+from .gates import _layer_rotations, kron_fold, ry_batched
 
 # The ansätze whose entanglers are fixed by n and the layer: built gate for
 # gate in ``sim.ansatz`` and by the blocked executors here.
@@ -172,14 +173,15 @@ def make_block_matrices_fn(num_wires: int, layers: int, ansatz_type: str, block:
     perm0 = _local_perm_matrix(chain, *blocks[0]) if chain else None
 
     def block_matrices(params: torch.Tensor) -> List[torch.Tensor]:
-        U = layer_rotations(params, n, layers, per_qubit).to(dtype)  # (layers, n, 2, 2)
-        out = []
-        for i, (s, bs) in enumerate(blocks):
-            M = kron_fold([U[:, q] for q in range(s, s + bs)])
-            if i == 0 and perm0 is not None:
-                M = torch.as_tensor(perm0, dtype=dtype, device=M.device) @ M
-            out.append(M)
-        return out
+        with span("born.fold"):
+            U = _layer_rotations(params, n, layers, per_qubit).to(dtype)  # (layers, n, 2, 2)
+            out = []
+            for i, (s, bs) in enumerate(blocks):
+                M = kron_fold([U[:, q] for q in range(s, s + bs)])
+                if i == 0 and perm0 is not None:
+                    M = torch.as_tensor(perm0, dtype=dtype, device=M.device) @ M
+                out.append(M)
+            return out
 
     return block_matrices
 
@@ -303,7 +305,8 @@ def make_blocked_probs_fn(num_wires: int, layers: int, ansatz_type: str, block: 
                                      remat_layers=remat_layers, conditioning=conditioning)
 
     def probs_fn(params: torch.Tensor, embed_angles=None) -> torch.Tensor:
-        amp = state_fn(params, embed_angles)
-        return amp.real ** 2 + amp.imag ** 2
+        with span("circuit.forward"):
+            amp = state_fn(params, embed_angles)
+            return amp.real ** 2 + amp.imag ** 2
 
     return probs_fn

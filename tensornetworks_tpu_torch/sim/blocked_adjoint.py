@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.kron import apply_adjacent_block
+from ..train import span
 from .blocked import make_block_matrices_fn, make_blocked_state_fn
 
 # Elements of λ conjugated into one temporary by ``_block_cotangent``
@@ -97,42 +98,44 @@ class _BlockedAdjoint(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, params, prog: _Program):
-        psi = prog.state_fn(params)
-        ctx.save_for_backward(params)
-        ctx.prog = prog
-        if ctx.needs_input_grad[0]:
-            ctx.psi = psi
-        return psi.real ** 2 + psi.imag ** 2
+        with span("circuit.forward"):
+            psi = prog.state_fn(params)
+            ctx.save_for_backward(params)
+            ctx.prog = prog
+            if ctx.needs_input_grad[0]:
+                ctx.psi = psi
+            return psi.real ** 2 + psi.imag ** 2
 
     @staticmethod
     def backward(ctx, w):
-        (params,) = ctx.saved_tensors
-        prog, n = ctx.prog, ctx.prog.n
-        psi, ctx.psi = ctx.psi, None
-        # p = |ψ|² ⇒ dL/dθ = 2·Re⟨λ|∂ψ/∂θ⟩ with λ = w∘ψ (w real).
-        lam = w.to(psi.real.dtype) * psi
-        with torch.no_grad():
-            mats = prog.block_matrices(params)
-        Gs = [[] for _ in prog.ent.blocks]
-        # One vector at a time, so that at most three states are live.
-        for layer in range(prog.layers - 1, -1, -1):
-            psi = prog.pull_entanglers(psi, layer)
-            lam = prog.pull_entanglers(lam, layer)
-            # The blocks act on disjoint qubits: pull both vectors back
-            # through each M† and form its cotangent from the pulled pair.
-            for i, (s, bs) in enumerate(prog.ent.blocks):
-                M = mats[i][layer]
-                Mh = torch.conj_physical(M).T.contiguous()
-                psi = apply_adjacent_block(psi, Mh, s, bs, n)
-                lam = apply_adjacent_block(lam, Mh, s, bs, n)
-                Gs[i].append(torch.conj_physical(M) @ _block_cotangent(psi, lam, s, bs, n))
-        del psi, lam
-        G = [torch.stack(g[::-1]) for g in Gs]
-        with torch.enable_grad():
-            p = params.detach().requires_grad_(True)
-            f = sum(2.0 * (m * g).sum().real for m, g in zip(prog.block_matrices(p), G))
-            (grad,) = torch.autograd.grad(f, p)
-        return grad, None
+        with span("circuit.backward"):
+            (params,) = ctx.saved_tensors
+            prog, n = ctx.prog, ctx.prog.n
+            psi, ctx.psi = ctx.psi, None
+            # p = |ψ|² ⇒ dL/dθ = 2·Re⟨λ|∂ψ/∂θ⟩ with λ = w∘ψ (w real).
+            lam = w.to(psi.real.dtype) * psi
+            with torch.no_grad():
+                mats = prog.block_matrices(params)
+            Gs = [[] for _ in prog.ent.blocks]
+            # One vector at a time, so that at most three states are live.
+            for layer in range(prog.layers - 1, -1, -1):
+                psi = prog.pull_entanglers(psi, layer)
+                lam = prog.pull_entanglers(lam, layer)
+                # The blocks act on disjoint qubits: pull both vectors back
+                # through each M† and form its cotangent from the pulled pair.
+                for i, (s, bs) in enumerate(prog.ent.blocks):
+                    M = mats[i][layer]
+                    Mh = torch.conj_physical(M).T.contiguous()
+                    psi = apply_adjacent_block(psi, Mh, s, bs, n)
+                    lam = apply_adjacent_block(lam, Mh, s, bs, n)
+                    Gs[i].append(torch.conj_physical(M) @ _block_cotangent(psi, lam, s, bs, n))
+            del psi, lam
+            G = [torch.stack(g[::-1]) for g in Gs]
+            with torch.enable_grad():
+                p = params.detach().requires_grad_(True)
+                f = sum(2.0 * (m * g).sum().real for m, g in zip(prog.block_matrices(p), G))
+                (grad,) = torch.autograd.grad(f, p)
+            return grad, None
 
 
 def make_blocked_adjoint_probs_fn(num_wires: int, layers: int, ansatz_type: str,

@@ -2,13 +2,17 @@
 
 Counterpart of ``tensornetworks_tpu/sim/gates.py``. Angles are real tensors;
 the matrices are complex (``complex64`` for float32 angles, ``complex128``
-for float64), with the MSB-first wire convention of ``core.bits``.
+for float64), with the MSB-first wire convention of ``core.bits``. The θ →
+operator folds (``layer_rotations``, ``rotation_operators``) each record
+one ``born.fold`` span (``train.span``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..train import span
 
 H = np.array([[1, 1], [1, -1]], dtype=np.complex128) / np.sqrt(2.0)
 X = np.array([[0, 1], [1, 0]], dtype=np.complex128)
@@ -77,24 +81,31 @@ def kron_fold(mats) -> torch.Tensor:
     return mats[0]
 
 
-def layer_rotations(params: torch.Tensor, num_wires: int, layers: int,
-                    per_qubit: int) -> torch.Tensor:
-    """(L, n, 2, 2) fused per-qubit rotations of a parameter vector laid out
-    as (layer, qubit, angle)."""
+def _layer_rotations(params: torch.Tensor, num_wires: int, layers: int,
+                     per_qubit: int) -> torch.Tensor:
     angles = params.reshape(layers, num_wires, per_qubit)
     if per_qubit == 3:
         return rot_zyx_batched(angles[..., 0], angles[..., 1], angles[..., 2])
     return rot_zy_batched(angles[..., 0], angles[..., 1])
 
 
+def layer_rotations(params: torch.Tensor, num_wires: int, layers: int,
+                    per_qubit: int) -> torch.Tensor:
+    """(L, n, 2, 2) fused per-qubit rotations of a parameter vector laid out
+    as (layer, qubit, angle)."""
+    with span("born.fold"):
+        return _layer_rotations(params, num_wires, layers, per_qubit)
+
+
 def rotation_operators(params: torch.Tensor, num_wires: int, layers: int,
                        per_qubit: int) -> tuple:
     """Per-layer row and column operators of the 2D super-block view:
     ``Mr`` (L, R, R) folds qubits 0..rb-1, ``Mc`` (L, C, C) the rest."""
-    U = layer_rotations(params, num_wires, layers, per_qubit)
-    rb = (num_wires + 1) // 2
-    return (kron_fold([U[:, q] for q in range(rb)]),
-            kron_fold([U[:, q] for q in range(rb, num_wires)]))
+    with span("born.fold"):
+        U = _layer_rotations(params, num_wires, layers, per_qubit)
+        rb = (num_wires + 1) // 2
+        return (kron_fold([U[:, q] for q in range(rb)]),
+                kron_fold([U[:, q] for q in range(rb, num_wires)]))
 
 
 def wall_operators(embed_angles: torch.Tensor, num_wires: int) -> tuple:

@@ -1,5 +1,5 @@
 from .checkpoint import load_checkpoint, save_checkpoint, training_bundle
-from .profiling import StepTimer, debug_nans, profile_trace
+from .profiling import StepTimer, debug_nans, profile_trace, span
 
 __all__ = [
     "StepTimer",
@@ -7,5 +7,6 @@ __all__ = [
     "load_checkpoint",
     "profile_trace",
     "save_checkpoint",
+    "span",
     "training_bundle",
 ]

@@ -2,7 +2,8 @@
 
 Counterpart of ``tensornetworks_tpu/train/profiling.py``: a
 ``torch.profiler`` trace in place of ``jax.profiler``, and autograd's
-anomaly mode in place of ``jax_debug_nans``.
+anomaly mode in place of ``jax_debug_nans``. ``span`` names the program's
+layer boundaries in such a trace.
 """
 
 from __future__ import annotations
@@ -12,6 +13,20 @@ import time
 from typing import Iterator, Optional
 
 import torch
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records ``name`` as a ``torch.profiler`` user
+    annotation while a profiler is recording on this thread (autograd's
+    worker threads inherit the state), and does nothing otherwise: one
+    shared ``nullcontext``, for the cost of the check. The annotation sits
+    in the profiler's timeline beside the CUDA kernels, runtime calls and
+    copies that it encloses; it adds no operation and no sync."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
