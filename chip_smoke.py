@@ -31,6 +31,11 @@ Phases (any failure exits non-zero):
    and θ-gradients: at n=16 and n=20, L=8, timed; untimed at n=17, 18 and
    19, at n=5 with high→low and repeated edges, at n=19 with the DAG's
    edges reversed and one repeated, and with no edges at all.
+   Each circuit2d_grid check runs the dense-operator kernels in FP32 and,
+   beside them on the same θ, the gate path that the FP32 machines take
+   from 18 qubits (``csrc/circuit_gates.cu``, ``check_gates``): forward and
+   dU against their plain version, bit-equal over two runs, timed where
+   the grid check is.
 4. Drive the main path: exact quantum KSD-VI on the 16-qubit workload of
    ``bench.py`` (random chain network of 17 variables, seed 0, V16=1
    observed) through ``QuantumKSDVariationalInference.train``.
@@ -508,9 +513,12 @@ N_BN_EDGES, BN_EDGES = 5, [(4, 0), (2, 1), (0, 3), (0, 3), (3, 4), (1, 2), (1, 2
 # 1/(1-a²) (8.5 at n=16, ℓ=1); on the CPU the FP32 plain version read
 # 2.6e-7-4e-7 of the largest |y| against float64 on the same inputs (n=13,
 # 14, ℓ = 1/n, 2/n, 1), so 1e-5 leaves a 25-fold margin.
+# The gate path of kernels 5-6 (csrc/circuit_gates.cu) rounds once per gate
+# and amplitude against a plain version of the same tiles and gate order,
+# and keeps the grid pair's margins.
 TOL = {"circuit2d_fwd": 1e-5, "circuit2d_bwd": 1e-4, "stein2d": 1e-5,
        "circuit2d_grid_fwd": 2e-5, "circuit2d_grid_bwd": 2e-4, "stein2d_grid": 1e-5,
-       "stein_gcorr": 1e-5}
+       "stein_gcorr": 1e-5, "circuit_gates_fwd": 2e-5, "circuit_gates_bwd": 2e-4}
 
 REPLACES = {
     "circuit2d_fwd": "tensornetworks_tpu/ops/pallas/circuit2d.py:185",
@@ -519,6 +527,8 @@ REPLACES = {
     "stein2d_grid": "tensornetworks_tpu/ops/pallas/stein2d.py:121",
     "circuit2d_grid_fwd": "tensornetworks_tpu/ops/pallas/circuit2d_grid.py:150",
     "circuit2d_grid_bwd": "tensornetworks_tpu/ops/pallas/circuit2d_grid.py:187",
+    "circuit_gates_fwd": "tensornetworks_tpu/ops/pallas/circuit2d_grid.py:150",
+    "circuit_gates_bwd": "tensornetworks_tpu/ops/pallas/circuit2d_grid.py:187",
     # No Pallas kernel: the XLA correction step of stein_matvec_gcorr_tables.
     "stein_gcorr": "tensornetworks_tpu/ops/stein.py:406",
 }
@@ -533,13 +543,18 @@ SOURCES = {
     "circuit2d_grid_fwd": "tensornetworks_tpu_torch/csrc/circuit2d_grid.cu",
     "circuit2d_grid_bwd": "tensornetworks_tpu_torch/csrc/circuit2d_grid.cu",
     "stein_gcorr": "tensornetworks_tpu_torch/csrc/stein_gcorr.cu",
+    "circuit_gates_fwd": "tensornetworks_tpu_torch/csrc/circuit_gates.cu",
+    "circuit_gates_bwd": "tensornetworks_tpu_torch/csrc/circuit_gates.cu",
 }
 # The kernels each path must launch; it must launch no other kernel. The
 # bn_structured and exact paths run exactly the kernel sets of main16 and
-# scale20.
+# scale20. From 18 qubits the FP32 paths run kernels 5-6 as the gate path
+# (circuit_gates_*); the dense-operator kernels (circuit2d_grid_*) run their
+# bf16 variants on exact24_high and grid20_default, and in FP32 only in the
+# kernel checks.
 PATH_KERNELS = {
     "main16": ("circuit2d_fwd", "circuit2d_bwd", "stein2d", "stein_gcorr"),
-    "scale20": ("circuit2d_grid_fwd", "circuit2d_grid_bwd", "stein2d_grid", "stein_gcorr"),
+    "scale20": ("circuit_gates_fwd", "circuit_gates_bwd", "stein2d_grid", "stein_gcorr"),
 }
 PATH_KERNELS.update(bn16=PATH_KERNELS["main16"], bn20=PATH_KERNELS["scale20"],
                     sprinkler_classical=(), classical16=("stein2d", "stein_gcorr"),
@@ -547,14 +562,14 @@ PATH_KERNELS.update(bn16=PATH_KERNELS["main16"], bn20=PATH_KERNELS["scale20"],
                     adversarial16=("circuit2d_fwd", "circuit2d_bwd"),
                     exact22=PATH_KERNELS["scale20"], exact24=PATH_KERNELS["scale20"],
                     sampled16=("circuit2d_fwd", "circuit2d_bwd"),
-                    sampled24=("circuit2d_grid_fwd", "circuit2d_grid_bwd"),
-                    sampled28=(), sampling20=("circuit2d_grid_fwd",),
+                    sampled24=("circuit_gates_fwd", "circuit_gates_bwd"),
+                    sampled28=(), sampling20=("circuit_gates_fwd",),
                     amortized16=PATH_KERNELS["main16"], amortized20=PATH_KERNELS["scale20"],
                     warm16=PATH_KERNELS["main16"], multiseed16=PATH_KERNELS["main16"],
                     cli16=PATH_KERNELS["main16"], cli20=PATH_KERNELS["scale20"],
                     cli_adv16=("circuit2d_fwd", "circuit2d_bwd"),
                     profile16=PATH_KERNELS["main16"], state16=("circuit2d_fwd",),
-                    state20=("circuit2d_grid_fwd",),
+                    state20=("circuit_gates_fwd",),
                     # On every rank: the distributed Stein matvec's local apply
                     # (20 and 18 local bits: kernel 4); the sharded sampler runs
                     # no kernel; the dp ranks run amortized16's and multiseed16's.
@@ -649,12 +664,69 @@ def timer(n):
     return lambda fn: time_ms(fn, reps=WIDE_REPS, rounds=WIDE_ROUNDS)
 
 
+def gate_bounds(plan):
+    """(forward, backward) bounds of the gate path's kernels: each pass
+    reads and writes the state's two planes (the backward's four), each
+    gate is 14 FLOPs an amplitude (the backward's two pulls and dU's sums,
+    44)."""
+    passes, size = len(plan.gate_passes()), 1 << plan.n
+    gates = plan.n * plan.layers * size
+    return (bound(14 * gates + 3 * size, passes * 2 * 2 * 4 * size),
+            bound(44 * gates + 2 * size, passes * 4 * 2 * 4 * size))
+
+
+def check_gates(plan, theta, g, timing):
+    """The gate path's kernels (kernels 5-6 under ``highest``) against
+    their plain version on the card, on the grid check's θ and cotangent;
+    each bit-equal over two runs. Timed records where ``timing``."""
+    import torch
+    from tensornetworks_tpu_torch.ops.kernels import circuit2d_grid as kg
+    from tensornetworks_tpu_torch.sim.gates import layer_rotations
+
+    U = layer_rotations(theta, plan.n, plan.layers, plan.per_qubit)
+    out_k = kg.circuit_gates_forward(U, plan)
+    out_p = kg.circuit_gates_forward_plain(U, plan)
+    again = kg.circuit_gates_forward(U, plan)
+    dU_k = kg.circuit_gates_backward(U, out_k[1], out_k[2], g, plan)
+    dU_p = kg.circuit_gates_backward_plain(U, out_p[1], out_p[2], g, plan)
+    dU_again = kg.circuit_gates_backward(U, out_k[1], out_k[2], g, plan)
+    torch.cuda.synchronize()
+    what = f"circuit_gates n={plan.n} L={plan.layers} {plan.ansatz_type}"
+    require(all(torch.equal(a, b) for a, b in zip(out_k, again)) and torch.equal(dU_k, dU_again),
+            f"{what}: two runs differ")
+    fwd_err = max(rel_err(a, b) for a, b in zip(out_k, out_p))
+    dU_k, dU_p = torch.view_as_real(dU_k), torch.view_as_real(dU_p)
+    bwd_err = rel_err(dU_k, dU_p)
+    require(fwd_err <= TOL["circuit_gates_fwd"], f"{what}: forward rel err {fwd_err:.3e}")
+    require(bwd_err <= TOL["circuit_gates_bwd"], f"{what}: backward rel err {bwd_err:.3e}")
+    abs_fwd = float((out_k[0] - out_p[0]).abs().max())
+    abs_bwd = float((dU_k - dU_p).abs().max())
+    print(f"{what}: {len(plan.gate_passes())} passes, fwd rel {fwd_err:.2e}, dU rel "
+          f"{bwd_err:.2e}, bit-equal over two runs", flush=True)
+    if not timing:
+        return []
+    fwd_bound, bwd_bound = gate_bounds(plan)
+    t = timer(plan.n)
+    return [
+        dict(name="circuit_gates_fwd", max_abs_err=abs_fwd, rel_err=fwd_err,
+             ms=t(lambda: kg.circuit_gates_forward(U, plan)),
+             plain_ms=t(lambda: kg.circuit_gates_forward_plain(U, plan)),
+             bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=None),
+        dict(name="circuit_gates_bwd", max_abs_err=abs_bwd, rel_err=bwd_err,
+             ms=t(lambda: kg.circuit_gates_backward(U, out_k[1], out_k[2], g, plan)),
+             plain_ms=t(lambda: kg.circuit_gates_backward_plain(U, out_p[1], out_p[2], g, plan)),
+             bound_ms=bwd_bound[0], bound_by=bwd_bound[1], library_ms=None),
+    ]
+
+
 def check_circuit(n, device, timing, grid=False, ansatz=ANSATZ, layers=LAYERS, edges=None,
                   oracle=True):
     """A circuit kernel pair (circuit2d, or circuit2d_grid with ``grid``)
     against its plain version, and the θ-gradient through the model against
     plain autograd; for bn_structured with ``oracle`` also probabilities and
-    θ-gradient against the float64 oracle."""
+    θ-gradient against the float64 oracle. With ``grid`` the dense kernels
+    run in FP32 beside the gate path (``check_gates``), which the model's
+    θ-gradient goes through."""
     import torch
     from tensornetworks_tpu_torch.models import QuantumBornMachine
     from tensornetworks_tpu_torch.ops.kernels import circuit2d as kc
@@ -733,6 +805,7 @@ def check_circuit(n, device, timing, grid=False, ansatz=ANSATZ, layers=LAYERS, e
         note = f", vs float64 oracle: probs rel {o_fwd:.2e}, θ-grad rel {o_grad:.2e}"
     print(f"{what}: fwd rel {fwd_err:.2e} (abs {abs_fwd:.2e}), bwd rel {bwd_err:.2e} "
           f"(abs {abs_bwd:.2e}), θ-grad rel {theta_err:.2e}{note}", flush=True)
+    gates = check_gates(plan, theta, g, timing) if grid else []
     if not timing:
         return []
     fwd_bound, bwd_bound = circuit_bounds(plan.R, plan.C, layers)
@@ -746,7 +819,7 @@ def check_circuit(n, device, timing, grid=False, ansatz=ANSATZ, layers=LAYERS, e
              ms=t(lambda: bwd(*planes, out_k[1], out_k[2], g, plan)),
              plain_ms=t(lambda: bwd_p(*planes, out_p[1], out_p[2], g, plan)),
              bound_ms=bwd_bound[0], bound_by=bwd_bound[1], library_ms=None),
-    ]
+    ] + gates
 
 
 def check_bn_circuits(device):
@@ -2023,14 +2096,12 @@ def check_conditioned(n, device, grid, ansatz, layers, edges=None, **cond):
 def check_conditioned_kernels(device):
     """n=16: bn_structured L=8, the wall re-uploaded before every layer,
     learned embedding with per-layer scales; n=20: hardware_efficient L=4,
-    one fixed wall folded before the grid's row gather."""
-    from tensornetworks_tpu_torch.ops.kernels import circuit2d_grid as kg
-
+    one fixed wall folded into the first layer's gates (the gate path),
+    against the float64 operator planes with the wall before the row
+    gather."""
     rows = [check_conditioned(N, device, False, BN, BN_LAYERS, path_edges(N),
                               cond_reupload=True, cond_learned_embedding=True,
                               cond_embed_per_layer=True)]
-    require(kg.GridPlan(N_COND_GRID, LAYERS, ANSATZ).row_src is not None,
-            "the n=20 grid plan has no row gather")
     rows.append(check_conditioned(N_COND_GRID, device, True, ANSATZ, LAYERS))
     return rows
 
@@ -2942,7 +3013,7 @@ def run_dist_rank_phases(device):
                                       single.length_scale)
             est = float(ksd_ustat(gram))
             rel = max(rel, abs(h2["loss_ksd"][epoch] - est) / abs(est))
-    require(kernels.LAUNCHES["circuit2d_grid_fwd"] == DIST_SAMPLED_EPOCHS,
+    require(kernels.LAUNCHES["circuit_gates_fwd"] == DIST_SAMPLED_EPOCHS,
             f"{path}: the single engine's forward did not run kernel 5 once an epoch")
     require(rel < DIST_SAMPLED_TOL, f"{path} U-statistics {rel:.2e} from the single engine's")
     rate = DIST_SAMPLED_EPOCHS / h2["train_seconds"]
@@ -3558,8 +3629,8 @@ def main() -> int:
             "the kernels line does not list every kernel and variant")
     bn_path = {k: path for path in ("bn16", "bn20") for k in PATH_KERNELS[path]}
     bn_line = []
-    for r in bn_records:
-        path = bn_path[r["name"]]
+    for r in bn_records:  # the dense FP32 grid kernels: checked at bn20's shape, off its path
+        path = bn_path.get(r["name"], "bn20")
         bn_line.append({k: r[k] for k in ("name", "n", "layers", "max_abs_err", "rel_err", "ms",
                                           "plain_ms", "bound_ms", "bound_by", "share")}
                        | {"path": path, "launches": path_launches[path][r["name"]]})

@@ -33,7 +33,7 @@ from ...train import span
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "tn_kernels"
-SOURCES = ("circuit2d", "circuit2d_grid", "stein2d", "stein_gcorr")
+SOURCES = ("circuit2d", "circuit2d_grid", "circuit_gates", "stein2d", "stein_gcorr")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,7 +44,7 @@ VARIANT_PRECISIONS = ("high", "default")
 
 LAUNCHES: Dict[str, int] = {"circuit2d_fwd": 0, "circuit2d_bwd": 0, "stein2d": 0,
                             "circuit2d_grid_fwd": 0, "circuit2d_grid_bwd": 0, "stein2d_grid": 0,
-                            "stein_gcorr": 0}
+                            "stein_gcorr": 0, "circuit_gates_fwd": 0, "circuit_gates_bwd": 0}
 LAUNCHES.update({f"{k}.{p}": 0 for k in PRECISION_KERNELS for p in VARIANT_PRECISIONS})
 
 # The C interface of each library: pointers and the stream as c_void_p (a
@@ -78,6 +78,13 @@ SIGNATURES = {
         "tn_grid_bf16_product": [_P, _LL, _P, _LL] + [_P] * 5 + [_I] * 8 + [_P] * 3,
         # out: 2 long long, the bf16 products launched by loop (mma.sync, wgmma)
         "tn_circuit2d_grid_bf16_products": [_P],
+    },
+    "circuit_gates": {  # spec: the plan's records on the device, host: on the host
+        # u, probs, xr, xi, tmp, spec, host, passes, has_wall, stream
+        "tn_circuit_gates_forward": [_P] * 7 + [_I] * 2 + [_P],
+        # u, xr, xi, g, du, buf_a, buf_b, partials, slots, spec, host, passes,
+        # nslots, stream
+        "tn_circuit_gates_backward": [_P] * 11 + [_I] * 2 + [_P],
     },
     "stein2d": {
         # v, y, a, n, cols, stream (a as c_float: a bare Python float would

@@ -118,6 +118,23 @@ def layer_masks(n: int, layers: int, ansatz_type: str, edges=None, chain=None) -
                       for layer in range(layers)]))
 
 
+def _parity(x: torch.Tensor) -> torch.Tensor:
+    """Parity of the low 32 bits (n <= 30) of each entry, by XOR folding."""
+    for shift in (16, 8, 4, 2, 1):
+        x = x ^ (x >> shift)
+    return x & 1
+
+
+def cz_sign(d: torch.Tensor, cz) -> torch.Tensor:
+    """The CZ sign (±1, int64) of the n masks ``cz`` at flat indices d
+    (``csrc/layer_map.cuh`` ``perm_sign``)."""
+    par = torch.zeros_like(d)
+    for k, mask in enumerate(cz):
+        if mask:
+            par ^= ((d >> k) & 1) & _parity(d & int(mask))
+    return 1 - 2 * par
+
+
 def expand_maps(rows: np.ndarray, cz: np.ndarray, device, index=None) -> tuple:
     """(dst (2^n,) int64, sign (K, 2^n) float64) of n row masks and K rows of
     CZ masks: the map sends flat index i to dst[i], times sign[k, i]. With
@@ -127,21 +144,12 @@ def expand_maps(rows: np.ndarray, cz: np.ndarray, device, index=None) -> tuple:
     n = len(rows)
     i = (torch.arange(1 << n, dtype=torch.int64, device=device) if index is None
          else torch.as_tensor(np.asarray(index, np.int64), device=device))
-
-    def parity(x):  # of the low 32 bits (n <= 30), by XOR folding
-        for shift in (16, 8, 4, 2, 1):
-            x = x ^ (x >> shift)
-        return x & 1
-
     dst = torch.zeros_like(i)
     for k in range(n):
-        dst |= parity(i & int(rows[k])) << k
+        dst |= _parity(i & int(rows[k])) << k
     sign = torch.ones((len(cz), len(i)), dtype=torch.float64, device=device)
     for row in range(len(cz)):
-        par = torch.zeros_like(i)
-        for k in range(n):
-            par ^= ((dst >> k) & 1) & parity(dst & int(cz[row, k]))
-        sign[row] = 1.0 - 2.0 * par
+        sign[row] = cz_sign(dst, cz[row])
     return dst, sign
 
 
@@ -861,37 +869,47 @@ def circuit_operators(params: torch.Tensor, plan, embed_angles=None,
     return fold_wall(Mr, Mc, embed_angles, plan.n, reupload)
 
 
-def make_probs_fn(plan, planes, function, forward, conditioning: bool, reupload: bool):
-    """probs(params[, embed_angles]) of a circuit plan: ``planes(Mr, Mc)``
-    gives the operator planes of the complex operators, ``function`` (an
-    autograd Function) the (R, C) probabilities of the planes. A
-    conditioned function also has ``batch(params, angles_seq)``, (X, 2^n)
-    for X walls: the θ fold once, then a wall fold and a launch for each.
-    Every function has ``state(params[, embed_angles])``: the flat (2^n,)
-    final state from ``forward``'s planes xr, xi — the state the forward
-    kernel writes for the backward, in the index order of the
-    probabilities — with no autograd graph."""
+def make_probs_fn(plan, planes, function, forward, conditioning: bool, reupload: bool,
+                  rotations=None, wall=None):
+    """probs(params[, embed_angles]) of a circuit plan: ``rotations(params)``
+    gives θ's operators (by default the complex Kronecker operators (Mr,
+    Mc) of ``rotation_operators``), ``wall(ops, angles)`` folds a
+    conditioning wall into them (by default ``fold_wall``), ``planes(*ops)``
+    the tensors ``function`` (an autograd Function) takes, and ``function``
+    the (R, C) probabilities. A conditioned function also has
+    ``batch(params, angles_seq)``, (X, 2^n) for X walls: the θ fold once,
+    then a wall fold and a launch for each. Every function has
+    ``state(params[, embed_angles])``: the flat (2^n,) final state from
+    ``forward``'s planes xr, xi — the state the forward kernel writes for the
+    backward, in the index order of the probabilities — with no autograd
+    graph."""
+    if rotations is None:
+        def rotations(params):
+            return rotation_operators(params, plan.n, plan.layers, plan.per_qubit)
 
-    def launch(Mr, Mc):
+        def wall(ops, angles):
+            return fold_wall(*ops, angles, plan.n, reupload)
+
+    def operators(params, embed_angles):
+        if conditioning and embed_angles is None:
+            raise ValueError("conditioning=True requires embed_angles")
+        ops = rotations(params)
+        return wall(ops, embed_angles) if conditioning else ops
+
+    def launch(ops):
         with span("circuit.forward"):  # the planes' gather and copies too
-            return function.apply(*planes(Mr, Mc), plan).reshape(-1)
+            return function.apply(*planes(*ops), plan).reshape(-1)
 
     def probs_fn(params: torch.Tensor, embed_angles=None) -> torch.Tensor:
-        if conditioning and embed_angles is None:
-            raise ValueError("conditioning=True requires embed_angles")
-        return launch(*circuit_operators(params, plan, embed_angles if conditioning else None,
-                                         reupload))
+        return launch(operators(params, embed_angles))
 
     def batch(params: torch.Tensor, angles_seq) -> torch.Tensor:
-        M = rotation_operators(params, plan.n, plan.layers, plan.per_qubit)
-        return torch.stack([launch(*fold_wall(*M, a, plan.n, reupload)) for a in angles_seq])
+        ops = rotations(params)
+        return torch.stack([launch(wall(ops, a)) for a in angles_seq])
 
     def state(params: torch.Tensor, embed_angles=None) -> torch.Tensor:
-        if conditioning and embed_angles is None:
-            raise ValueError("conditioning=True requires embed_angles")
         with torch.no_grad():
-            M = circuit_operators(params, plan, embed_angles if conditioning else None, reupload)
-            _, xr, xi = forward(*planes(*M), plan)
+            _, xr, xi = forward(*planes(*operators(params, embed_angles)), plan)
         return torch.complex(xr, xi).reshape(-1)
 
     if conditioning:

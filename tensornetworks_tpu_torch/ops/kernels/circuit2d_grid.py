@@ -3,57 +3,71 @@ kernels 5-6 of the port.
 
 Replaces ``tensornetworks_tpu/ops/pallas/circuit2d_grid.py``
 (``make_pallas_circuit2d_grid_probs``: ``fwd_kernel`` and ``bwd_kernel``)
-with ``csrc/circuit2d_grid.cu`` and its per-layer host drivers
-(``csrc/circuit_layers.cuh``, which serve these kernels alone). The source
-note there gives the design; in short:
+with two designs, chosen by the plan's kernel precision:
 
-- Bound at n=20, L=4 (R=C=1024): forward 6.9e10, backward 2.1e11 FLOP of
-  FP32 FMA (1.03 ms and 3.08 ms at the H100's 67 TFLOP/s).
-- The row-chain permutation is folded into the streamed operator, as on the
-  TPU (``P_row·Mr``), here as a row gather. The boundary CNOT, the column
-  chain and the ring CNOT, which the TPU ran as dense one-dot W forms,
-  compose into one exact GF(2) index map applied with the CZ sign in the
-  right GEMM's epilogue, read per layer with the layer's CZ masks.
-- ``bn_structured`` folds nothing into Mr: its index maps alternate (the DAG
-  edges' CNOTs on even layers, the identity on odd ones), and the same
-  epilogue applies them, since it takes any GF(2)-linear map.
-- A conditioned circuit's wall is folded into the rotation operators first
-  (``circuit2d.circuit_operators``) and the row gather taken after, so the
-  streamed operator is ``P_row·(Mr·Er)``: the wall acts before the
-  rotations, the row chain after them, as in the JAX grid builder.
+- ``highest`` (FP32), the gate path: ``csrc/circuit_gates.cu`` takes each
+  layer's per-qubit 2x2 gates (``sim.gates.layer_rotations``, a wall folded
+  in per qubit by ``sim.gates.fold_wall_gates``) and applies them as
+  butterflies on tiles of up to 4096 amplitudes in shared memory, a few
+  passes a layer (``layer_gate_passes``: the plan, ``GatePass``: one pass);
+  each layer's whole CNOT map (the row chain included) and CZ sign go into
+  the store of its last pass. The backward is the gate-level adjoint and
+  returns dU (L, n, 2, 2); autograd takes it to θ. Bound by device memory:
+  at n=24 a pass moves 268 MB (80 µs at 3.35 TB/s), a layer 2-3 passes;
+  the gates' 14 FLOPs an amplitude are below that. The source note gives
+  the design. ``CircuitGatesFunction`` ties the two directions together;
+  ``circuit_gates_forward_plain`` / ``circuit_gates_backward_plain`` run the
+  same passes tile by tile in torch (``gate_pass_index``: the kernels'
+  address formulas), for the CPU and as the card's yardstick.
+- ``high`` and ``default``, the operator path: ``csrc/circuit2d_grid.cu``
+  and its per-layer host launchers (``csrc/circuit_layers.cuh``) apply the
+  Kronecker operators Mr (R×R) and Mc (C×C) of each layer as dense
+  complex products on the bf16 tensor cores, X ← Mr·X·Mcᵀ. The row-chain
+  permutation is folded into the streamed operator (``P_row·Mr``), as on
+  the TPU, here as a row gather. The boundary CNOT, the column chain and
+  the ring CNOT compose into one exact GF(2) index map applied with the CZ
+  sign in the right GEMM's epilogue. ``bn_structured`` folds nothing into
+  Mr: its index maps alternate (the DAG edges' CNOTs on even layers, the
+  identity on odd ones). A conditioned circuit's wall is folded into the
+  rotation operators first (``circuit2d.circuit_operators``) and the row
+  gather taken after, so the streamed operator is ``P_row·(Mr·Er)``. The
+  same kernels run in FP32 when called directly (the card's checks hold
+  the gate path against them). Bound at n=20, L=4 (R=C=1024): forward
+  6.9e10, backward 2.1e11 dense FLOP.
 
-``GridPlan`` holds both forms of that structure: the masks the CUDA kernels
-take, and the TPU kernel's own banks (``P_col``, the W matrices, the CZ
-masks) for the plain version. ``circuit2d_grid_forward_plain`` /
-``circuit2d_grid_backward_plain`` transcribe the TPU grid kernel's algebra,
-a different algorithm from the CUDA kernels' index map, so that holding one
-against the other on the card is a real check. The W forms exist only for
-the chain, so for ``bn_structured`` the plain version is the index-map form
-of ``circuit2d.py``, and the independent check is the oracle
+``GridPlan`` holds the structure of both: the gate path's passes, the masks
+the operator kernels take, and the TPU kernel's own banks (``P_col``, the W
+matrices, the CZ masks) for the operator path's plain version.
+``circuit2d_grid_forward_plain`` / ``circuit2d_grid_backward_plain``
+transcribe the TPU grid kernel's algebra, a different algorithm from the
+CUDA kernels' index map, so that holding one against the other on the card
+is a real check. The W forms exist only for the chain, so for
+``bn_structured`` the plain version is the index-map form of
+``circuit2d.py``, and the independent check is the oracle
 ``sim/structured.make_structured_probs_fn``. Each wrapper takes the plain
 version only for CPU tensors; a CUDA tensor launches the kernel or raises.
 
 Precision: as ``circuit2d.py``'s plans, a ``GridPlan`` carries the kernel
-precision current when it was built; the plain versions run the rotation
-products at it (``circuit2d._pcmm``) and the W forms, the column chain and
-the CZ masks, which are exact maps, in FP32. Under ``high`` and ``default``
-the products that the FP32 kernels' large GEMM loop takes (every product
-from n = 20; at n = 19 the backward's but dMc) run on the Hopper loop of
-``csrc/wgmma_bf16.cuh`` (TMA copies of bf16 planes split once, wgmma from
-shared memory), the others on ``mma.sync`` passes (``csrc/mma_bf16.cuh``).
-The wrappers allocate the loop's bf16 scratch where it runs, as large as
-the library's ``tn_circuit2d_grid_split_elems`` says (0: it does not run).
+precision current when it was built; the operator path's plain versions run
+the rotation products at it (``circuit2d._pcmm``) and the W forms, the
+column chain and the CZ masks, which are exact maps, in FP32. Under
+``high`` and ``default`` the products that the FP32 kernels' large GEMM
+loop takes (every product from n = 20; at n = 19 the backward's but dMc)
+run on the Hopper loop of ``csrc/wgmma_bf16.cuh`` (TMA copies of bf16
+planes split once, wgmma from shared memory), the others on ``mma.sync``
+passes (``csrc/mma_bf16.cuh``). The wrappers allocate the loop's bf16
+scratch where it runs, as large as the library's
+``tn_circuit2d_grid_split_elems`` says (0: it does not run).
 ``split_planes_plain`` and ``extended_k_product_plain`` are its arithmetic
 in torch; ``product_case``, ``grid_product`` and ``grid_product_plain`` run
 one product of the six patterns alone (the card's checks and timings).
 
 Valid range: any 2 ≤ n ≤ ``MAX_QUBITS`` when the backend is named (the CPU
 tests run it small); the ``auto`` backend takes it from ``AUTO_MIN_QUBITS``
-= 18. ``MAX_QUBITS`` = 24 is set by memory: the (L, R, R) and (L, C, C)
-operator planes and their gradients grow 4x per two qubits. At n=24, L=4
-they are 4 planes × 4 layers × 64 MB = 1 GB each way, with the complex
-Kronecker fold and its autograd about as much again; at n=26 that becomes
-~16 GB and one forward ~3.5e13 dense FLOPs. (The kernels' 32-bit flat
+= 18. ``MAX_QUBITS`` = 24 is set by the operator path's memory: the
+(L, R, R) and (L, C, C) operator planes and their gradients grow 4x per two
+qubits (at n=24, L=4, 1 GB each way, the complex Kronecker fold and its
+autograd about as much again; at n=26 ~16 GB). (The kernels' 32-bit flat
 indices would hold to n=30.)
 """
 
@@ -66,14 +80,19 @@ import torch
 
 from ...sim.blocked import _chain_gates, _cnot_map, _cz_pairs
 from ...sim.blocked2d import _cz_sign_mask, _kron_h, _perm_matrix
+from ...sim.gates import fold_wall_gates, layer_rotations
 from ...train import span
 from . import _lib
 from .circuit2d import (WALL_ANSATZE, _check, _initial_state, _pcmm, circuit2d_backward_plain,
-                        circuit2d_forward_plain, circuit_operators, expand_maps, layer_masks,
-                        layer_tables, make_probs_fn, rotation_pullback)
+                        circuit2d_forward_plain, circuit_operators, cz_sign, expand_maps,
+                        layer_masks, layer_tables, make_probs_fn, rotation_pullback)
 from .precision import CODES, _kernel_precision, fp32_matmul, precision_name, split_bf16
 
 MIN_QUBITS, AUTO_MIN_QUBITS, MAX_QUBITS = 2, 18, 24
+# csrc/circuit_gates.cu: kTileBits (a tile of 4096 amplitudes), kGroup (the
+# gates applied together in registers), kSpecWords (one pass's record); a
+# tile bit below GATE_BANK_BITS puts two of a warp's threads on one bank.
+GATE_TILE_BITS, GATE_GROUP, GATE_SPEC_WORDS, GATE_BANK_BITS = 12, 3, 8 + 11 * 32, 5
 
 def _w_matrix(nbits: int, bits: np.ndarray) -> np.ndarray:
     """W = H₀ diag(bits) H₀ over ``nbits`` wires (H on the first wire): a
@@ -118,6 +137,7 @@ class GridPlan:
         self.has_chain = ansatz_type in ("hardware_efficient", "basic")
         self.row_src = None
         self.precision = precision_name(precision or _kernel_precision())
+        self.edges = edges
         self._cache = {}
         if self.index_form:
             self.rows, self.cz = layer_masks(n, layers, ansatz_type, edges)
@@ -137,6 +157,45 @@ class GridPlan:
             self.row_src = np.argsort(fwd)
         self.rows, self.cz = layer_masks(n, layers, ansatz_type,
                                          chain=[g for g in chain if g not in self.row_chain])
+
+    def gate_passes(self) -> list:
+        """The gate path's passes (``GatePass``), layer by layer
+        (``layer_gate_passes`` of each layer's whole CNOT map, the row chain
+        included, and CZ masks), with each gate's partials slot set."""
+        if "gate_passes" not in self._cache:
+            rows, cz = layer_masks(self.n, self.layers, self.ansatz_type, self.edges)
+            passes = [ps for layer in range(self.layers)
+                      for ps in layer_gate_passes(self.n, layer, rows[layer], cz[layer])]
+            slots = np.zeros((self.layers, self.n, 2), dtype=np.int64)
+            offset = 0
+            for ps in passes:
+                blocks = 1 << (self.n - ps.k)
+                for _, q in ps.gates:
+                    ps.slots.append(offset)
+                    slots[ps.layer, q] = offset, blocks
+                    offset += blocks
+            self._cache["gate_passes"] = passes
+            self._cache["gate_slots"] = slots.reshape(-1, 2)
+            self._cache["gate_partials"] = offset
+            self._cache["gate_records"] = np.stack([ps.record() for ps in passes])
+        return self._cache["gate_passes"]
+
+    def gate_records(self) -> np.ndarray:
+        """(passes, GATE_SPEC_WORDS) uint32: the passes as the kernels read
+        them (``GatePass.record``)."""
+        self.gate_passes()
+        return self._cache["gate_records"]
+
+    def gate_slots(self) -> np.ndarray:
+        """(L·n, 2) int64: (offset, count) of the dU partial records of
+        layer l's qubit q at row l·n + q."""
+        self.gate_passes()
+        return self._cache["gate_slots"]
+
+    def gate_partials(self) -> int:
+        """The backward's partial records (8 floats each), all gates'."""
+        self.gate_passes()
+        return self._cache["gate_partials"]
 
     def tables(self, device) -> tuple:
         """(dst, sign) of the per-layer masks (``circuit2d.layer_tables``),
@@ -431,6 +490,358 @@ def grid_product(case: dict, precision: str, split=None) -> tuple:
     return c, probs
 
 
+# ------------------------------------------------ the gate path (``highest``)
+
+
+def _gf2(rows, v: int) -> int:
+    """The GF(2)-linear index map of ``rows`` (LSB-first masks) at v."""
+    return sum((bin(int(r) & v).count("1") & 1) << k for k, r in enumerate(rows))
+
+
+class _Span:
+    """A GF(2) subspace of n-bit masks in echelon form, each basis vector
+    keyed by its highest set bit (its pivot) and tagged with the XOR of the
+    tags of the vectors added to make it."""
+
+    def __init__(self, vectors=(), tags=None):
+        self.rows = {}
+        for i, v in enumerate(vectors):
+            self.add(v, 1 << i if tags is None else tags[i])
+
+    def reduce(self, v: int, tag: int = 0) -> tuple:
+        for p in sorted(self.rows, reverse=True):
+            if (v >> p) & 1:
+                w, t = self.rows[p]
+                v, tag = v ^ w, tag ^ t
+        return v, tag
+
+    def add(self, v: int, tag: int = 0) -> int:
+        """The part of v outside the span, added (0 if v was inside)."""
+        v, tag = self.reduce(v, tag)
+        if v:
+            self.rows[v.bit_length() - 1] = (v, tag)
+        return v
+
+    def coords(self, v: int) -> int:
+        r, tag = self.reduce(v)
+        assert r == 0, "vector outside the span"
+        return tag
+
+    def __contains__(self, v: int) -> bool:
+        return self.reduce(v)[0] == 0
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+
+class GatePass:
+    """One launch of the gate kernels (``csrc/circuit_gates.cu``): a tile of
+    2^k amplitudes a block, over one coset of a k-dimensional subspace V of
+    the flat index (GF(2) masks, LSB first), for each of the 2^(n-k) cosets.
+
+    - ``lin`` (k): V's basis in tile order. Tile position p is loaded from
+      ``base_in ^ XOR_t p_t·lin[t]``; lin[t] = 1 << t for t < m, so m low
+      address bits run with the tile position (coalesced loads), and every
+      gate's bit is some lin[t] (its tile bit).
+    - ``cin`` (n-k): unit vectors completing V; block b's ``base_in`` is the
+      XOR of cin[t] over the set bits t of b.
+    - ``gates``: (tile bit, qubit) in the order applied; each a 2x2 on the
+      pairs of tile positions that differ in its tile bit.
+    - ``rows``, ``cz``: on a layer's last pass, its CNOT map M and CZ masks
+      (None elsewhere, or where M is the identity / there is no CZ). The
+      store of store index q goes to ``base_out ^ XOR_t q_t·lout[t]``
+      (lout[t] = 1 << t for t < m: coalesced stores) from tile position
+      ``off ^ XOR_t q_t·tq[t]``, with ``base_out``, ``off`` the XOR of
+      cout[t], coff[t] over b's set bits: M sends the coset onto that of
+      ``base_out``, element for element. Without M: lout = lin, tq the
+      identity, cout = cin, coff = 0.
+    - ``slots``: the record offset of each gate's dU partials (one 8-float
+      record a block) in the backward's partials buffer.
+    """
+
+    def __init__(self, n, layer, m, lin, gates, rows=None, cz=None):
+        self.n, self.layer, self.m, self.k = n, layer, m, len(lin)
+        self.lin, self.gates = list(lin), list(gates)
+        tile = _Span(self.lin)
+        self.cin = [1 << b for b in range(n) if b not in tile.rows]
+        self.rows = rows
+        self.cz = None if cz is None or not np.any(cz) else np.asarray(cz, np.uint32)
+        self.slots = []
+        if rows is None:
+            self.lout, self.cout = self.lin, self.cin
+            self.tq, self.coff = [1 << t for t in range(self.k)], [0] * len(self.cin)
+            return
+        images = _Span([_gf2(rows, 1 << j) for j in range(n)])  # tags: M⁻¹ of an image
+        low = (1 << m) - 1
+        out = _Span([1 << b for b in range(m)])
+        self.lout = [1 << b for b in range(m)]
+        for v in self.lin:
+            r = out.add(_gf2(rows, v))
+            if r:
+                self.lout.append(r)
+        assert len(self.lout) == self.k and all(v & low == 0 for v in self.lout[m:])
+        self.tq = [tile.coords(images.coords(w)) for w in self.lout]
+        mc = [_gf2(rows, c) for c in self.cin]
+        self.cout = [v & ~low for v in mc]
+        self.coff = [tile.coords(images.coords(v & low)) for v in mc]
+
+    @property
+    def map(self) -> bool:
+        return self.rows is not None
+
+    def record(self) -> np.ndarray:
+        """The pass as the kernels' ``PassSpec`` (GATE_SPEC_WORDS uint32)."""
+        rec = np.zeros(GATE_SPEC_WORDS, dtype=np.uint32)
+        cz = [] if self.cz is None else [(k, int(c)) for k, c in enumerate(self.cz) if c]
+        rec[:8] = (self.n, self.k, self.m, int(self.map), self.layer, len(self.gates), len(cz), 0)
+        fields = (self.lin, self.cin, self.lout, self.cout, self.coff, self.tq,
+                  [t for t, _ in self.gates], [q for _, q in self.gates], self.slots,
+                  [k for k, _ in cz], [c for _, c in cz])
+        for i, f in enumerate(fields):
+            rec[8 + 32 * i: 8 + 32 * i + len(f)] = f
+        return rec
+
+
+def _order_gates(bits: list, pos: dict) -> list:
+    """The pass's gate bits in the order applied: groups of GATE_GROUP, each
+    with as few tile bits below GATE_BANK_BITS as can be (each such bit
+    halves the shared-memory banks a warp's threads spread over)."""
+    low = sorted(b for b in bits if pos[b] < GATE_BANK_BITS)
+    high = sorted(b for b in bits if pos[b] >= GATE_BANK_BITS)
+    groups = [[] for _ in range(-(-len(bits) // GATE_GROUP))]
+    for i, b in enumerate(low):
+        groups[i % len(groups)].append(b)
+    for g in groups:
+        while len(g) < GATE_GROUP and high:
+            g.append(high.pop(0))
+    return [b for g in groups for b in g]
+
+
+def layer_gate_passes(n: int, layer: int, rows, cz, kmax: int = GATE_TILE_BITS) -> list:
+    """The passes of one layer: every qubit's gate in exactly one pass, the
+    layer's map M and CZ sign in the store of the last. That last pass's
+    tile holds the m low bits and M⁻¹ of them (so that its stores are
+    coalesced too) and as many further low bits as fit; the other bits go
+    to passes of m low bits plus up to kmax - m gate bits, as evenly as
+    can be. m runs from 5 to 2 low bits (128 to 16 bytes a run); a pass
+    of m = 2 moves each 32-byte sector for half its bytes, so it counts
+    twice, and m is the largest of those that move the fewest bytes."""
+    identity = all(int(rows[k]) == 1 << k for k in range(n))
+    images = _Span([_gf2(rows, 1 << j) for j in range(n)])
+    best = None
+    for m in range(min(5, n), 1, -1):
+        V = _Span([1 << b for b in range(m)] + [images.coords(1 << b) for b in range(m)])
+        if len(V) > kmax:
+            continue
+        for b in range(n):
+            if len(V) >= kmax:
+                break
+            V.add(1 << b)
+        own = [b for b in range(n) if (1 << b) in V]
+        rest = [b for b in range(n) if (1 << b) not in V]
+        count = 1 + -(-len(rest) // (kmax - m))
+        cost = 1 + (count - 1) * (2 if m == 2 else 1)
+        if best is None or cost < best[0]:
+            best = (cost, count, m, V, own, rest)
+    _, count, m, V, own, rest = best
+
+    def make(lin, bits, rows=None, cz=None):
+        pos = {b: lin.index(1 << b) for b in bits}
+        return GatePass(n, layer, m, lin, [(pos[b], n - 1 - b) for b in _order_gates(bits, pos)],
+                        rows, cz)
+
+    low = [1 << b for b in range(m)]
+    passes = [make(low + [1 << int(b) for b in chunk], [int(b) for b in chunk])
+              for chunk in (np.array_split(np.array(rest), count - 1) if rest else ())]
+    lin = low + [1 << b for b in own if b >= m]
+    units = _Span(lin)
+    lin += [r for r in (units.add(v) for v, _ in list(V.rows.values())) if r]
+    passes.append(make(lin, own, None if identity else rows, cz))
+    return passes
+
+
+def _span_index(idx: torch.Tensor, basis) -> torch.Tensor:
+    """XOR of basis[t] over the set bits t of each entry of idx."""
+    out = torch.zeros_like(idx)
+    for t, v in enumerate(basis):
+        out ^= ((idx >> t) & 1) * int(v)
+    return out
+
+
+def gate_pass_index(ps: GatePass, device) -> tuple:
+    """(src, dst, pos), (2^(n-k), 2^k) int64 each, by the kernels' formulas:
+    block b's tile position p is loaded from src[b, p]; its store index q
+    is written to dst[b, q] from tile position pos[b, q]."""
+    blocks = torch.arange(1 << (ps.n - ps.k), dtype=torch.int64, device=device)[:, None]
+    tile = torch.arange(1 << ps.k, dtype=torch.int64, device=device)[None, :]
+    return (_span_index(blocks, ps.cin) ^ _span_index(tile, ps.lin),
+            _span_index(blocks, ps.cout) ^ _span_index(tile, ps.lout),
+            _span_index(blocks, ps.coff) ^ _span_index(tile, ps.tq))
+
+
+def _pair_view(tile: torch.Tensor, t: int) -> torch.Tensor:
+    """(B, 2^(k-1-t), 2, 2^t): tile bit t as axis 2."""
+    return tile.view(tile.shape[0], tile.shape[1] >> (t + 1), 2, 1 << t)
+
+
+def _apply_gate(tile: torch.Tensor, t: int, u: torch.Tensor) -> torch.Tensor:
+    """The 2x2 u on tile bit t of every tile (B, 2^k)."""
+    v = _pair_view(tile, t)
+    a0, a1 = v[:, :, 0], v[:, :, 1]
+    return torch.stack([u[0, 0] * a0 + u[0, 1] * a1, u[1, 0] * a0 + u[1, 1] * a1],
+                       dim=2).reshape(tile.shape)
+
+
+def circuit_gates_forward_plain(U: torch.Tensor, plan: GridPlan) -> tuple:
+    """probs, xr, xi (R, C) of the per-layer gates U (L, n, 2, 2): the gate
+    kernels' passes in torch, tile by tile, every gate in the kernels'
+    order, each layer's map and CZ sign in its last pass's store."""
+    n, dev = plan.n, U.device
+    if plan.has_wall:
+        x = torch.full((1 << n,), 2.0 ** (-0.5 * n), dtype=U.dtype, device=dev)
+    else:
+        x = torch.zeros(1 << n, dtype=U.dtype, device=dev)
+        x[0] = 1.0
+    for ps in plan.gate_passes():
+        src, dst, pos = gate_pass_index(ps, dev)
+        tile = x[src]
+        for t, q in ps.gates:
+            tile = _apply_gate(tile, t, U[ps.layer, q])
+        vals = tile.gather(1, pos)
+        if ps.cz is not None:
+            vals = vals * cz_sign(dst, ps.cz).to(vals.real.dtype)
+        x = torch.empty_like(x)
+        x[dst.reshape(-1)] = vals.reshape(-1)
+    xr = x.real.reshape(plan.R, plan.C).contiguous()
+    xi = x.imag.reshape(plan.R, plan.C).contiguous()
+    return xr * xr + xi * xi, xr, xi
+
+
+def circuit_gates_backward_plain(U, xr, xi, g, plan: GridPlan) -> torch.Tensor:
+    """dU (L, n, 2, 2): the gate kernels' adjoint in torch. From λ = 2·g·x
+    the passes run in reverse: undo the CZ sign and the map on x and λ,
+    then for each gate, last to first, x ← Uᴴx, dU += Σ λ_r·conj(x_c) over
+    the tile's pairs (one partial a tile), λ ← Uᴴλ; each gate's partials
+    summed over the tiles in tile order."""
+    x = torch.complex(xr, xi).reshape(-1)
+    lam = 2.0 * g.reshape(-1) * x
+    dU = torch.zeros_like(U)
+    Uh = U.conj().transpose(-1, -2)
+    for ps in reversed(plan.gate_passes()):
+        src, dst, pos = gate_pass_index(ps, U.device)
+        s = 1 if ps.cz is None else cz_sign(dst, ps.cz).to(xr.dtype)
+        tx = torch.empty(src.shape, dtype=x.dtype, device=x.device)
+        tl = torch.empty_like(tx)
+        tx.scatter_(1, pos, s * x[dst])
+        tl.scatter_(1, pos, s * lam[dst])
+        for t, q in reversed(ps.gates):
+            tx = _apply_gate(tx, t, Uh[ps.layer, q])
+            vx, vl = _pair_view(tx, t), _pair_view(tl, t)
+            part = torch.stack([torch.stack([(vl[:, :, r] * vx[:, :, c].conj()).sum(dim=(1, 2))
+                                             for c in (0, 1)], dim=-1) for r in (0, 1)], dim=-2)
+            dU[ps.layer, q] = part.sum(dim=0)
+            tl = _apply_gate(tl, t, Uh[ps.layer, q])
+        x, lam = torch.empty_like(x), torch.empty_like(lam)
+        x[src.reshape(-1)] = tx.reshape(-1)
+        lam[src.reshape(-1)] = tl.reshape(-1)
+    return dU
+
+
+def _gate_tables(plan: GridPlan, device) -> tuple:
+    """(spec, slots) on ``device``: the passes' records (P, GATE_SPEC_WORDS)
+    and the (L·n, 2) int32 (offset, count) of each gate's partials."""
+    key = ("gate_tables", str(device))
+    if key not in plan._cache:
+        plan._cache[key] = (torch.as_tensor(plan.gate_records().view(np.int32), device=device),
+                            torch.as_tensor(plan.gate_slots().astype(np.int32), device=device))
+    return plan._cache[key]
+
+
+def _check_gates(plan: GridPlan, U: torch.Tensor) -> None:
+    if U.device.type != "cuda" or U.dtype != torch.complex64:
+        raise ValueError(f"circuit_gates kernel: U must be complex64 on a CUDA device, got "
+                         f"{U.dtype} on {U.device}")
+    if tuple(U.shape) != (plan.layers, plan.n, 2, 2):
+        raise ValueError(f"circuit_gates kernel: U has shape {tuple(U.shape)}, want "
+                         f"{(plan.layers, plan.n, 2, 2)}")
+
+
+def circuit_gates_forward(U: torch.Tensor, plan: GridPlan) -> tuple:
+    """probs, xr, xi (R, C) of the gates U (L, n, 2, 2). On the card:
+    ``csrc/circuit_gates.cu``'s forward, one launch a pass, with a (2, R, C)
+    scratch for the layers' out-of-place map stores."""
+    if U.device.type == "cpu":
+        return circuit_gates_forward_plain(U, plan)
+    _check_gates(plan, U)
+    u = torch.view_as_real(U.contiguous())
+    probs = torch.empty((plan.R, plan.C), dtype=torch.float32, device=U.device)
+    xr, xi = torch.empty_like(probs), torch.empty_like(probs)
+    tmp = torch.empty((2, plan.R, plan.C), dtype=torch.float32, device=U.device)
+    spec, _ = _gate_tables(plan, U.device)
+    records = plan.gate_records()
+    _lib.count_launch("circuit_gates_fwd")
+    err = _lib.load("circuit_gates").tn_circuit_gates_forward(
+        _lib.ptr(u), _lib.ptr(probs), _lib.ptr(xr), _lib.ptr(xi), _lib.ptr(tmp), _lib.ptr(spec),
+        records.ctypes.data_as(ctypes.c_void_p), len(records), int(plan.has_wall),
+        _lib.stream_ptr(U.device))
+    _lib.check(err, "tn_circuit_gates_forward")
+    return probs, xr, xi
+
+
+def circuit_gates_backward(U, xr, xi, g, plan: GridPlan) -> torch.Tensor:
+    """dU (L, n, 2, 2) for the cotangent g of the probs. On the card:
+    ``csrc/circuit_gates.cu``'s backward, one launch a pass (in reverse),
+    with two (4, R, C) scratch buffers and the per-tile partials, then one
+    launch that sums each gate's partials in tile order."""
+    if U.device.type == "cpu":
+        return circuit_gates_backward_plain(U, xr, xi, g, plan)
+    _check_gates(plan, U)
+    u = torch.view_as_real(U.contiguous())
+    du = torch.empty((plan.layers, plan.n, 2, 2, 2), dtype=torch.float32, device=U.device)
+    buf_a = torch.empty((4, plan.R, plan.C), dtype=torch.float32, device=U.device)
+    buf_b = torch.empty_like(buf_a)
+    spec, slots = _gate_tables(plan, U.device)
+    partials = torch.empty((plan.gate_partials(), 8), dtype=torch.float32, device=U.device)
+    records = plan.gate_records()
+    _lib.count_launch("circuit_gates_bwd")
+    err = _lib.load("circuit_gates").tn_circuit_gates_backward(
+        _lib.ptr(u), _lib.ptr(xr), _lib.ptr(xi), _lib.ptr(g), _lib.ptr(du), _lib.ptr(buf_a),
+        _lib.ptr(buf_b), _lib.ptr(partials), _lib.ptr(slots), _lib.ptr(spec),
+        records.ctypes.data_as(ctypes.c_void_p), len(records), plan.layers * plan.n,
+        _lib.stream_ptr(U.device))
+    _lib.check(err, "tn_circuit_gates_backward")
+    return torch.view_as_complex(du)
+
+
+class CircuitGatesFunction(torch.autograd.Function):
+    """probs (R, C) of the per-layer gates U (L, n, 2, 2), with the
+    gate-level adjoint backward (dU)."""
+
+    @staticmethod
+    def forward(ctx, U, plan: GridPlan):
+        probs, xr, xi = circuit_gates_forward(U, plan)
+        ctx.plan = plan
+        ctx.save_for_backward(U, xr, xi)
+        return probs
+
+    @staticmethod
+    def backward(ctx, g):
+        with span("circuit.backward"):
+            U, xr, xi = ctx.saved_tensors
+            return circuit_gates_backward(U, xr, xi, g.contiguous(), ctx.plan), None
+
+
+def make_circuit_gates_probs_fn(plan: GridPlan, conditioning: bool, reupload: bool):
+    """``make_probs_fn``'s functions on the gate path: θ folds into the
+    per-layer gates (``sim.gates.layer_rotations``), a wall into them per
+    qubit (``sim.gates.fold_wall_gates``), and ``CircuitGatesFunction``
+    runs the circuit."""
+    return make_probs_fn(
+        plan, lambda U: [U], CircuitGatesFunction, circuit_gates_forward, conditioning, reupload,
+        rotations=lambda p: (layer_rotations(p, plan.n, plan.layers, plan.per_qubit),),
+        wall=lambda ops, angles: (fold_wall_gates(ops[0], angles, reupload),))
+
+
 # --------------------------------------------------------------------- wrappers
 
 
@@ -542,10 +953,14 @@ def make_circuit2d_grid_probs_fn(num_wires: int, layers: int, ansatz_type: str, 
                                  conditioning: bool = False, reupload: bool = False):
     """probs(params) -> (2^n,) through the grid circuit kernels (``edges``
     for bn_structured); with ``conditioning``, probs(params, embed_angles),
-    the wall folded into the operator planes before the row gather
-    (``reupload``: before every layer). ``probs.batch`` runs several walls
-    on one θ fold; ``probs.state`` gives the final state from the forward
-    kernel."""
+    the wall folded in (``reupload``: before every layer). ``probs.batch``
+    runs several walls on one θ fold; ``probs.state`` gives the final state
+    from the forward kernel. Under ``highest`` the gate path: the per-layer
+    2x2 gates and ``CircuitGatesFunction``; under ``high`` and ``default``
+    the operator planes (the wall folded in before the row gather) and
+    ``Circuit2dGridFunction``."""
     plan = GridPlan(num_wires, layers, ansatz_type, edges)
+    if plan.precision == "highest":
+        return make_circuit_gates_probs_fn(plan, conditioning, reupload)
     return make_probs_fn(plan, lambda Mr, Mc: grid_planes(Mr, Mc, plan), Circuit2dGridFunction,
                          circuit2d_grid_forward, conditioning, reupload)

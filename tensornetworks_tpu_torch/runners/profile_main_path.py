@@ -76,14 +76,19 @@ def _device_ms(fn, reps=5):
 
 def circuit_kernel_and_plain_ms(bm, theta) -> dict:
     """Device ms of the Born machine's circuit kernels alone and of their
-    plain versions on the same operator planes (θ's), one forward and one
-    backward each."""
+    plain versions on the same operator planes or gates (θ's), one forward
+    and one backward each."""
     from ..ops.kernels import circuit2d as kc
     from ..ops.kernels import circuit2d_grid as kg
+    from ..sim.gates import layer_rotations
 
     n, L, ansatz = bm.num_latent_vars, bm.ansatz_layers, bm.ansatz_type
-    if bm.backend == "circuit2d_grid":
-        plan = kg.GridPlan(n, L, ansatz, bm.edges)
+    plan = kg.GridPlan(n, L, ansatz, bm.edges) if bm.backend == "circuit2d_grid" else None
+    if plan is not None and plan.precision == "highest":
+        planes = [layer_rotations(theta, n, L, plan.per_qubit)]
+        fwd, bwd = kg.circuit_gates_forward, kg.circuit_gates_backward
+        fwd_p, bwd_p = kg.circuit_gates_forward_plain, kg.circuit_gates_backward_plain
+    elif plan is not None:
         planes = kg.grid_operators(theta, plan)
         fwd, bwd = kg.circuit2d_grid_forward, kg.circuit2d_grid_backward
         fwd_p, bwd_p = kg.circuit2d_grid_forward_plain, kg.circuit2d_grid_backward_plain

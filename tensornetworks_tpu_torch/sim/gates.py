@@ -133,3 +133,17 @@ def fold_wall(Mr: torch.Tensor, Mc: torch.Tensor, embed_angles: torch.Tensor,
         return Mr @ Er, Mc @ Ec
     return (torch.cat([(Mr[0] @ Er)[None], Mr[1:]]),
             torch.cat([(Mc[0] @ Ec)[None], Mc[1:]]))
+
+
+def fold_wall_gates(U: torch.Tensor, embed_angles: torch.Tensor, reupload: bool) -> torch.Tensor:
+    """Per-layer gates (L, n, 2, 2) with the conditioning wall RY(angles)
+    folded in per qubit before the rotations, ``U[l, q] @ E[q]``: into
+    layer 0 for a single wall (``reupload=False``), into every layer when
+    re-uploading, one wall for all layers from (n,) angles or wall l before
+    layer l from (L, n) angles. The gate form of ``fold_wall``."""
+    if embed_angles.dim() == 2 and not reupload:
+        raise ValueError("per-layer embed_angles require reupload=True")
+    E = ry_batched(embed_angles.to(U.real.dtype))
+    if reupload:
+        return U @ E
+    return torch.cat([(U[0] @ E)[None], U[1:]])
