@@ -8,7 +8,8 @@ the program as its configuration states; ``control`` runs it with the
 overrides of ``controls/<cell>.json`` (the program's own lower-precision
 path); ``key=value`` overrides one key of the configuration (such as
 ``matmul_precision=default``); any other variant is a fault of
-``faults.py`` planted in the program. Each seed builds the cell, trains the steps that the reference
+``faults.py`` planted in the program (in every rank of a cell on several
+chips). Each seed builds the cell, trains the steps that the reference
 follows (no measured window: the readings need none), and prints one JSON
 line with the numbers that ``correct`` compares.
 """
@@ -18,7 +19,6 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
-import contextlib  # noqa: E402
 import json  # noqa: E402
 import sys  # noqa: E402
 
@@ -38,7 +38,6 @@ def main(argv=None) -> int:
     ap.add_argument("--plan", nargs="+", required=True)
     args = ap.parse_args(argv)
 
-    from portbench.faults import planted
     from portbench.harness import ROOT, find_cell, load_json, run_cell
 
     def log(msg):
@@ -46,17 +45,16 @@ def main(argv=None) -> int:
 
     for variant, seed in parse_plan(args.plan):
         spec = find_cell(args.workload)
-        ctx = contextlib.nullcontext()
+        faults = ()
         if variant == "control":
             spec.config.update(load_json(ROOT / "controls" / f"{args.workload}.json"))
         elif "=" in variant:
             key, _, value = variant.partition("=")
             spec.config[key] = value
         elif variant != "program":
-            ctx = planted(variant)
+            faults = (variant,)
         t = time.perf_counter()
-        with ctx:
-            res = run_cell(spec, seed, 0.0, False, t, log=log)
+        res = run_cell(spec, seed, 0.0, False, t, log=log, faults=faults)
         print(json.dumps({"cell": args.workload, "variant": variant, "seed": seed,
                           "correct": res["correct"], "numbers": res["numbers"],
                           "seconds": time.perf_counter() - t}), flush=True)

@@ -10,11 +10,15 @@ port for as long as it is open:
   entry raised by a thousandth of the largest (an answer altered where it
   is produced);
 - ``altered_shots``: the two-stage sampler's shots come out with their
-  last bit flipped.
+  last bit flipped;
+- ``exchange_self``: the exchange between chips (``parallel/comm.py``
+  ``exchange``, the partner's shard for a gate on a bit that spans the
+  chips) returns the rank's own buffer.
 
-Which of them a cell's path can have, each driver says (``FAULTS`` in
-``drivers/<driver>.py``). The exchange between chips is not a fault these
-cells can have: every cell runs on one chip.
+Each patches the single-card engines and the distributed sampled engine
+alike. Which of them a cell's path can have, each driver says (``FAULTS``
+in ``drivers/<driver>.py``): ``exchange_self`` only a cell on several
+chips. The harness plants the faults it is given in every rank of a run.
 """
 
 from __future__ import annotations
@@ -72,16 +76,64 @@ def _altered_shots(orig):
     return altered
 
 
+def _altered_probs_fn(orig):
+    """The distributed circuit's probabilities, the first state's entry
+    raised by a thousandth of the shard's largest."""
+    def make(*args, **kwargs):
+        probs = orig(*args, **kwargs)
+
+        def altered(params, *rest):
+            q = probs(params, *rest)
+            bump = torch.zeros_like(q)
+            bump[0] = 1e-3 * q.detach().max()
+            return q + bump if _first_shard() else q
+        return altered
+    return make
+
+
+def _first_shard() -> bool:
+    import torch.distributed as dist
+
+    return dist.get_rank() == 0
+
+
+def _altered_sharded_shots(orig):
+    def make(*args, **kwargs):
+        sample = orig(*args, **kwargs)
+
+        def altered(P2l, u_r, u_c):
+            idx, q_at = sample(P2l, u_r, u_c)
+            return idx ^ 1, q_at
+        return altered
+    return make
+
+
+def _own_buffer(orig):
+    return lambda x, mesh, bit, axis="state": x
+
+
+_DIST = "tensornetworks_tpu_torch.engines.distributed_sampled"
+
 PATCHES = {
     "unchanged": [("tensornetworks_tpu_torch.engines.ksd", "guarded_update", _keep),
-                  ("tensornetworks_tpu_torch.engines.sampled", "guarded_update", _keep)],
+                  ("tensornetworks_tpu_torch.engines.sampled", "guarded_update", _keep),
+                  (_DIST, "guarded_update", _keep)],
     "half_batch": [("tensornetworks_tpu_torch.engines.sampled", "ksd_ustat", _half_ustat),
                    ("tensornetworks_tpu_torch.engines.sampled", "reinforce_surrogate",
-                    _half_surrogate)],
+                    _half_surrogate),
+                   (_DIST, "ksd_ustat", _half_ustat),
+                   (_DIST, "reinforce_surrogate", _half_surrogate)],
     "altered_q": [("tensornetworks_tpu_torch.models.born_quantum:QuantumBornMachine", "probs",
-                   _altered_probs)],
+                   _altered_probs),
+                  ("tensornetworks_tpu_torch.parallel.distributed_ansatz",
+                   "make_distributed_ansatz_probs", _altered_probs_fn),
+                  (_DIST, "make_distributed_ansatz_probs", _altered_probs_fn)],
     "altered_shots": [("tensornetworks_tpu_torch.sim.sampling", "sample_indices_2d",
-                       _altered_shots)],
+                       _altered_shots),
+                      (_DIST, "make_distributed_two_stage_sampler", _altered_sharded_shots)],
+    "exchange_self": [("tensornetworks_tpu_torch.parallel.comm", "exchange", _own_buffer),
+                      ("tensornetworks_tpu_torch.parallel.shard_state", "exchange",
+                       _own_buffer)],
 }
 
 

@@ -10,9 +10,12 @@ shots), found by the problem's ``kind``; what follows is shared.
 The program hands over what it reported or left (its losses and gradient
 norms per step, its parameters after the steps, its shots and the states
 of the generator that drew their uniforms, its q at the end of the
-window); the reference works everything else out again from the problem:
-the circuit, the network's scores, the Stein form or the sampled Gram, the
-gradient, the optimizer's steps and the draws.
+window: one array, or the blocks of a cell on D cards in order); the
+reference works everything else out again from the problem: the circuit,
+the network's scores, the Stein form or the sampled Gram, the gradient,
+the optimizer's steps and the draws. The state is held in as many blocks
+as ``devices`` names (``circuit.py``); the per-shot work runs on the
+first.
 
 Numbers (each a gap, the larger the worse):
 
@@ -53,11 +56,13 @@ def _rel(p: float, r: float) -> float:
     return abs(p - r) / max(abs(r), 1e-300)
 
 
-def follow(problem: dict, record: dict, device) -> Dict[str, float]:
-    """The numbers of one run (see the module's docstring). The loss of a
+def follow(problem: dict, record: dict, devices) -> Dict[str, float]:
+    """The numbers of one run (see the module's docstring) with the state
+    in one block a device of ``devices`` (or one device). The loss of a
     step is the problem's kind's: ``reference/<kind>.py`` ``Loss``."""
     n, L = problem["n"], problem["layers"]
-    circ = Circuit(problem["ansatz"], n, L, problem["edges"], device)
+    circ = Circuit(problem["ansatz"], n, L, problem["edges"], devices)
+    device = circ.devices[0]
     net = Network(problem["parents"], problem["cpts"], n, problem["observed"], device)
     loss_of = importlib.import_module(f"{__package__}.{problem['kind']}").Loss(
         problem, record, net, device)
@@ -68,11 +73,12 @@ def follow(problem: dict, record: dict, device) -> Dict[str, float]:
     g0 = None
     for k in range(steps):
         psi = circ.state(theta)
-        q = psi.real ** 2 + psi.imag ** 2
+        q = [x.real ** 2 + x.imag ** 2 for x in psi]
         loss, gq = loss_of(k, q)
+        del q
         losses.append(loss)
         g = circ.grad(theta, gq, psi)
-        del psi, q, gq
+        del psi, gq
         norms.append(float(np.sqrt((g * g).sum())))
         if g0 is None:
             g0 = g
@@ -91,8 +97,17 @@ def follow(problem: dict, record: dict, device) -> Dict[str, float]:
     out.update(loss_of.numbers())
     del loss_of
     q_ref = circ.probs(record["theta_end"])
-    q_p = torch.as_tensor(record["q_end"], device=device).to(torch.float64)
-    d = (q_p - q_ref).abs()
-    out["q_rel"] = float(d.max() / q_ref.max())
-    out["q_l1"] = float(d.sum() / q_ref.sum())
+    q_end = record["q_end"]
+    q_end = list(q_end) if isinstance(q_end, (list, tuple)) else [q_end]
+    if len(q_end) != len(q_ref) or any(len(p) != len(r) for p, r in zip(q_end, q_ref)):
+        raise ValueError("the program's q does not come in the reference's blocks")
+    parts = []
+    for r in q_ref:
+        p = torch.as_tensor(q_end.pop(0), device=r.device).to(torch.float64)
+        d = (p - r).abs()
+        parts.append(torch.stack([d.max(), r.max(), d.sum(), r.sum()]).cpu())
+        del p, d
+    dmax, rmax, dsum, rsum = torch.stack(parts).T
+    out["q_rel"] = float(dmax.max() / rmax.max())
+    out["q_l1"] = float(dsum.sum() / rsum.sum())
     return out

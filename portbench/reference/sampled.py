@@ -1,12 +1,16 @@
-"""Plain float64 pieces of the sampled (U-statistic) KSD step.
+"""Plain float64 pieces of the sampled (U-statistic) KSD step, on q held
+in blocks (``circuit.py``: D blocks of consecutive states, block b on the
+b-th device; the shots, the uniforms and the Gram live on the first
+block's device).
 
 - ``two_stage_draws``: the shots the inverse CDF gives for uniforms
   (u_r, u_c) on the smoothed distribution (q + eps) / sum(q + eps) viewed
   as (R, C), R = 2^ceil(n/2): the row by the row marginals' CDF, then the
   column by that row's CDF, each the first step strictly above the
-  uniform.
+  uniform. Each block gives the marginals of its R/D rows, and only the M
+  drawn rows are read whole.
 - ``ustat``: the mean of the off-diagonal Gram entries.
-- ``surrogate_cotangent``: dL/dq of the REINFORCE surrogate
+- ``surrogate_cotangent``: dL/dq, as blocks, of the REINFORCE surrogate
   (2/M) sum_i (w_i - b_i) log q(z_i), w_i the mean of row i's off-diagonal
   Gram entries and b_i the leave-one-out baseline, the mean over the
   off-diagonal pairs without sample i; log q is floored at ``LOG_FLOOR``,
@@ -18,6 +22,8 @@
 
 from __future__ import annotations
 
+from typing import List
+
 import torch
 
 from .stein import gram
@@ -26,15 +32,38 @@ CDF_EPS = 1e-10
 LOG_FLOOR = 1e-12
 
 
-def two_stage_draws(q: torch.Tensor, u_r: torch.Tensor, u_c: torch.Tensor,
-                    n: int) -> torch.Tensor:
+def _rows(q: List[torch.Tensor], n: int):
+    """(R, C, rows a block, each block viewed as its (R/D, C) rows)."""
     rb = (n + 1) // 2
     R, C = 1 << rb, 1 << (n - rb)
-    P = q.view(R, C) + CDF_EPS
-    cdf_r = torch.cumsum(P.sum(dim=1), 0)
+    if R % len(q):
+        raise ValueError(f"{len(q)} blocks do not split {R} rows")
+    Rl = R // len(q)
+    return R, C, Rl, [x.view(Rl, C) for x in q]
+
+
+def at_shots(q: List[torch.Tensor], idx: torch.Tensor) -> torch.Tensor:
+    """q at the flat indices ``idx``, on idx's device."""
+    size = q[0].numel()
+    out = torch.empty(idx.shape, dtype=q[0].dtype, device=idx.device)
+    for b, x in enumerate(q):
+        sel = (idx // size) == b
+        out[sel] = x[(idx[sel] - b * size).to(x.device)].to(idx.device)
+    return out
+
+
+def two_stage_draws(q: List[torch.Tensor], u_r: torch.Tensor, u_c: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    R, C, Rl, P = _rows(q, n)
+    dev = u_r.device
+    cdf_r = torch.cumsum(torch.cat([(p + CDF_EPS).sum(dim=1).to(dev) for p in P]), 0)
     cdf_r = cdf_r / cdf_r[-1]
     r = torch.searchsorted(cdf_r, u_r.to(torch.float64), right=True).clamp(0, R - 1)
-    cdf_c = torch.cumsum(P[r], 1)
+    rows = torch.empty((r.numel(), C), dtype=q[0].dtype, device=dev)
+    for b, p in enumerate(P):
+        sel = (r // Rl) == b
+        rows[sel] = (p[(r[sel] - b * Rl).to(p.device)] + CDF_EPS).to(dev)
+    cdf_c = torch.cumsum(rows, 1)
     cdf_c = cdf_c / cdf_c[:, -1:]
     c = torch.searchsorted(cdf_c, u_c.to(torch.float64)[:, None], right=True)[:, 0]
     return r * C + c.clamp(0, C - 1)
@@ -45,14 +74,21 @@ def ustat(G: torch.Tensor) -> torch.Tensor:
     return (G.sum() - torch.trace(G)) / (M * (M - 1))
 
 
-def surrogate_cotangent(G: torch.Tensor, idx: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """dL/dq (2^n,) of the surrogate at the shots ``idx`` (M,)."""
+def surrogate_cotangent(G: torch.Tensor, idx: torch.Tensor,
+                        q: List[torch.Tensor]) -> List[torch.Tensor]:
+    """dL/dq of the surrogate at the shots ``idx`` (M,), as q's blocks."""
     M = G.shape[0]
     row = G.sum(dim=1) - torch.diagonal(G)
     coef = 2.0 / M * (row / (M - 1) - (row.sum() - 2.0 * row) / ((M - 1) * (M - 2)))
-    qi = q[idx]
+    qi = at_shots(q, idx)
     coef = torch.where(qi > LOG_FLOOR, coef / qi, torch.zeros_like(coef))
-    return torch.zeros_like(q).index_add_(0, idx, coef)
+    size = q[0].numel()
+    out = []
+    for b, x in enumerate(q):
+        sel = (idx // size) == b
+        out.append(torch.zeros_like(x).index_add_(0, (idx[sel] - b * size).to(x.device),
+                                                  coef[sel].to(x.device)))
+    return out
 
 
 class Loss:
@@ -62,8 +98,8 @@ class Loss:
         self.device = device
         self.mismatch = 0
 
-    def __call__(self, k: int, q: torch.Tensor):
-        """(loss, dL/dq) of step ``k`` at the reference's q."""
+    def __call__(self, k: int, q: List[torch.Tensor]):
+        """(loss, dL/dq as q's blocks) of step ``k`` at the reference's q."""
         n, M, dev = self.n, self.num_samples, self.device
         gen = torch.Generator(device=dev)
         gen.set_state(self.record["gen_states"][k])

@@ -58,7 +58,7 @@ def test_state_matches_dense_unitaries(ansatz, n):
     L = 3
     theta = np.random.default_rng(n).normal(size=3 * n * L)
     circ = Circuit(ansatz, n, L, edges_for(n))
-    got = circ.state(theta).numpy()
+    got = torch.cat(circ.state(theta)).numpy()
     np.testing.assert_allclose(got, dense_state(ansatz, n, L, theta, edges_for(n)), atol=1e-13)
 
 
@@ -69,10 +69,14 @@ def test_adjoint_gradient_matches_finite_differences(ansatz):
     theta = rng.normal(size=3 * n * L)
     g = torch.as_tensor(rng.normal(size=1 << n))
     circ = Circuit(ansatz, n, L, edges_for(n))
-    grad = circ.grad(theta, g)
+    grad = circ.grad(theta, [g])
     h = 1e-6
-    fd = np.array([(float(g @ circ.probs(theta + h * e)) - float(g @ circ.probs(theta - h * e)))
-                   / (2 * h) for e in np.eye(theta.size)])
+
+    def loss(t):
+        return float(g @ torch.cat(circ.probs(t)))
+
+    fd = np.array([(loss(theta + h * e) - loss(theta - h * e)) / (2 * h)
+                   for e in np.eye(theta.size)])
     np.testing.assert_allclose(grad, fd, atol=1e-8)
 
 
@@ -165,7 +169,7 @@ def test_two_stage_draws_are_the_first_step_above_each_uniform():
     q /= q.sum()
     u_r = torch.as_tensor(rng.random(200), dtype=torch.float32)
     u_c = torch.as_tensor(rng.random(200), dtype=torch.float32)
-    idx = two_stage_draws(q, u_r, u_c, n).numpy()
+    idx = two_stage_draws([q], u_r, u_c, n).numpy()
     P = q.numpy().reshape(8, 4) + 1e-10
     cr = np.cumsum(P.sum(1)) / P.sum()
     for i, j in enumerate(idx):
@@ -185,8 +189,8 @@ def test_surrogate_cotangent_matches_autograd():
     row = G.sum(1) - torch.diagonal(G)
     w = row / (M - 1) - (row.sum() - 2 * row) / ((M - 1) * (M - 2))
     (2.0 * (w * torch.log(q[idx])).mean()).backward()
-    np.testing.assert_allclose(surrogate_cotangent(G, idx, q.detach()).numpy(), q.grad.numpy(),
-                               rtol=1e-13)
+    (got,) = surrogate_cotangent(G, idx, [q.detach()])
+    np.testing.assert_allclose(got.numpy(), q.grad.numpy(), rtol=1e-13)
 
 
 def test_adam_first_steps_by_hand():

@@ -1,6 +1,9 @@
 """Tiny cells for the CPU tests: a copy of ``portbench/`` in a temporary
-directory with traffic files of 6 latent variables and a ``BENCHMARK.json``
-whose cells use the real configurations and the real cells' limits."""
+directory with traffic files of a few latent variables and a
+``BENCHMARK.json`` whose cells use the real configurations and the real
+cells' limits. ``tiny_dist`` runs the sampled configuration on the
+distributed sampled engine over 4 gloo ranks (``sampled_he4_dist``, a
+configuration of the copy only)."""
 
 from __future__ import annotations
 
@@ -11,8 +14,12 @@ import time
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parents[1]
-REAL = {"tiny_exact": ("exact_bn8", "exact_bn8.n24", "n24", {"6": 1}, 7),
-        "tiny_sampled": ("sampled_he4", "sampled_he4.n24", "n24.obs2", {"6": 1, "7": 0}, 8)}
+# cell: (configuration, real cell, traffic, observed, num_latent, num_vars, chips)
+REAL = {"tiny_exact": ("exact_bn8", "exact_bn8.n24", "n24", {"6": 1}, 6, 7, 1),
+        "tiny_sampled": ("sampled_he4", "sampled_he4.n24", "n24.obs2", {"6": 1, "7": 0}, 6, 8,
+                         1),
+        "tiny_dist": ("sampled_he4_dist", "sampled_he4.n24", "n24.obs2", {"8": 1, "9": 0}, 8,
+                      10, 4)}
 
 
 def make_copy(tmp: Path) -> Path:
@@ -20,13 +27,19 @@ def make_copy(tmp: Path) -> Path:
     pb = tmp / "portbench"
     shutil.copytree(SRC, pb, ignore=shutil.ignore_patterns("__pycache__", "tests"))
     bench = json.loads((SRC.parent / "BENCHMARK.json").read_text())
-    for cell, (config, real, traffic, observed, num_vars) in REAL.items():
+    cfg = json.loads((SRC / "configs" / "sampled_he4.json").read_text())
+    cfg.update(name="sampled_he4_dist", driver="distributed_sampled_ksd")
+    (pb / "configs" / "sampled_he4_dist.json").write_text(json.dumps(cfg))
+    bench["configs"].append({"name": "sampled_he4_dist", "source": "CPU test",
+                             "file": "portbench/configs/sampled_he4_dist.json", "reduced": [],
+                             "why": "CPU test"})
+    for cell, (config, real, traffic, observed, n, num_vars, chips) in REAL.items():
         t = json.loads((SRC / "traffic" / f"{traffic}.json").read_text())
-        t.update(num_latent=6, num_vars=num_vars, observed=observed, chunk_epochs=4)
+        t.update(num_latent=n, num_vars=num_vars, observed=observed, chunk_epochs=4)
         (pb / "traffic" / f"{cell}.json").write_text(json.dumps(t))
         shutil.copy(SRC / "limits" / f"{real}.json", pb / "limits" / f"{cell}.json")
-        bench["workloads"].append({"name": cell, "config": config, "traffic": cell, "chips": 1,
-                                   "why": "CPU test"})
+        bench["workloads"].append({"name": cell, "config": config, "traffic": cell,
+                                   "chips": chips, "why": "CPU test"})
         for m in bench["end_to_end"] + bench["per_layer"]:
             if real in m.get("workloads", ()):
                 m["workloads"].append(cell)
@@ -34,7 +47,8 @@ def make_copy(tmp: Path) -> Path:
     return pb
 
 
-def run(pb: Path, cell: str, seed: int = 2**33 + 7, seconds: float = 0.3, trace=False):
+def run(pb: Path, cell: str, seed: int = 2**33 + 7, seconds: float = 0.3, trace=False,
+        faults=()):
     """One run of a tiny cell on the CPU with the harness of the copy."""
     sys.path.insert(0, str(pb.parent))
     try:
@@ -44,7 +58,7 @@ def run(pb: Path, cell: str, seed: int = 2**33 + 7, seconds: float = 0.3, trace=
 
         spec = harness.find_cell(cell, root=pb)
         return harness.run_cell(spec, seed, seconds, trace, time.perf_counter(), device="cpu",
-                                require_chip=False, log=lambda *a: None)
+                                require_chip=False, log=lambda *a: None, faults=faults)
     finally:
         sys.path.remove(str(pb.parent))
         for name in [m for m in sys.modules if m == "portbench" or m.startswith("portbench.")]:
