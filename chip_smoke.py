@@ -31,6 +31,11 @@ Phases (any failure exits non-zero):
    and θ-gradients: at n=16 and n=20, L=8, timed; untimed at n=17, 18 and
    19, at n=5 with high→low and repeated edges, at n=19 with the DAG's
    edges reversed and one repeated, and with no edges at all.
+   First, the lean distributed executor's kernels at a rank's shape of the
+   n=32 cell on four cards (30 local bits, pieces of 2^26 amplitudes):
+   each shard pass forward and adjoint, each tile's dU record, the reduce
+   and the global-pair combines against their float64 plain versions on
+   the card, timed (``check_shard_passes``, ``check_pair_kernels``).
    Each circuit2d_grid check runs the dense-operator kernels in FP32 and,
    beside them on the same θ, the gate path that the FP32 machines take
    from 18 qubits (``csrc/circuit_gates.cu``, ``check_gates``): forward and
@@ -181,16 +186,19 @@ Phases (any failure exits non-zero):
    collectives stage through host memory (each row prints its transport).
    dist20: ``cli scale --qubits 20 --layers 4 --mesh 1 --epochs 60
    --chunk-epochs 20`` (nccl), scale20's configuration at full width:
-   kernel 4 (stein2d_grid) exactly 60 times, epoch 0 within 1e-4 of float64,
+   kernel 4 (stein2d_grid) exactly 60 times and the lean executor's shard
+   passes (its circuit), epoch 0 within 1e-4 of float64,
    the loss history within 1e-3 (relative) of scale20's from the same θ0.
    dist20x4: the same with ``--mesh 4 --dist-backend gloo`` (2^18
-   amplitudes a rank), kernel 4 60 times on every rank, the history within
+   amplitudes a rank), kernel 4 60 times on every rank and the executor's
+   pair combines beside its passes, the history within
    1e-4 of dist20's; then killed after its first chunk (every rank's engine
    module's ``run_ksd_scan`` raising, in ranks of this script) and resumed
    by the CLI with ``--resume-state``: history, θ, best θ, best TVD and
    epoch equal bit for bit, the snapshot gone. In one 4-rank gloo world:
    dist_sampled20x4, ``DistributedSampledKSDVariationalInference`` (HE L=4,
-   512 shots, lr 0.05, 20 epochs, the TVD on the loss forward), no kernel,
+   512 shots, lr 0.05, 20 epochs, the TVD on the loss forward), the lean
+   executor's passes and pair combines on every rank,
    against the single-device engine (kernel 5) at each epoch's θ of the
    ranks' run on the same uniforms: the shots equal but at FP32 CDF ties
    (within 1e-5 of the step; counted and printed), the U-statistics within
@@ -432,6 +440,13 @@ CDF_TOL, GATHER_TOL = 1e-5, 1e-5
 # single-device runs (the JAX spec's tolerances for the seeds, rtol 1e-4 and
 # atol 5e-4, for both).
 DIST_RANKS = 4
+# The lean distributed executor's kernels (ops/kernels/shard_gates.py) at a
+# rank's shape in the sampled_he4.n32x4 cell: n=32 on four ranks (30 local
+# bits, rank 3, whose layer store carries a constant XOR and sign), pieces
+# of 2^26 amplitudes at the shard's last offset; SHARD_BLOCKS tiles of each
+# wide pass against the plain version (the whole pass's index tables do not
+# fit beside the state).
+N_SHARD, SHARD_RANKS, SHARD_PIECE, SHARD_BLOCKS = 32, 4, 1 << 26, 64
 DIST20_ARGV = ["scale", "--qubits", "20", "--layers", "4", "--epochs", "60",
                "--chunk-epochs", "20"]
 DIST20_EPOCHS, DIST20_CHUNK, DIST20_KILL = 60, 20, 1
@@ -516,9 +531,15 @@ N_BN_EDGES, BN_EDGES = 5, [(4, 0), (2, 1), (0, 3), (0, 3), (3, 4), (1, 2), (1, 2
 # The gate path of kernels 5-6 (csrc/circuit_gates.cu) rounds once per gate
 # and amplitude against a plain version of the same tiles and gate order,
 # and keeps the grid pair's margins.
+# The shard's passes (gates_pass_*) hold the gate path's one-pass margins
+# against a float64 plain version on sampled tiles; the backward's also
+# bound each tile's dU record. A pair combine rounds a few times an element
+# (2e-6); its dU row and gates_reduce sum records of 4096 elements in FP32.
 TOL = {"circuit2d_fwd": 1e-5, "circuit2d_bwd": 1e-4, "stein2d": 1e-5,
        "circuit2d_grid_fwd": 2e-5, "circuit2d_grid_bwd": 2e-4, "stein2d_grid": 1e-5,
-       "stein_gcorr": 1e-5, "circuit_gates_fwd": 2e-5, "circuit_gates_bwd": 2e-4}
+       "stein_gcorr": 1e-5, "circuit_gates_fwd": 2e-5, "circuit_gates_bwd": 2e-4,
+       "gates_pass_fwd": 1e-5, "gates_pass_bwd": 1e-4, "gates_reduce": 1e-5,
+       "pair_fwd": 2e-6, "pair_bwd": 1e-5}
 
 REPLACES = {
     "circuit2d_fwd": "tensornetworks_tpu/ops/pallas/circuit2d.py:185",
@@ -531,6 +552,12 @@ REPLACES = {
     "circuit_gates_bwd": "tensornetworks_tpu/ops/pallas/circuit2d_grid.py:187",
     # No Pallas kernel: the XLA correction step of stein_matvec_gcorr_tables.
     "stein_gcorr": "tensornetworks_tpu/ops/stein.py:406",
+    # The sharded state's gates: XLA, local bits in place, global bits by ppermute.
+    "gates_pass_fwd": "tensornetworks_tpu/parallel/shard_state.py:39",
+    "gates_pass_bwd": "tensornetworks_tpu/parallel/shard_state.py:39",
+    "gates_reduce": "tensornetworks_tpu/parallel/shard_state.py:39",
+    "pair_fwd": "tensornetworks_tpu/parallel/shard_state.py:64",
+    "pair_bwd": "tensornetworks_tpu/parallel/shard_state.py:64",
 }
 # The bf16 variants of kernel 2 are the kernel of their own source (entered
 # through circuit2d.cu).
@@ -545,6 +572,11 @@ SOURCES = {
     "stein_gcorr": "tensornetworks_tpu_torch/csrc/stein_gcorr.cu",
     "circuit_gates_fwd": "tensornetworks_tpu_torch/csrc/circuit_gates.cu",
     "circuit_gates_bwd": "tensornetworks_tpu_torch/csrc/circuit_gates.cu",
+    "gates_pass_fwd": "tensornetworks_tpu_torch/csrc/circuit_gates.cu",
+    "gates_pass_bwd": "tensornetworks_tpu_torch/csrc/circuit_gates.cu",
+    "gates_reduce": "tensornetworks_tpu_torch/csrc/circuit_gates.cu",
+    "pair_fwd": "tensornetworks_tpu_torch/csrc/circuit_gates.cu",
+    "pair_bwd": "tensornetworks_tpu_torch/csrc/circuit_gates.cu",
 }
 # The kernels each path must launch; it must launch no other kernel. The
 # bn_structured and exact paths run exactly the kernel sets of main16 and
@@ -552,6 +584,8 @@ SOURCES = {
 # (circuit_gates_*); the dense-operator kernels (circuit2d_grid_*) run their
 # bf16 variants on exact24_high and grid20_default, and in FP32 only in the
 # kernel checks.
+SHARD_PASSES = ("gates_pass_fwd", "gates_pass_bwd", "gates_reduce")
+PAIR_COMBINES = ("pair_fwd", "pair_bwd")
 PATH_KERNELS = {
     "main16": ("circuit2d_fwd", "circuit2d_bwd", "stein2d", "stein_gcorr"),
     "scale20": ("circuit_gates_fwd", "circuit_gates_bwd", "stein2d_grid", "stein_gcorr"),
@@ -571,10 +605,13 @@ PATH_KERNELS.update(bn16=PATH_KERNELS["main16"], bn20=PATH_KERNELS["scale20"],
                     profile16=PATH_KERNELS["main16"], state16=("circuit2d_fwd",),
                     state20=("circuit_gates_fwd",),
                     # On every rank: the distributed Stein matvec's local apply
-                    # (20 and 18 local bits: kernel 4); the sharded sampler runs
-                    # no kernel; the dp ranks run amortized16's and multiseed16's.
-                    dist20=("stein2d_grid",), dist20x4=("stein2d_grid",),
-                    dist_sampled20x4=(), amortized_mesh16x4=PATH_KERNELS["main16"],
+                    # (20 and 18 local bits: kernel 4); the lean executor's
+                    # shard passes, and on more than one rank its pair
+                    # combines; the dp ranks run amortized16's and multiseed16's.
+                    dist20=("stein2d_grid",) + SHARD_PASSES,
+                    dist20x4=("stein2d_grid",) + SHARD_PASSES + PAIR_COMBINES,
+                    dist_sampled20x4=SHARD_PASSES + PAIR_COMBINES,
+                    amortized_mesh16x4=PATH_KERNELS["main16"],
                     multiseed_mesh16x4=PATH_KERNELS["main16"],
                     exact24_high=("circuit2d_grid_fwd.high", "circuit2d_grid_bwd.high",
                                   "stein2d_grid", "stein_gcorr"),
@@ -717,6 +754,280 @@ def check_gates(plan, theta, g, timing):
              plain_ms=t(lambda: kg.circuit_gates_backward_plain(U, out_p[1], out_p[2], g, plan)),
              bound_ms=bwd_bound[0], bound_by=bwd_bound[1], library_ms=None),
     ]
+
+
+def _planes_at(planes, idx):
+    """The complex128 amplitudes of the planes (2, P) at idx."""
+    import torch
+
+    return torch.complex(planes[0][idx].double(), planes[1][idx].double())
+
+
+def _shard_pass_plain(ps, U, x, blocks):
+    """(dst, vals) of a shard pass's forward on ``blocks`` in float64: the
+    tiles loaded from the planes x, the pass's gates, the store's map and
+    sign (``gate_pass_forward_plain`` restricted to those tiles)."""
+    from tensornetworks_tpu_torch.ops.kernels import circuit2d_grid as kg
+
+    src, dst, pos = kg.gate_pass_index(ps, x.device, blocks)
+    tile = _planes_at(x, src)
+    for t, q in ps.gates:
+        tile = kg._apply_gate(tile, t, U[ps.layer, q])
+    vals = tile.gather(1, pos)
+    if ps.cz is not None or ps.negate:
+        vals = vals * kg._store_sign(ps, dst, vals.real.dtype)
+    return dst, vals
+
+
+def _shard_adjoint_plain(ps, Uh, x, lam, blocks):
+    """(src, x, λ, records) of a shard pass's adjoint on ``blocks`` in
+    float64 (``gate_pass_backward_plain`` restricted to those tiles): x and
+    λ un-computed at src, and each gate's dU record of each tile, {qubit:
+    (B, 2, 2)}."""
+    import torch
+    from tensornetworks_tpu_torch.ops.kernels import circuit2d_grid as kg
+
+    src, dst, pos = kg.gate_pass_index(ps, x.device, blocks)
+    if not ps.map:
+        dst, pos = src, torch.arange(src.shape[1], device=x.device).expand_as(src)
+    s = kg._store_sign(ps, dst, torch.float64)
+    tiles = []
+    for v in (x, lam):
+        t = torch.empty(src.shape, dtype=torch.complex128, device=x.device)
+        t.scatter_(1, pos, s * _planes_at(v, dst))
+        tiles.append(t)
+    tx, tl = tiles
+    records = {}
+    for t, q in reversed(ps.gates):
+        tx = kg._apply_gate(tx, t, Uh[ps.layer, q])
+        vx, vl = kg._pair_view(tx, t), kg._pair_view(tl, t)
+        records[q] = torch.stack([torch.stack([(vl[:, :, r] * vx[:, :, c].conj()).sum(dim=(1, 2))
+                                               for c in (0, 1)], dim=-1) for r in (0, 1)], dim=-2)
+        tl = kg._apply_gate(tl, t, Uh[ps.layer, q])
+    return src, tx, tl, records
+
+
+def _rel64(got, want):
+    """max |got - want| / max |want| of complex or real tensors, in float64."""
+    import torch
+
+    got, want = torch.view_as_real(got) if got.is_complex() else got, \
+        torch.view_as_real(want) if want.is_complex() else want
+    return rel_err(got.double(), want.double())
+
+
+def check_shard_passes(device, timing=True):
+    """The lean executor's shard passes on the card at the n=32 cell's rank
+    shape (30 local bits, rank 3 of 4, one HE layer), each pass against its
+    float64 plain version on SHARD_BLOCKS tiles (the first, the last and
+    random ones): the forward (map passes out of place, the others in place,
+    as the executor runs them); the adjoint from the pass's output and a
+    random λ (a map pass as the map undone on x and on λ alone, then its
+    gates in place), x and λ un-computed and each tile's dU record of each
+    gate; x un-computed against the pass's input; then ``gates_reduce`` on
+    the records against their float64 sums. Timed: the layer's forward and
+    adjoint passes, and the reduce."""
+    import torch
+    from tensornetworks_tpu_torch.ops.kernels import shard_gates as sg
+    from tensornetworks_tpu_torch.parallel.distributed_ansatz import ShardProgram
+    from tensornetworks_tpu_torch.sim.gates import layer_rotations
+
+    k = SHARD_RANKS.bit_length() - 1
+    prog = ShardProgram(N_SHARD, 1, ANSATZ, k, SHARD_RANKS - 1)
+    tables, slots = prog.tables(device)
+    t, nl = tables[0], prog.nl
+    require(t.passes[-1].map and t.passes[-1].xor and t.passes[-1].cz is not None,
+            "shard plan: rank 3's last pass lacks its map, XOR or CZ sign")
+    gen = torch.Generator().manual_seed(0)
+    theta = torch.rand(3 * N_SHARD, generator=gen, dtype=torch.float64) * 2 * math.pi
+    U = layer_rotations(theta.to(torch.float32), N_SHARD, 1, 3)[:, k:].contiguous().to(device)
+    U64 = U.to(torch.complex128)
+    Uh = U64.conj().transpose(-1, -2)
+    size = 1 << nl
+    dgen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn((2, size), generator=dgen, device=device)
+    lam = torch.randn((2, size), generator=dgen, device=device)
+    y, bx, bl = (torch.empty_like(x) for _ in range(3))
+    partials = torch.full((prog.records[0], 8), float("nan"), device=device)
+    fwd_err = bwd_err = 0.0
+    abs_fwd = abs_bwd = 0.0
+    for i, ps in enumerate(t.passes):
+        if ps.map:
+            sg.gates_forward_pass(t, i, U, x, y)
+        else:
+            y.copy_(x)
+            sg.gates_forward_pass(t, i, U, y, y)
+        if ps.map:
+            sg.gates_backward_pass(t, i, U, y, None, bx, None, None, {}, two=True)
+            sg.gates_backward_pass(t, i, U, lam, None, bl, None, None, {}, two=True)
+            if ps.gates:
+                sg.gates_backward_pass(t, i, U, bx, bl, bx, bl, partials, {}, nomap=True)
+        else:
+            bx.copy_(y)
+            bl.copy_(lam)
+            sg.gates_backward_pass(t, i, U, bx, bl, bx, bl, partials, {})
+        torch.cuda.synchronize()
+        last = (1 << (nl - ps.k)) - 1
+        blocks = torch.cat([torch.tensor([0, last]),
+                            torch.randint(0, last + 1, (SHARD_BLOCKS - 2,), generator=gen)])
+        blocks = blocks.to(device)
+        dst, vals = _shard_pass_plain(ps, U64, x, blocks)
+        got = _planes_at(y, dst)
+        fwd_err = max(fwd_err, _rel64(got, vals))
+        abs_fwd = max(abs_fwd, float((got - vals).abs().max()))
+        src, tx, tl, records = _shard_adjoint_plain(ps, Uh, y, lam, blocks)
+        errs = [_rel64(_planes_at(bx, src), tx), _rel64(_planes_at(bl, src), tl),
+                _rel64(_planes_at(bx, src), _planes_at(x, src))]
+        abs_bwd = max(abs_bwd, float((_planes_at(bx, src) - tx).abs().max()))
+        for (_, q), off in zip(ps.gates, ps.slots):
+            rec = partials[off + blocks].double().reshape(-1, 2, 2, 2)
+            errs.append(_rel64(rec, torch.view_as_real(records[q])))
+        bwd_err = max(bwd_err, *errs)
+        what = f"shard pass {i} of {len(t.passes)} ({nl} local bits, k={ps.k}, map {ps.map})"
+        require(fwd_err <= TOL["gates_pass_fwd"], f"{what}: forward rel err {fwd_err:.3e}")
+        require(bwd_err <= TOL["gates_pass_bwd"], f"{what}: adjoint rel err {bwd_err:.3e}")
+        x, y = y, x
+    require(not bool(partials.isnan().any()), "shard passes: a dU record was never written")
+    slot_rows = slots[0].cpu().tolist()
+    du = sg.gates_reduce(partials, slots[0], nl)
+    want = torch.stack([partials[o:o + c].double().sum(0) for o, c in slot_rows])
+    red_err = _rel64(torch.view_as_real(du).reshape(nl, 8), want)
+    abs_red = float((torch.view_as_real(du).reshape(nl, 8).double() - want).abs().max())
+    require(red_err <= TOL["gates_reduce"], f"gates_reduce: rel err {red_err:.3e}")
+    print(f"shard passes n={N_SHARD} on {SHARD_RANKS} ranks ({nl} local bits, rank "
+          f"{SHARD_RANKS - 1}, {len(t.passes)} passes): fwd rel {fwd_err:.2e}, adjoint and dU "
+          f"records rel {bwd_err:.2e} on {SHARD_BLOCKS} tiles a pass; gates_reduce rel "
+          f"{red_err:.2e} over {nl} gates", flush=True)
+    del bx, bl
+    torch.cuda.empty_cache()
+    if not timing:
+        del x, y, lam, partials
+        torch.cuda.empty_cache()
+        return []
+
+    def fwd_layer():
+        a, b = x, y
+        for i, ps in enumerate(t.passes):
+            if ps.map:
+                sg.gates_forward_pass(t, i, U, a, b)
+                a, b = b, a
+            else:
+                sg.gates_forward_pass(t, i, U, a, a)
+
+    def bwd_layer():
+        a, l, s = x, lam, y
+        for i in reversed(range(len(t.passes))):
+            ps = t.passes[i]
+            if ps.map:
+                sg.gates_backward_pass(t, i, U, a, None, s, None, None, {}, two=True)
+                a, s = s, a
+                sg.gates_backward_pass(t, i, U, l, None, s, None, None, {}, two=True)
+                l, s = s, l
+                if ps.gates:
+                    sg.gates_backward_pass(t, i, U, a, l, a, l, partials, {}, nomap=True)
+            else:
+                sg.gates_backward_pass(t, i, U, a, l, a, l, partials, {})
+
+    gates = sum(len(ps.gates) for ps in t.passes)
+    fwd_bytes = 16 * size * len(t.passes)
+    bwd_bytes = 32 * size * sum(1 + (ps.map and bool(ps.gates)) for ps in t.passes)
+    fwd_bound, bwd_bound = bound(14 * gates * size, fwd_bytes), bound(44 * gates * size, bwd_bytes)
+    red_bound = bound(8 * partials.shape[0], 32 * partials.shape[0])
+    t_wide = functools.partial(time_ms, reps=WIDE_REPS, rounds=WIDE_ROUNDS)
+    out = [
+        dict(name="gates_pass_fwd", max_abs_err=abs_fwd, rel_err=fwd_err, ms=t_wide(fwd_layer),
+             plain_ms=None, bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=None),
+        dict(name="gates_pass_bwd", max_abs_err=abs_bwd, rel_err=bwd_err, ms=t_wide(bwd_layer),
+             plain_ms=None, bound_ms=bwd_bound[0], bound_by=bwd_bound[1], library_ms=None),
+        dict(name="gates_reduce", max_abs_err=abs_red, rel_err=red_err,
+             ms=time_ms(lambda: sg.gates_reduce(partials, slots[0], nl)), plain_ms=None,
+             bound_ms=red_bound[0], bound_by=red_bound[1], library_ms=None),
+    ]
+    print("shard passes a layer: " + ", ".join(
+        f"{r['name']} {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} ms, {r['bound_by']})"
+        for r in out), flush=True)
+    del x, y, lam, partials
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_pair_kernels(device, timing=True):
+    """The global-pair combines on a piece of SHARD_PIECE amplitudes at the
+    shard's last offset (the offset's high bits enter the table entry),
+    against their float64 plain versions on the card: this rank's bit b = 0
+    and 1, for a rotation (one entry), the CNOT table (I, X) whose control
+    is local bit 0 as at the ring's CNOT(31, 0), the same with a high bit
+    in the mask, and four entries from two masks. The backward's dU row is
+    its records summed by ``gates_reduce``. Timed on the rotation, b = 1,
+    against the plain versions in FP32."""
+    import torch
+    from tensornetworks_tpu_torch.ops.kernels import shard_gates as sg
+
+    P, offset = SHARD_PIECE, (1 << (N_SHARD - 2)) - SHARD_PIECE
+    gen = torch.Generator().manual_seed(1)
+
+    def unitaries(e):
+        z = torch.randn((e, 2, 2), generator=gen, dtype=torch.complex128)
+        return torch.linalg.qr(z)[0]
+
+    eye = torch.eye(2, dtype=torch.complex128)
+    cases = [(unitaries(1), 0, 0), (torch.stack([eye, eye.flip(0)]), 1, 0),
+             (torch.stack([eye, eye.flip(0)]), (1 << 29) | 1, 0), (unitaries(4), 1, 1 << 27)]
+    dgen = torch.Generator(device=device).manual_seed(1)
+    x, lam, tx, tl = (torch.randn((2, P), generator=dgen, device=device) for _ in range(4))
+    partials = torch.empty((sg.pair_records(P), 8), device=device)
+    slots = torch.tensor([[0, sg.pair_records(P)]], dtype=torch.int32, device=device)
+    fwd_err = bwd_err = abs_fwd = abs_bwd = 0.0
+    for coef, m1, m2 in cases:
+        coef_d = coef.to(device)
+        for b in (0, 1):
+            mine = x.clone()
+            sg.pair_forward(mine, (tx[0], tx[1]), coef_d, offset, m1, m2, b)
+            want = x.double()
+            sg.pair_forward_plain(want, tx.double(), coef_d, offset, m1, m2, b)
+            fwd_err = max(fwd_err, rel_err(mine.double(), want))
+            abs_fwd = max(abs_fwd, float((mine.double() - want).abs().max()))
+            gx, gl = x.clone(), lam.clone()
+            sg.pair_backward(gx, gl, (tx[0], tx[1]), (tl[0], tl[1]), coef_d, offset, m1, m2, b,
+                             partials, True)
+            du = sg.gates_reduce(partials, slots, 1)[0]
+            wx, wl = x.double(), lam.double()
+            dU = sg.pair_backward_plain(wx, wl, tx.double(), tl.double(), coef_d, offset, m1, m2,
+                                        b, True)
+            errs = [rel_err(gx.double(), wx), rel_err(gl.double(), wl),
+                    _rel64(du[b].to(torch.complex128), dU[b])]
+            abs_bwd = max(abs_bwd, float((gx.double() - wx).abs().max()),
+                          float((gl.double() - wl).abs().max()))
+            bwd_err = max(bwd_err, *errs)
+            what = f"pair combine (b={b}, m1={m1:#x}, m2={m2:#x}, {coef.shape[0]} entries)"
+            require(fwd_err <= TOL["pair_fwd"], f"{what}: forward rel err {fwd_err:.3e}")
+            require(bwd_err <= TOL["pair_bwd"], f"{what}: adjoint rel err {bwd_err:.3e}")
+    print(f"pair combines on {P} amplitudes at offset {offset:#x}: fwd rel {fwd_err:.2e}, "
+          f"adjoint and dU row rel {bwd_err:.2e} over {2 * len(cases)} cases", flush=True)
+    if not timing:
+        return []
+    coef_d = cases[0][0].to(device)
+    coef32 = coef_d.to(torch.complex64)
+    fwd_bound, bwd_bound = bound(16 * P, 24 * P), bound(64 * P, 48 * P)
+    t_plain = functools.partial(time_ms, reps=WIDE_REPS, rounds=WIDE_ROUNDS)
+    out = [
+        dict(name="pair_fwd", max_abs_err=abs_fwd, rel_err=fwd_err,
+             ms=time_ms(lambda: sg.pair_forward(x, (tx[0], tx[1]), coef_d, offset, 0, 0, 1)),
+             plain_ms=t_plain(lambda: sg.pair_forward_plain(x, tx, coef32, offset, 0, 0, 1)),
+             bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=None),
+        dict(name="pair_bwd", max_abs_err=abs_bwd, rel_err=bwd_err,
+             ms=time_ms(lambda: sg.pair_backward(x, lam, (tx[0], tx[1]), (tl[0], tl[1]), coef_d,
+                                                 offset, 0, 0, 1, partials, True)),
+             plain_ms=t_plain(lambda: sg.pair_backward_plain(x, lam, tx, tl, coef32, offset, 0,
+                                                             0, 1, True)),
+             bound_ms=bwd_bound[0], bound_by=bwd_bound[1], library_ms=None),
+    ]
+    print("pair combines: " + ", ".join(
+        f"{r['name']} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} "
+        f"ms, {r['bound_by']})" for r in out), flush=True)
+    del x, lam, tx, tl, partials
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_circuit(n, device, timing, grid=False, ansatz=ANSATZ, layers=LAYERS, edges=None,
@@ -3497,6 +3808,9 @@ def main() -> int:
     from tensornetworks_tpu_torch.ops.kernels import _lib
     print_new_registers(check_spills(_lib.BUILD_LOGS))
     t0 = phase("build", t0)
+    shard_records = [dict(r, path="dist_sampled20x4")
+                     for r in check_shard_passes(device) + check_pair_kernels(device)]
+    t0 = phase("shard kernel checks", t0)
 
     for n in (N_MIN, N_RAGGED, N_ODD, N_MAX):  # ragged tiles (R=4, C=2); odd, R != C
         check_circuit(n, device, timing=False)
@@ -3515,6 +3829,7 @@ def main() -> int:
         + check_gcorr(N, device, f64=True))]
     records += [dict(r, path="scale20") for r in (
         check_circuit(N_GRID, device, timing=True, grid=True) + check_stein2d(N_GRID, device))]
+    records += shard_records
     t0 = phase("kernel checks", t0)
     bn_records = check_bn_circuits(device)
     t0 = phase("bn_structured kernel checks", t0)

@@ -71,7 +71,7 @@ constexpr int kChunks = kTile / (4 * kThreads);  // a thread's 16-byte runs of a
 // One pass (circuit2d_grid.GatePass.record): header, then the fields, each
 // kMax words.
 struct PassSpec {
-  unsigned n, k, m, map, layer, ngates, ncz, pad;
+  unsigned n, k, m, map, layer, ngates, ncz, xout;
   unsigned lin[kMax], cin[kMax], lout[kMax], cout[kMax], coff[kMax], tq[kMax];
   unsigned gate_bit[kMax], gate_qubit[kMax], gate_slot[kMax];
   unsigned cz_bit[kMax], cz_mask[kMax];
@@ -79,7 +79,13 @@ struct PassSpec {
 constexpr int kSpecWords = 8 + 11 * kMax;  // circuit2d_grid.GATE_SPEC_WORDS
 static_assert(sizeof(PassSpec) == 4 * kSpecWords, "PassSpec is the record's layout");
 
-enum : unsigned { kInit = 1, kProbs = 2, kWall = 4, kSeed = 8, kNoStore = 16 };
+enum : unsigned { kInit = 1, kProbs = 2, kWall = 4, kSeed = 8, kNoStore = 16, kNoMap = 32,
+                  kTwo = 64 };
+// xout: a constant XOR of a map pass's store address (its low 31 bits, a
+// shard's rank-dependent CNOT targets), and kNegate, a sign on every
+// amplitude the pass stores (the rank's constant CZ sign). Both are zero
+// in a one-card plan.
+constexpr unsigned kNegate = 1u << 31;
 
 struct FwdArgs {
   const unsigned* spec;  // this pass's record, on the device
@@ -160,18 +166,40 @@ __device__ __forceinline__ unsigned in_addr(const PassSpec& s, const Block& b, u
 }
 
 // The store address of store indices q..q+3 and their tile positions.
+// Unmapped, the load's. In a shard's pass (Shard), unmapped also under
+// kNoMap, and the constant XOR moves the run of four to another 16-byte
+// run (its bits from 2 up) and permutes it (its bits 0-1).
+template <bool Shard>
 __device__ __forceinline__ unsigned out_addr(const PassSpec& s, const Block& b, unsigned q,
-                                             unsigned pos[4]) {
-  if (!s.map) {
+                                             unsigned pos[4], bool mapped) {
+  if (!mapped) {
     for (int j = 0; j < 4; ++j) pos[j] = q + j;
     return in_addr(s, b, q);
   }
   const unsigned p0 = b.off ^ span_of(q, s.tq, 2, s.k);
-  pos[0] = p0;
-  pos[1] = p0 ^ s.tq[0];
-  pos[2] = p0 ^ s.tq[1];
-  pos[3] = p0 ^ s.tq[0] ^ s.tq[1];
-  return b.base_out ^ (q & ((1u << s.m) - 1u)) ^ span_of(q, s.lout, s.m, s.k);
+  if constexpr (!Shard) {
+    pos[0] = p0;
+    pos[1] = p0 ^ s.tq[0];
+    pos[2] = p0 ^ s.tq[1];
+    pos[3] = p0 ^ s.tq[0] ^ s.tq[1];
+    return b.base_out ^ (q & ((1u << s.m) - 1u)) ^ span_of(q, s.lout, s.m, s.k);
+  } else {
+    const unsigned x = s.xout & 3u;
+#pragma unroll
+    for (unsigned j = 0; j < 4; ++j)
+      pos[j] = p0 ^ (((j ^ x) & 1u) ? s.tq[0] : 0u) ^ (((j ^ x) & 2u) ? s.tq[1] : 0u);
+    return b.base_out ^ (q & ((1u << s.m) - 1u)) ^ span_of(q, s.lout, s.m, s.k) ^
+           (s.xout & ~(kNegate | 3u));
+  }
+}
+
+// The sign flips of the pass's store at addresses a..a+3: its CZ sign and,
+// in a shard's pass, its constant one.
+template <bool Shard>
+__device__ __forceinline__ unsigned store_flips(const PassSpec& s, unsigned a) {
+  const unsigned flips = s.ncz ? cz_flips4(s, a) : 0u;
+  if constexpr (Shard) return flips ^ ((s.xout & kNegate) ? 0xFu : 0u);
+  return flips;
 }
 
 // Tile position of amplitude c of group element i: zeros inserted at the
@@ -276,6 +304,7 @@ __device__ void apply_group(const PassSpec& s, unsigned g0, const float* u, floa
   }
 }
 
+template <bool Shard>
 __global__ void __launch_bounds__(kThreads, 3) fwd_pass_kernel(const FwdArgs a) {
   extern __shared__ __align__(16) float tile[];
   __shared__ PassSpec s;
@@ -324,8 +353,8 @@ __global__ void __launch_bounds__(kThreads, 3) fwd_pass_kernel(const FwdArgs a) 
 
   for (unsigned q = 4 * threadIdx.x; q < T; q += 4 * kThreads) {
     unsigned pos[4];
-    const unsigned addr = out_addr(s, b, q, pos);
-    const unsigned flips = s.ncz ? cz_flips4(s, addr) : 0u;
+    const unsigned addr = out_addr<Shard>(s, b, q, pos, s.map);
+    const unsigned flips = store_flips<Shard>(s, addr);
     float vr[4], vi[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -431,6 +460,11 @@ __device__ void adjoint_group(const PassSpec& s, unsigned g0, const float* u, fl
   }
 }
 
+// A one-card pass (Shard false) takes the flags kSeed and kNoStore; a
+// shard's pass also kNoMap: the pass runs as if it had no map (its map
+// undone already); kTwo: two planes only (x or l, src[0..1] -> dst[0..1]),
+// the map and sign undone, no gate.
+template <bool Shard>
 __global__ void __launch_bounds__(kThreads, 2) bwd_pass_kernel(const BwdArgs a) {
   extern __shared__ __align__(16) float tile[];
   __shared__ PassSpec s;
@@ -439,6 +473,9 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_pass_kernel(const BwdArgs a) 
   const unsigned T = 1u << s.k;
   float* t[4] = {tile, tile + T, tile + 2 * T, tile + 3 * T};
   const Block b = block_bases(s);
+  const bool nomap = Shard && (a.flags & kNoMap);
+  const bool mapped = s.map && !nomap;
+  const bool two = Shard && (a.flags & kTwo);
 
   // Load through the store side of the forward pass, every load of the
   // thread in flight before the first is used; undo the sign and the map.
@@ -449,18 +486,26 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_pass_kernel(const BwdArgs a) 
     const unsigned q = 4 * (threadIdx.x + c * kThreads);
     if (q >= T) break;
     unsigned pos[4];
-    addrs[c] = out_addr(s, b, q, pos);
+    addrs[c] = out_addr<Shard>(s, b, q, pos, mapped);
+    if constexpr (Shard) {
+      const int loads = two ? 2 : ((a.flags & kSeed) ? 3 : 4);
 #pragma unroll
-    for (int h = 0; h < 3; ++h)  // kSeed: x, g
-      v[c][h] = __ldg(reinterpret_cast<const float4*>(a.src[h] + addrs[c]));
-    if (!(a.flags & kSeed)) v[c][3] = __ldg(reinterpret_cast<const float4*>(a.src[3] + addrs[c]));
+      for (int h = 0; h < 4; ++h)
+        if (h < loads) v[c][h] = __ldg(reinterpret_cast<const float4*>(a.src[h] + addrs[c]));
+    } else {
+#pragma unroll
+      for (int h = 0; h < 3; ++h)  // kSeed: x, g
+        v[c][h] = __ldg(reinterpret_cast<const float4*>(a.src[h] + addrs[c]));
+      if (!(a.flags & kSeed))
+        v[c][3] = __ldg(reinterpret_cast<const float4*>(a.src[3] + addrs[c]));
+    }
   }
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
     const unsigned q = 4 * (threadIdx.x + c * kThreads);
     if (q >= T) break;
     unsigned pos[4];
-    out_addr(s, b, q, pos);
+    out_addr<Shard>(s, b, q, pos, mapped);
     if (a.flags & kSeed) {  // l = 2 g x
       const float4 g = v[c][2];
       v[c][2] = make_float4(2.f * g.x * v[c][0].x, 2.f * g.y * v[c][0].y, 2.f * g.z * v[c][0].z,
@@ -468,17 +513,18 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_pass_kernel(const BwdArgs a) 
       v[c][3] = make_float4(2.f * g.x * v[c][1].x, 2.f * g.y * v[c][1].y, 2.f * g.z * v[c][1].z,
                             2.f * g.w * v[c][1].w);
     }
-    const unsigned flips = s.ncz ? cz_flips4(s, addrs[c]) : 0u;
+    const unsigned flips = nomap ? 0u : store_flips<Shard>(s, addrs[c]);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float sg = ((flips >> j) & 1u) ? -1.f : 1.f;
 #pragma unroll
-      for (int h = 0; h < 4; ++h) t[h][pos[j]] = sg * reinterpret_cast<const float*>(&v[c][h])[j];
+      for (int h = 0; h < 4; ++h)
+        if (!two || h < 2) t[h][pos[j]] = sg * reinterpret_cast<const float*>(&v[c][h])[j];
     }
   }
   __syncthreads();
 
-  const unsigned groups = (s.ngates + kGroup - 1) / kGroup;
+  const unsigned groups = two ? 0u : (s.ngates + kGroup - 1) / kGroup;
   for (int gi = (int)groups - 1; gi >= 0; --gi) {
     const unsigned g0 = gi * kGroup;
     const unsigned G = min(s.ngates - g0, (unsigned)kGroup);
@@ -496,7 +542,8 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_pass_kernel(const BwdArgs a) 
     const unsigned addr = in_addr(s, b, p);
 #pragma unroll
     for (int h = 0; h < 4; ++h)
-      *reinterpret_cast<float4*>(a.dst[h] + addr) = *reinterpret_cast<const float4*>(t[h] + p);
+      if (!two || h < 2)
+        *reinterpret_cast<float4*>(a.dst[h] + addr) = *reinterpret_cast<const float4*>(t[h] + p);
   }
 }
 
@@ -533,6 +580,128 @@ __global__ void __launch_bounds__(kThreads) reduce_kernel(const float* partials,
   }
 }
 
+// The global-pair combines of a state sharded over ranks (parallel/
+// distributed_ansatz.py): a gate on a global qubit pairs this rank's shard
+// with the partner's, whose piece the rank has received. Element i of a
+// piece (local index offset + i) takes the 2x2 W of table entry
+// parity(idx & m1) | parity(idx & m2) << 1 (one entry for a rotation, two
+// for a CNOT whose control is a local bit: I and X), W[r][c] at coef[8e +
+// 2(2r + c)] as (re, im); b is this rank's bit of the pair. Bound by device
+// memory: the forward moves 24 bytes an element, the backward 48.
+constexpr int kPairElems = 4 * kThreads * 4;  // a block's elements
+
+struct PairArgs {
+  float* mine[4];          // x re, x im (forward); x re, x im, l re, l im (backward)
+  const float* theirs[4];  // the partner's, the same planes
+  const float* coef;
+  float* partials;         // backward: one record a block (dU's row b), or null
+  unsigned offset, count, m1, m2, b;
+};
+
+__device__ __forceinline__ unsigned pair_entry(const PairArgs& a, unsigned idx) {
+  return (__popc(idx & a.m1) & 1u) | ((__popc(idx & a.m2) & 1u) << 1);
+}
+
+// new_b = W[b][b] x_b + W[b][1-b] x_other.
+__global__ void __launch_bounds__(kThreads) pair_fwd_kernel(const PairArgs a) {
+  const unsigned b = a.b;
+  for (unsigned i = blockIdx.x * kPairElems + 4 * threadIdx.x; i < a.count && i < (blockIdx.x + 1) * kPairElems;
+       i += 4 * kThreads) {
+    const float4 mr = *reinterpret_cast<const float4*>(a.mine[0] + i);
+    const float4 mi = *reinterpret_cast<const float4*>(a.mine[1] + i);
+    const float4 tr = __ldg(reinterpret_cast<const float4*>(a.theirs[0] + i));
+    const float4 ti = __ldg(reinterpret_cast<const float4*>(a.theirs[1] + i));
+    float outr[4], outi[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float* w = a.coef + 8 * pair_entry(a, a.offset + i + j);
+      const float ar = __ldg(w + 2 * (2 * b + b)), ai = __ldg(w + 2 * (2 * b + b) + 1);
+      const float br = __ldg(w + 2 * (2 * b + 1 - b)), bi = __ldg(w + 2 * (2 * b + 1 - b) + 1);
+      const float xr = reinterpret_cast<const float*>(&mr)[j], xi = reinterpret_cast<const float*>(&mi)[j];
+      const float yr = reinterpret_cast<const float*>(&tr)[j], yi = reinterpret_cast<const float*>(&ti)[j];
+      outr[j] = ar * xr - ai * xi + br * yr - bi * yi;
+      outi[j] = ar * xi + ai * xr + br * yi + bi * yr;
+    }
+    *reinterpret_cast<float4*>(a.mine[0] + i) = make_float4(outr[0], outr[1], outr[2], outr[3]);
+    *reinterpret_cast<float4*>(a.mine[1] + i) = make_float4(outi[0], outi[1], outi[2], outi[3]);
+  }
+}
+
+// The adjoint: x_before = W^H x_after (both halves, from the pair's
+// pieces), dU[b][c] += l_b conj(x_before_c) where the pair is a gate's,
+// l_before_b = (W^H l_after)_b; this rank's x and l un-computed in place.
+__global__ void __launch_bounds__(kThreads) pair_bwd_kernel(const PairArgs a) {
+  __shared__ float red[kWarps * 8];
+  const unsigned b = a.b;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};  // dU[b][0], dU[b][1] as (re, im)
+  for (unsigned i = blockIdx.x * kPairElems + 4 * threadIdx.x; i < a.count && i < (blockIdx.x + 1) * kPairElems;
+       i += 4 * kThreads) {
+    float4 v[8];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      v[h] = *reinterpret_cast<const float4*>(a.mine[h] + i);
+      v[4 + h] = __ldg(reinterpret_cast<const float4*>(a.theirs[h] + i));
+    }
+    float nx[2][4], nl[2][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float* w = a.coef + 8 * pair_entry(a, a.offset + i + j);
+      float W[2][2][2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          W[r][c][0] = __ldg(w + 2 * (2 * r + c));
+          W[r][c][1] = __ldg(w + 2 * (2 * r + c) + 1);
+        }
+      const float* f = reinterpret_cast<const float*>(v);
+      // x and l after the gate by half (0, 1); this rank holds half b
+      const float mxr = f[j], mxi = f[4 + j], mlr = f[8 + j], mli = f[12 + j];
+      const float txr = f[16 + j], txi = f[20 + j], tlr = f[24 + j], tli = f[28 + j];
+      const float x0r = b ? txr : mxr, x0i = b ? txi : mxi, x1r = b ? mxr : txr, x1i = b ? mxi : txi;
+      const float l0r = b ? tlr : mlr, l0i = b ? tli : mli, l1r = b ? mlr : tlr, l1i = b ? mli : tli;
+      float pr[2], pi[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {  // (W^H x)_c = sum_r conj(W[r][c]) x_r
+        pr[c] = W[0][c][0] * x0r + W[0][c][1] * x0i + W[1][c][0] * x1r + W[1][c][1] * x1i;
+        pi[c] = W[0][c][0] * x0i - W[0][c][1] * x0r + W[1][c][0] * x1i - W[1][c][1] * x1r;
+        // dU[b][c] += l_b conj(x_before_c)
+        acc[2 * c] = fmaf(mli, pi[c], fmaf(mlr, pr[c], acc[2 * c]));
+        acc[2 * c + 1] = fmaf(-mlr, pi[c], fmaf(mli, pr[c], acc[2 * c + 1]));
+      }
+      nx[0][j] = b ? pr[1] : pr[0];
+      nx[1][j] = b ? pi[1] : pi[0];
+      // (W^H l)_b
+      const float w0r = b ? W[0][1][0] : W[0][0][0], w0i = b ? W[0][1][1] : W[0][0][1];
+      const float w1r = b ? W[1][1][0] : W[1][0][0], w1i = b ? W[1][1][1] : W[1][0][1];
+      nl[0][j] = w0r * l0r + w0i * l0i + w1r * l1r + w1i * l1i;
+      nl[1][j] = w0r * l0i - w0i * l0r + w1r * l1i - w1i * l1r;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      *reinterpret_cast<float4*>(a.mine[h] + i) = make_float4(nx[h][0], nx[h][1], nx[h][2], nx[h][3]);
+      *reinterpret_cast<float4*>(a.mine[2 + h] + i) =
+          make_float4(nl[h][0], nl[h][1], nl[h][2], nl[h][3]);
+    }
+  }
+  if (!a.partials) return;
+  const unsigned warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float v = warp_sum(acc[r]);
+    if (lane == 0) red[warp * 8 + r] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < 8) {  // the record: dU (2, 2) complex, row b filled
+    float v = 0.f;
+    if (threadIdx.x / 4 == b) {
+      v = red[threadIdx.x % 4];
+      for (int w = 1; w < kWarps; ++w) v += red[w * 8 + threadIdx.x % 4];
+    }
+    a.partials[8ull * blockIdx.x + threadIdx.x] = v;
+  }
+}
+
 // The one-time setup of this device: the backward's four planes take
 // 64 KB of dynamic shared memory, above the 48 KB default. Static, not
 // inline: each library of these kernels keeps its own (an inline function's
@@ -540,7 +709,12 @@ __global__ void __launch_bounds__(kThreads) reduce_kernel(const float* partials,
 static cudaError_t setup() {
   static PerDevice<cudaError_t> once;
   const cudaError_t* err = once.get([] {
-    return cudaFuncSetAttribute(bwd_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const cudaError_t e = cudaFuncSetAttribute(bwd_pass_kernel<false>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               4 * kTile * (int)sizeof(float));
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(bwd_pass_kernel<true>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 4 * kTile * (int)sizeof(float));
   });
   return err ? *err : cudaErrorInvalidDevice;
@@ -583,7 +757,7 @@ int tn_circuit_gates_forward(const float* u, float* probs, float* xr, float* xi,
     a.probs = probs;
     a.flags = (p == 0 ? kInit : 0u) | (p + 1 == passes ? kProbs : 0u) | (has_wall ? kWall : 0u);
     a.amp = static_cast<float>(exp2(-0.5 * n));
-    fwd_pass_kernel<<<1u << (n - k), kThreads, 2 * (1u << k) * sizeof(float), st>>>(a);
+    fwd_pass_kernel<false><<<1u << (n - k), kThreads, 2 * (1u << k) * sizeof(float), st>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     cur = out;
@@ -629,12 +803,102 @@ int tn_circuit_gates_backward(const float* u, const float* xr, const float* xi, 
     for (int h = 0; h < 4; ++h) a.dst[h] = bufs[out] + h * size;
     a.partials = partials;
     a.flags = (cur < 0 ? kSeed : 0u) | (p == 0 ? kNoStore : 0u);
-    bwd_pass_kernel<<<1u << (n - k), kThreads, 4 * (1u << k) * sizeof(float), st>>>(a);
+    bwd_pass_kernel<false><<<1u << (n - k), kThreads, 4 * (1u << k) * sizeof(float), st>>>(a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     cur = out;
   }
   reduce_kernel<<<nslots, kThreads, 0, st>>>(partials, slots, du);
+  return cudaGetLastError();
+}
+
+// One pass of a shard's plan (ops/kernels/shard_gates.py): spec and host
+// the pass's record on the device and the host; src -> dst, in place where
+// the pass has no map. The plan's first pass loads an initialised state.
+int tn_gates_forward_pass(const float* u, const unsigned* spec, const unsigned* host,
+                          const float* src_re, const float* src_im, float* dst_re, float* dst_im,
+                          void* stream) {
+  using namespace tn::gates;
+  FwdArgs a;
+  a.spec = spec;
+  a.u = u;
+  a.src_re = src_re;
+  a.src_im = src_im;
+  a.dst_re = dst_re;
+  a.dst_im = dst_im;
+  a.probs = nullptr;
+  a.flags = 0u;
+  a.amp = 0.f;
+  const unsigned n = host[0], k = host[1];
+  fwd_pass_kernel<true><<<1u << (n - k), kThreads, 2 * (1u << k) * sizeof(float),
+                    static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
+}
+
+// The adjoint of one pass: src (x re, x im, l re, l im) -> dst, each
+// gate's partials at its slot; flags kNoMap or kTwo (two planes: src[0..1]
+// -> dst[0..1], the map undone, no gate) or 0.
+int tn_gates_backward_pass(const float* u, const unsigned* spec, const unsigned* host,
+                           const float* s0, const float* s1, const float* s2, const float* s3,
+                           float* d0, float* d1, float* d2, float* d3, float* partials, int flags,
+                           void* stream) {
+  using namespace tn::gates;
+  cudaError_t err = setup();
+  if (err != cudaSuccess) return err;
+  BwdArgs a;
+  a.spec = spec;
+  a.u = u;
+  a.src[0] = s0;
+  a.src[1] = s1;
+  a.src[2] = s2;
+  a.src[3] = s3;
+  a.dst[0] = d0;
+  a.dst[1] = d1;
+  a.dst[2] = d2;
+  a.dst[3] = d3;
+  a.partials = partials;
+  a.flags = static_cast<unsigned>(flags);
+  const unsigned n = host[0], k = host[1];
+  const int planes = (a.flags & kTwo) ? 2 : 4;
+  bwd_pass_kernel<true><<<1u << (n - k), kThreads, planes * (1u << k) * sizeof(float),
+                    static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
+}
+
+// Each gate's partial records summed in order: slots (nslots, 2) int32.
+int tn_gates_reduce(const float* partials, const int* slots, float* du, int nslots,
+                    void* stream) {
+  using namespace tn::gates;
+  if (nslots < 1) return cudaErrorInvalidValue;
+  reduce_kernel<<<nslots, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(partials, slots, du);
+  return cudaGetLastError();
+}
+
+// The global-pair combines: count elements (a multiple of 4) of this
+// rank's planes, in place, from the partner's; coef the W table on the
+// device. The backward writes one dU record a block of kPairElems into
+// partials where it is not null.
+int tn_pair_forward(float* xr, float* xi, const float* tr, const float* ti, const float* coef,
+                    int offset, int count, int m1, int m2, int b, void* stream) {
+  using namespace tn::gates;
+  if (count < 4 || count % 4) return cudaErrorInvalidValue;
+  PairArgs a = {{xr, xi, nullptr, nullptr}, {tr, ti, nullptr, nullptr}, coef, nullptr,
+                (unsigned)offset, (unsigned)count, (unsigned)m1, (unsigned)m2, (unsigned)b};
+  pair_fwd_kernel<<<(count + kPairElems - 1) / kPairElems, kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
+}
+
+int tn_pair_backward(float* xr, float* xi, float* lr, float* li, const float* txr,
+                     const float* txi, const float* tlr, const float* tli, const float* coef,
+                     float* partials, int offset, int count, int m1, int m2, int b,
+                     void* stream) {
+  using namespace tn::gates;
+  if (count < 4 || count % 4) return cudaErrorInvalidValue;
+  PairArgs a = {{xr, xi, lr, li}, {txr, txi, tlr, tli}, coef, partials,
+                (unsigned)offset, (unsigned)count, (unsigned)m1, (unsigned)m2, (unsigned)b};
+  pair_bwd_kernel<<<(count + kPairElems - 1) / kPairElems, kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
 }
 

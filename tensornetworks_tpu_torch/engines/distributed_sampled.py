@@ -5,8 +5,8 @@ Counterpart of ``tensornetworks_tpu/engines/distributed_sampled.py``. The
 exact distributed engine's (2^n/D, n) score shards and n+1 Kronecker
 columns grow with 2^n; this engine composes the pieces that do not:
 
-1. the distributed ansatz executor (the state 2^n/D per rank,
-   ``parallel.distributed_ansatz``),
+1. the lean distributed adjoint executor (the state 2^n/D per rank, its
+   backward un-computing it: ``parallel.distributed_ansatz``),
 2. distributed two-stage sampling (the shots of ``sample_indices_2d`` on the
    gathered matrix, bit for bit; ``parallel.distributed_sampled``),
 3. the sampled U-statistic estimator (CPT-factored scores, the (M, M) sample
@@ -20,7 +20,10 @@ rows, then M for the columns each epoch, as the single-device engine's
 default sampler draws them), so a run is shot for shot the port's
 ``SampledKSDVariationalInference`` with two-stage sampling given the same
 seed. The epoch loop is that engine's: eager, its state on the device, a
-host sync per chunk.
+host sync per chunk, and its spans (``engine.epoch`` ⊃ ``.loss``,
+``.backward``, ``.update``, ``.eval``; ``sampled.shots``, ``.scores``,
+``.gram``). The history adds ``exchange_bytes_per_epoch``: the bytes this
+rank sent in the window's exchanges (``comm.BYTES``) over its epochs.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from ..models.born_quantum import init_circuit_params
 from ..ops.hamming import resolve_length_scale
 from ..ops.stein_sampled import (ksd_ustat, reinforce_surrogate, reinforce_surrogate_cv,
                                  score_at_samples, stein_gram_samples)
-from ..parallel.comm import MeshReducer, psum_replicated
+from ..parallel.comm import BYTES, MeshReducer, psum_replicated
 from ..parallel.distributed_ansatz import make_distributed_ansatz_probs
 from ..parallel.distributed_sampled import make_distributed_two_stage_sampler
 from ..parallel.launch import local_device
@@ -47,6 +50,7 @@ from ..parallel.mesh import STATE_AXIS, axis_size, make_mesh, replicate, state_s
 from ..sim.ansatz import num_ansatz_params
 from ..sim.sampling import draw_uniforms
 from ..sim.structured import latent_edges
+from ..train import span
 from .common import global_norm, guarded_update, highest_matmul_precision, make_optimizer
 from .ksd import _posterior_vec_from, steady_epochs_per_sec
 
@@ -134,20 +138,23 @@ class DistributedSampledKSDVariationalInference:
         def epoch_loss(p):
             q = probs(p).to(torch.float32)
             P2l = q.reshape(Rl, C)
-            u_r = draw_uniforms(gen, M, torch.float32, dev)
-            u_c = draw_uniforms(gen, M, torch.float32, dev)
-            idx, q_at = sampler(P2l, u_r, u_c)
+            with span("sampled.shots"):
+                u_r = draw_uniforms(gen, M, torch.float32, dev)
+                u_c = draw_uniforms(gen, M, torch.float32, dev)
+                idx, q_at = sampler(P2l, u_r, u_c)
             log_q = torch.log(q_at.clamp(min=1e-12))
-            Z = torch_index_to_bits(idx, n, dtype=torch.float32)
-            S_x = score_at_samples(log_joint_z, Z)
-            gram = stein_gram_samples(S_x.to(torch.float32), Z, n, self.length_scale)
-            est = ksd_ustat(gram)
-            if use_cv:
-                marg = psum_replicated(torch.cat([P2l.sum(dim=1) @ Br, P2l.sum(dim=0) @ Bc]),
-                                       mesh)
-                surrogate = reinforce_surrogate_cv(gram, log_q, Z, marg)
-            else:
-                surrogate = reinforce_surrogate(gram, log_q, self.grad_baseline)
+            with span("sampled.scores"):
+                Z = torch_index_to_bits(idx, n, dtype=torch.float32)
+                S_x = score_at_samples(log_joint_z, Z)
+            with span("sampled.gram"):
+                gram = stein_gram_samples(S_x.to(torch.float32), Z, n, self.length_scale)
+                est = ksd_ustat(gram)
+                if use_cv:
+                    marg = psum_replicated(torch.cat([P2l.sum(dim=1) @ Br,
+                                                      P2l.sum(dim=0) @ Bc]), mesh)
+                    surrogate = reinforce_surrogate_cv(gram, log_q, Z, marg)
+                else:
+                    surrogate = reinforce_surrogate(gram, log_q, self.grad_baseline)
             return (est - surrogate).detach() + surrogate, q.detach()
 
         def tvd_of(q):
@@ -169,31 +176,38 @@ class DistributedSampledKSDVariationalInference:
 
         chunk = chunk_epochs if chunk_epochs and chunk_epochs < num_epochs else num_epochs
         chunk_seconds = []
+        sent = BYTES["exchange"]
         t0 = time.perf_counter()
         for start in range(0, num_epochs, chunk):
             t_chunk = time.perf_counter()
             for epoch in range(start, min(start + chunk, num_epochs)):
-                p = params.detach().requires_grad_(True)
-                loss, q = epoch_loss(p)
-                (grads,) = torch.autograd.grad(loss, p)
-                grads = reducer.grads(grads)
-                ok = torch.isfinite(loss)
-                tvd = torch.full_like(loss, float("nan"))
-                if reuse_eval:
-                    tvd = tvd_of(q)
-                    if epoch > 0:
-                        take_best(tvd, epoch - 1, params)
-                params, opt_state = guarded_update(optimizer, grads, opt_state, params, ok)
-                if track and not reuse_eval:
-                    with torch.no_grad():
-                        tvd = tvd_of(probs(params).to(torch.float32))
-                    take_best(tvd, epoch, params)
-                hist[:, epoch] = torch.stack([loss.detach().float(), tvd.float(),
-                                              global_norm([grads]).float(), (~ok).float()])
-            best_tvd.item()  # host sync closes the chunk
+                with span("engine.epoch"):
+                    p = params.detach().requires_grad_(True)
+                    with span("engine.loss"):
+                        loss, q = epoch_loss(p)
+                    with span("engine.backward"):
+                        (grads,) = torch.autograd.grad(loss, p)
+                        grads = reducer.grads(grads)
+                    ok = torch.isfinite(loss)
+                    tvd = torch.full_like(loss, float("nan"))
+                    if reuse_eval:
+                        with span("engine.eval"):
+                            tvd = tvd_of(q)
+                            if epoch > 0:
+                                take_best(tvd, epoch - 1, params)
+                    params, opt_state = guarded_update(optimizer, grads, opt_state, params, ok)
+                    if track and not reuse_eval:
+                        with span("engine.eval"):
+                            with torch.no_grad():
+                                tvd = tvd_of(probs(params).to(torch.float32))
+                            take_best(tvd, epoch, params)
+                    hist[:, epoch] = torch.stack([loss.detach().float(), tvd.float(),
+                                                  global_norm([grads]).float(), (~ok).float()])
+            with span("engine.sync"):
+                best_tvd.item()  # host sync closes the chunk
             chunk_seconds.append((min(chunk, num_epochs - start), time.perf_counter() - t_chunk))
         if reuse_eval:
-            with torch.no_grad():
+            with span("engine.eval"), torch.no_grad():
                 take_best(tvd_of(probs(params).to(torch.float32)), num_epochs - 1, params)
         history_dev = hist.cpu().numpy()
         elapsed = time.perf_counter() - t0
@@ -215,6 +229,7 @@ class DistributedSampledKSDVariationalInference:
                 history["epochs_per_sec_steady"] = steady
         history["train_seconds"] = elapsed
         history["num_skipped_updates"] = int(history_dev[3].sum())
+        history["exchange_bytes_per_epoch"] = (BYTES["exchange"] - sent) / num_epochs
         self.history_ = history
         if verbose:
             print(f"Distributed sampled KSD ({mesh.mesh.numel()} ranks, {M} shots/epoch): "

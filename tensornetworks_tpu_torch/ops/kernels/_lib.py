@@ -44,7 +44,9 @@ VARIANT_PRECISIONS = ("high", "default")
 
 LAUNCHES: Dict[str, int] = {"circuit2d_fwd": 0, "circuit2d_bwd": 0, "stein2d": 0,
                             "circuit2d_grid_fwd": 0, "circuit2d_grid_bwd": 0, "stein2d_grid": 0,
-                            "stein_gcorr": 0, "circuit_gates_fwd": 0, "circuit_gates_bwd": 0}
+                            "stein_gcorr": 0, "circuit_gates_fwd": 0, "circuit_gates_bwd": 0,
+                            "gates_pass_fwd": 0, "gates_pass_bwd": 0, "pair_fwd": 0,
+                            "pair_bwd": 0, "gates_reduce": 0}
 LAUNCHES.update({f"{k}.{p}": 0 for k in PRECISION_KERNELS for p in VARIANT_PRECISIONS})
 
 # The C interface of each library: pointers and the stream as c_void_p (a
@@ -85,6 +87,16 @@ SIGNATURES = {
         # u, xr, xi, g, du, buf_a, buf_b, partials, slots, spec, host, passes,
         # nslots, stream
         "tn_circuit_gates_backward": [_P] * 11 + [_I] * 2 + [_P],
+        # one pass of a shard's plan: u, spec, host, src_re, src_im, dst_re, dst_im, stream
+        "tn_gates_forward_pass": [_P] * 8,
+        # u, spec, host, src x4, dst x4, partials, flags, stream
+        "tn_gates_backward_pass": [_P] * 12 + [_I, _P],
+        # partials, slots, du, nslots, stream
+        "tn_gates_reduce": [_P] * 3 + [_I, _P],
+        # the global-pair combines: xr, xi, tr, ti, coef, offset, count, m1, m2, b, stream
+        "tn_pair_forward": [_P] * 5 + [_I] * 5 + [_P],
+        # xr, xi, lr, li, their four, coef, partials, offset, count, m1, m2, b, stream
+        "tn_pair_backward": [_P] * 10 + [_I] * 5 + [_P],
     },
     "stein2d": {
         # v, y, a, n, cols, stream (a as c_float: a bare Python float would

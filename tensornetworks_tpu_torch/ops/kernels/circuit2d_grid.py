@@ -93,6 +93,7 @@ MIN_QUBITS, AUTO_MIN_QUBITS, MAX_QUBITS = 2, 18, 24
 # gates applied together in registers), kSpecWords (one pass's record); a
 # tile bit below GATE_BANK_BITS puts two of a warp's threads on one bank.
 GATE_TILE_BITS, GATE_GROUP, GATE_SPEC_WORDS, GATE_BANK_BITS = 12, 3, 8 + 11 * 32, 5
+GATE_NEGATE = 1 << 31  # csrc/circuit_gates.cu kNegate, in a pass's xout
 
 def _w_matrix(nbits: int, bits: np.ndarray) -> np.ndarray:
     """W = H₀ diag(bits) H₀ over ``nbits`` wires (H on the first wire): a
@@ -557,11 +558,18 @@ class GatePass:
       identity, cout = cin, coff = 0.
     - ``slots``: the record offset of each gate's dU partials (one 8-float
       record a block) in the backward's partials buffer.
+    - ``xout``: on a map pass of a shard's plan (``shard_gates``), a
+      constant XOR of the store address (``xor``, the rank's CNOT targets)
+      and ``GATE_NEGATE``, a sign on every stored amplitude (the rank's
+      constant CZ sign); 0 in a one-card plan.
     """
 
-    def __init__(self, n, layer, m, lin, gates, rows=None, cz=None):
+    def __init__(self, n, layer, m, lin, gates, rows=None, cz=None, xout=0):
         self.n, self.layer, self.m, self.k = n, layer, m, len(lin)
         self.lin, self.gates = list(lin), list(gates)
+        self.xout = int(xout)
+        if rows is None and self.xor:
+            raise ValueError("a constant XOR of the store address needs a map pass")
         tile = _Span(self.lin)
         self.cin = [1 << b for b in range(n) if b not in tile.rows]
         self.rows = rows
@@ -589,11 +597,20 @@ class GatePass:
     def map(self) -> bool:
         return self.rows is not None
 
+    @property
+    def xor(self) -> int:
+        return self.xout & ~GATE_NEGATE
+
+    @property
+    def negate(self) -> bool:
+        return bool(self.xout & GATE_NEGATE)
+
     def record(self) -> np.ndarray:
         """The pass as the kernels' ``PassSpec`` (GATE_SPEC_WORDS uint32)."""
         rec = np.zeros(GATE_SPEC_WORDS, dtype=np.uint32)
         cz = [] if self.cz is None else [(k, int(c)) for k, c in enumerate(self.cz) if c]
-        rec[:8] = (self.n, self.k, self.m, int(self.map), self.layer, len(self.gates), len(cz), 0)
+        rec[:8] = (self.n, self.k, self.m, int(self.map), self.layer, len(self.gates), len(cz),
+                   self.xout)
         fields = (self.lin, self.cin, self.lout, self.cout, self.coff, self.tq,
                   [t for t, _ in self.gates], [q for _, q in self.gates], self.slots,
                   [k for k, _ in cz], [c for _, c in cz])
@@ -617,7 +634,8 @@ def _order_gates(bits: list, pos: dict) -> list:
     return [b for g in groups for b in g]
 
 
-def layer_gate_passes(n: int, layer: int, rows, cz, kmax: int = GATE_TILE_BITS) -> list:
+def layer_gate_passes(n: int, layer: int, rows, cz, kmax: int = GATE_TILE_BITS,
+                      xout: int = 0) -> list:
     """The passes of one layer: every qubit's gate in exactly one pass, the
     layer's map M and CZ sign in the store of the last. That last pass's
     tile holds the m low bits and M⁻¹ of them (so that its stores are
@@ -625,8 +643,10 @@ def layer_gate_passes(n: int, layer: int, rows, cz, kmax: int = GATE_TILE_BITS) 
     to passes of m low bits plus up to kmax - m gate bits, as evenly as
     can be. m runs from 5 to 2 low bits (128 to 16 bytes a run); a pass
     of m = 2 moves each 32-byte sector for half its bytes, so it counts
-    twice, and m is the largest of those that move the fewest bytes."""
-    identity = all(int(rows[k]) == 1 << k for k in range(n))
+    twice, and m is the largest of those that move the fewest bytes.
+    ``xout`` goes to the last pass (``GatePass``), which then maps even
+    where M is the identity if it holds a constant XOR."""
+    identity = all(int(rows[k]) == 1 << k for k in range(n)) and not xout & ~GATE_NEGATE
     images = _Span([_gf2(rows, 1 << j) for j in range(n)])
     best = None
     for m in range(min(5, n), 1, -1):
@@ -645,10 +665,10 @@ def layer_gate_passes(n: int, layer: int, rows, cz, kmax: int = GATE_TILE_BITS) 
             best = (cost, count, m, V, own, rest)
     _, count, m, V, own, rest = best
 
-    def make(lin, bits, rows=None, cz=None):
+    def make(lin, bits, rows=None, cz=None, xout=0):
         pos = {b: lin.index(1 << b) for b in bits}
         return GatePass(n, layer, m, lin, [(pos[b], n - 1 - b) for b in _order_gates(bits, pos)],
-                        rows, cz)
+                        rows, cz, xout)
 
     low = [1 << b for b in range(m)]
     passes = [make(low + [1 << int(b) for b in chunk], [int(b) for b in chunk])
@@ -656,7 +676,7 @@ def layer_gate_passes(n: int, layer: int, rows, cz, kmax: int = GATE_TILE_BITS) 
     lin = low + [1 << b for b in own if b >= m]
     units = _Span(lin)
     lin += [r for r in (units.add(v) for v, _ in list(V.rows.values())) if r]
-    passes.append(make(lin, own, None if identity else rows, cz))
+    passes.append(make(lin, own, None if identity else rows, cz, xout))
     return passes
 
 
@@ -668,14 +688,17 @@ def _span_index(idx: torch.Tensor, basis) -> torch.Tensor:
     return out
 
 
-def gate_pass_index(ps: GatePass, device) -> tuple:
+def gate_pass_index(ps: GatePass, device, blocks=None) -> tuple:
     """(src, dst, pos), (2^(n-k), 2^k) int64 each, by the kernels' formulas:
     block b's tile position p is loaded from src[b, p]; its store index q
-    is written to dst[b, q] from tile position pos[b, q]."""
-    blocks = torch.arange(1 << (ps.n - ps.k), dtype=torch.int64, device=device)[:, None]
+    is written to dst[b, q] from tile position pos[b, q]. ``blocks``: those
+    blocks' rows alone (a card's check of a wide pass)."""
+    if blocks is None:
+        blocks = torch.arange(1 << (ps.n - ps.k), dtype=torch.int64, device=device)
+    blocks = torch.as_tensor(blocks, dtype=torch.int64, device=device)[:, None]
     tile = torch.arange(1 << ps.k, dtype=torch.int64, device=device)[None, :]
     return (_span_index(blocks, ps.cin) ^ _span_index(tile, ps.lin),
-            _span_index(blocks, ps.cout) ^ _span_index(tile, ps.lout),
+            _span_index(blocks, ps.cout) ^ _span_index(tile, ps.lout) ^ ps.xor,
             _span_index(blocks, ps.coff) ^ _span_index(tile, ps.tq))
 
 
@@ -692,6 +715,28 @@ def _apply_gate(tile: torch.Tensor, t: int, u: torch.Tensor) -> torch.Tensor:
                        dim=2).reshape(tile.shape)
 
 
+def _store_sign(ps: GatePass, dst: torch.Tensor, dtype):
+    """The sign of a pass's store at dst (its CZ sign and constant one), or 1."""
+    s = 1 if ps.cz is None else cz_sign(dst, ps.cz).to(dtype)
+    return -s if ps.negate else s
+
+
+def gate_pass_forward_plain(ps: GatePass, U: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """One pass of the gate kernels on the flat state x (2^n,) in torch:
+    the tiles loaded, every gate of the pass in the kernels' order, the
+    store through the pass's map and sign."""
+    src, dst, pos = gate_pass_index(ps, x.device)
+    tile = x[src]
+    for t, q in ps.gates:
+        tile = _apply_gate(tile, t, U[ps.layer, q])
+    vals = tile.gather(1, pos)
+    if ps.cz is not None or ps.negate:
+        vals = vals * _store_sign(ps, dst, vals.real.dtype)
+    out = torch.empty_like(x)
+    out[dst.reshape(-1)] = vals.reshape(-1)
+    return out
+
+
 def circuit_gates_forward_plain(U: torch.Tensor, plan: GridPlan) -> tuple:
     """probs, xr, xi (R, C) of the per-layer gates U (L, n, 2, 2): the gate
     kernels' passes in torch, tile by tile, every gate in the kernels'
@@ -703,37 +748,34 @@ def circuit_gates_forward_plain(U: torch.Tensor, plan: GridPlan) -> tuple:
         x = torch.zeros(1 << n, dtype=U.dtype, device=dev)
         x[0] = 1.0
     for ps in plan.gate_passes():
-        src, dst, pos = gate_pass_index(ps, dev)
-        tile = x[src]
-        for t, q in ps.gates:
-            tile = _apply_gate(tile, t, U[ps.layer, q])
-        vals = tile.gather(1, pos)
-        if ps.cz is not None:
-            vals = vals * cz_sign(dst, ps.cz).to(vals.real.dtype)
-        x = torch.empty_like(x)
-        x[dst.reshape(-1)] = vals.reshape(-1)
+        x = gate_pass_forward_plain(ps, U, x)
     xr = x.real.reshape(plan.R, plan.C).contiguous()
     xi = x.imag.reshape(plan.R, plan.C).contiguous()
     return xr * xr + xi * xi, xr, xi
 
 
-def circuit_gates_backward_plain(U, xr, xi, g, plan: GridPlan) -> torch.Tensor:
-    """dU (L, n, 2, 2): the gate kernels' adjoint in torch. From λ = 2·g·x
-    the passes run in reverse: undo the CZ sign and the map on x and λ,
-    then for each gate, last to first, x ← Uᴴx, dU += Σ λ_r·conj(x_c) over
-    the tile's pairs (one partial a tile), λ ← Uᴴλ; each gate's partials
-    summed over the tiles in tile order."""
-    x = torch.complex(xr, xi).reshape(-1)
-    lam = 2.0 * g.reshape(-1) * x
-    dU = torch.zeros_like(U)
-    Uh = U.conj().transpose(-1, -2)
-    for ps in reversed(plan.gate_passes()):
-        src, dst, pos = gate_pass_index(ps, U.device)
-        s = 1 if ps.cz is None else cz_sign(dst, ps.cz).to(xr.dtype)
-        tx = torch.empty(src.shape, dtype=x.dtype, device=x.device)
-        tl = torch.empty_like(tx)
-        tx.scatter_(1, pos, s * x[dst])
-        tl.scatter_(1, pos, s * lam[dst])
+def gate_pass_backward_plain(ps: GatePass, Uh: torch.Tensor, x: torch.Tensor, lam,
+                             mapped: bool = True, gates: bool = True) -> tuple:
+    """The adjoint of one pass in torch: (x, lam, dU) with x and lam (2^n,)
+    un-computed through it (lam may be None with ``gates=False``), dU
+    {(layer, qubit): (2, 2)} its gates' sums. Undo the sign and the map (not
+    where ``mapped`` is False: the map is undone already), then for each
+    gate, last to first, x ← Uᴴx, dU += Σ λ_r·conj(x_c) over the tile's
+    pairs (one partial a tile), λ ← Uᴴλ; each gate's partials summed over
+    the tiles in tile order. ``gates=False``: the map and sign only."""
+    src, dst, pos = gate_pass_index(ps, x.device)
+    if not mapped or not ps.map:
+        dst, pos = src, torch.arange(src.shape[1], device=x.device).expand_as(src)
+    s = _store_sign(ps, dst, x.real.dtype) if mapped else 1
+    bufs = [x] if lam is None else [x, lam]
+    tiles = []
+    for v in bufs:
+        t = torch.empty(src.shape, dtype=v.dtype, device=v.device)
+        t.scatter_(1, pos, s * v[dst])
+        tiles.append(t)
+    dU = {}
+    if gates:
+        tx, tl = tiles
         for t, q in reversed(ps.gates):
             tx = _apply_gate(tx, t, Uh[ps.layer, q])
             vx, vl = _pair_view(tx, t), _pair_view(tl, t)
@@ -741,9 +783,26 @@ def circuit_gates_backward_plain(U, xr, xi, g, plan: GridPlan) -> torch.Tensor:
                                              for c in (0, 1)], dim=-1) for r in (0, 1)], dim=-2)
             dU[ps.layer, q] = part.sum(dim=0)
             tl = _apply_gate(tl, t, Uh[ps.layer, q])
-        x, lam = torch.empty_like(x), torch.empty_like(lam)
-        x[src.reshape(-1)] = tx.reshape(-1)
-        lam[src.reshape(-1)] = tl.reshape(-1)
+        tiles = [tx, tl]
+    outs = []
+    for t in tiles:
+        o = torch.empty_like(x)
+        o[src.reshape(-1)] = t.reshape(-1)
+        outs.append(o)
+    return outs[0], (outs[1] if len(outs) > 1 else None), dU
+
+
+def circuit_gates_backward_plain(U, xr, xi, g, plan: GridPlan) -> torch.Tensor:
+    """dU (L, n, 2, 2): the gate kernels' adjoint in torch. From λ = 2·g·x
+    the passes run in reverse (``gate_pass_backward_plain``)."""
+    x = torch.complex(xr, xi).reshape(-1)
+    lam = 2.0 * g.reshape(-1) * x
+    dU = torch.zeros_like(U)
+    Uh = U.conj().transpose(-1, -2)
+    for ps in reversed(plan.gate_passes()):
+        x, lam, parts = gate_pass_backward_plain(ps, Uh, x, lam)
+        for (layer, q), part in parts.items():
+            dU[layer, q] = part
     return dU
 
 

@@ -36,6 +36,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from ..train import span
 from .mesh import DATA_AXIS, STATE_AXIS, axis_size
 
 # The gathering collective under its current name (``all_gather_into_tensor``
@@ -113,8 +114,9 @@ class _Exchange(torch.autograd.Function):
 def exchange(x: torch.Tensor, mesh: DeviceMesh, bit: int, axis: str = STATE_AXIS) -> torch.Tensor:
     """The partner's ``x``, the partner being the rank whose ``axis``
     coordinate differs from this one's in ``bit`` (``lax.ppermute`` over
-    the pairs (i, i ^ bit)); differentiable."""
-    return _Exchange.apply(x, partner_rank(mesh, bit, axis))
+    the pairs (i, i ^ bit)); differentiable. A ``dist.exchange`` span."""
+    with span("dist.exchange"):
+        return _Exchange.apply(x, partner_rank(mesh, bit, axis))
 
 
 def all_gather(x: torch.Tensor, mesh: DeviceMesh, axis: str = STATE_AXIS) -> torch.Tensor:

@@ -17,7 +17,10 @@ each row has one nonzero summand, so the sum is exact) and draws the column
 from the M gathered rows. The rows stay differentiable, so ``q`` at the
 shots back-propagates into the owning shard (the psum's backward passes
 the replicated cotangent through, the mask keeps this rank's rows) and on
-through the sharded circuit.
+through the sharded circuit. The CDFs are ``sim.sampling``'s scans, whose
+float sums run in an order fixed by their length on the card as well: a
+device-wide scan's order varies from run to run, so the ranks, each
+scanning the same gathered marginals, could draw different rows.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from __future__ import annotations
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
+from ..sim.sampling import _cumsum
 from .comm import all_gather, psum_replicated
 from .mesh import STATE_AXIS, axis_index, axis_size
 from .shard_state import num_global_bits
@@ -54,7 +58,7 @@ def make_distributed_two_stage_sampler(mesh: DeviceMesh, num_vars: int, num_samp
                              f"{tuple(u_r.shape)} and {tuple(u_c.shape)}")
         # Stage 1: rows from the global row-marginal CDF.
         m = all_gather((P2l.detach() + eps).sum(dim=1), mesh).reshape(R)
-        cdf_r = torch.cumsum(m, dim=0)
+        cdf_r = _cumsum(m)
         cdf_r = cdf_r / cdf_r[-1]
         r = torch.searchsorted(cdf_r, u_r.contiguous(), right=True).clamp(0, R - 1)
         # Stage 2: the owning rank contributes each shot's raw row.
@@ -62,7 +66,7 @@ def make_distributed_two_stage_sampler(mesh: DeviceMesh, num_vars: int, num_samp
         rows_l = P2l.index_select(0, (r - off).clamp(0, Rl - 1))
         rows = psum_replicated(torch.where(local[:, None], rows_l, torch.zeros_like(rows_l)),
                                mesh)
-        cdf_c = torch.cumsum(rows.detach() + eps, dim=1)
+        cdf_c = _cumsum(rows.detach() + eps)
         cdf_c = cdf_c / cdf_c[:, -1:]
         c = torch.searchsorted(cdf_c, u_c[:, None].contiguous(), right=True)[:, 0].clamp(0, C - 1)
         q_at = rows.gather(1, c[:, None])[:, 0]

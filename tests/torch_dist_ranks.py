@@ -73,6 +73,237 @@ def shard_state_cases(inp: dict) -> dict:
     return out
 
 
+# --- tests/test_torch_lean_executor.py ---------------------------------------
+
+_ROT_GATES = {"x": "rx_batched", "y": "ry_batched", "z": "rz_batched"}
+
+
+def gate_by_gate_probs(mesh, n: int, layers: int, ansatz: str, dtype, edges=None):
+    """The circuit gate by gate on the shards (``shard_state``'s primitives),
+    autograd keeping every gate's output: the lean executor's second
+    opinion."""
+    from tensornetworks_tpu_torch.parallel import (distributed_apply_1q, distributed_apply_cnot,
+                                                   distributed_apply_cz)
+    from tensornetworks_tpu_torch.parallel.mesh import STATE_AXIS, axis_index, axis_size
+    from tensornetworks_tpu_torch.sim import gates
+    from tensornetworks_tpu_torch.sim.adjoint import primitive_ansatz_program
+
+    program = primitive_ansatz_program(n, layers, ansatz, edges=edges)
+    apply_1q, apply_cnot = distributed_apply_1q(mesh, n), distributed_apply_cnot(mesh, n)
+    apply_cz = distributed_apply_cz(mesh, n)
+    size = (1 << n) // axis_size(mesh, STATE_AXIS)
+    first = axis_index(mesh, STATE_AXIS) == 0
+
+    def run(params):
+        state = torch.zeros(size, dtype=dtype)
+        if first:
+            state[0] = 1.0
+        for op in program:
+            if op[0] == "h":
+                state = apply_1q(state, torch.as_tensor(gates.H, dtype=dtype), op[1])
+            elif op[0] == "r":
+                U = getattr(gates, _ROT_GATES[op[2]])(params[op[3]:op[3] + 1])[0]
+                state = apply_1q(state, U, op[1])
+            elif op[0] == "cnot":
+                state = apply_cnot(state, op[1], op[2])
+            else:
+                state = apply_cz(state, op[1], op[2])
+        return state.real ** 2 + state.imag ** 2
+
+    return run
+
+
+def _saved_shards(fn, size: int) -> int:
+    """The tensors of at least ``size`` elements autograd saves in fn()."""
+    count = [0]
+
+    def pack(t):
+        count[0] += t.numel() >= size
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        fn()
+    return count[0]
+
+
+def lean_executor_cases(inp: dict) -> dict:
+    """The lean executor (``parallel.distributed_ansatz``) on every case of
+    ``inp["cases"]``: q and the summed θ-gradient of Σ w·q, by the executor
+    and the gate-by-gate form, and the float64 reference's (``portbench/
+    reference/circuit.py``, the state in D blocks) where it has the
+    ansatz; the saved tensors; the planted faults."""
+    from portbench.faults import planted
+    from portbench.reference.circuit import Circuit
+    from tensornetworks_tpu_torch.parallel import distributed_ansatz
+    from tensornetworks_tpu_torch.parallel.mesh import STATE_AXIS, axis_index
+
+    out = {}
+    piece = distributed_ansatz.PIECE
+    for case in inp["cases"]:
+        name, n, L, ansatz, dp = (case[k] for k in ("name", "n", "layers", "ansatz", "dp"))
+        mesh = make_mesh(dp=dp)
+        D = 4 // dp
+        dtype = {"complex64": torch.complex64, "complex128": C128}[case["dtype"]]
+        real = torch.float32 if dtype == torch.complex64 else F64
+        edges = case.get("edges")
+        w = state_shard(torch.as_tensor(case["w"], dtype=real), mesh)
+        theta = torch.as_tensor(case["theta"], dtype=real)
+        reducer = MeshReducer(mesh)
+        distributed_ansatz.PIECE = case.get("piece", piece)
+
+        def q_and_grad(probs):
+            p = theta.clone().requires_grad_(True)
+            q = probs(p)
+            (g,) = torch.autograd.grad((w * q).sum(), p)
+            return _np(gather_full(q.detach(), mesh)), _np(reducer.grads(g))
+
+        lean = distributed_ansatz.make_distributed_ansatz_probs(mesh, n, L, ansatz, dtype=dtype,
+                                                                edges=edges)
+        res = {"lean": q_and_grad(lean),
+               "gbg": q_and_grad(gate_by_gate_probs(mesh, n, L, ansatz, dtype, edges))}
+        if case.get("reference"):
+            circ = Circuit(ansatz, n, L, edges or (), ["cpu"] * D)
+            th = theta.double().numpy()
+            q_ref = circ.probs(th)[axis_index(mesh, STATE_AXIS)]
+            w64 = torch.as_tensor(case["w"], dtype=F64).reshape(D, -1)
+            res["ref"] = (_np(gather_full(q_ref, mesh)),
+                          circ.grad(th, [w64[b].clone() for b in range(D)]))
+        if case.get("saved"):
+            size = (1 << n) // D
+            p = theta.clone().requires_grad_(True)
+            res["saved"] = (_saved_shards(lambda: lean(p), size),
+                            _saved_shards(lambda: gate_by_gate_probs(mesh, n, L, ansatz,
+                                                                     dtype, edges)(p), size))
+        if case.get("faults"):
+            for fault in ("exchange_self", "altered_q"):
+                with planted(fault), torch.no_grad():
+                    probs = distributed_ansatz.make_distributed_ansatz_probs(
+                        mesh, n, L, ansatz, dtype=dtype, edges=edges)
+                    res[fault] = _np(gather_full(probs(theta), mesh))
+        out[name] = res
+    distributed_ansatz.PIECE = piece
+    return out
+
+
+def lean_executor_card_case(inp: dict) -> dict:
+    """The executor on this rank's card (four gloo ranks may share one)
+    against the float64 reference in blocks on the same card: the largest
+    gaps of q and of the θ-gradient of Σ w·q (w random on ``shots``
+    states), relative to the largest entry."""
+    from portbench.reference.circuit import Circuit
+    from tensornetworks_tpu_torch.parallel import distributed_ansatz
+    from tensornetworks_tpu_torch.parallel.mesh import STATE_AXIS, axis_index
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n, L = inp["n"], inp["layers"]
+    mesh = make_mesh(dp=1)
+    D = dist.get_world_size()
+    b = axis_index(mesh, STATE_AXIS)
+    rng = np.random.default_rng(inp["seed"])
+    theta = rng.normal(size=3 * n * L)
+    w_full = np.zeros(1 << n)
+    w_full[rng.choice(1 << n, size=inp.get("shots", 1024), replace=False)] = rng.random(
+        inp.get("shots", 1024))
+    w_full = w_full.reshape(D, -1)
+    w = torch.as_tensor(w_full[b], dtype=torch.float32, device=dev)
+    distributed_ansatz.PIECE = inp["piece"]
+    probs = distributed_ansatz.make_distributed_ansatz_probs(mesh, n, L, "hardware_efficient")
+    p = torch.as_tensor(theta, dtype=torch.float32, device=dev).requires_grad_(True)
+    q = probs(p)
+    (g,) = torch.autograd.grad((w * q).sum(), p)
+    g = MeshReducer(mesh).grads(g).double().cpu()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    dist.barrier()
+    # The reference on rank 0 alone, its D blocks on this card.
+    out = {"peak_gib": peak}
+    if dist.get_rank() == 0:
+        circ = Circuit("hardware_efficient", n, L, (), [dev] * D)
+        q_ref = circ.probs(theta)
+        out["q_ref_max"] = float(max(x.max() for x in q_ref))
+        del q_ref
+        g_ref = torch.as_tensor(circ.grad(theta, [torch.as_tensor(x, device=dev)
+                                                  for x in w_full]))
+        out["grad_rel"] = float((g - g_ref).abs().max() / g_ref.abs().max())
+        ref_q = Circuit("hardware_efficient", n, L, (), [dev] * D).probs(theta)
+    blocks = [None] * D
+    dist.all_gather_object(blocks, _np(q))
+    if dist.get_rank() == 0:
+        gap = max(float((torch.as_tensor(x, device=dev).double() - r).abs().max())
+                  for x, r in zip(blocks, ref_q))
+        out["q_rel"] = gap / out["q_ref_max"]
+    return out
+
+
+def lean_executor_grad_case(inp: dict) -> dict:
+    """On D NCCL ranks, one a card: for each (n, pieces) of ``cases``, the
+    executor's θ-gradient (HE L=4) of a REINFORCE-like loss (1024 states,
+    dL/dq = c/q there) at each piece size, and the float64 reference's
+    (``portbench/reference/circuit.py``, one block a card, on rank 0 once
+    the ranks freed their state): the norm's and the largest entry's gap
+    relative to the reference, and whether every piece size gave the first
+    one's gradient bit for bit."""
+    from portbench.reference.circuit import Circuit
+    from tensornetworks_tpu_torch.parallel import distributed_ansatz
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    D, r = dist.get_world_size(), dist.get_rank()
+    mesh = make_mesh()
+    out = {}
+    for n, pieces in inp["cases"]:
+        L = 4
+        rng = np.random.default_rng(n)
+        theta = 0.1 * rng.normal(size=3 * n * L)
+        shots = np.sort(rng.choice(1 << n, size=1024, replace=False))
+        coef = 1e-3 * rng.normal(size=1024)
+        size = (1 << n) // D
+        mine = (shots >= r * size) & (shots < (r + 1) * size)
+        probs = distributed_ansatz.make_distributed_ansatz_probs(mesh, n, L, "hardware_efficient")
+        p = torch.as_tensor(theta, dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            q = probs(p)
+        idx = torch.as_tensor(shots[mine] - r * size, device=dev)
+        w = torch.zeros_like(q)
+        w[idx] = torch.as_tensor(coef[mine], dtype=torch.float32, device=dev) / q[idx]
+        q_at = torch.zeros(1024, dtype=torch.float64, device=dev)
+        q_at[torch.as_tensor(np.nonzero(mine)[0], device=dev)] = q[idx].double()
+        dist.all_reduce(q_at)
+        q_at = q_at.cpu()
+        del q
+        grads = []
+        old = distributed_ansatz.PIECE
+        for piece in pieces:
+            distributed_ansatz.PIECE = piece
+            pg = p.clone().requires_grad_(True)
+            (g,) = torch.autograd.grad((w * probs(pg)).sum(), pg)
+            grads.append(MeshReducer(mesh).grads(g).double().cpu().numpy())
+            torch.cuda.synchronize()
+        distributed_ansatz.PIECE = old
+        del w, probs, idx
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if r == 0:
+            circ = Circuit("hardware_efficient", n, L, (), [torch.device("cuda", d)
+                                                             for d in range(D)])
+            blocks = []
+            for b in range(D):
+                gb = torch.zeros(size, dtype=F64, device=torch.device("cuda", b))
+                sel = (shots >= b * size) & (shots < (b + 1) * size)
+                gb[torch.as_tensor(shots[sel] - b * size, device=gb.device)] = torch.as_tensor(
+                    coef[sel], device=gb.device) / q_at[torch.as_tensor(np.nonzero(sel)[0])].to(
+                        gb.device)
+                blocks.append(gb)
+            g_ref = np.asarray(circ.grad(theta, blocks))
+            del circ, blocks
+            torch.cuda.empty_cache()
+            norm = np.sqrt((g_ref ** 2).sum())
+            out[n] = [{"piece": piece, "norm_rel": abs(np.sqrt((g ** 2).sum()) - norm) / norm,
+                       "max_rel": float(np.abs(g - g_ref).max() / np.abs(g_ref).max())}
+                      for piece, g in zip(pieces, grads)]
+            out[n].append({"repeat_equal": [bool(np.array_equal(grads[0], g)) for g in grads]})
+        dist.barrier()
+    return out
+
+
 # --- tests/test_torch_distributed_train.py ----------------------------------
 
 def train_cases(inp: dict) -> dict:
