@@ -84,7 +84,10 @@ Phases (any failure exits non-zero):
    the operator's n+1 columns (one untimed 3n+1 check from
    ``stein_weight_tables`` keeps the TPU kernel's shape covered), and
    stein2d_grid at n = 22 and 24 and circuit2d_grid (bn_structured, L=8)
-   at n = 24 against their plain versions.
+   at n = 24 against their plain versions; the gate path past the dense
+   path's range at sampled28's shape (n = 28, HE L=4), timed, bit-equal
+   over two runs, its probabilities and the θ-gradient of a loss on 1024
+   shots against the blocked adjoint executor's (``check_wide_gates``).
 11. exact22, the tempered target: ``run_scale_experiment(22, L=4,
    temper_betas=[0.5, 1.0])`` for 20 epochs in chunks of 10; the engine
    builds two operators, epoch 0's loss agrees with the β = 0.5 operator's
@@ -118,9 +121,8 @@ Phases (any failure exits non-zero):
    sampled24 (``examples/sampled_ksd_large_n.py``, HE L=4, two-stage shots,
    TVD against the exact 2^24 posterior, cut to 20 epochs in chunks of
    10), kernels 5-6 only, epoch 0's U-statistic against float64 on the
-   recorded shots; sampled28 (``scripts/probe_sampled_28.py``: the blocked
-   executor with the adjoint backward, cut to 6 epochs in chunks of 3), no
-   kernel. Both wide paths: every loss finite, no skipped update, the last
+   recorded shots; sampled28 (``scripts/probe_sampled_28.py``, cut to 6
+   epochs in chunks of 3), kernels 5-6 on the gate path. Both wide paths: every loss finite, no skipped update, the last
    chunk's mean U-statistic below the first's. sampling20:
    ``run_sampling_throughput(20, layers=2, num_samples=65536)``, kernel 5
    only.
@@ -244,8 +246,9 @@ Phases (any failure exits non-zero):
    on both, every bf16 product of kernels 5-6 on the wgmma loop (the
    library's host counts by loop, ``bf16_product_counts``), none on the
    mma.sync passes;
-   sampled28_tf32: sampled28 under ``TNTPU_MATMUL_PRECISION=default`` (its
-   cuBLAS GEMMs in TF32), its U-statistics' gap to sampled28's printed.
+   sampled28_tf32: sampled28 on the blocked adjoint executor
+   (``qbm_grad_method="adjoint"``) under ``TNTPU_MATMUL_PRECISION=default``
+   (its cuBLAS GEMMs in TF32), its U-statistics' gap to sampled28's printed.
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line (each kernel
 with the launch count of the path that runs it, and its launches on every
@@ -530,7 +533,10 @@ N_BN_EDGES, BN_EDGES = 5, [(4, 0), (2, 1), (0, 3), (0, 3), (3, 4), (1, 2), (1, 2
 # 14, ℓ = 1/n, 2/n, 1), so 1e-5 leaves a 25-fold margin.
 # The gate path of kernels 5-6 (csrc/circuit_gates.cu) rounds once per gate
 # and amplitude against a plain version of the same tiles and gate order,
-# and keeps the grid pair's margins.
+# and keeps the grid pair's margins. Past 24 qubits it has no plain version
+# on the card: its θ-gradient of a loss on 1024 shots is held against the
+# blocked adjoint executor's (complex64) at 3e-5, 4.8x the 6.3e-6 read at
+# n=28 (tests/test_torch_circuit_gates_chip.py's TOL_GRAD_WIDE).
 # The shard's passes (gates_pass_*) hold the gate path's one-pass margins
 # against a float64 plain version on sampled tiles; the backward's also
 # bound each tile's dU record. A pair combine rounds a few times an element
@@ -538,6 +544,7 @@ N_BN_EDGES, BN_EDGES = 5, [(4, 0), (2, 1), (0, 3), (0, 3), (3, 4), (1, 2), (1, 2
 TOL = {"circuit2d_fwd": 1e-5, "circuit2d_bwd": 1e-4, "stein2d": 1e-5,
        "circuit2d_grid_fwd": 2e-5, "circuit2d_grid_bwd": 2e-4, "stein2d_grid": 1e-5,
        "stein_gcorr": 1e-5, "circuit_gates_fwd": 2e-5, "circuit_gates_bwd": 2e-4,
+       "circuit_gates_wide_grad": 3e-5,
        "gates_pass_fwd": 1e-5, "gates_pass_bwd": 1e-4, "gates_reduce": 1e-5,
        "pair_fwd": 2e-6, "pair_bwd": 1e-5}
 
@@ -597,7 +604,8 @@ PATH_KERNELS.update(bn16=PATH_KERNELS["main16"], bn20=PATH_KERNELS["scale20"],
                     exact22=PATH_KERNELS["scale20"], exact24=PATH_KERNELS["scale20"],
                     sampled16=("circuit2d_fwd", "circuit2d_bwd"),
                     sampled24=("circuit_gates_fwd", "circuit_gates_bwd"),
-                    sampled28=(), sampling20=("circuit_gates_fwd",),
+                    sampled28=("circuit_gates_fwd", "circuit_gates_bwd"),
+                    sampling20=("circuit_gates_fwd",),
                     amortized16=PATH_KERNELS["main16"], amortized20=PATH_KERNELS["scale20"],
                     warm16=PATH_KERNELS["main16"], multiseed16=PATH_KERNELS["main16"],
                     cli16=PATH_KERNELS["main16"], cli20=PATH_KERNELS["scale20"],
@@ -754,6 +762,89 @@ def check_gates(plan, theta, g, timing):
              plain_ms=t(lambda: kg.circuit_gates_backward_plain(U, out_p[1], out_p[2], g, plan)),
              bound_ms=bwd_bound[0], bound_by=bwd_bound[1], library_ms=None),
     ]
+
+
+def check_wide_gates(n, device):
+    """The gate path's kernels past the dense path's 24 qubits, at
+    sampled28's shape (HE L=4, θ 0.1·N(0, 1)): forward and dU bit-equal
+    over two runs, the probabilities against the blocked executor's
+    (complex64, cuBLAS; its forward's time as ``library_ms``), and the
+    θ-gradient of a REINFORCE-like loss on 1024 shots, Σ c·log q(shot),
+    through the machine ``auto`` builds (both kernels) against the blocked
+    adjoint executor's, timed. No plain version: its index tables of a 2^28
+    pass take tens of GiB (float64 is ``tests/test_torch_circuit_gates_chip.py``'s).
+    Returns the records."""
+    import numpy as np
+    import torch
+    from tensornetworks_tpu_torch.models import QuantumBornMachine
+    from tensornetworks_tpu_torch.ops import kernels
+    from tensornetworks_tpu_torch.ops.kernels import circuit2d_grid as kg
+    from tensornetworks_tpu_torch.sim.gates import layer_rotations
+
+    plan = kg.GridPlan(n, LAYERS, ANSATZ, precision="highest")
+    gen = torch.Generator().manual_seed(n)
+    theta = (0.1 * torch.randn(plan.per_qubit * n * LAYERS, generator=gen)).to(device)
+    U = layer_rotations(theta, n, LAYERS, plan.per_qubit)
+    g = torch.randn((plan.R, plan.C), generator=gen).to(device)
+    out = kg.circuit_gates_forward(U, plan)
+    again = kg.circuit_gates_forward(U, plan)
+    require(all(torch.equal(a, b) for a, b in zip(out, again)), f"circuit_gates n={n}: two "
+            f"forward runs differ")
+    del again
+    dU = kg.circuit_gates_backward(U, out[1], out[2], g, plan)
+    require(torch.equal(dU, kg.circuit_gates_backward(U, out[1], out[2], g, plan)),
+            f"circuit_gates n={n}: two backward runs differ")
+    del dU
+    rng = np.random.default_rng(n)
+    shots = torch.as_tensor(np.sort(rng.choice(1 << n, size=SHOTS, replace=False)), device=device)
+    coef = torch.as_tensor(1e-3 * rng.normal(size=SHOTS), dtype=torch.float32, device=device)
+
+    def shot_grad(bm):
+        p = theta.clone().requires_grad_(True)
+        q = bm.probs(p)
+        return q.detach(), torch.autograd.grad((coef * torch.log(q[shots])).sum(), p)[0]
+
+    gates = QuantumBornMachine(n, LAYERS, ANSATZ, device=device)
+    require((gates.backend, gates.grad_method) == ("circuit2d_grid", "autodiff"),
+            f"circuit_gates n={n}: auto builds {gates.backend}/{gates.grad_method}")
+    before = dict(kernels.LAUNCHES)
+    q, dtheta = shot_grad(gates)
+    launched = {k: v - before.get(k, 0) for k, v in kernels.LAUNCHES.items()
+                if v != before.get(k, 0)}
+    require(launched == {"circuit_gates_fwd": 1, "circuit_gates_bwd": 1},
+            f"circuit_gates n={n}: the machine's step launched {launched}")
+    q = q.cpu()
+    del gates
+    blocked = QuantumBornMachine(n, LAYERS, ANSATZ, backend="blocked", grad_method="adjoint",
+                                 device=device)
+    q_b, dtheta_b = shot_grad(blocked)
+    q_b = q_b.cpu()
+    fwd_err, abs_fwd = rel_err(q, q_b), float((q - q_b).abs().max())
+    grad_err, abs_grad = rel_err(dtheta, dtheta_b), float((dtheta - dtheta_b).abs().max())
+    require(fwd_err <= TOL["circuit_gates_fwd"], f"circuit_gates n={n}: probs vs the blocked "
+            f"executor rel err {fwd_err:.3e}")
+    require(grad_err <= TOL["circuit_gates_wide_grad"], f"circuit_gates n={n}: θ-gradient vs the "
+            f"blocked adjoint rel err {grad_err:.3e}")
+    del q, q_b
+    t = timer(n)
+    with torch.no_grad():
+        library_ms = t(lambda: blocked.probs(theta))
+    del blocked
+    fwd_bound, bwd_bound = gate_bounds(plan)
+    records = [
+        dict(name="circuit_gates_fwd", n=n, max_abs_err=abs_fwd, rel_err=fwd_err,
+             ms=t(lambda: kg.circuit_gates_forward(U, plan)), plain_ms=None,
+             bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=library_ms),
+        dict(name="circuit_gates_bwd", n=n, max_abs_err=abs_grad, rel_err=grad_err,
+             ms=t(lambda: kg.circuit_gates_backward(U, out[1], out[2], g, plan)), plain_ms=None,
+             bound_ms=bwd_bound[0], bound_by=bwd_bound[1], library_ms=None)]
+    print(f"circuit_gates n={n} L={LAYERS} {ANSATZ}: {len(plan.gate_passes())} passes, probs vs "
+          f"the blocked executor rel {fwd_err:.2e}, θ-gradient vs the blocked adjoint rel "
+          f"{grad_err:.2e}, bit-equal over two runs; forward {records[0]['ms']:.3f} ms (blocked "
+          f"executor {library_ms:.3f}), backward {records[1]['ms']:.3f} ms; bounds "
+          f"{fwd_bound[0]:.3f} / {bwd_bound[0]:.3f} ms; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return records
 
 
 def _planes_at(planes, idx):
@@ -1312,8 +1403,8 @@ def check_gcorr(n, device, timing=True, ls=None, f64=False):
 def check_large_n(device):
     """Step 10's wide checks: stein_gcorr at n = 13 and 14 untimed, at 16
     (ℓ = 1/16, bn16's), 20, 22 and 24 timed; stein2d_grid at 22 and 24 and
-    circuit2d_grid (bn_structured, L=8) at 24, timed. Returns the timed
-    records."""
+    circuit2d_grid (bn_structured, L=8) at 24, timed; the gate path at
+    sampled28's shape (``check_wide_gates``). Returns the timed records."""
     import torch
 
     def timed(label, fn, *args, **kwargs):
@@ -1336,6 +1427,9 @@ def check_large_n(device):
                      ansatz=BN, layers=BN_LAYERS, edges=path_edges(n), oracle=False)
     print(f"circuit2d_grid n={n} check: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    records += timed(f"circuit_gates n={N_SAMPLED28}", check_wide_gates, N_SAMPLED28, device)
     for r in records:
         r.setdefault("n", n)
         r["share"] = r["bound_ms"] / r["ms"]
@@ -2289,8 +2383,8 @@ def run_sampled24_path(device):
 
 
 def run_sampled28_path(device):
-    """scripts/probe_sampled_28.py, 6 epochs in chunks of 3: the blocked
-    executor with the adjoint backward, no kernel."""
+    """scripts/probe_sampled_28.py, 6 epochs in chunks of 3: kernels 5-6 on
+    the gate path (an FP32 machine under ``highest``)."""
     import torch
     from tensornetworks_tpu_torch.engines import SampledKSDVariationalInference
     from tensornetworks_tpu_torch.ops import kernels
@@ -2301,8 +2395,8 @@ def run_sampled28_path(device):
                                          num_samples=SHOTS, seed=0, base_kernel_length_scale=1.0,
                                          device=device)
     bm = eng.born_machine
-    require((bm.backend, bm.grad_method) == ("blocked", "adjoint"),
-            f"sampled28 runs {bm.backend}/{bm.grad_method}, not the blocked adjoint")
+    require((bm.backend, bm.grad_method) == ("circuit2d_grid", "autodiff"),
+            f"sampled28 runs {bm.backend}/{bm.grad_method}, not the gate path")
     theta0 = eng.params.clone()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3733,9 +3827,10 @@ def run_grid20_default(device):
 
 
 def run_sampled28_tf32(device):
-    """sampled28 under ``TNTPU_MATMUL_PRECISION=default``: the blocked
-    executor's cuBLAS GEMMs in TF32. Its epochs/s and the U-statistics' gap
-    to sampled28's (FP32) history."""
+    """sampled28 on the blocked adjoint executor (asked for: an FP32
+    machine takes the gate path) under ``TNTPU_MATMUL_PRECISION=default``:
+    its cuBLAS GEMMs in TF32. Its epochs/s and the U-statistics' gap to
+    sampled28's (FP32, gate path) history."""
     import torch
     from tensornetworks_tpu_torch.engines import SampledKSDVariationalInference
     from tensornetworks_tpu_torch.ops import kernels
@@ -3744,7 +3839,10 @@ def run_sampled28_tf32(device):
     bn, latent, obs = sampled_problem(n)
     eng = SampledKSDVariationalInference(bn, latent, list(obs), qbm_ansatz_layers=LAYERS,
                                          num_samples=SHOTS, seed=0, base_kernel_length_scale=1.0,
-                                         device=device)
+                                         qbm_grad_method="adjoint", device=device)
+    bm = eng.born_machine
+    require((bm.backend, bm.grad_method) == ("blocked", "adjoint"),
+            f"sampled28_tf32 runs {bm.backend}/{bm.grad_method}, not the blocked adjoint")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -3949,7 +4047,8 @@ def main() -> int:
         bn_line.append({k: r[k] for k in ("name", "n", "layers", "max_abs_err", "rel_err", "ms",
                                           "plain_ms", "bound_ms", "bound_by", "share")}
                        | {"path": path, "launches": path_launches[path][r["name"]]})
-    wide_path = {N: "bn16", N_GRID: "scale20", N_EXACT22: "exact22", N_EXACT24: "exact24"}
+    wide_path = {N: "bn16", N_GRID: "scale20", N_EXACT22: "exact22", N_EXACT24: "exact24",
+                 N_SAMPLED28: "sampled28"}
     wide_line = [{k: r[k] for k in ("name", "n", "max_abs_err", "rel_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms", "share")}
                  | {"path": wide_path[r["n"]],

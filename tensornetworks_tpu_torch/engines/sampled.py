@@ -16,9 +16,12 @@ structure. Per epoch it
    baseline, or the linear control variate ``"cv"``) while the value reads
    as the U-statistic: ``(est − surrogate).detach() + surrogate``.
 
-The Born machine's forward is still the exact |ψ|² (the circuit kernels up
-to 24 qubits, the blocked executor above, with the adjoint backward from 26
-for the reference ansätze). q is cast to float32, as in the JAX engine.
+The Born machine's forward is still the exact |ψ|²: the circuit kernels up
+to 24 qubits, and on to 30 for an FP32 machine under the kernel precision
+``highest`` (the grid kernels' gate path, whose backward is an adjoint
+that saves only the final state); past them the blocked executor, with the
+adjoint backward from 26 for the reference ansätze. q is cast to float32,
+as in the JAX engine.
 
 As in the port's other engines the epochs are an eager loop whose state
 (parameters, Adam moments, best snapshot, history) stays on the device; the
@@ -41,7 +44,7 @@ import torch
 from ..core.bayes_net import BayesianNetwork
 from ..core.bits import all_bitstrings, torch_index_to_bits
 from ..core.factors import make_latent_log_joint_fn
-from ..models.born_quantum import QuantumBornMachine
+from ..models.born_quantum import QuantumBornMachine, auto_backend
 from ..ops.hamming import resolve_length_scale
 from ..ops.stein_sampled import (ksd_ustat, reinforce_surrogate, reinforce_surrogate_cv,
                                  score_at_samples, stein_gram_samples)
@@ -52,8 +55,9 @@ from .common import global_norm, guarded_update, highest_matmul_precision, make_
 from .ksd import _posterior_vec_from, steady_epochs_per_sec
 
 # From this many qubits ``qbm_grad_method="auto"`` takes the adjoint
-# backward for the reference ansätze (the JAX engine's switch: past it the
-# checkpointed autodiff backward ran out of one chip's memory).
+# backward where the machine's backend is ``blocked`` (the JAX engine's
+# switch: past it the checkpointed autodiff backward ran out of one chip's
+# memory).
 ADJOINT_MIN_QUBITS = 26
 TWO_STAGE_MIN_QUBITS = 20
 
@@ -68,9 +72,11 @@ class SampledKSDVariationalInference:
     ``probs(params)``; by default a ``QuantumBornMachine`` from the
     ``qbm_*`` keywords (``qbm_edges`` defaults to the network's latent
     edges for ``bn_structured``). ``qbm_grad_method="auto"`` takes the
-    blocked adjoint from 26 qubits for the reference ansätze;
-    ``qbm_remat_layers=None`` checkpoints the layers from 26 qubits when
-    the backward is autograd. ``device`` defaults to the card."""
+    adjoint from 26 qubits where the machine's backend, named or the one
+    ``auto`` picks (``born_quantum.auto_backend``), is ``blocked``;
+    ``qbm_remat_layers=None`` checkpoints the blocked executor's layers
+    from 26 qubits when its backward is autograd. ``device`` defaults to
+    the card."""
 
     def __init__(self, bn: BayesianNetwork, latent_vars_names: Sequence[str],
                  observed_vars_names: Sequence[str], *, qbm_ansatz_layers: int = 4,
@@ -91,11 +97,12 @@ class SampledKSDVariationalInference:
         self.device = torch.device(device)
         if qbm_ansatz_type == "bn_structured" and qbm_edges is None:
             qbm_edges = latent_edges(bn, self.latent_vars_names)
+        blocked = (auto_backend(n, qbm_ansatz_type, dtype) if qbm_backend == "auto"
+                   else qbm_backend) == "blocked"
         use_adjoint = qbm_grad_method == "adjoint" or (
-            qbm_grad_method == "auto" and n >= ADJOINT_MIN_QUBITS
-            and qbm_ansatz_type != "bn_structured")
+            qbm_grad_method == "auto" and n >= ADJOINT_MIN_QUBITS and blocked)
         if qbm_remat_layers is None:
-            qbm_remat_layers = n >= ADJOINT_MIN_QUBITS and not use_adjoint
+            qbm_remat_layers = n >= ADJOINT_MIN_QUBITS and blocked and not use_adjoint
         if born_machine is None:
             born_machine = QuantumBornMachine(
                 n, ansatz_layers=qbm_ansatz_layers, ansatz_type=qbm_ansatz_type,

@@ -15,7 +15,8 @@ Backends (all give the same distribution):
   ``pallas2d`` backend; on CPU tensors it runs their plain version.
 - ``circuit2d_grid``: the grid-form circuit kernels of
   ``ops/kernels/circuit2d_grid.py``, the counterpart of ``pallas2d_grid``
-  (any 2 ≤ n ≤ 24 when named).
+  (any 2 ≤ n ≤ 24 when named; to 30 on the gate path, the kernel precision
+  ``highest``).
 - ``blocked``: the JAX package's blocked executor (``sim/blocked.py``),
   block matmuls on the flat state with no kernel and no 24-qubit limit;
   with ``grad_method="adjoint"`` its backward is the adjoint sweep of
@@ -31,9 +32,12 @@ machine keeps the kernel precision (``ops/kernels/precision.py``) current
 when it was built; the other backends run torch's matmuls, which the
 engines' matmul precision governs.
 ``auto`` picks ``circuit2d`` for 2 ≤ n ≤ 17 and ``circuit2d_grid`` for
-18 ≤ n ≤ 24, for every ansatz; from 25 qubits (and for
+18 ≤ n ≤ 24, for every ansatz, and on to 30 qubits for an FP32 machine under
+the kernel precision ``highest``, whose grid kernels are the gate path
+(``circuit2d_grid.max_qubits``); past that range (and for
 ``grad_method="adjoint"``) ``blocked`` for the reference ansätze, and below
-2 ``einsum``. ``bn_structured`` raises outside 2 ≤ n ≤ 24. The JAX package
+2 ``einsum`` (``auto_backend``, which the engines ask too).
+``bn_structured`` raises outside that range. The JAX package
 runs ``bn_structured`` on XLA executors, never on its circuit kernels; here
 the kernels take it, with one CNOT map per layer.
 
@@ -48,8 +52,9 @@ shape (L, n). ``cond_reupload`` (bn_structured) puts the wall before every
 layer. The parameter vector is θ ⊕ W ⊕ s, the JAX layout; ``init`` sets
 W[q, 1 << (q mod d)] = π and s = 1, so that a learned machine starts as the
 fixed wall. A conditioned machine runs on the circuit kernels with the
-wall folded into their operator planes: ``auto`` picks ``circuit2d`` for
-2 ≤ n ≤ 17, ``circuit2d_grid`` for 18 ≤ n ≤ 24 and ``blocked`` otherwise
+wall folded into their operator planes (on the gate path into the
+per-qubit gates): ``auto`` picks ``circuit2d`` for 2 ≤ n ≤ 17,
+``circuit2d_grid`` for 18 ≤ n ≤ 24 (30 as above) and ``blocked`` otherwise
 (the reference ansätze), where the JAX package runs every conditioned
 machine on its XLA executors.
 """
@@ -83,6 +88,24 @@ def init_circuit_params(num_params: int, init_method: str,
     if init_method == "small_random":
         return 0.1 * torch.randn(num_params, generator=generator, dtype=torch.float64)
     return 2.0 * np.pi * torch.rand(num_params, generator=generator, dtype=torch.float64)
+
+
+def auto_backend(n: int, ansatz_type: str = "hardware_efficient", dtype=torch.float32,
+                 conditioned: bool = False) -> str:
+    """The backend ``backend="auto"`` builds for an autodiff machine of n
+    qubits under the current kernel precision (the module note's ranges)."""
+    grid_max = circuit2d_grid.max_qubits(dtype=dtype)
+    if circuit2d.MIN_QUBITS <= n <= circuit2d.MAX_QUBITS:
+        return "circuit2d"
+    if circuit2d_grid.AUTO_MIN_QUBITS <= n <= grid_max:
+        return "circuit2d_grid"
+    if ansatz_type == "bn_structured":
+        raise ValueError(f"bn_structured runs on the circuit kernels for "
+                         f"{circuit2d.MIN_QUBITS} <= n <= {grid_max} (to "
+                         f"{circuit2d_grid.GATE_MAX_QUBITS} on an FP32 machine under the "
+                         f"kernel precision 'highest'), got {n}; name "
+                         f"backend='structured2d' for the plain oracle")
+    return "blocked" if n > grid_max or conditioned else "einsum"
 
 
 class QuantumBornMachine:
@@ -136,21 +159,9 @@ class QuantumBornMachine:
                 raise ValueError("ansatz_type='bn_structured' requires edges= "
                                  "(see sim.structured.latent_edges)")
             self.edges = check_edges(n, edges)
-        if backend == "auto" and grad_method == "adjoint":
-            backend = "blocked"
         if backend == "auto":
-            if circuit2d.MIN_QUBITS <= n <= circuit2d.MAX_QUBITS:
-                backend = "circuit2d"
-            elif circuit2d_grid.AUTO_MIN_QUBITS <= n <= circuit2d_grid.MAX_QUBITS:
-                backend = "circuit2d_grid"
-            elif structured:
-                raise ValueError(f"bn_structured runs on the circuit kernels for "
-                                 f"{circuit2d.MIN_QUBITS} <= n <= {circuit2d_grid.MAX_QUBITS}, "
-                                 f"got {n}; name backend='structured2d' for the plain oracle")
-            elif n > circuit2d_grid.MAX_QUBITS or cond:
-                backend = "blocked"
-            else:
-                backend = "einsum"
+            backend = ("blocked" if grad_method == "adjoint"
+                       else auto_backend(n, ansatz_type, dtype, cond))
         if backend not in BACKENDS:
             raise ValueError(f"backend must be auto or one of {BACKENDS}, got {backend!r}")
         if structured and backend in ("blocked", "blocked2d", "einsum"):

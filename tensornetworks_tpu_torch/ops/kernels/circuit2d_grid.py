@@ -62,13 +62,23 @@ scratch where it runs, as large as the library's
 in torch; ``product_case``, ``grid_product`` and ``grid_product_plain`` run
 one product of the six patterns alone (the card's checks and timings).
 
-Valid range: any 2 ≤ n ≤ ``MAX_QUBITS`` when the backend is named (the CPU
-tests run it small); the ``auto`` backend takes it from ``AUTO_MIN_QUBITS``
-= 18. ``MAX_QUBITS`` = 24 is set by the operator path's memory: the
-(L, R, R) and (L, C, C) operator planes and their gradients grow 4x per two
-qubits (at n=24, L=4, 1 GB each way, the complex Kronecker fold and its
-autograd about as much again; at n=26 ~16 GB). (The kernels' 32-bit flat
-indices would hold to n=30.)
+Valid range: the two paths have their own, and a plan takes the one of its
+kernel precision (``max_qubits``); the ``auto`` backend takes the module
+from ``AUTO_MIN_QUBITS`` = 18 to ``max_qubits`` of the machine's dtype (the
+gate path's range for an FP32 machine under ``highest``, else the operator
+path's). Named, the backend runs any 2 ≤ n in range (the CPU tests run it
+small).
+
+- The gate path (``highest``) runs to ``GATE_MAX_QUBITS`` = 30, the
+  kernels' 32-bit flat index. Its memory is the state's planes: at n=28 the
+  forward's three (R, C) outputs and its (2, R, C) scratch, the backward's
+  two (4, R, C) buffers (8 GiB) and one dU partial record a gate a tile.
+- The operator path (``high``, ``default``) stops at ``MAX_QUBITS`` = 24,
+  set by its memory: the (L, R, R) and (L, C, C) operator planes and their
+  gradients grow 4x per two qubits (at n=24, L=4, 1 GB each way, the
+  complex Kronecker fold and its autograd about as much again; at n=26
+  ~16 GB). Its dense planes and banks raise past it, whatever the plan's
+  precision (``_check_operator_range``).
 """
 
 from __future__ import annotations
@@ -88,12 +98,29 @@ from .circuit2d import (WALL_ANSATZE, _check, _initial_state, _pcmm, circuit2d_b
                         layer_masks, layer_tables, make_probs_fn, rotation_pullback)
 from .precision import CODES, _kernel_precision, fp32_matmul, precision_name, split_bf16
 
-MIN_QUBITS, AUTO_MIN_QUBITS, MAX_QUBITS = 2, 18, 24
+MIN_QUBITS, AUTO_MIN_QUBITS, MAX_QUBITS, GATE_MAX_QUBITS = 2, 18, 24, 30
 # csrc/circuit_gates.cu: kTileBits (a tile of 4096 amplitudes), kGroup (the
 # gates applied together in registers), kSpecWords (one pass's record); a
 # tile bit below GATE_BANK_BITS puts two of a warp's threads on one bank.
 GATE_TILE_BITS, GATE_GROUP, GATE_SPEC_WORDS, GATE_BANK_BITS = 12, 3, 8 + 11 * 32, 5
 GATE_NEGATE = 1 << 31  # csrc/circuit_gates.cu kNegate, in a pass's xout
+
+def max_qubits(precision=None, dtype=torch.float32) -> int:
+    """The widest circuit of the kernel precision ``precision`` (by default
+    the current one) and a machine of ``dtype``: the gate path's limit for
+    FP32 under ``highest`` (the gate kernels take complex64 alone), else
+    the operator path's."""
+    gates = precision_name(precision or _kernel_precision()) == "highest"
+    return GATE_MAX_QUBITS if gates and dtype == torch.float32 else MAX_QUBITS
+
+
+def _check_operator_range(plan) -> None:
+    """The operator path's dense planes and banks stop at ``MAX_QUBITS``."""
+    if plan.n > MAX_QUBITS:
+        raise ValueError(f"circuit2d_grid's dense operators support n <= {MAX_QUBITS}, got "
+                         f"{plan.n}; the gate path (kernel precision 'highest') runs to "
+                         f"{GATE_MAX_QUBITS}")
+
 
 def _w_matrix(nbits: int, bits: np.ndarray) -> np.ndarray:
     """W = H₀ diag(bits) H₀ over ``nbits`` wires (H on the first wire): a
@@ -115,7 +142,8 @@ class GridPlan:
     - ``index_form``: the plain version runs the index maps (bn_structured,
       whose DAG edges have no W form) rather than the TPU kernel's banks.
     - ``precision``: the kernel precision of its products, by default the
-      one current when the plan is built.
+      one current when the plan is built; it sets the plan's range
+      (``max_qubits``).
     """
 
     name = "circuit2d_grid"
@@ -123,9 +151,11 @@ class GridPlan:
     def __init__(self, num_wires: int, layers: int, ansatz_type: str, edges=None,
                  precision=None):
         n = num_wires
-        if not MIN_QUBITS <= n <= MAX_QUBITS:
-            raise ValueError(f"circuit2d_grid supports {MIN_QUBITS} <= n <= {MAX_QUBITS}, "
-                             f"got {n}")
+        self.precision = precision_name(precision or _kernel_precision())
+        hi = max_qubits(self.precision)
+        if not MIN_QUBITS <= n <= hi:
+            raise ValueError(f"circuit2d_grid supports {MIN_QUBITS} <= n <= {hi} under the "
+                             f"kernel precision {self.precision!r}, got {n}")
         if layers < 1:
             raise ValueError("circuit2d_grid needs at least one layer")
         self.n, self.layers, self.ansatz_type = n, layers, ansatz_type
@@ -137,7 +167,6 @@ class GridPlan:
         self.index_form = ansatz_type == "bn_structured"
         self.has_chain = ansatz_type in ("hardware_efficient", "basic")
         self.row_src = None
-        self.precision = precision_name(precision or _kernel_precision())
         self.edges = edges
         self._cache = {}
         if self.index_form:
@@ -223,6 +252,7 @@ class GridPlan:
         mask."""
         key = ("banks", str(device), dtype)
         if key not in self._cache:
+            _check_operator_range(self)
             rb, cb, R, C = self.rb, self.cb, self.R, self.C
 
             def T(a):
@@ -1005,6 +1035,7 @@ def grid_operators(params: torch.Tensor, plan: GridPlan, embed_angles=None,
                    reupload: bool = False) -> list:
     """The grid kernels' operator planes of θ, the conditioning wall of
     ``embed_angles`` (if given) folded into Mr and Mc before the gather."""
+    _check_operator_range(plan)
     return grid_planes(*circuit_operators(params, plan, embed_angles, reupload), plan)
 
 

@@ -19,7 +19,7 @@ engine is one of
   (``SampledKSDVariationalInference``, ``--shots`` per epoch, ℓ = 1, lr
   0.05, the TVD on a second forward up to 24 qubits). It also times the
   circuit kernels alone and their plain versions on the same planes by
-  CUDA events;
+  CUDA events (past 24 qubits the kernels alone);
 - ``amortized``: amortized KSD-VI (``AmortizedKSD``) of one conditioned
   circuit over the 4 observations of a network of n+2 variables (seed 0,
   V{n} and V{n+1} observed), ``scripts/quality_amortized16.py``'s model:
@@ -34,8 +34,8 @@ run: calls, host ms, device ms and kernel launches per epoch of each span,
 nested spans included, the backward's kernels (autograd's thread) in
 ``engine.backward`` (``span_table``), and, for the quantum engines, how
 many of the epoch's aten calls the θ → Mr/Mc Kronecker fold and its
-autograd make on their own. The last line is the same summary as JSON.
-Needs a CUDA device.
+autograd make on their own (to 24 qubits, the dense planes' range). The
+last line is the same summary as JSON. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -53,6 +53,7 @@ from ..core import get_random_chain_network
 from ..engines import (AdversarialVariationalInference, AmortizedKSD, KSDVariationalInference,
                        QuantumKSDVariationalInference, SampledKSDVariationalInference)
 from ..models import QuantumBornMachine
+from ..ops.kernels.circuit2d_grid import MAX_QUBITS
 from ..sim.gates import rotation_operators
 from ..sim.structured import latent_edges
 
@@ -77,7 +78,8 @@ def _device_ms(fn, reps=5):
 def circuit_kernel_and_plain_ms(bm, theta) -> dict:
     """Device ms of the Born machine's circuit kernels alone and of their
     plain versions on the same operator planes or gates (θ's), one forward
-    and one backward each."""
+    and one backward each; past the dense path's 24 qubits the kernels
+    alone (the plain versions' index tables take tens of GiB there)."""
     from ..ops.kernels import circuit2d as kc
     from ..ops.kernels import circuit2d_grid as kg
     from ..sim.gates import layer_rotations
@@ -98,13 +100,16 @@ def circuit_kernel_and_plain_ms(bm, theta) -> dict:
         planes = [t.contiguous() for t in (Mr.real, Mr.imag, Mc.real, Mc.imag)]
         fwd, bwd = kc.circuit2d_forward, kc.circuit2d_backward
         fwd_p, bwd_p = kc.circuit2d_forward_plain, kc.circuit2d_backward_plain
+    plain = n <= kg.MAX_QUBITS
     out = {}
     with torch.no_grad():
         out["kernel forward alone"], (_, xr, xi) = _device_ms(lambda: fwd(*planes, plan))
-        out["plain forward alone"], _ = _device_ms(lambda: fwd_p(*planes, plan))
+        if plain:
+            out["plain forward alone"], _ = _device_ms(lambda: fwd_p(*planes, plan))
         g = torch.ones_like(xr)
         out["kernel backward alone"], _ = _device_ms(lambda: bwd(*planes, xr, xi, g, plan))
-        out["plain backward alone"], _ = _device_ms(lambda: bwd_p(*planes, xr, xi, g, plan))
+        if plain:
+            out["plain backward alone"], _ = _device_ms(lambda: bwd_p(*planes, xr, xi, g, plan))
     return out
 
 
@@ -265,8 +270,8 @@ def profile_main_path(epochs: int = 50, n: int = 16, layers: int = 4, top: int =
     def aten_calls(prof_):
         return sum(e.count for e in prof_.key_averages() if e.key.startswith("aten::"))
 
-    fold_calls = None
-    if qbm is not None and qbm.backend != "blocked":
+    fold_calls = None  # the dense fold's planes exist to 24 qubits
+    if qbm is not None and qbm.backend != "blocked" and n <= MAX_QUBITS:
         theta = qbm.init(torch.Generator().manual_seed(0)).requires_grad_(True)
         with profile(activities=[ProfilerActivity.CPU]) as fold_prof:
             planes = [t.contiguous() for M in rotation_operators(theta, n, layers, 3)

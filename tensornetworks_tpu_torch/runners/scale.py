@@ -14,8 +14,10 @@ and the 24-qubit bn_structured L=8 run (``examples/exact_ksd_24_qubits.py``)
 its widest (``chip_smoke.py`` drives all three on the card).
 ``ansatz="bn_structured"`` takes its entanglers from the network's latent
 edges, as the JAX runner's engine does. The sampled objective needs no 2^n
-Stein structure; past 24 qubits its Born machine runs the blocked executor
-(the adjoint backward from 26), which launches no kernel.
+Stein structure; past 24 qubits an FP32 Born machine under the kernel
+precision ``highest`` runs the grid kernels' gate path to 30 qubits, and
+any other the blocked executor (the adjoint backward from 26), which
+launches no kernel.
 """
 
 from __future__ import annotations

@@ -18,7 +18,8 @@ The rotation operators of every layer are built in one batched pass
 (``make_block_matrices_fn``), shared with the adjoint backward
 (``sim/blocked_adjoint.py``), so both apply the same operator. Memory is
 what sets n here, not a kernel: the circuit kernels' dense (L, R, R)
-operators stop at 24 qubits, the 2^b-wide blocks do not. The sign vectors
+operators stop at 24 qubits and their gate path at 30, the 2^b-wide blocks
+do not. The sign vectors
 are built on the state's device from an index range once per executor and
 kept (one 2^n real vector per distinct CZ pattern).
 
@@ -26,7 +27,7 @@ kept (one 2^n real vector per distinct CZ pattern).
 qubit after the Hadamard wall, one block operator per block, and the
 executor takes ``(params, embed_angles)``. It is the reference-ansatz
 oracle of the conditioned circuit kernels and the executor of conditioned
-machines past 24 qubits.
+machines past the circuit kernels' range.
 """
 
 from __future__ import annotations

@@ -20,6 +20,7 @@ from tensornetworks_tpu.sim import adjoint as jadjoint
 from tensornetworks_tpu.sim import blocked as jblocked
 from tensornetworks_tpu.sim.blocked_adjoint import make_blocked_adjoint_probs_fn as j_adjoint
 from tensornetworks_tpu_torch.models import QuantumBornMachine
+from tensornetworks_tpu_torch.ops.kernels import precision as kp
 from tensornetworks_tpu_torch.ops.kron import apply_adjacent_block
 from tensornetworks_tpu_torch.sim import adjoint, blocked
 from tensornetworks_tpu_torch.sim.ansatz import ansatz_probs, num_ansatz_params
@@ -28,6 +29,14 @@ from tensornetworks_tpu_torch.sim.blocked_adjoint import make_blocked_adjoint_pr
 F64, C128 = torch.float64, torch.complex128
 ANSATZE = ["hardware_efficient", "all_to_all", "basic"]
 SHAPES = [(5, 2, 8), (9, 2, 8), (7, 3, 3)]  # (n, layers, block)
+
+
+@pytest.fixture
+def kernel_precision():
+    """Sets the kernel precision for machines built in the test; restores it."""
+    old = kp._kernel_precision()
+    yield kp.set_kernel_precision
+    kp.set_kernel_precision(old)
 
 
 def _loss_weights(n, seed=3):
@@ -94,12 +103,20 @@ def test_adjoints_match_their_jax_counterparts(adjoint_kind):
     np.testing.assert_allclose(g, jg, rtol=0, atol=1e-10 * np.abs(jg).max())
 
 
-def test_born_machine_blocked_backend_and_adjoint():
-    """``QuantumBornMachine``: ``auto`` takes ``blocked`` from 25 qubits and
-    for ``grad_method="adjoint"``; the adjoint model's probabilities and
-    gradient are the autograd model's; bn_structured has no blocked path."""
+def test_born_machine_blocked_backend_and_adjoint(kernel_precision):
+    """``QuantumBornMachine``: ``auto`` takes ``blocked`` from 25 qubits
+    where the grid kernels' gate path does not run the machine (under
+    ``high``; past 30 qubits) and for ``grad_method="adjoint"``; the
+    adjoint model's probabilities and gradient are the autograd model's;
+    bn_structured has no blocked path."""
+    kernel_precision("highest")
+    assert QuantumBornMachine(25, 1, device="cpu").backend == "circuit2d_grid"
+    assert QuantumBornMachine(31, 1, device="cpu").backend == "blocked"
+    assert QuantumBornMachine(24, 1, device="cpu").backend == "circuit2d_grid"
+    kernel_precision("high")
     assert QuantumBornMachine(25, 1, device="cpu").backend == "blocked"
     assert QuantumBornMachine(24, 1, device="cpu").backend == "circuit2d_grid"
+    kernel_precision("highest")
     n, layers = 6, 2
     adj = QuantumBornMachine(n, layers, grad_method="adjoint", dtype=F64, device="cpu", block=4)
     ad = QuantumBornMachine(n, layers, backend="blocked", dtype=F64, device="cpu", block=4)
@@ -114,6 +131,9 @@ def test_born_machine_blocked_backend_and_adjoint():
                            device="cpu")
     with pytest.raises(ValueError, match="blocked"):
         QuantumBornMachine(n, 1, backend="einsum", grad_method="adjoint", device="cpu")
+    with pytest.raises(ValueError, match="circuit kernels"):
+        QuantumBornMachine(31, 1, "bn_structured", edges=[(0, 1)], device="cpu")
+    kernel_precision("high")
     with pytest.raises(ValueError, match="circuit kernels"):
         QuantumBornMachine(25, 1, "bn_structured", edges=[(0, 1)], device="cpu")
 

@@ -16,7 +16,10 @@
   through ``kron_fold``) without a wall, with one, re-uploaded, and through
   ``probs.batch``.
 - The dispatch: ``highest`` takes the gate path, ``high`` and ``default``
-  the operator planes.
+  the operator planes; each path's range (the gate path to 30 qubits, the
+  operator path to 24, neither building a dense plane past 24) and the
+  ``auto`` backend's choice between the gate path and the blocked executor
+  by width, kernel precision, dtype and conditioning.
 
 The CUDA kernels themselves run only on the card
 (``tests/test_torch_circuit_gates_chip.py``)."""
@@ -25,6 +28,8 @@ import numpy as np
 import pytest
 import torch
 
+from tensornetworks_tpu_torch.models import QuantumBornMachine
+from tensornetworks_tpu_torch.models.born_quantum import auto_backend
 from tensornetworks_tpu_torch.ops.kernels import _lib
 from tensornetworks_tpu_torch.ops.kernels import circuit2d_grid as kg
 from tensornetworks_tpu_torch.ops.kernels import precision as kp
@@ -201,3 +206,58 @@ def test_dispatch_follows_the_plan_precision(precision, path, kernel_precision, 
     np.testing.assert_allclose((st.abs() ** 2).numpy(), q.numpy(), atol=1e-12, rtol=0)
     if path == "gates":
         np.testing.assert_allclose(q.numpy(), ansatz_probs(th, n, L, HE).numpy(), atol=1e-12)
+
+
+@pytest.mark.parametrize("n,precision,ok", [
+    (24, "high", True), (24, "default", True), (25, "high", False), (25, "default", False),
+    (25, "highest", True), (28, "highest", True), (30, "highest", True), (31, "highest", False)])
+def test_each_path_has_its_own_range(n, precision, ok):
+    """The gate path (``highest``) plans to the 32-bit index's 30 qubits;
+    the operator path (``high``, ``default``) stops at 24."""
+    assert kg.max_qubits(precision) == (kg.GATE_MAX_QUBITS if precision == "highest"
+                                        else kg.MAX_QUBITS)
+    assert kg.max_qubits(precision, F64) == kg.MAX_QUBITS  # the gate kernels are FP32
+    if ok:
+        assert kg.GridPlan(n, 2, HE, precision=precision).precision == precision
+    else:
+        with pytest.raises(ValueError, match="circuit2d_grid supports"):
+            kg.GridPlan(n, 2, HE, precision=precision)
+
+
+@pytest.mark.parametrize("n,ansatz,L", [(28, HE, 4), (28, BN, 8), (30, HE, 4)])
+def test_wide_plans_build_no_dense_operator(n, ansatz, L):
+    """Past 24 qubits a ``highest`` plan holds its passes alone, at most four
+    a layer, every tile within 4096 amplitudes; neither the banks nor the
+    operator planes of the dense path are built, and asking for them
+    raises."""
+    plan = kg.GridPlan(n, L, ansatz, _edges(n, seed=11)[:-1] if ansatz == BN else None,
+                       precision="highest")
+    passes = plan.gate_passes()
+    assert len(passes) <= 4 * L and all(ps.k <= kg.GATE_TILE_BITS for ps in passes)
+    assert plan.gate_partials() == sum(len(ps.gates) << (n - ps.k) for ps in passes)
+    assert not any(isinstance(k, tuple) and k[0] == "banks" for k in plan._cache)
+    with pytest.raises(ValueError, match="dense operators"):
+        plan.banks("cpu", torch.float32)
+    with pytest.raises(ValueError, match="dense operators"):
+        kg.grid_operators(torch.zeros(num_ansatz_params(n, L, ansatz)), plan)
+    assert not any(isinstance(k, tuple) and k[0] == "banks" for k in plan._cache)
+
+
+@pytest.mark.parametrize("cond", [0, 1])
+@pytest.mark.parametrize("dtype", [F32, F64])
+@pytest.mark.parametrize("precision", ["highest", "high"])
+@pytest.mark.parametrize("n", [24, 25, 28, 30, 31])
+def test_auto_backend_takes_the_gate_path_to_30_qubits(n, precision, dtype, cond,
+                                                       kernel_precision):
+    """``auto``: the grid kernels at 18-24 qubits whatever the machine; from
+    25 to 30 for an FP32 machine under ``highest`` (the gate path), else
+    the blocked executor, as past 30. ``auto_backend`` gives the engines the
+    same choice."""
+    kernel_precision(precision)
+    m = QuantumBornMachine(n, 2, HE, dtype=dtype, device="cpu", conditioning_dim=cond)
+    gates = n <= kg.MAX_QUBITS or (n <= kg.GATE_MAX_QUBITS and precision == "highest"
+                                   and dtype == F32)
+    assert m.backend == ("circuit2d_grid" if gates else "blocked")
+    assert auto_backend(n, HE, dtype, bool(cond)) == m.backend
+    if m.backend == "circuit2d_grid":
+        assert m.grad_method == "autodiff"

@@ -171,13 +171,22 @@ def test_grid_function_backward_matches_autograd(ansatz, n, L):
 
 
 def test_backend_ranges_and_plan_validation():
+    """``auto``'s ranges for an FP32 machine under ``highest`` (the gate
+    path to 30 qubits), and each path's own limit: the operator path's
+    (``high``, ``default``) 24, the gate path's 30."""
     for n, backend in ((2, "circuit2d"), (17, "circuit2d"), (18, "circuit2d_grid"),
-                       (kg.MAX_QUBITS, "circuit2d_grid"), (kg.MAX_QUBITS + 1, "blocked"),
-                       (1, "einsum")):
+                       (kg.MAX_QUBITS, "circuit2d_grid"), (kg.MAX_QUBITS + 1, "circuit2d_grid"),
+                       (kg.GATE_MAX_QUBITS, "circuit2d_grid"),
+                       (kg.GATE_MAX_QUBITS + 1, "blocked"), (1, "einsum")):
         assert QuantumBornMachine(n, 1, device="cpu").backend == backend, n
-    assert kg.MAX_QUBITS >= 22
+    assert kg.MAX_QUBITS >= 22 and kg.GATE_MAX_QUBITS == 30
+    for precision in ("high", "default"):
+        kg.GridPlan(kg.MAX_QUBITS, 1, "basic", precision=precision)
+        with pytest.raises(ValueError):
+            kg.GridPlan(kg.MAX_QUBITS + 1, 1, "basic", precision=precision)
+    kg.GridPlan(kg.GATE_MAX_QUBITS, 1, "basic", precision="highest")
     with pytest.raises(ValueError):
-        kg.GridPlan(kg.MAX_QUBITS + 1, 1, "basic")
+        kg.GridPlan(kg.GATE_MAX_QUBITS + 1, 1, "basic", precision="highest")
     with pytest.raises(ValueError):
         kg.GridPlan(1, 1, "basic")
     with pytest.raises(ValueError):

@@ -343,7 +343,8 @@ def test_x_condition_on_every_entry_point():
 @pytest.mark.parametrize("n,ansatz,backend", [
     (2, "hardware_efficient", "circuit2d"), (17, BN, "circuit2d"),
     (18, "hardware_efficient", "circuit2d_grid"), (24, BN, "circuit2d_grid"),
-    (25, "hardware_efficient", "blocked"), (1, "hardware_efficient", "blocked")])
+    (25, "hardware_efficient", "circuit2d_grid"), (28, BN, "circuit2d_grid"),
+    (31, "hardware_efficient", "blocked"), (1, "hardware_efficient", "blocked")])
 def test_auto_backend_of_a_conditioned_machine(n, ansatz, backend):
     edges = [(i, i + 1) for i in range(n - 1)] if ansatz == BN else None
     m = QuantumBornMachine(n, 1, ansatz, device="cpu", edges=edges, conditioning_dim=1)

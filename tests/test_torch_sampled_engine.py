@@ -41,6 +41,7 @@ from tensornetworks_tpu_torch.core import get_random_chain_network
 from tensornetworks_tpu_torch.engines import SampledKSDVariationalInference
 from tensornetworks_tpu_torch.interop import params_from_jax
 from tensornetworks_tpu_torch.models import ClassicalBornMachine, QuantumBornMachine
+from tensornetworks_tpu_torch.ops.kernels import precision as kp
 from tensornetworks_tpu_torch.runners import scale as tscale
 from tensornetworks_tpu_torch.sim.sampling import sample_indices, sample_indices_2d, step_distances
 
@@ -211,15 +212,48 @@ def test_engine_constructor_choices_match_jax():
         eng = SampledKSDVariationalInference(bn, latent, list(obs), device="cpu")
         assert eng.sampling == ("two_stage" if two_stage else "flat")
     bn, latent, obs = _problem(26)
-    eng = SampledKSDVariationalInference(bn, latent, list(obs), device="cpu")
-    assert (eng.born_machine.backend, eng.born_machine.grad_method) == ("blocked", "adjoint")
-    eng = SampledKSDVariationalInference(bn, latent, list(obs), qbm_grad_method="autodiff",
+    eng = SampledKSDVariationalInference(bn, latent, list(obs), qbm_backend="blocked",
                                          device="cpu")
+    assert (eng.born_machine.backend, eng.born_machine.grad_method) == ("blocked", "adjoint")
+    eng = SampledKSDVariationalInference(bn, latent, list(obs), qbm_backend="blocked",
+                                         qbm_grad_method="autodiff", device="cpu")
     assert (eng.born_machine.backend, eng.born_machine.grad_method) == ("blocked", "autodiff")
     bn, latent, obs = _problem(4)
     for kw in (dict(sampling="gumbel"), dict(grad_baseline="median")):
         with pytest.raises(ValueError):
             SampledKSDVariationalInference(bn, latent, list(obs), device="cpu", **kw)
+
+
+@pytest.fixture
+def kernel_precision():
+    """Sets the kernel precision for machines built in the test; restores it."""
+    old = kp._kernel_precision()
+    yield kp.set_kernel_precision
+    kp.set_kernel_precision(old)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("auto", ("circuit2d_grid", "autodiff")), ("autodiff", ("circuit2d_grid", "autodiff")),
+    ("high", ("blocked", "adjoint")), ("float64", ("blocked", "adjoint")),
+    ("adjoint", ("blocked", "adjoint")), ("blocked", ("blocked", "adjoint")),
+    ("bn_structured", ("circuit2d_grid", "autodiff"))])
+@pytest.mark.parametrize("n", [26, 28])
+def test_wide_machines_take_the_gate_path_where_it_runs(n, case, want, kernel_precision):
+    """From 26 qubits ``qbm_grad_method="auto"`` leaves an FP32 machine under
+    ``highest`` to the grid kernels' gate path (autograd into its adjoint),
+    and takes the blocked adjoint where the gate path cannot run the
+    machine (``high``, float64) or where it is asked for (an explicit
+    ``qbm_grad_method="adjoint"`` or ``qbm_backend="blocked"``). The
+    machines allocate no state when built."""
+    kernel_precision("high" if case == "high" else "highest")
+    kw = {"autodiff": dict(qbm_grad_method="autodiff"), "float64": dict(dtype=torch.float64),
+          "adjoint": dict(qbm_grad_method="adjoint"),
+          "blocked": dict(qbm_backend="blocked"),
+          "bn_structured": dict(qbm_ansatz_type="bn_structured")}.get(case, {})
+    bn, latent, obs = _problem(n)
+    eng = SampledKSDVariationalInference(bn, latent, list(obs), device="cpu", **kw)
+    assert (eng.born_machine.backend, eng.born_machine.grad_method) == want
+    assert eng.sampling == "two_stage"
 
 
 def test_progress_print_has_no_best_tvd_without_a_posterior(capsys):

@@ -229,7 +229,10 @@ def test_model_and_plans_validate():
     with pytest.raises(ValueError, match="bn_structured ansatz only"):
         QuantumBornMachine(4, 2, backend="structured2d", device="cpu")
     with pytest.raises(ValueError, match="structured2d"):
-        QuantumBornMachine(kg.MAX_QUBITS + 1, 1, BN, device="cpu", edges=[])
+        QuantumBornMachine(kg.GATE_MAX_QUBITS + 1, 1, BN, device="cpu", edges=[])
+    with pytest.raises(ValueError, match="structured2d"):
+        QuantumBornMachine(kg.MAX_QUBITS + 1, 1, BN, dtype=torch.float64, device="cpu",
+                           edges=[])
     for bad in ([(1, 1)], [(0, 4)], [(-1, 2)]):
         with pytest.raises(ValueError, match="bad edge"):
             QuantumBornMachine(4, 2, BN, device="cpu", edges=bad)
@@ -242,7 +245,7 @@ def test_model_and_plans_validate():
     with pytest.raises(ValueError):
         tansatz.ansatz_state(torch.zeros(24), 4, 2, BN)
     for n, backend in ((2, "circuit2d"), (17, "circuit2d"), (18, "circuit2d_grid"),
-                       (kg.MAX_QUBITS, "circuit2d_grid")):
+                       (kg.MAX_QUBITS, "circuit2d_grid"), (kg.GATE_MAX_QUBITS, "circuit2d_grid")):
         qbm = QuantumBornMachine(n, 1, BN, device="cpu", edges=[(0, 1)])
         assert qbm.backend == backend and qbm.edges == [(0, 1)]
 
